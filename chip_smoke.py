@@ -1,0 +1,529 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
+
+    python3 chip_smoke.py
+
+Phases, each of which must pass (any failure ends the run with a
+non-zero exit code):
+
+  1. device   — the card's name, count and power limit; no card, no run;
+  2. build    — ``nvcc`` builds the three kernels from ``src/repro_torch/
+                csrc`` in parallel; prints seconds and ptxas register /
+                shared-memory / spill lines;
+  3. kernels  — each kernel against its plain PyTorch version on the
+                card, outputs exactly equal, at the main path's shapes
+                and beyond; CUDA-event times of both;
+  4. golden   — the seven ``protocol/*`` cases of
+                ``tests/data/golden_wrappers.json`` reproduced on the card;
+  5. main     — ``evaluate_level`` for WORKLOAD_A/B × six levels at the
+                defaults on the card, each equal to the same call on the
+                CPU in every field; kernel launch counts of this phase;
+  6. scale    — one X_STCC replay at the paper's deployment: 64 client
+                threads, 5,000,000 rows, 8,000,000 ops, B = 4096;
+  7. profile  — ``torch.profiler`` over one X_STCC and one CAUSAL
+                ``run_protocol``: device time by kernel and the card's
+                busy share of the unprofiled wall time;
+  8. report   — one JSON line ``{"kernels": [...]}``, then the last line
+                ``{"ok": true, "device": {...}}``.
+
+``--phases`` runs a subset (a debugging aid; the report lines are
+printed only for a full run).  Imports ``repro_torch`` from the
+``src`` directory beside this file; never JAX or ``repro``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import math
+import pathlib
+import re
+import subprocess
+import sys
+import time
+
+ROOT = pathlib.Path(__file__).resolve().parent
+SRC = ROOT / "src"
+PHASES = ("device", "build", "kernels", "golden", "main", "scale", "profile")
+
+# H100 SXM peaks (NVIDIA data sheet, as tabulated in the repo's
+# measurement notes): HBM bandwidth, and the 32-bit non-tensor-core rate
+# used for the integer compare/select work of these kernels.
+PEAK_BYTES_S = 3.35e12
+PEAK_OPS_S = 67e12
+
+# The scale run: the paper's deployment (§4.1) — 64 YCSB threads, a
+# 5,000,000-row table, 8,000,000 ops — in 4096-op batches.
+SCALE = dict(n_clients=64, n_resources=5_000_000, batch_size=4096,
+             n_ops=8_000_000, duot_cap=16384)
+SCALE_CUTS = (
+    "cuts of scale: none (the paper's 64 threads, 5,000,000 rows, "
+    "8,000,000 ops); the DUOT audit covers the first 16,384 ops "
+    "(duot_cap), as the flat engine never wraps or collects the log"
+)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    t_bytes = n_bytes / PEAK_BYTES_S
+    t_ops = n_ops / PEAK_OPS_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def max_abs_err(a, b) -> int:
+    return max(int((x.long() - y.long()).abs().max()) if x.numel() else 0
+               for x, y in zip(a, b))
+
+
+def require_equal(name: str, got, want) -> None:
+    import torch
+
+    for k, (x, y) in enumerate(zip(got, want)):
+        if x.shape != y.shape or not torch.equal(x.cpu(), y.cpu()):
+            fail(f"{name}: output {k} differs from the plain version "
+                 f"(max abs err {max_abs_err([x], [y])})")
+
+
+# -- phase 1 ------------------------------------------------------------------
+
+
+def phase_device() -> dict:
+    import torch
+
+    name = torch.cuda.get_device_name(0)
+    count = torch.cuda.device_count()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    if smi.returncode != 0:
+        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    card = smi.stdout.strip().splitlines()[0]
+    log(f"[device] torch {torch.__version__} cuda {torch.version.cuda}; "
+        f"{name}; device_count={count}")
+    log(card)    # name and power limit, as nvidia-smi prints them
+    return {"kind": name, "count": count, "smi": card}
+
+
+# -- phase 2 ------------------------------------------------------------------
+
+
+def phase_build() -> None:
+    from repro_torch.kernels import build
+
+    t0 = time.perf_counter()
+    logs = build.build(force=True)
+    log(f"[build] {len(logs)} kernels in {time.perf_counter() - t0:.2f} s "
+        f"(parallel nvcc, {' '.join(build.NVCC_FLAGS)})")
+    for name, info in logs.items():
+        log(f"[build] {name}: {info['seconds']:.2f} s")
+        for line in info["log"].splitlines():
+            if re.search(r"registers|spill|smem|Compiling entry", line):
+                log(f"[build]   {line.strip()}")
+
+
+# -- phase 3 ------------------------------------------------------------------
+
+
+def _ingest_inputs(rng, b, n_res, *, cadence, pending, device):
+    """Random ingest inputs; ``pending`` adds a live pending ring of
+    ``max(128, 2B)`` slots, as the engine sizes it."""
+    import numpy as np
+    import torch
+
+    t = lambda x: torch.as_tensor(x, dtype=torch.int32, device=device)  # noqa: E731
+    kw = dict(
+        client=t(rng.integers(0, 16, b)), replica=t(rng.integers(0, 3, b)),
+        resource=t(rng.integers(0, n_res, b)),
+        is_write=torch.as_tensor(rng.integers(0, 2, b), dtype=torch.bool,
+                                 device=device),
+        g0=t(rng.integers(0, 40, b)), raw0=t(rng.integers(0, 40, b)),
+        floor0=t(rng.integers(0, 40, b)),
+    )
+    step0 = int(rng.integers(0, 10_000))
+    if cadence or pending:
+        kw["op_index"] = t(step0 + np.arange(b))
+    if cadence:
+        kw["apply_index"] = t(step0 + rng.integers(0, 2 * b, b))
+    if pending:
+        q = max(128, 2 * b)
+        kw.update(
+            pend_version=t(rng.integers(0, 60, q)),
+            pend_resource=t(rng.integers(0, n_res, q)),
+            pend_live=torch.as_tensor(rng.integers(0, 2, q), dtype=torch.bool,
+                                      device=device),
+            pend_apply=t(step0 + rng.integers(0, 2 * b, q)),
+        )
+    return kw
+
+
+def _audit_inputs(rng, m, n, device):
+    import torch
+
+    t = lambda x: torch.as_tensor(x, dtype=torch.int32, device=device)  # noqa: E731
+    return dict(
+        vc=t(rng.integers(0, 25, (m, n))), client=t(rng.integers(0, n, m)),
+        kind=t(rng.integers(0, 2, m)), resource=t(rng.integers(0, 6, m)),
+        version=t(rng.integers(0, 40, m)), seq=t(rng.permutation(m)),
+        valid=torch.as_tensor(rng.random(m) < 0.9, device=device),
+    )
+
+
+def _chain_inputs(rng, b, c, device):
+    import torch
+
+    t = lambda x: torch.as_tensor(x, dtype=torch.int32, device=device)  # noqa: E731
+    return dict(
+        client=t(rng.integers(0, c, b)), replica=t(rng.integers(0, 3, b)),
+        is_write=t(rng.integers(0, 2, b)),
+        session_vc=t(rng.integers(0, 50, (c, c))),
+        replica_vc=t(rng.integers(0, 50, (3, c))),
+    )
+
+
+def phase_kernels() -> dict:
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import op_ingest as oi
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import vclock_audit as va
+    from repro_torch.kernels import vclock_chain as vch
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    timings = {}
+
+    # op_ingest: main-path batch sizes, ragged sizes, all cadence inputs.
+    n_checked = 0
+    for b in (8, 16, 37, 128, 300, 1000, 4096):
+        n_res = 24 if b <= 128 else 512
+        for cadence, pending in ((False, False), (True, False),
+                                 (False, True), (True, True)):
+            kw = _ingest_inputs(rng, b, n_res, cadence=cadence,
+                                pending=pending, device=dev)
+            got = ops.op_ingest(**kw, impl="cuda")
+            want = ops.op_ingest(**kw, impl="torch")
+            torch.cuda.synchronize()
+            require_equal(f"op_ingest B={b} cadence={cadence} "
+                          f"pending={pending}", got, want)
+            n_checked += 1
+    log(f"[kernels] op_ingest: {n_checked} cases equal "
+        "(B in 8,16,37,128,300,1000,4096 x apply_index/live pending ring)")
+
+    def time_ingest(b, q_live):
+        kw = _ingest_inputs(np.random.default_rng(b), b, 24 if b <= 128 else 4096,
+                            cadence=True, pending=q_live, device=dev)
+        packed = oi.pack_ops(**kw)
+        got = oi.op_ingest_cuda(packed)
+        want = ops.op_ingest(**kw, impl="torch")
+        require_equal(f"op_ingest timing B={b}", got, want)
+        iters = 200 if b <= 128 else 20
+        ms = cuda_time_ms(lambda: oi.op_ingest_cuda(packed), iters)
+        plain = cuda_time_ms(lambda: ops.op_ingest(**kw, impl="torch"), iters)
+        q = packed.pend.shape[0]
+        pairs = b * (b - 1) / 2
+        bnd = bound_ms(b * 9 * 4 + q * 4 * 4 + b * 3 * 4, pairs * 13 + 4 * b * q)
+        return {"ms": ms, "plain_ms": plain, "bound": bnd,
+                "err": max_abs_err(got, want), "shape": f"B={b}, Qp={q}"}
+
+    timings["op_ingest"] = time_ingest(128, False)
+    timings["op_ingest@4096"] = time_ingest(4096, True)
+
+    # vclock_audit: the main path's (2048, 16), a wider clock, a ragged M.
+    for m, n in ((2048, 16), (4096, 64), (1000, 16)):
+        kw = _audit_inputs(rng, m, n, dev)
+        for delta in (0, 8, 96):
+            got = ops.vclock_audit(**kw, delta=delta, impl="cuda")
+            want = ops.vclock_audit(**kw, delta=delta, impl="torch")
+            torch.cuda.synchronize()
+            require_equal(f"vclock_audit M={m} N={n} delta={delta}",
+                          [got], [want])
+    log("[kernels] vclock_audit: equal at (M,N) in (2048,16),(4096,64),"
+        "(1000,16) x delta in 0,8,96")
+
+    def time_audit(m, n, delta, iters):
+        kw = _audit_inputs(np.random.default_rng(m), m, n, dev)
+        meta = va.pack_meta(kw["client"], kw["kind"], kw["resource"],
+                            kw["version"], kw["seq"], kw["valid"])
+        got = va.vclock_audit_cuda(kw["vc"], meta, delta=delta)
+        want = ops.vclock_audit(**kw, delta=delta, impl="torch")
+        require_equal(f"vclock_audit timing M={m}", [got], [want])
+        ms = cuda_time_ms(lambda: va.vclock_audit_cuda(kw["vc"], meta, delta=delta),
+                          iters)
+        plain = cuda_time_ms(
+            lambda: ops.vclock_audit(**kw, delta=delta, impl="torch"),
+            max(1, iters // 10), warmup=1)
+        bnd = bound_ms(m * n * 4 + m * 8 * 4 + m * m * 4, m * m * (3 * n + 20))
+        return {"ms": ms, "plain_ms": plain, "bound": bnd,
+                "err": max_abs_err([got], [want]), "shape": f"M={m}, N={n}"}
+
+    timings["vclock_audit"] = time_audit(2048, 16, 8, 50)
+    timings["vclock_audit@16384"] = time_audit(16384, 64, 8, 5)
+
+    # vclock_chain: the main path's (128, 16) and the scale run's (4096, 64).
+    for b, c in ((128, 16), (4096, 64), (1, 16), (2500, 40)):
+        kw = _chain_inputs(rng, b, c, dev)
+        got = ops.vclock_chain(**kw, impl="cuda")
+        want = ops.vclock_chain(**kw, impl="torch")
+        torch.cuda.synchronize()
+        require_equal(f"vclock_chain B={b} C={c}", got, want)
+    log("[kernels] vclock_chain: equal at (B,C) in (128,16),(4096,64),"
+        "(1,16),(2500,40)")
+
+    def time_chain(b, c, iters):
+        kw = _chain_inputs(np.random.default_rng(b), b, c, dev)
+        got = vch.vclock_chain_cuda(**kw)
+        want = vch.vclock_chain_ref(**kw)
+        require_equal(f"vclock_chain timing B={b}", got, want)
+        ms = cuda_time_ms(lambda: vch.vclock_chain_cuda(**kw), iters)
+        plain = cuda_time_ms(lambda: vch.vclock_chain_ref(**kw),
+                             max(1, iters // 20), warmup=1)
+        p = 3
+        bnd = bound_ms(3 * b * 4 + 2 * (c * c + p * c) * 4 + b * c * 4, b * c * 4)
+        return {"ms": ms, "plain_ms": plain, "bound": bnd,
+                "err": max_abs_err(got, want), "shape": f"B={b}, C={c}"}
+
+    timings["vclock_chain"] = time_chain(128, 16, 200)
+    timings["vclock_chain@4096"] = time_chain(4096, 64, 20)
+
+    for key, t in timings.items():
+        log(f"[kernels] time {key} ({t['shape']}): kernel {t['ms']:.6f} ms, "
+            f"plain {t['plain_ms']:.6f} ms, bound {t['bound'][0]:.6f} ms "
+            f"({t['bound'][1]}), max_abs_err {t['err']}")
+    return timings
+
+
+# -- phase 4 ------------------------------------------------------------------
+
+
+def phase_golden() -> None:
+    from repro_torch.core.consistency import EVAL_LEVELS
+    from repro_torch.storage import simulator as sim
+    from repro_torch.storage.ycsb import WORKLOAD_A
+
+    path = ROOT / "tests" / "data" / "golden_wrappers.json"
+    golden = json.loads(path.read_text())
+    cases = {f"protocol/{lv.name}": (lv, dict(n_ops=600)) for lv in EVAL_LEVELS}
+    x = EVAL_LEVELS[0]
+    cases["protocol/X_STCC/alt"] = (x, dict(
+        n_ops=640, batch_size=64, merge_every=4, delta=12, seed=3,
+        audit=False,
+    ))
+    for name, (lv, kw) in cases.items():
+        got = sim.run_protocol(lv, WORKLOAD_A, device="cuda", **kw)
+        if got != golden[name]:
+            fail(f"golden {name}: {got} != {golden[name]}")
+        log(f"[golden] {name}: equal {got}")
+
+
+# -- phase 5 ------------------------------------------------------------------
+
+
+def phase_main() -> dict:
+    import torch
+
+    from repro_torch.core.consistency import EVAL_LEVELS
+    from repro_torch.kernels import ops
+    from repro_torch.storage import simulator as sim
+    from repro_torch.storage.ycsb import WORKLOAD_A, WORKLOAD_B
+
+    combos = [(w, lv) for w in (WORKLOAD_A, WORKLOAD_B) for lv in EVAL_LEVELS]
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    on_card = [sim.evaluate_level(lv, w, device="cuda") for w, lv in combos]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    log(f"[main] evaluate_level x{len(combos)} on the card: {wall:.3f} s; "
+        f"launches {launches}")
+    for w, lv in combos:
+        got = on_card.pop(0)
+        want = sim.evaluate_level(lv, w, device="cpu")
+        if dataclasses.asdict(got) != dataclasses.asdict(want):
+            fail(f"evaluate_level {w.name} {lv.name}: card {got} != cpu {want}")
+        row = dataclasses.asdict(got)
+        for k, v in row.items():
+            if isinstance(v, float) and not math.isfinite(v):
+                fail(f"evaluate_level {w.name} {lv.name}: {k} is {v}")
+        log(f"[main] {json.dumps(row, sort_keys=True)}")
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        fail(f"main path never launched kernels {missing}")
+    return launches
+
+
+# -- phase 6 ------------------------------------------------------------------
+
+
+def phase_scale() -> dict:
+    import torch
+
+    from repro_torch.core.consistency import ConsistencyLevel
+    from repro_torch.kernels import ops
+    from repro_torch.storage import simulator as sim
+    from repro_torch.storage.ycsb import WORKLOAD_A
+
+    log(f"[scale] X_STCC WORKLOAD_A {SCALE}")
+    log(f"[scale] {SCALE_CUTS}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = sim.run_protocol(ConsistencyLevel.X_STCC, WORKLOAD_A, device="cuda",
+                           **SCALE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    for k in ("staleness_rate", "violation_rate", "severity"):
+        if not (math.isfinite(out[k]) and 0.0 <= out[k] <= 1.0):
+            fail(f"scale run: {k} = {out[k]} is not a rate")
+    if out["n_reads"] <= 0:
+        fail("scale run served no reads")
+    if min(launches.values()) == 0:
+        fail(f"scale run never launched a kernel: {launches}")
+    log(f"[scale] wall {wall:.3f} s (stream, schedule, replay, audit); "
+        f"{SCALE['n_ops'] / wall:.1f} ops/s; staleness {out['staleness_rate']}; "
+        f"violation {out['violation_rate']}; severity {out['severity']}; "
+        f"n_reads {out['n_reads']}; dropped_writes {out['dropped_writes']}; "
+        f"max_memory_allocated {peak} B; launches {launches}")
+    return {"wall_s": wall, "launches": launches, "peak_bytes": peak, **out}
+
+
+# -- phase 7 ------------------------------------------------------------------
+
+
+def phase_profile() -> None:
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.consistency import ConsistencyLevel
+    from repro_torch.storage import simulator as sim
+    from repro_torch.storage.ycsb import WORKLOAD_A
+
+    # CAUSAL's rounds are all alike; 2000 ops (250 rounds) keep the
+    # profiler's own overhead small.
+    for level, n_ops in ((ConsistencyLevel.X_STCC, 6000),
+                         (ConsistencyLevel.CAUSAL, 2000)):
+        sim.run_protocol(level, WORKLOAD_A, n_ops=n_ops, device="cuda")  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sim.run_protocol(level, WORKLOAD_A, n_ops=n_ops, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            sim.run_protocol(level, WORKLOAD_A, n_ops=n_ops, device="cuda")
+            torch.cuda.synchronize()
+        # Device-side rows only (kernels, copies, fills): the host-op rows
+        # repeat the time of the kernels they launched.
+        rows = [(e.self_device_time_total, e.count, e.key)
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        rows.sort(reverse=True)
+        if not rows:
+            log(f"[profile] {level.name}: wall {wall:.4f} s unprofiled; "
+                "torch.profiler recorded no device time (busy share not measured)")
+            continue
+        busy = sum(r[0] for r in rows) / 1e6
+        log(f"[profile] {level.name} run_protocol(n_ops={n_ops}): wall {wall:.4f} s "
+            f"unprofiled; device kernel time {busy:.4f} s; busy share "
+            f"{busy / wall:.4f}; idle share {1 - busy / wall:.4f}")
+        for us, count, key in rows[:8]:
+            log(f"[profile]   {us / 1e3:10.3f} ms  x{count:<6d} {key[:90]}")
+
+
+# -- main ---------------------------------------------------------------------
+
+
+REPLACES = {
+    "op_ingest": ("src/repro_torch/csrc/op_ingest.cu",
+                  "src/repro/kernels/op_ingest.py:283"),
+    "vclock_audit": ("src/repro_torch/csrc/vclock_audit.cu",
+                     "src/repro/kernels/vclock_audit.py:92"),
+    "vclock_chain": ("src/repro_torch/csrc/vclock_chain.cu",
+                     "src/repro/core/xstcc.py:357"),
+}
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of " + ",".join(PHASES))
+    args = ap.parse_args()
+    phases = [p for p in args.phases.split(",") if p]
+    unknown = set(phases) - set(PHASES)
+    if unknown:
+        fail(f"unknown phases {sorted(unknown)}")
+
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke test needs an "
+             "NVIDIA GPU")
+    if not (SRC / "repro_torch").is_dir():
+        fail(f"{SRC / 'repro_torch'} not found: run from a checkout of the repo")
+    sys.path.insert(0, str(SRC))
+
+    t_start = time.perf_counter()
+    dev = phase_device()
+    if "build" in phases:
+        phase_build()
+    timings = phase_kernels() if "kernels" in phases else {}
+    if "golden" in phases:
+        phase_golden()
+    launches = phase_main() if "main" in phases else {}
+    if "scale" in phases:
+        phase_scale()
+    if "profile" in phases:
+        phase_profile()
+    log(f"[done] {time.perf_counter() - t_start:.1f} s")
+    if phases != list(PHASES):
+        return
+    kernels = []
+    for name, (source, replaces) in REPLACES.items():
+        t = timings[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": t["err"], "match": t["err"] == 0,
+            "shape": t["shape"], "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
+            "library_ms": None,
+        })
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": dev["kind"], "count": dev["count"],
+    }}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,180 @@
+"""Monetary cost model — paper §3.5.2, §4.2.4 and Appendix B (port of
+``repro.core.cost_model``, plain Python).
+
+``Cost_all(cl) = Cost_in(cl) + Cost_st(cl) + Cost_tr(cl)``          (eq .5)
+
+  * instances: ``nbInstances × price × runtime/timeUnit``            (eq .6)
+  * storage:   physical hosting (GB-month) + I/O requests            (eq .7)
+  * network:   inter-DC traffic × price(interDC)
+             + intra-DC traffic × price(intraDC)                     (eq .8)
+
+Pricing defaults are the paper's Table 2 (Amazon EC2/EBS, 2020).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+
+def tiered_cost(
+    gb: float, flat_per_gb: float, tiers: tuple[tuple[float, float], ...]
+) -> float:
+    """Piecewise-linear volume cost: ``tiers`` of ``(up_to_gb, price)``.
+
+    With no tiers, bills flat at ``flat_per_gb``.  Volume beyond the
+    last threshold bills at the last tier's price.
+    """
+    if not tiers:
+        return gb * flat_per_gb
+    cost, prev = 0.0, 0.0
+    for up_to, price in tiers:
+        take = max(0.0, min(gb, up_to) - prev)
+        cost += take * price
+        prev = up_to
+        if gb <= up_to:
+            break
+    else:
+        cost += (gb - prev) * tiers[-1][1]
+    return cost
+
+
+@dataclasses.dataclass(frozen=True)
+class PricingScheme:
+    """Paper Table 2 (defaults) — all prices in USD.
+
+    ``inter_dc_tiers`` optionally replaces the flat inter-DC price with
+    ``(up_to_gb, price_per_gb)`` volume tiers.
+    """
+
+    compute_unit_per_hour: float = 0.0464       # VM instance $/hour
+    storage_gb_month: float = 0.10              # leased volume $/GB-month
+    storage_per_million_requests: float = 0.10  # I/O $/1e6 requests
+    intra_dc_per_gb: float = 0.00               # free inside a DC
+    inter_dc_per_gb: float = 0.01               # billed across DCs
+    inter_dc_tiers: tuple[tuple[float, float], ...] = ()
+
+    def inter_dc_cost(self, gb: float) -> float:
+        """Inter-DC transfer cost, tiered when tiers are configured."""
+        return tiered_cost(gb, self.inter_dc_per_gb, self.inter_dc_tiers)
+
+
+PAPER_PRICING = PricingScheme()
+
+
+@dataclasses.dataclass(frozen=True)
+class EgressMatrix:
+    """Per-region-pair egress price classes over a ``G``-region topology.
+
+    Only what the flat path's topology needs: the class table and the
+    degenerate two-class matrix of a scalar pricing scheme.
+    """
+
+    pair_class: tuple[tuple[int, ...], ...]      # (G, G) class ids
+    class_per_gb: tuple[float, ...]              # flat $/GB per class
+    class_tiers: tuple[tuple[tuple[float, float], ...], ...] = ()
+
+    def __post_init__(self):
+        g = len(self.pair_class)
+        if any(len(row) != g for row in self.pair_class):
+            raise ValueError("pair_class must be square (G, G)")
+        n_cls = len(self.class_per_gb)
+        if self.class_tiers and len(self.class_tiers) != n_cls:
+            raise ValueError(
+                "class_tiers must be empty or have one entry per class"
+            )
+        for row in self.pair_class:
+            for k in row:
+                if not 0 <= k < n_cls:
+                    raise ValueError(f"pair class {k} out of range")
+
+    @property
+    def n_regions(self) -> int:
+        return len(self.pair_class)
+
+    @classmethod
+    def from_pricing(cls, n_regions: int, pricing: PricingScheme) -> "EgressMatrix":
+        """Intra pairs at ``intra_dc_per_gb``, inter pairs at the inter-DC
+        price including its volume tiers."""
+        pair = tuple(
+            tuple(0 if i == j else 1 for j in range(n_regions))
+            for i in range(n_regions)
+        )
+        return cls(
+            pair_class=pair,
+            class_per_gb=(pricing.intra_dc_per_gb, pricing.inter_dc_per_gb),
+            class_tiers=((), tuple(pricing.inter_dc_tiers)),
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class CostBreakdown:
+    instances: float
+    storage: float
+    network: float
+
+    @property
+    def total(self) -> float:
+        return self.instances + self.storage + self.network
+
+    def as_dict(self) -> dict[str, float]:
+        return {
+            "instances": self.instances,
+            "storage": self.storage,
+            "network": self.network,
+            "total": self.total,
+        }
+
+
+def cost_instances(
+    *, nb_instances: int, runtime_hours: float, pricing: PricingScheme
+) -> float:
+    """Eq. (.6): leasing nbInstances for `runtime` at `price`/timeUnit."""
+    return nb_instances * pricing.compute_unit_per_hour * runtime_hours
+
+
+def cost_storage(
+    *, hosted_gb: float, months: float, io_requests: float,
+    pricing: PricingScheme,
+) -> float:
+    """Eq. (.7): physical hosting + I/O requests."""
+    hosting = hosted_gb * pricing.storage_gb_month * months
+    io = (io_requests / 1e6) * pricing.storage_per_million_requests
+    return hosting + io
+
+
+def cost_network(
+    *, inter_dc_gb: float, intra_dc_gb: float, pricing: PricingScheme,
+) -> float:
+    """Eq. (.8): inter- + intra-DC transfer (inter tiered when configured)."""
+    return (
+        pricing.inter_dc_cost(inter_dc_gb)
+        + intra_dc_gb * pricing.intra_dc_per_gb
+    )
+
+
+def cost_all(
+    *,
+    nb_instances: int,
+    runtime_hours: float,
+    hosted_gb: float,
+    months: float,
+    io_requests: float,
+    inter_dc_gb: float,
+    intra_dc_gb: float,
+    pricing: PricingScheme = PAPER_PRICING,
+) -> CostBreakdown:
+    """Eq. (.5): the full bill for one consistency level."""
+    return CostBreakdown(
+        instances=cost_instances(
+            nb_instances=nb_instances, runtime_hours=runtime_hours,
+            pricing=pricing,
+        ),
+        storage=cost_storage(
+            hosted_gb=hosted_gb, months=months, io_requests=io_requests,
+            pricing=pricing,
+        ),
+        network=cost_network(
+            inter_dc_gb=inter_dc_gb, intra_dc_gb=intra_dc_gb,
+            pricing=pricing,
+        ),
+    )

@@ -1,0 +1,114 @@
+"""Dispatch between the hand-written CUDA kernels and their plain
+PyTorch versions (port of ``repro.kernels.ops``).
+
+``impl`` is ``"auto"`` (the kernel for CUDA tensors, the plain version
+for CPU tensors), ``"cuda"`` (the kernel; a CPU tensor raises) or
+``"torch"`` (the plain version on whatever device the tensors are).
+A CUDA tensor under ``"auto"`` launches its kernel or raises: nothing
+falls back to the plain version.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import op_ingest as _oi
+from repro_torch.kernels import vclock_audit as _va
+from repro_torch.kernels import vclock_chain as _vch
+
+IMPLS = ("auto", "cuda", "torch")
+_COUNTED = {"op_ingest": _oi, "vclock_audit": _va, "vclock_chain": _vch}
+
+
+def resolve_impl(impl: str | None, t: torch.Tensor) -> str:
+    """``"cuda"`` or ``"torch"`` for tensor ``t`` under ``impl``."""
+    impl = "auto" if impl is None else impl
+    if impl not in IMPLS:
+        raise ValueError(f"unknown kernel impl {impl!r}; expected one of {IMPLS}")
+    if impl == "auto":
+        return "cuda" if t.is_cuda else "torch"
+    if impl == "cuda" and not t.is_cuda:
+        raise ValueError("impl='cuda' needs tensors on a CUDA device")
+    return impl
+
+
+def launch_counts() -> dict[str, int]:
+    """Kernel launches per wrapper since the last reset."""
+    return {name: mod.launches for name, mod in _COUNTED.items()}
+
+
+def reset_launch_counts() -> None:
+    for mod in _COUNTED.values():
+        mod.launches = 0
+
+
+def op_ingest(
+    client, replica, resource, is_write, g0, raw0, floor0, *,
+    op_index=None, apply_index=None, pend_version=None,
+    pend_resource=None, pend_live=None, pend_apply=None,
+    impl: str | None = "auto",
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Batched op-ingestion prefixes ``(occ, raw, floor)`` — the contract
+    of ``repro.kernels.ref.op_ingest_ref``, bit for bit."""
+    impl = resolve_impl(impl, client)
+    if op_index is None and (apply_index is not None or pend_apply is not None):
+        op_index = torch.zeros(client.shape, dtype=torch.int32, device=client.device)
+    kw = dict(
+        op_index=op_index, apply_index=apply_index,
+        pend_version=pend_version, pend_resource=pend_resource,
+        pend_live=pend_live, pend_apply=pend_apply,
+    )
+    if impl == "torch":
+        return _oi.op_ingest_ref(
+            client, replica, resource, is_write, g0, raw0, floor0, **kw
+        )
+    return _oi.op_ingest_cuda(
+        _oi.pack_ops(client, replica, resource, is_write, g0, raw0, floor0, **kw)
+    )
+
+
+def vclock_audit(
+    vc, client, kind, resource, version, seq, valid, *, delta: int = 0,
+    impl: str | None = "auto",
+) -> torch.Tensor:
+    """(M, M) audit codes ``phase | viol << 8 | timed << 9``."""
+    impl = resolve_impl(impl, vc)
+    if impl == "torch":
+        return _va.vclock_audit_ref(
+            vc, client, kind, resource, version, seq, valid, delta=delta
+        )
+    meta = _va.pack_meta(client, kind, resource, version, seq, valid)
+    return _va.vclock_audit_cuda(vc.to(torch.int32).contiguous(), meta, delta=delta)
+
+
+def audit_duot(duot, *, delta: int = 0, impl: str | None = "auto",
+               block: int = _va.BLOCK) -> torch.Tensor:
+    """Audit codes of a ``core.duot.Duot``; the log is padded to a
+    ``block`` multiple with invalid entries, as the reference does."""
+    m = duot.capacity
+    pad = (-m) % block
+
+    def p(x, fill=0):
+        if pad == 0:
+            return x
+        ext = torch.full((pad,) + tuple(x.shape[1:]), fill, dtype=x.dtype,
+                         device=x.device)
+        return torch.cat([x, ext])
+
+    codes = vclock_audit(
+        p(duot.vc), p(duot.client, -1), p(duot.kind), p(duot.resource, -1),
+        p(duot.version), p(duot.seq), p(duot.valid, False), delta=delta,
+        impl=impl,
+    )
+    return codes if pad == 0 else codes[:m, :m]
+
+
+def vclock_chain(client, replica, is_write, session_vc, replica_vc, *,
+                 impl: str | None = "auto"):
+    """Serial clock chain of one batch -> ``(session_vc, replica_vc, vcs)``."""
+    impl = resolve_impl(impl, session_vc)
+    if impl == "torch":
+        return _vch.vclock_chain_ref(client, replica, is_write, session_vc,
+                                     replica_vc)
+    return _vch.vclock_chain_cuda(client, replica, is_write, session_vc,
+                                  replica_vc)

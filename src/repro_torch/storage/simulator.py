@@ -1,0 +1,220 @@
+"""Cluster simulator: the paper's evaluation (§4), flat path (port of
+``repro.storage.simulator``).
+
+Three coupled models produce every figure of the paper:
+
+  * **Latency/throughput** (Figs 8-9): a closed-loop model over the
+    3-DC topology with per-level repair and coordination work;
+  * **Protocol engine** (Figs 10-13): the op stream runs through the
+    batched X-STCC engine (:class:`repro_torch.engine.EpochEngine`) on
+    the device; staleness and violations are measured and severity
+    comes from the DUOT audit;
+  * **Monetary** (Figs 14-15): measured traffic × Table-2 pricing
+    through ``core.cost_model``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.core import cost_model
+from repro_torch.core.consistency import ConsistencyLevel
+from repro_torch.engine import results as engine_results
+from repro_torch.engine.config import EngineConfig
+from repro_torch.engine.replay import EpochEngine
+from repro_torch.storage.cluster import PAPER_CLUSTER, ClusterConfig
+from repro_torch.storage.ycsb import Workload
+
+# Server-side repair work per stale read, in units of one op's service
+# cost (ONE repairs across DCs; X-STCC fixes up locally via the DUOT).
+REPAIR_COST = {
+    ConsistencyLevel.ONE: 1.8,
+    ConsistencyLevel.CAUSAL: 0.8,
+    ConsistencyLevel.TCC: 0.45,
+    ConsistencyLevel.X_STCC: 0.25,
+    ConsistencyLevel.QUORUM: 0.3,
+    ConsistencyLevel.ALL: 0.0,
+    ConsistencyLevel.TWO: 1.0,
+}
+# Extra coordination work per write (remote ack bookkeeping).
+WRITE_COORD = {
+    ConsistencyLevel.ONE: 0.14,
+    ConsistencyLevel.CAUSAL: 0.22,
+    ConsistencyLevel.TCC: 0.10,
+    ConsistencyLevel.X_STCC: 0.02,   # 64-byte DUOT append, piggybacked
+    ConsistencyLevel.QUORUM: 0.42,
+    ConsistencyLevel.ALL: 0.62,
+    ConsistencyLevel.TWO: 0.2,
+}
+# Remote (inter-DC) repair traffic per stale read, in row payloads.
+REPAIR_REMOTE = {
+    ConsistencyLevel.ONE: 1.0, ConsistencyLevel.TWO: 1.0,
+    ConsistencyLevel.CAUSAL: 0.5, ConsistencyLevel.TCC: 0.25,
+    ConsistencyLevel.X_STCC: 0.0, ConsistencyLevel.QUORUM: 0.0,
+    ConsistencyLevel.ALL: 0.0,
+}
+
+
+@dataclasses.dataclass
+class LevelMetrics:
+    level: str
+    workload: str
+    n_threads: int
+    throughput_ops_s: float
+    mean_latency_ms: float
+    staleness_rate: float
+    violation_rate: float
+    severity: float
+    runtime_s: float
+    inter_dc_gb: float
+    intra_dc_gb: float
+    cost: dict
+
+
+def op_latency_ms(
+    level: ConsistencyLevel, kind: str, cfg: ClusterConfig, stale_rate: float,
+) -> float:
+    """Mean client-observed latency of one op."""
+    acks = level.write_acks(cfg.replication_factor)
+    reads = level.read_replicas(cfg.replication_factor)
+    if kind == "write":
+        # X-STCC's DUOT registration piggybacks on the write itself.
+        return cfg.ack_latency_ms(acks)
+    base = cfg.read_latency_ms(reads)
+    # Only X-STCC's session reroute is synchronous, and it is intra-DC.
+    if level is ConsistencyLevel.X_STCC:
+        base += stale_rate * cfg.intra_dc_rtt_ms
+    return base
+
+
+def throughput_model(
+    level: ConsistencyLevel, w: Workload, n_threads: int,
+    cfg: ClusterConfig, stale_rate: float,
+) -> tuple[float, float]:
+    """(throughput ops/s, mean latency ms) — closed loop with saturation."""
+    r = w.read_fraction
+    lat = (r * op_latency_ms(level, "read", cfg, stale_rate)
+           + (1 - r) * op_latency_ms(level, "write", cfg, stale_rate))
+    pipeline_depth = 8          # async requests in flight per thread
+    offered = pipeline_depth * n_threads / (lat / 1e3)
+    work = 1.0 + r * stale_rate * REPAIR_COST[level] \
+        + (1 - r) * WRITE_COORD[level]
+    capacity = cfg.n_nodes * cfg.node_service_rate_ops_s / work
+    # Smooth saturation + mild coordination decay beyond 64 threads.
+    thr = offered / (1.0 + (offered / capacity) ** 2) ** 0.5
+    if n_threads > 64:
+        thr *= 1.0 - 0.08 * (n_threads - 64) / 36.0
+    eff_lat = n_threads / thr * 1e3
+    return thr, eff_lat
+
+
+def run_protocol(
+    level: ConsistencyLevel,
+    w: Workload,
+    *,
+    n_ops: int = 6000,
+    n_clients: int = 16,
+    n_resources: int = 24,
+    merge_every: int = 8,
+    delta: int = 24,
+    duot_cap: int = 2048,
+    seed: int = 0,
+    batch_size: int = 128,
+    audit: bool = True,
+    ingest: str = "auto",
+    lean: bool = False,
+    device: str | torch.device = "cuda",
+) -> dict[str, float]:
+    """Run a scaled YCSB stream through the batched X-STCC engine.
+
+    Synchronous and timed levels ingest ``batch_size``-op batches with
+    their finer merge cadence emulated inside each batch; untimed causal
+    levels (CAUSAL / ONE) batch at their real merge period.
+    ``audit=False`` skips the end-of-run DUOT audit (severity 0);
+    ``lean`` (emulated levels, ``audit=False``) drops the clock chain,
+    the DUOT record and the causal merge gate.  Runs on ``device``
+    (``"cuda"`` unless the caller asks for the CPU).
+    """
+    config = EngineConfig(
+        level, n_ops=n_ops, n_clients=n_clients, n_resources=n_resources,
+        merge_every=merge_every, delta=delta, duot_cap=duot_cap,
+        seed=seed, batch_size=batch_size, audit=audit, ingest=ingest,
+        lean=lean,
+    )
+    engine = EpochEngine(config, device=device)
+    return engine_results.assemble_flat(config, engine.replay(w))
+
+
+def traffic_gb(
+    level: ConsistencyLevel, w: Workload, n_ops: int, cfg: ClusterConfig,
+    stale_rate: float,
+) -> tuple[float, float]:
+    """(inter_dc_gb, intra_dc_gb) for the run — replica propagation +
+    read fan-out + repair traffic."""
+    r = w.read_fraction
+    writes = (1 - r) * n_ops
+    reads = r * n_ops
+    row = cfg.row_bytes
+    consulted = level.read_replicas(cfg.replication_factor)
+
+    # Every write eventually reaches all 12 replicas (8 remote):
+    inter = writes * 8 * row
+    intra = writes * 3 * row
+    # Synchronous read fan-out beyond the local DC:
+    remote_reads = max(0, consulted - cfg.replicas_per_dc)
+    inter += reads * remote_reads * row
+    intra += reads * min(consulted, cfg.replicas_per_dc) * row
+    # Repair traffic for stale reads:
+    inter += reads * stale_rate * REPAIR_REMOTE[level] * row
+    # X-STCC piggybacks vector clocks + DUOT entries on propagation:
+    if level.is_causal:
+        inter += writes * 8 * 64          # 16 clients x int32 clock
+        intra += writes * 3 * 64
+    return inter / 1e9, intra / 1e9
+
+
+def evaluate_level(
+    level: ConsistencyLevel,
+    w: Workload,
+    n_threads: int = 64,
+    cfg: ClusterConfig = PAPER_CLUSTER,
+    *,
+    engine_ops: int = 6000,
+    seed: int = 0,
+    pricing: cost_model.PricingScheme = cost_model.PAPER_PRICING,
+    device: str | torch.device = "cuda",
+) -> LevelMetrics:
+    """One level's full evaluation: measured protocol metrics, then the
+    throughput, traffic and eq. 5-8 cost models."""
+    proto = run_protocol(level, w, n_ops=engine_ops, seed=seed, device=device)
+    stale = proto["staleness_rate"]
+    thr, lat = throughput_model(level, w, n_threads, cfg, stale)
+    runtime_s = w.n_operations / thr
+    inter_gb, intra_gb = traffic_gb(level, w, w.n_operations, cfg, stale)
+    bill = cost_model.cost_all(
+        nb_instances=cfg.n_nodes,
+        runtime_hours=runtime_s / 3600.0,
+        hosted_gb=cfg.total_data_gb_after_replication,
+        months=runtime_s / (30 * 24 * 3600.0),
+        io_requests=float(w.n_operations) * level.write_acks(
+            cfg.replication_factor),
+        inter_dc_gb=inter_gb,
+        intra_dc_gb=intra_gb,
+        pricing=pricing,
+    )
+    return LevelMetrics(
+        level=level.value,
+        workload=w.name,
+        n_threads=n_threads,
+        throughput_ops_s=thr,
+        mean_latency_ms=lat,
+        staleness_rate=stale,
+        violation_rate=proto["violation_rate"],
+        severity=proto["severity"],
+        runtime_s=runtime_s,
+        inter_dc_gb=inter_gb,
+        intra_dc_gb=intra_gb,
+        cost=bill.as_dict(),
+    )

@@ -1,0 +1,91 @@
+"""The port stands alone: no JAX, no ``repro``, and no silent CPU
+fallback of its entry points."""
+
+import pathlib
+import re
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+torch.set_num_threads(1)
+
+
+def _port_modules():
+    return sorted(
+        ".".join(("repro_torch",) + p.relative_to(PORT).with_suffix("").parts)
+        .removesuffix(".__init__")
+        for p in PORT.rglob("*.py")
+    )
+
+
+def test_every_module_imports_without_jax_or_repro():
+    code = textwrap.dedent(f"""
+        import importlib, sys
+        sys.modules["jax"] = None
+        sys.modules["repro"] = None
+        sys.path.insert(0, {str(ROOT / "src")!r})
+        for name in {_port_modules()!r}:
+            importlib.import_module(name)
+        sys.path.insert(0, {str(ROOT)!r})
+        importlib.import_module("chip_smoke")
+        print("ok", len({_port_modules()!r}))
+    """)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
+
+
+def test_no_source_mentions_jax_or_repro_imports():
+    pat = re.compile(r"^\s*(import (jax|repro)\b|from (jax|repro)(\.| ))", re.M)
+    files = list(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 20
+    for f in files:
+        assert not pat.search(f.read_text()), f
+
+
+@pytest.fixture
+def no_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks the no-card behaviour")
+
+
+@pytest.mark.parametrize("entry", ["run_protocol", "evaluate_level", "engine", "store"])
+def test_entry_points_refuse_cpu_fallback(no_card, entry):
+    from repro_torch.core.consistency import ConsistencyLevel
+    from repro_torch.core.replicated_store import ReplicatedStore
+    from repro_torch.engine.config import EngineConfig
+    from repro_torch.engine.replay import EpochEngine
+    from repro_torch.storage import simulator
+    from repro_torch.storage.ycsb import WORKLOAD_A
+
+    calls = {
+        "run_protocol": lambda: simulator.run_protocol(
+            ConsistencyLevel.X_STCC, WORKLOAD_A, n_ops=50),
+        "evaluate_level": lambda: simulator.evaluate_level(
+            ConsistencyLevel.ONE, WORKLOAD_A, engine_ops=50),
+        "engine": lambda: EpochEngine(EngineConfig(ConsistencyLevel.ALL)),
+        "store": lambda: ReplicatedStore(3, 4, 4),
+    }
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        calls[entry]()
+
+
+def test_chip_smoke_refuses_to_run_without_a_card(no_card, tmp_path):
+    out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+    # Alone in a directory, it cannot find the program and fails too.
+    lone = tmp_path / "chip_smoke.py"
+    lone.write_text((ROOT / "chip_smoke.py").read_text())
+    out = subprocess.run([sys.executable, str(lone)], capture_output=True,
+                         text=True, timeout=300, cwd=tmp_path)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
