@@ -7,23 +7,30 @@ Phases, each of which must pass (any failure ends the run with a
 non-zero exit code):
 
   1. device   — the card's name, count and power limit; no card, no run;
-  2. build    — ``nvcc`` builds the three kernels from ``src/repro_torch/
+  2. build    — ``nvcc`` builds the five kernels from ``src/repro_torch/
                 csrc`` in parallel; prints seconds and ptxas register /
                 shared-memory / spill lines;
   3. kernels  — each kernel against its plain PyTorch version on the
-                card, outputs exactly equal, at the main path's shapes
+                card, outputs exactly equal, at the main paths' shapes
                 and beyond; CUDA-event times of both;
-  4. golden   — the seven ``protocol/*`` cases of
+  4. golden   — the seven ``protocol/*`` and eight fault cases of
                 ``tests/data/golden_wrappers.json`` reproduced on the card;
   5. main     — ``evaluate_level`` for WORKLOAD_A/B × six levels at the
                 defaults on the card, each equal to the same call on the
                 CPU in every field; kernel launch counts of this phase;
-  6. scale    — one X_STCC replay at the paper's deployment: 64 client
-                threads, 5,000,000 rows, 8,000,000 ops, B = 4096;
-  7. profile  — ``torch.profiler`` over one X_STCC and one CAUSAL
-                ``run_protocol``: device time by kernel and the card's
-                busy share of the unprofiled wall time;
-  8. report   — one JSON line ``{"kernels": [...]}``, then the last line
+  6. faulty   — ``run_protocol_faulty`` for the six levels at the
+                defaults with replica 1 down for the middle of the run,
+                gossip + hinted handoff, WAL/snapshot durability and the
+                obs plane, each equal to the same call on the CPU; kernel
+                launch counts of this phase;
+  7. scale    — one X_STCC replay at the paper's deployment (64 client
+                threads, 5,000,000 rows, 8,000,000 ops, B = 4096), then
+                the same deployment through the fault path;
+  8. profile  — ``torch.profiler`` over X_STCC and CAUSAL
+                ``run_protocol`` and an X_STCC fault run: device time by
+                kernel and the card's busy share of the unprofiled wall
+                time;
+  9. report   — one JSON line ``{"kernels": [...]}``, then the last line
                 ``{"ok": true, "device": {...}}``.
 
 ``--phases`` runs a subset (a debugging aid; the report lines are
@@ -45,7 +52,8 @@ import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
-PHASES = ("device", "build", "kernels", "golden", "main", "scale", "profile")
+PHASES = ("device", "build", "kernels", "golden", "main", "faulty", "scale",
+          "profile")
 
 # H100 SXM peaks (NVIDIA data sheet, as tabulated in the repo's
 # measurement notes): HBM bandwidth, and the 32-bit non-tensor-core rate
@@ -59,9 +67,31 @@ SCALE = dict(n_clients=64, n_resources=5_000_000, batch_size=4096,
              n_ops=8_000_000, duot_cap=16384)
 SCALE_CUTS = (
     "cuts of scale: none (the paper's 64 threads, 5,000,000 rows, "
-    "8,000,000 ops); the DUOT audit covers the first 16,384 ops "
-    "(duot_cap), as the flat engine never wraps or collects the log"
+    "8,000,000 ops, in the flat and the fault run alike); the DUOT audit "
+    "covers the first 16,384 ops (duot_cap), as the engine never wraps or "
+    "collects the log"
 )
+# The fault run's op count (halved, and the cut listed above, only if the
+# script would not fit its time limit; rows and clients are never cut).
+FAULT_SCALE_OPS = 8_000_000
+
+
+def fault_kwargs(n_ops: int, unit: int) -> dict:
+    """The fault phases' setting: the golden outage shape stretched to the
+    run — replica 1 down for schedule epochs [T/5, 3T/5) of T = ceil(n_ops
+    / unit) — with gossip every 2 epochs, 32-hint queues, WAL + snapshots
+    every 2 epochs, and the obs plane."""
+    from repro_torch.core import availability as av
+    from repro_torch.core.replicated_store import DurabilityConfig
+    from repro_torch.gossip.scheduler import GossipConfig
+    from repro_torch.obs.metrics import ObsConfig
+
+    t = -(-n_ops // unit)
+    return dict(
+        schedule=av.replica_outage(t, 3, 1, t // 5, 3 * t // 5), schedule_unit=unit,
+        gossip=GossipConfig(cadence=2, hint_cap=32),
+        recovery=DurabilityConfig(snapshot_every=2, wal=True), obs=ObsConfig(),
+    )
 
 
 def log(msg: str) -> None:
@@ -207,10 +237,49 @@ def _chain_inputs(rng, b, c, device):
     )
 
 
+def _digest_rows(rng, m, device):
+    """Packed digest pairs: extreme components so the differences
+    overflow, a quarter of the rows equal, a few invalid."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import digest_compare as dc
+
+    extremes = np.asarray([2**31 - 1, -(2**31), 0, 1, -1, 7], np.int64)
+    packed = rng.choice(extremes, (m, dc.DIG_COLS))
+    packed[:, :8] += rng.integers(-3, 4, (m, 8))
+    packed = ((packed + 2**31) % 2**32 - 2**31).astype(np.int32)
+    packed[::4, 4:8] = packed[::4, 0:4]
+    packed[:, dc.VALID] = rng.random(m) < 0.9
+    return torch.as_tensor(packed, device=device)
+
+
+def _hist_inputs(rng, m, b, n_bins, device):
+    """Ages in [-50, 1200) against [0, 1024): both edge bins saturate;
+    1e9, -1e9 and NaN columns; random masks and one empty row."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import histogram as hg
+
+    v = rng.integers(-50, 1200, (m, b)).astype(np.float32)
+    v[:, ::9] = 1e9
+    v[:, 1::9] = -1e9
+    v[:, 2::9] = np.nan
+    mask = rng.integers(0, 2, (m, b)).astype(np.int32)
+    if m > 1:
+        mask[-1] = 0
+    params = hg.metric_params(0.0, 1024.0, n_bins, device=device).expand(m, 2)
+    return (torch.as_tensor(v, device=device), torch.as_tensor(mask, device=device),
+            params.contiguous())
+
+
 def phase_kernels() -> dict:
     import numpy as np
     import torch
 
+    from repro_torch.kernels import digest_compare as dc
+    from repro_torch.kernels import histogram as hg
     from repro_torch.kernels import op_ingest as oi
     from repro_torch.kernels import ops
     from repro_torch.kernels import vclock_audit as va
@@ -313,6 +382,61 @@ def phase_kernels() -> dict:
     timings["vclock_chain"] = time_chain(128, 16, 200)
     timings["vclock_chain@4096"] = time_chain(4096, 64, 20)
 
+    # digest_compare: the fault path's 3 pairs x 8 ranges, and wider
+    # fleets; every case mixes overflowing, equal and invalid rows.
+    for m in (24, 1024, 65536, 1, 257):
+        packed = _digest_rows(rng, m, dev)
+        require_equal(f"digest_compare M={m}", [dc.digest_compare_cuda(packed)],
+                      [dc.digest_compare_ref(packed)])
+    torch.cuda.synchronize()
+    log("[kernels] digest_compare: equal at M in 24,1024,65536,1,257 "
+        "(overflowing, equal and invalid rows)")
+
+    def time_digest(m, iters):
+        packed = _digest_rows(np.random.default_rng(m), m, dev)
+        got = dc.digest_compare_cuda(packed)
+        want = dc.digest_compare_ref(packed)
+        require_equal(f"digest_compare timing M={m}", [got], [want])
+        ms = cuda_time_ms(lambda: dc.digest_compare_cuda(packed), iters)
+        plain = cuda_time_ms(lambda: dc.digest_compare_ref(packed), iters)
+        bnd = bound_ms(m * dc.DIG_COLS * 4 + m * dc.OUT_COLS * 4, m * 24)
+        return {"ms": ms, "plain_ms": plain, "bound": bnd,
+                "err": max_abs_err([got], [want]), "shape": f"M={m} rows"}
+
+    timings["digest_compare"] = time_digest(24, 200)
+    timings["digest_compare@65536"] = time_digest(65536, 50)
+
+    # histogram: the fault path's (2, B) op rows and (1, 3) hint depths,
+    # a geo-width (3, 65536); empty rows, saturated edges, NaN, masks.
+    n_checked = 0
+    for m, b in ((2, 128), (2, 4096), (1, 3), (3, 65536), (2, 1), (1, 1025)):
+        for n_bins in (4, 64):
+            vals, mask, params = _hist_inputs(rng, m, b, n_bins, dev)
+            require_equal(f"histogram M={m} B={b} bins={n_bins}",
+                          [hg.histogram_cuda(vals, mask, params, n_bins=n_bins)],
+                          [hg.histogram_ref(vals, mask, params, n_bins=n_bins)])
+            n_checked += 1
+    torch.cuda.synchronize()
+    log(f"[kernels] histogram: {n_checked} cases equal ((M,B) in (2,128),"
+        "(2,4096),(1,3),(3,65536),(2,1),(1,1025) x bins 4,64)")
+
+    def time_hist(m, b, n_bins, iters):
+        vals, mask, params = _hist_inputs(np.random.default_rng(b), m, b, n_bins, dev)
+        got = hg.histogram_cuda(vals, mask, params, n_bins=n_bins)
+        want = hg.histogram_ref(vals, mask, params, n_bins=n_bins)
+        require_equal(f"histogram timing M={m} B={b}", [got], [want])
+        ms = cuda_time_ms(lambda: hg.histogram_cuda(vals, mask, params, n_bins=n_bins),
+                          iters)
+        plain = cuda_time_ms(lambda: hg.histogram_ref(vals, mask, params, n_bins=n_bins),
+                             iters)
+        bnd = bound_ms(m * b * 8 + m * 8 + m * n_bins * 4, m * b * 8)
+        return {"ms": ms, "plain_ms": plain, "bound": bnd,
+                "err": max_abs_err([got], [want]),
+                "shape": f"M={m}, B={b}, bins={n_bins}"}
+
+    timings["histogram"] = time_hist(2, 128, 64, 200)
+    timings["histogram@4096"] = time_hist(2, 4096, 64, 100)
+
     for key, t in timings.items():
         log(f"[kernels] time {key} ({t['shape']}): kernel {t['ms']:.6f} ms, "
             f"plain {t['plain_ms']:.6f} ms, bound {t['bound'][0]:.6f} ms "
@@ -324,7 +448,7 @@ def phase_kernels() -> dict:
 
 
 def phase_golden() -> None:
-    from repro_torch.core.consistency import EVAL_LEVELS
+    from repro_torch.core.consistency import EVAL_LEVELS, ConsistencyLevel
     from repro_torch.storage import simulator as sim
     from repro_torch.storage.ycsb import WORKLOAD_A
 
@@ -341,6 +465,22 @@ def phase_golden() -> None:
         if got != golden[name]:
             fail(f"golden {name}: {got} != {golden[name]}")
         log(f"[golden] {name}: equal {got}")
+
+    from repro_torch.core import availability as av
+    from repro_torch.core.replicated_store import DurabilityConfig
+    from repro_torch.gossip.scheduler import GossipConfig
+
+    outage = dict(schedule=av.replica_outage(5, 3, 1, 1, 3), schedule_unit=128)
+    faults = {f"faulty_allup/{lv.name}": (lv, {}) for lv in EVAL_LEVELS}
+    faults["faulty/X_STCC/outage"] = (x, dict(
+        **outage, gossip=GossipConfig(cadence=2, hint_cap=32),
+        recovery=DurabilityConfig(snapshot_every=2, wal=True)))
+    faults["faulty/CAUSAL/outage"] = (ConsistencyLevel.CAUSAL, dict(**outage, audit=False))
+    for name, (lv, kw) in faults.items():
+        got = sim.run_protocol_faulty(lv, WORKLOAD_A, n_ops=600, device="cuda", **kw)
+        if got != golden[name]:
+            fail(f"golden {name}: {got} != {golden[name]}")
+        log(f"[golden] {name}: equal {json.dumps(got, sort_keys=True)}")
 
 
 # -- phase 5 ------------------------------------------------------------------
@@ -374,13 +514,69 @@ def phase_main() -> dict:
             if isinstance(v, float) and not math.isfinite(v):
                 fail(f"evaluate_level {w.name} {lv.name}: {k} is {v}")
         log(f"[main] {json.dumps(row, sort_keys=True)}")
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k, ph in LAUNCH_PHASE.items() if ph == "main" and launches[k] == 0]
     if missing:
         fail(f"main path never launched kernels {missing}")
     return launches
 
 
 # -- phase 6 ------------------------------------------------------------------
+
+
+def _diff_keys(got: dict, want: dict, prefix: str = "") -> list[str]:
+    out = []
+    for k in sorted(set(got) | set(want)):
+        a, b = got.get(k), want.get(k)
+        if isinstance(a, dict) and isinstance(b, dict):
+            out += _diff_keys(a, b, f"{prefix}{k}.")
+        elif a != b:
+            out.append(f"{prefix}{k}: card {a} != cpu {b}")
+    return out
+
+
+def phase_faulty() -> dict:
+    import torch
+
+    from repro_torch.core.consistency import EVAL_LEVELS
+    from repro_torch.kernels import ops
+    from repro_torch.storage import simulator as sim
+    from repro_torch.storage.ycsb import WORKLOAD_A
+
+    kw = fault_kwargs(6000, 128)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    on_card = [sim.run_protocol_faulty(lv, WORKLOAD_A, device="cuda", **kw)
+               for lv in EVAL_LEVELS]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    log(f"[faulty] run_protocol_faulty x{len(EVAL_LEVELS)} on the card "
+        f"(replica 1 down for schedule epochs [9, 28) of 47): {wall:.3f} s; "
+        f"launches {launches}")
+    for lv, got in zip(EVAL_LEVELS, on_card):
+        want = sim.run_protocol_faulty(lv, WORKLOAD_A, device="cpu", **kw)
+        if got != want:
+            fail(f"faulty {lv.name}: card != cpu: {_diff_keys(got, want)[:8]}")
+        for k in ("staleness_rate", "violation_rate", "severity"):
+            if not (math.isfinite(got[k]) and 0.0 <= got[k] <= 1.0):
+                fail(f"faulty {lv.name}: {k} = {got[k]} is not a rate")
+        g, r, o = got["gossip"], got["recovery"], got["obs"]
+        log(f"[faulty] {lv.name}: staleness {got['staleness_rate']}, violation "
+            f"{got['violation_rate']}, severity {got['severity']}, failovers "
+            f"{got['failovers']}, anti_entropy_events {got['anti_entropy_events']}, "
+            f"propagation_events {got['propagation_events']}, gossip repairs "
+            f"{g['repair_events']} (hints enq/drop/deliv {g['hints']['enqueued']}/"
+            f"{g['hints']['dropped']}/{g['hints']['delivered']}), wal_records "
+            f"{r['wal_records']}, snapshot_cells {r['snapshot_cells']}, p99 age "
+            f"{o['metrics']['staleness_age']['p99']}, total cost {got['cost']['total']}")
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        fail(f"fault path never launched kernels {missing}")
+    return launches
+
+
+# -- phase 7 ------------------------------------------------------------------
 
 
 def phase_scale() -> dict:
@@ -408,17 +604,59 @@ def phase_scale() -> dict:
             fail(f"scale run: {k} = {out[k]} is not a rate")
     if out["n_reads"] <= 0:
         fail("scale run served no reads")
-    if min(launches.values()) == 0:
+    if any(launches[k] == 0 for k, ph in LAUNCH_PHASE.items() if ph == "main"):
         fail(f"scale run never launched a kernel: {launches}")
     log(f"[scale] wall {wall:.3f} s (stream, schedule, replay, audit); "
         f"{SCALE['n_ops'] / wall:.1f} ops/s; staleness {out['staleness_rate']}; "
         f"violation {out['violation_rate']}; severity {out['severity']}; "
         f"n_reads {out['n_reads']}; dropped_writes {out['dropped_writes']}; "
         f"max_memory_allocated {peak} B; launches {launches}")
-    return {"wall_s": wall, "launches": launches, "peak_bytes": peak, **out}
+    del out
+    torch.cuda.empty_cache()
+
+    # The same deployment through the fault path.
+    fault = dict(SCALE, n_ops=FAULT_SCALE_OPS)
+    kw = fault_kwargs(fault["n_ops"], fault["batch_size"])
+    log(f"[scale] fault run: X_STCC WORKLOAD_A {fault}, schedule_unit "
+        f"{kw['schedule_unit']}, replica 1 down for schedule epochs "
+        f"[{kw['schedule'].n_epochs // 5}, {3 * kw['schedule'].n_epochs // 5}) of "
+        f"{kw['schedule'].n_epochs}, {kw['gossip']}, {kw['recovery']}, {kw['obs']}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = sim.run_protocol_faulty(ConsistencyLevel.X_STCC, WORKLOAD_A, device="cuda",
+                                  **fault, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    for k in ("staleness_rate", "violation_rate", "severity"):
+        if not (math.isfinite(out[k]) and 0.0 <= out[k] <= 1.0):
+            fail(f"scale fault run: {k} = {out[k]} is not a rate")
+    if out["n_reads"] <= 0 or out["dropped_writes"] != 0:
+        fail(f"scale fault run: n_reads {out['n_reads']}, dropped_writes "
+             f"{out['dropped_writes']}")
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        fail(f"scale fault run never launched kernels {missing}")
+    g, r = out["gossip"], out["recovery"]
+    log(f"[scale] fault run wall {wall:.3f} s; {fault['n_ops'] / wall:.1f} ops/s; "
+        f"staleness {out['staleness_rate']}; violation {out['violation_rate']}; "
+        f"severity {out['severity']}; n_reads {out['n_reads']}; failovers "
+        f"{out['failovers']}; anti_entropy_events {out['anti_entropy_events']}; "
+        f"propagation_events {out['propagation_events']}; gossip rounds "
+        f"{g['rounds']}, pairs {g['pairs_exchanged']}, ranges_diffed "
+        f"{g['ranges_diffed']}, repair_events {g['repair_events']}, gap_repaired "
+        f"{g['gap_repaired']}; hints {g['hints']}; wal_records {r['wal_records']}; "
+        f"snapshot_cells {r['snapshot_cells']}; obs p50/p99 age "
+        f"{out['obs']['metrics']['staleness_age']['p50']}/"
+        f"{out['obs']['metrics']['staleness_age']['p99']}; max_memory_allocated "
+        f"{peak} B; launches {launches}")
+    return {"wall_s": wall, "launches": launches, "peak_bytes": peak}
 
 
-# -- phase 7 ------------------------------------------------------------------
+# -- phase 8 ------------------------------------------------------------------
 
 
 def phase_profile() -> None:
@@ -432,16 +670,25 @@ def phase_profile() -> None:
 
     # CAUSAL's rounds are all alike; 2000 ops (250 rounds) keep the
     # profiler's own overhead small.
-    for level, n_ops in ((ConsistencyLevel.X_STCC, 6000),
-                         (ConsistencyLevel.CAUSAL, 2000)):
-        sim.run_protocol(level, WORKLOAD_A, n_ops=n_ops, device="cuda")  # warm
+    fault_kw = fault_kwargs(6000, 128)
+    runs = (
+        ("X_STCC run_protocol(n_ops=6000)", lambda: sim.run_protocol(
+            ConsistencyLevel.X_STCC, WORKLOAD_A, n_ops=6000, device="cuda")),
+        ("CAUSAL run_protocol(n_ops=2000)", lambda: sim.run_protocol(
+            ConsistencyLevel.CAUSAL, WORKLOAD_A, n_ops=2000, device="cuda")),
+        ("X_STCC run_protocol_faulty(n_ops=6000, outage+gossip+hints+wal+obs)",
+         lambda: sim.run_protocol_faulty(ConsistencyLevel.X_STCC, WORKLOAD_A,
+                                         device="cuda", **fault_kw)),
+    )
+    for label, run in runs:
+        run()  # warm
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        sim.run_protocol(level, WORKLOAD_A, n_ops=n_ops, device="cuda")
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            sim.run_protocol(level, WORKLOAD_A, n_ops=n_ops, device="cuda")
+            run()
             torch.cuda.synchronize()
         # Device-side rows only (kernels, copies, fills): the host-op rows
         # repeat the time of the kernels they launched.
@@ -450,11 +697,11 @@ def phase_profile() -> None:
                 if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
         rows.sort(reverse=True)
         if not rows:
-            log(f"[profile] {level.name}: wall {wall:.4f} s unprofiled; "
+            log(f"[profile] {label}: wall {wall:.4f} s unprofiled; "
                 "torch.profiler recorded no device time (busy share not measured)")
             continue
         busy = sum(r[0] for r in rows) / 1e6
-        log(f"[profile] {level.name} run_protocol(n_ops={n_ops}): wall {wall:.4f} s "
+        log(f"[profile] {label}: wall {wall:.4f} s "
             f"unprofiled; device kernel time {busy:.4f} s; busy share "
             f"{busy / wall:.4f}; idle share {1 - busy / wall:.4f}")
         for us, count, key in rows[:8]:
@@ -471,7 +718,15 @@ REPLACES = {
                      "src/repro/kernels/vclock_audit.py:92"),
     "vclock_chain": ("src/repro_torch/csrc/vclock_chain.cu",
                      "src/repro/core/xstcc.py:357"),
+    "digest_compare": ("src/repro_torch/csrc/digest_compare.cu",
+                       "src/repro/kernels/digest_compare.py:101"),
+    "histogram": ("src/repro_torch/csrc/histogram.cu",
+                  "src/repro/kernels/histogram.py:114"),
 }
+# The path whose launch counts each kernel reports: the flat main path
+# for the first slice's kernels, the fault path for gossip and obs.
+LAUNCH_PHASE = {"op_ingest": "main", "vclock_audit": "main", "vclock_chain": "main",
+                "digest_compare": "faulty", "histogram": "faulty"}
 
 
 def main() -> None:
@@ -500,7 +755,8 @@ def main() -> None:
     timings = phase_kernels() if "kernels" in phases else {}
     if "golden" in phases:
         phase_golden()
-    launches = phase_main() if "main" in phases else {}
+    launches = {"main": phase_main() if "main" in phases else {},
+                "faulty": phase_faulty() if "faulty" in phases else {}}
     if "scale" in phases:
         phase_scale()
     if "profile" in phases:
@@ -513,12 +769,13 @@ def main() -> None:
         t = timings[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": launches[LAUNCH_PHASE[name]][name],
             "max_abs_err": t["err"], "match": t["err"] == 0,
             "shape": t["shape"], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
             "library_ms": None,
         })
+    log(dev["smi"])    # the card's name and power limit again, beside the numbers
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev["kind"], "count": dev["count"],

@@ -1,10 +1,12 @@
 """Carry protocol state between the JAX package and the port.
 
-The system has no weights; its state is ``ClusterState``, ``Duot`` and
-``StoreState``.  The JAX package's pytrees cross as ``{field:
-np.ndarray}`` dictionaries (``StoreState`` nests its ``cluster`` and
-``duot`` dictionaries), so state taken from a reference run can be fed
-to the port and compared field by field.
+The system has no weights; its state is ``ClusterState``, ``Duot``,
+``HintState``, ``DuraState``, ``StoreState`` and the engine's ``obs``
+carry.  The JAX package's pytrees cross as ``{field: np.ndarray}``
+dictionaries (``StoreState`` nests its ``cluster``, ``duot`` and, when
+present, ``hints`` and ``dura`` dictionaries; the obs carry is
+``{"hist": ..., "counters": {name: ...}}``), so state taken from a
+reference run can be fed to the port and compared field by field.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.duot import Duot
-from repro_torch.core.replicated_store import StoreState
+from repro_torch.core.replicated_store import DuraState, HintState, StoreState
 from repro_torch.core.xstcc import ClusterState
 from repro_torch.device import resolve_device
 
@@ -39,19 +41,53 @@ def duot_from_numpy(d: dict[str, Any], device="cuda") -> Duot:
     return _build(Duot, d, resolve_device(device))
 
 
+def hint_state_from_numpy(d: dict[str, Any], device="cuda") -> HintState:
+    return _build(HintState, d, resolve_device(device))
+
+
+def dura_state_from_numpy(d: dict[str, Any], device="cuda") -> DuraState:
+    return _build(DuraState, d, resolve_device(device))
+
+
 def store_state_from_numpy(d: dict[str, Any], device="cuda") -> StoreState:
+    """A ``StoreState``; ``hints`` / ``dura`` stay ``None`` when the
+    dictionary has no such entry, as in a store built without them."""
     dev = resolve_device(device)
     return StoreState(
         cluster=cluster_state_from_numpy(d["cluster"], dev),
         duot=duot_from_numpy(d["duot"], dev),
         pend_apply=_tensor(d["pend_apply"], dev),
+        hints=hint_state_from_numpy(d["hints"], dev) if d.get("hints") is not None else None,
+        dura=dura_state_from_numpy(d["dura"], dev) if d.get("dura") is not None else None,
     )
 
 
+def obs_from_numpy(d: dict[str, Any], device="cuda") -> dict[str, Any]:
+    """The engine's obs carry from ``{"hist", "counters"}`` arrays."""
+    dev = resolve_device(device)
+    return {
+        "hist": _tensor(d["hist"], dev),
+        "counters": {k: _tensor(v, dev) for k, v in d["counters"].items()},
+    }
+
+
+def obs_to_numpy(carry: dict[str, Any]) -> dict[str, Any]:
+    """``{"hist", "counters"}`` numpy arrays of the engine's obs carry."""
+    return {
+        "hist": carry["hist"].detach().cpu().numpy(),
+        "counters": {k: np.asarray(v.detach().cpu().numpy()
+                                   if isinstance(v, torch.Tensor) else v)
+                     for k, v in carry["counters"].items()},
+    }
+
+
 def to_numpy(state: NamedTuple) -> dict[str, Any]:
-    """``{field: np.ndarray}`` of a port state (nested for StoreState)."""
+    """``{field: np.ndarray}`` of a port state (nested for StoreState;
+    ``None`` fields are left out)."""
     out = {}
     for f in state._fields:
         v = getattr(state, f)
+        if v is None:
+            continue
         out[f] = to_numpy(v) if isinstance(v, tuple) else v.detach().cpu().numpy()
     return out

@@ -1,5 +1,5 @@
 """ReplicatedStore — the replicated-state facade (port of
-``repro.core.replicated_store``, the flat subset).
+``repro.core.replicated_store``; crash and bootstrap are not ported yet).
 
   * **state**     — :class:`StoreState` bundles the protocol cluster, the
     DUOT op log and the pending ring's emulated apply points;
@@ -10,11 +10,21 @@
     to its (sync period, Δ) pair, :meth:`ReplicatedStore.schedule_stream`
     replays the sequential merge schedule in op-index space, and
     :meth:`ReplicatedStore.merge` runs the timed-causal propagation step;
+  * **faults**    — masked :meth:`~ReplicatedStore.merge`,
+    :meth:`~ReplicatedStore.merge_faulty` and the clock-neutral
+    :meth:`~ReplicatedStore.anti_entropy`;
+  * **gossip / hinted handoff** — :meth:`~ReplicatedStore.gossip_round`
+    (digest diff + range-restricted repair merges),
+    :meth:`~ReplicatedStore.enqueue_hints` /
+    :meth:`~ReplicatedStore.drain_hints` over :class:`HintState`;
+  * **durability** — :class:`DurabilityConfig`, :class:`DuraState`,
+    :meth:`~ReplicatedStore.snapshot`, :meth:`~ReplicatedStore.wal_append`;
   * **audit**     — :meth:`ReplicatedStore.audit`.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import numpy as np
@@ -25,6 +35,8 @@ from repro_torch.core import duot as duot_lib
 from repro_torch.core import xstcc
 from repro_torch.core.consistency import ConsistencyLevel
 from repro_torch.device import resolve_device
+from repro_torch.gossip import digest as digest_lib
+from repro_torch.kernels import ops as kernel_ops
 
 
 def merge_cadence(
@@ -103,16 +115,107 @@ def schedule_apply_points(
     return np.asarray(out, np.int32)
 
 
+@dataclasses.dataclass(frozen=True)
+class DurabilityConfig:
+    """Static durability knobs.
+
+    ``snapshot_every`` merge epochs between snapshot markers (0 = no
+    snapshots); ``wal`` additionally journals every applied delta
+    between markers.  ``bootstrap_ranges`` and ``impl`` serve the crash
+    path's peer bootstrap, which is not ported yet.
+    """
+
+    snapshot_every: int = 4
+    wal: bool = False
+    bootstrap_ranges: int = 8
+    impl: str | None = None
+
+    @property
+    def enabled(self) -> bool:
+        return self.snapshot_every > 0 or self.wal
+
+
+class DuraState(NamedTuple):
+    """Durable-media shadow of the applied state.
+
+    ``snap_version``/``snap_vc`` mirror ``replica_version`` /
+    ``replica_vc`` as of each replica's last snapshot marker;
+    ``wal_len`` counts deltas journaled since that marker;
+    ``wal_total``/``snap_rows`` accumulate lifetime I/O events for the
+    eq. 8 durability bill."""
+
+    snap_version: torch.Tensor  # (P, R) int32
+    snap_vc: torch.Tensor       # (P, C) int32
+    wal_len: torch.Tensor       # (P,) int32
+    wal_total: torch.Tensor     # () int32
+    snap_rows: torch.Tensor     # () int32
+
+
+def make_dura(n_replicas: int, n_clients: int, n_resources: int,
+              device: str | torch.device = "cuda") -> DuraState:
+    i32 = dict(dtype=torch.int32, device=device)
+    return DuraState(
+        snap_version=torch.zeros((n_replicas, n_resources), **i32),
+        snap_vc=torch.zeros((n_replicas, n_clients), **i32),
+        wal_len=torch.zeros((n_replicas,), **i32),
+        wal_total=torch.zeros((), **i32),
+        snap_rows=torch.zeros((), **i32),
+    )
+
+
+class HintState(NamedTuple):
+    """Bounded per-replica hinted-handoff queues.
+
+    Queue ``d`` holds hints for writes that could not reach replica
+    ``d`` when they committed: the pending-ring slot plus the committed
+    version (which guards against slot recycling).  ``count[d]`` entries
+    are live, in enqueue order; past-capacity hints bump ``dropped``."""
+
+    slot: torch.Tensor      # (P, H) int32
+    version: torch.Tensor   # (P, H) int32
+    count: torch.Tensor     # (P,) int32
+    dropped: torch.Tensor   # () int32
+
+
+def make_hints(n_replicas: int, hint_cap: int,
+               device: str | torch.device = "cuda") -> HintState:
+    i32 = dict(dtype=torch.int32, device=device)
+    return HintState(
+        slot=torch.zeros((n_replicas, hint_cap), **i32),
+        version=torch.zeros((n_replicas, hint_cap), **i32),
+        count=torch.zeros((n_replicas,), **i32),
+        dropped=torch.zeros((), **i32),
+    )
+
+
+def _put_rows_drop(target: torch.Tensor, row: torch.Tensor, col: torch.Tensor,
+                   vals: torch.Tensor) -> torch.Tensor:
+    """``target.at[row, col].set(vals, mode="drop")`` for columns in
+    ``[0, H]``: column ``H`` is out of range and its writes are dropped
+    (they land in a spare column that is cut off).  Kept targets must be
+    unique, as they are for the hint queues."""
+    p, h = target.shape
+    ext = target.new_zeros((p, h + 1))
+    ext[:, :h] = target
+    ext.view(-1)[(row.long() * (h + 1) + col.long()).reshape(-1)] = (
+        vals.to(target.dtype).reshape(-1))
+    return ext[:, :h]
+
+
 class StoreState(NamedTuple):
     """Protocol state + op log.
 
     ``pend_apply`` shadows the pending ring with each in-flight write's
     emulated sequential apply op-index, carrying the merge-cadence
-    emulation across batch boundaries."""
+    emulation across batch boundaries.  ``hints`` / ``dura`` hold the
+    hinted-handoff queues and the durability layer when the store was
+    built with them, and are ``None`` otherwise."""
 
     cluster: xstcc.ClusterState
     duot: duot_lib.Duot
     pend_apply: torch.Tensor     # (Q,) int32
+    hints: HintState | None = None
+    dura: DuraState | None = None
 
 
 class ReplicatedStore:
@@ -137,6 +240,8 @@ class ReplicatedStore:
         pending_cap: int = 128,
         duot_cap: int = 1024,
         ingest: str = "auto",
+        hint_cap: int = 0,
+        durability: DurabilityConfig | None = None,
         device: str | torch.device = "cuda",
     ):
         self.n_replicas = n_replicas
@@ -145,6 +250,11 @@ class ReplicatedStore:
         self.level = level
         self.pending_cap = pending_cap
         self.duot_cap = duot_cap
+        self.hint_cap = hint_cap
+        self.durability = (
+            durability if durability is not None and durability.enabled
+            else None
+        )
         self.device = resolve_device(device)
         self.sync_every, self.delta = merge_cadence(level, merge_every, delta)
         self.enforce_sessions = level.is_session_guarded
@@ -161,6 +271,11 @@ class ReplicatedStore:
             duot=duot_lib.make(self.duot_cap, self.n_clients, device=self.device),
             pend_apply=torch.zeros((self.pending_cap,), dtype=torch.int32,
                                    device=self.device),
+            hints=(make_hints(self.n_replicas, self.hint_cap, self.device)
+                   if self.hint_cap > 0 else None),
+            dura=(make_dura(self.n_replicas, self.n_clients, self.n_resources,
+                            self.device)
+                  if self.durability is not None else None),
         )
 
     # -- merge-cadence emulation ---------------------------------------------
@@ -294,7 +409,8 @@ class ReplicatedStore:
                     "version": res.version, "replica": p, "vc": res.vc,
                 },
             )
-        return StoreState(cluster=res.state, duot=duot, pend_apply=pend_apply), res
+        return StoreState(cluster=res.state, duot=duot, pend_apply=pend_apply,
+                          hints=state.hints, dura=state.dura), res
 
     # -- server side ----------------------------------------------------------
 
@@ -303,11 +419,15 @@ class ReplicatedStore:
         state: StoreState,
         *,
         delta: int | None = None,
+        up=None,
+        link=None,
         timed_only: bool = False,
         boundary: int | None = None,
     ) -> tuple[StoreState, torch.Tensor]:
         """Timed-causal propagation (Δ defaults to the level's cadence).
 
+        ``up``/``link`` mask the propagation to live, connected replica
+        pairs (see :func:`repro_torch.core.xstcc.server_merge`).
         ``timed_only`` drops the causal-dependency gate (lean replay);
         with ``boundary`` (the global op index reached so far) it applies
         exactly the slots whose emulated apply point has passed.
@@ -319,10 +439,239 @@ class ReplicatedStore:
                 raise ValueError("boundary requires timed_only")
             ready = state.pend_apply <= int(boundary)
         cluster, n = xstcc.server_merge(
-            state.cluster, delta=d, level=self.level,
+            state.cluster, delta=d, level=self.level, up=up, link=link,
             timed_only=timed_only, ready=ready,
         )
         return state._replace(cluster=cluster), n
+
+    def merge_faulty(
+        self, state: StoreState, *, up, link, delta: int | None = None,
+    ) -> tuple[StoreState, torch.Tensor, torch.Tensor]:
+        """Masked merge that also meters propagation: returns ``(state,
+        n_applied, events)``, ``events`` the growth of ``pend_applied``
+        (one replica-propagation payload each)."""
+        before = state.cluster.pend_applied.sum(dtype=torch.int32)
+        new, n = self.merge(state, delta=delta, up=up, link=link)
+        events = new.cluster.pend_applied.sum(dtype=torch.int32) - before
+        return new, n, events
+
+    def anti_entropy(
+        self, state: StoreState, *, up, link,
+    ) -> tuple[StoreState, torch.Tensor]:
+        """Full reconciliation along the live links: a Δ=0 masked merge
+        that pushes the whole backlog to every reachable replica.  The
+        logical clock is restored afterwards, so a second call at the
+        same masks changes nothing.  Returns ``(state, deliveries)``."""
+        new, _, events = self.merge_faulty(state, up=up, link=link, delta=0)
+        new = new._replace(
+            cluster=new.cluster._replace(clock=state.cluster.clock)
+        )
+        return new, events
+
+    # -- gossip anti-entropy / hinted handoff -----------------------------------
+
+    def _masked_pass(self, cluster: xstcc.ClusterState, select: torch.Tensor,
+                     up, link) -> tuple[xstcc.ClusterState, torch.Tensor]:
+        """A clock-neutral Δ=0 merge over the live slots in ``select``
+        along ``link``; returns the cluster and the ``(P,)`` deliveries
+        by receiving replica."""
+        saved_live = cluster.pend_live
+        before = cluster.pend_applied.sum(dim=0, dtype=torch.int32)
+        merged, _ = xstcc.server_merge(
+            cluster._replace(pend_live=saved_live & select), delta=0,
+            level=self.level, up=up, link=link,
+        )
+        growth = merged.pend_applied.sum(dim=0, dtype=torch.int32) - before
+        cluster = merged._replace(
+            pend_live=saved_live & ~merged.pend_applied.all(dim=1),
+            clock=cluster.clock,
+        )
+        return cluster, growth
+
+    def gossip_round(
+        self,
+        state: StoreState,
+        *,
+        pairs,               # (M, 2) int — ordered (replica, peer) pairs
+        up,                  # (P,) bool
+        link,                # (P, P) bool — closed connectivity
+        n_ranges: int,
+        impl: str | None = None,
+    ) -> tuple[StoreState, dict[str, torch.Tensor]]:
+        """One digest-exchange pass: diff, then repair stale ranges.
+
+        Each pair ``(a, b)`` diffs per-range digests
+        (:func:`repro_torch.gossip.digest.range_digests`) through
+        ``kernels.ops.digest_compare`` and repairs the differing ranges
+        with a Δ=0 merge restricted to live writes in those ranges and
+        to the ``a``–``b`` edge.  Pairs that are down, disconnected or
+        self-loops are invalid and repair nothing.  Clock-neutral.  The
+        reference scans the pairs; here they are a Python loop.
+
+        Returns ``(state, telemetry)``: ``valid`` (M,) bool, ``ranges``
+        (M,) int32 stale ranges per pair, ``growth`` (M, P) int32
+        deliveries per pair by receiving replica, ``gap_repaired`` ()
+        int32, the drop in ``Σ max(0, global − replica)``.
+        """
+        cl = state.cluster
+        dev = cl.pend_live.device
+        p = self.n_replicas
+        r = self.n_resources
+        pairs = torch.as_tensor(pairs, device=dev).to(torch.long)
+        u = torch.as_tensor(up, device=dev).to(torch.bool)
+        ln = torch.as_tensor(link, device=dev).to(torch.bool)
+        a_idx, b_idx = pairs[:, 0], pairs[:, 1]
+        valid = u[a_idx] & u[b_idx] & ln[a_idx, b_idx] & (a_idx != b_idx)
+        dig = digest_lib.range_digests(cl.replica_version, n_ranges)
+        differ, _, _ = kernel_ops.digest_compare(
+            dig[a_idx], dig[b_idx], impl=impl
+        )                                                   # (M, K)
+        stale = differ & valid[:, None]
+        rid = digest_lib.range_of_resource(r, n_ranges, dev).long()
+
+        def gap(c):
+            return torch.clamp(
+                c.global_version[None, :] - c.replica_version, min=0
+            ).sum(dtype=torch.int32)
+
+        gap_before = gap(cl)
+        eye = torch.eye(p, dtype=torch.bool, device=dev)
+        rows = torch.arange(p, device=dev)
+        growth = []
+        for m, (a, b) in enumerate(pairs.tolist()):
+            res_rid = rid[torch.clamp(cl.pend_resource, 0, r - 1).long()]
+            in_stale = stale[m][res_rid] & valid[m]                  # (Q,)
+            ia, ib = rows == a, rows == b
+            pair_ln = eye | (ia[:, None] & ib[None, :]) | (ib[:, None] & ia[None, :])
+            cl, g = self._masked_pass(cl, in_stale, u, pair_ln)
+            growth.append(g)
+        telemetry = {
+            "valid": valid,
+            "ranges": stale.sum(dim=1, dtype=torch.int32),
+            "growth": torch.stack(growth),
+            "gap_repaired": gap_before - gap(cl),
+        }
+        return state._replace(cluster=cl), telemetry
+
+    def enqueue_hints(
+        self,
+        state: StoreState,
+        *,
+        slot,        # (B,) int32 — pending-ring slot per op
+        version,     # (B,) int32 — committed version per op
+        kind,        # (B,) int32
+        home,        # (B,) int32 — coordinator replica per op
+        conn,        # (P, P) bool — closed connectivity this epoch
+    ) -> tuple[StoreState, torch.Tensor, torch.Tensor]:
+        """Queue hints for the replicas a batch's writes could not reach
+        (``~conn[home, d]``): ``(slot, version)`` on ``d``'s bounded
+        queue, overflow counted in ``hints.dropped``.  Returns ``(state,
+        n_enqueued, n_dropped)``."""
+        hints = state.hints
+        dev = hints.count.device
+        h = self.hint_cap
+        is_w = torch.as_tensor(kind, device=dev) == xstcc.WRITE
+        cn = torch.as_tensor(conn, device=dev).to(torch.bool)
+        miss = is_w[None, :] & ~cn[torch.as_tensor(home, device=dev).long()].T  # (P, B)
+        rank = torch.cumsum(miss.to(torch.int32), dim=1) - 1
+        pos = hints.count[:, None] + rank                            # (P, B)
+        ok = miss & (pos < h)
+        posc = torch.where(ok, pos, h)      # h = out of range -> dropped
+        d_grid = torch.arange(self.n_replicas, device=dev)[:, None].expand_as(posc)
+        slot_b = torch.as_tensor(slot, device=dev)[None, :].expand_as(posc)
+        ver_b = torch.as_tensor(version, device=dev)[None, :].expand_as(posc)
+        n_enq = ok.sum(dtype=torch.int32)
+        n_drop = (miss & ~ok).sum(dtype=torch.int32)
+        new_hints = HintState(
+            slot=_put_rows_drop(hints.slot, d_grid, posc, slot_b),
+            version=_put_rows_drop(hints.version, d_grid, posc, ver_b),
+            count=hints.count + ok.sum(dim=1, dtype=torch.int32),
+            dropped=hints.dropped + n_drop,
+        )
+        return state._replace(hints=new_hints), n_enq, n_drop
+
+    def drain_hints(
+        self, state: StoreState, *, up, link,
+    ) -> tuple[StoreState, torch.Tensor]:
+        """Deliver queued hints along the now-live links (heal path).
+
+        Per destination ``d`` the queue is re-validated against the
+        pending ring (a recycled slot or a retired write is discarded),
+        the surviving hinted writes are pushed by a clock-neutral Δ=0
+        merge over the links touching ``d``, and the queue is compacted
+        to the valid hints still undelivered at ``d``.  The reference
+        scans the destinations; here they are a Python loop.  Returns
+        ``(state, deliveries)``, a ``(P,)`` vector by receiving replica.
+        """
+        hints = state.hints
+        cluster = state.cluster
+        dev = cluster.pend_live.device
+        h = self.hint_cap
+        p = self.n_replicas
+        q = cluster.pend_live.shape[0]
+        u = torch.as_tensor(up, device=dev).to(torch.bool)
+        ln = torch.as_tensor(link, device=dev).to(torch.bool)
+        eye = torch.eye(p, dtype=torch.bool, device=dev)
+        rows = torch.arange(p, device=dev)
+        hpos = torch.arange(h, device=dev)
+        delivered = torch.zeros((p,), dtype=torch.int32, device=dev)
+        h_slot, h_ver, h_count = hints.slot, hints.version, hints.count
+        for d in range(p):
+            qslots = torch.clamp(h_slot[d], 0, q - 1).long()
+            hint_ok = (
+                (hpos < h_count[d])
+                & cluster.pend_live[qslots]
+                & (cluster.pend_version[qslots] == h_ver[d])
+            )
+            # Duplicate slots in one queue reduce by max, as .at[].max does.
+            marked = torch.zeros((q,), dtype=torch.int32, device=dev).scatter_reduce(
+                0, qslots, hint_ok.to(torch.int32), "amax", include_self=True
+            ).to(torch.bool)
+            touch_d = (rows == d)[:, None] | (rows == d)[None, :]
+            cluster, ev = self._masked_pass(cluster, marked, u, (eye | touch_d) & ln)
+            delivered = delivered + ev
+            # Compact: keep valid hints still undelivered at d.
+            keep = hint_ok & ~cluster.pend_applied[qslots, d]
+            kpos = torch.where(keep, torch.cumsum(keep.to(torch.int32), 0) - 1, h)
+            zero_row = torch.zeros((1, h), dtype=torch.int32, device=dev)
+            zeros_d = torch.zeros_like(kpos)
+            h_slot = h_slot.clone()
+            h_slot[d] = _put_rows_drop(zero_row, zeros_d, kpos, h_slot[d])[0]
+            h_ver = h_ver.clone()
+            h_ver[d] = _put_rows_drop(zero_row, zeros_d, kpos, h_ver[d])[0]
+            h_count = h_count.clone()
+            h_count[d] = keep.sum(dtype=torch.int32)
+        hints = HintState(slot=h_slot, version=h_ver, count=h_count,
+                          dropped=hints.dropped)
+        return state._replace(cluster=cluster, hints=hints), delivered
+
+    # -- durability ---------------------------------------------------------------
+
+    def snapshot(self, state: StoreState) -> tuple[StoreState, torch.Tensor]:
+        """Persist a snapshot marker at every replica and truncate the
+        WALs; the I/O charged is the number of ``(replica, resource)``
+        cells whose version moved since the last marker.  Returns
+        ``(state, cells_written)``."""
+        cl, du = state.cluster, state.dura
+        cells = (du.snap_version != cl.replica_version).sum(dtype=torch.int32)
+        dura = DuraState(
+            snap_version=cl.replica_version,
+            snap_vc=cl.replica_vc,
+            wal_len=torch.zeros_like(du.wal_len),
+            wal_total=du.wal_total,
+            snap_rows=du.snap_rows + cells,
+        )
+        return state._replace(dura=dura), cells
+
+    def wal_append(self, state: StoreState, records) -> StoreState:
+        """Journal ``records`` (P,) applied deltas since the last marker."""
+        du = state.dura
+        rec = torch.as_tensor(records, device=du.wal_len.device).to(torch.int32)
+        dura = du._replace(
+            wal_len=du.wal_len + rec,
+            wal_total=du.wal_total + rec.sum(dtype=torch.int32),
+        )
+        return state._replace(dura=dura)
 
     # -- audit ----------------------------------------------------------------
 

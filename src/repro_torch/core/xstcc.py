@@ -1,5 +1,5 @@
-"""X-STCC protocol engine — paper §3.4 (port of ``repro.core.xstcc``,
-the flat subset).
+"""X-STCC protocol engine — paper §3.4 (port of ``repro.core.xstcc``;
+the geo merge and the one-at-a-time sequential merge are not ported yet).
 
 A functional state machine over ``(clients × replicas × resources)``:
 
@@ -365,17 +365,27 @@ def server_merge(
     reference runs the fixpoint as a ``lax.while_loop``; here it is a
     Python ``while`` that reads one flag per pass.
 
+    ``up`` (``(P,)`` bool) and ``link`` (``(P, P)`` bool, the closed
+    connectivity of ``FaultSchedule.closure``) mask the propagation: a
+    write reaches replica ``p`` only if ``p`` is live and connected to a
+    replica already holding it, and the causal gate spans the write's
+    reachable component.  With all-True masks the result equals the
+    unmasked merge bit for bit.
+
+    The fixpoint runs over the live slots only, gathered once per merge
+    (the reference sweeps the whole ring, a ``(Q, P, C)`` temporary per
+    pass: ~3 GB at the fault path's 4M-slot ring).  Dead slots never
+    pass the gate and add nothing to a max, so this is exact.  The clock
+    gate and the clock max are also taken one replica at a time, an
+    ``(L, C)`` temporary instead of the ``(L, P, C)`` cube.
+
     ``timed_only=True`` drops the causal gate (lean replay): one pass
-    applying the slots in ``ready`` (or the Δ-overdue ones).
+    applying the slots in ``ready`` (or the Δ-overdue ones); it takes no
+    fault masks.
 
     Returns (state, n_applied): writes that reached a new replica.
-    Masked merges (``up`` / ``link``) are not ported yet.
     """
     del level  # the order is identical; levels differ in *when* merge runs
-    if up is not None or link is not None:
-        raise NotImplementedError(
-            "masked server_merge (up/link fault masks) is not ported yet"
-        )
     if ready is not None and not timed_only:
         raise ValueError("ready requires timed_only")
     d = int(delta)
@@ -383,14 +393,24 @@ def server_merge(
     C = state.replica_vc.shape[1]
     R = state.global_version.shape[0]
     dev = state.pend_live.device
+    masked = up is not None or link is not None
+    if masked:
+        if timed_only:
+            raise ValueError("timed_only merge cannot take fault masks")
+        u = (torch.ones((P,), dtype=torch.bool, device=dev) if up is None
+             else torch.as_tensor(up, device=dev).to(torch.bool))
+        ln = (torch.ones((P, P), dtype=torch.bool, device=dev) if link is None
+              else torch.as_tensor(link, device=dev).to(torch.bool))
+        # Holders can only hand a write to live, reachable replicas.
+        conn = ln & u[None, :] & u[:, None]
 
     live = state.pend_live
     overdue = live & ((state.clock - state.pend_time) >= d)
-    # Dead slots carry version 0 into resource 0: a no-op under the max.
-    res_safe = torch.where(live, state.pend_resource, 0).long()
-    flat = torch.arange(P, device=dev)[None, :] * R + res_safe[:, None]   # (Q, P)
 
     if timed_only:
+        # Dead slots carry version 0 into resource 0: a no-op under the max.
+        res_safe = torch.where(live, state.pend_resource, 0).long()
+        flat = torch.arange(P, device=dev)[None, :] * R + res_safe[:, None]
         elig = overdue if ready is None else live & ready
         elig_at = elig[:, None] & ~state.pend_applied                # (Q, P)
         ver_at = torch.where(elig_at, state.pend_version[:, None], 0)
@@ -404,32 +424,49 @@ def server_merge(
         )
         return new, elig_at.any(dim=1).sum(dtype=torch.int32)
 
+    idx = torch.nonzero(live).squeeze(1)                              # (L,)
+    vc = state.pend_vc[idx]                                           # (L, C)
+    ver = state.pend_version[idx]
+    od = overdue[idx]
+    applied = state.pend_applied[idx]                                 # (L, P)
+    flat = (torch.arange(P, device=dev)[None, :] * R
+            + state.pend_resource[idx].long()[:, None])
     # A write is applicable once its causal deps are stable: its vc
-    # (minus its own tick) <= every replica's vc.
-    own = torch.arange(C, device=dev)[None, :] == state.pend_client[:, None]
-    dep_vc = state.pend_vc - own.to(torch.int32)
-    rv, rvc, applied = state.replica_version, state.replica_vc, state.pend_applied
+    # (minus its own tick) <= the replicas' vcs.
+    own = torch.arange(C, device=dev)[None, :] == state.pend_client[idx][:, None]
+    dep_vc = vc - own.to(torch.int32)
+    rv, rvc = state.replica_version, state.replica_vc
     n = torch.zeros((), dtype=torch.int32, device=dev)
-    go = bool(live.any())
+    go = idx.numel() > 0
     while go:
-        deps_ok = (dep_vc[:, None, :] <= rvc[None, :, :]).all(dim=-1)   # (Q, P)
-        done = applied.all(dim=1)
-        elig = live & ~done & (overdue | deps_ok.all(dim=-1))
-        elig_at = elig[:, None] & ~applied
-        ver_at = torch.where(elig_at, state.pend_version[:, None], 0)
+        deps_ok = torch.stack(
+            [(dep_vc <= rvc[p][None, :]).all(dim=-1) for p in range(P)], dim=1
+        )                                                             # (L, P)
+        if masked:
+            # reach[w, p]: some holder of w can ship it to p this epoch;
+            # the gate spans the write's reachable component.
+            reach = (applied[:, :, None] & conn[None, :, :]).any(dim=1)
+            gate = torch.where(reach, deps_ok, True).all(dim=1)
+            elig_at = ~applied & reach & (od | gate)[:, None]
+        else:
+            elig = ~applied.all(dim=1) & (od | deps_ok.all(dim=-1))
+            elig_at = elig[:, None] & ~applied
+        ver_at = torch.where(elig_at, ver[:, None], 0)
         rv = _scatter_max(rv, flat, ver_at)
-        vc_new = torch.where(
-            elig_at[:, :, None], state.pend_vc[:, None, :], 0
-        ).amax(dim=0)                                                   # (P, C)
+        vc_new = torch.stack(
+            [torch.where(elig_at[:, p, None], vc, 0).amax(dim=0) for p in range(P)]
+        )                                                             # (P, C)
         rvc = torch.maximum(rvc, vc_new)
         applied = applied | elig_at
         n = n + elig_at.any(dim=1).sum(dtype=torch.int32)
         go = bool(elig_at.any())
-    fully = applied.all(dim=1)
+    pend_applied = state.pend_applied.clone()
+    pend_applied[idx] = applied
+    fully = pend_applied.all(dim=1)
     new = state._replace(
         replica_version=rv,
         replica_vc=rvc,
-        pend_applied=applied,
+        pend_applied=pend_applied,
         pend_live=live & ~fully,
         clock=state.clock + 1,
     )

@@ -1,9 +1,12 @@
-"""Configuration of the epoch engine — the flat fields plus ``lean``
-(port of ``repro.engine.config``).
+"""Configuration of the epoch engine (port of ``repro.engine.config``).
 
-The reference composes topology, fault schedules, gossip, durability,
-sharding and observability into the same dataclass; those pieces are
-not ported yet, and a config that sets any of them raises.
+One frozen dataclass holds every piece of a replay: level and cadence,
+batching, the fault schedule (``faults``, anchored per merge round or,
+with ``schedule_unit``, per op-index window), ``gossip``,
+``durability``, ``obs`` and the ``lean`` fidelity switch.  Pieces the
+port does not run yet raise ``NotImplementedError``: ``topology``,
+``n_shards > 1``, schedules with crash events, and
+``GossipConfig(peer="nearest")``.
 """
 
 from __future__ import annotations
@@ -11,20 +14,28 @@ from __future__ import annotations
 import dataclasses
 from typing import Any
 
+from repro_torch.core.availability import FaultSchedule
 from repro_torch.core.consistency import ConsistencyLevel
+from repro_torch.core.replicated_store import DurabilityConfig
+from repro_torch.gossip.scheduler import GossipConfig
+from repro_torch.obs.metrics import ObsConfig
 
-_NOT_PORTED = ("topology", "faults", "schedule_unit", "gossip", "durability", "obs")
+
+def _not_ported(what: str, why: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet: {why}")
 
 
-@dataclasses.dataclass(frozen=True)
+@dataclasses.dataclass(frozen=True, eq=False)
 class EngineConfig:
-    """Everything one flat epoch-engine replay needs.
+    """Everything one epoch-engine replay needs.
 
     ``lean`` skips the vector-clock chain, the DUOT record and the
     causal-dependency merge gate when the closed-form cadence emulation
-    already carries visibility (emulated levels, ``audit=False``).
-    ``ingest`` picks the kernels' implementation (``"auto"`` /
-    ``"cuda"`` / ``"torch"``); ``audit`` is a result-assembly knob.
+    already carries visibility (emulated levels, flat path,
+    ``audit=False``).  ``ingest`` picks the kernels' implementation
+    (``"auto"`` / ``"cuda"`` / ``"torch"``); ``audit`` is a
+    result-assembly knob.  Equality and hashing compare the fault masks
+    by their bytes, as the reference does.
     """
 
     level: ConsistencyLevel
@@ -42,46 +53,91 @@ class EngineConfig:
     pending_cap: int | None = None
     n_shards: int = 1
     topology: Any = None
-    faults: Any = None
+    faults: FaultSchedule | None = None
     schedule_unit: int | None = None
-    gossip: Any = None
-    durability: Any = None
-    obs: Any = None
+    gossip: GossipConfig | None = None
+    durability: DurabilityConfig | None = None
+    obs: ObsConfig | None = None
 
     def __post_init__(self) -> None:
-        for name in _NOT_PORTED:
-            if getattr(self, name) is not None:
-                raise NotImplementedError(
-                    f"EngineConfig.{name} is not ported yet: repro_torch "
-                    "runs the flat engine only"
+        if self.topology is not None:
+            raise _not_ported("EngineConfig.topology", "it needs the geo slice")
+        if self.n_shards < 1:
+            raise ValueError(f"n_shards must be >= 1, got {self.n_shards}")
+        if self.n_shards > 1:
+            raise _not_ported("EngineConfig.n_shards > 1",
+                              "repro_torch runs one shard")
+        if self.faults is not None:
+            if self.faults.n_replicas != 3:
+                raise ValueError(
+                    f"schedule covers {self.faults.n_replicas} replicas; the "
+                    "paper cluster has 3 DCs"
                 )
-        if self.n_shards != 1:
-            raise NotImplementedError(
-                "EngineConfig.n_shards > 1 is not ported yet: repro_torch "
-                "runs the flat engine only"
-            )
+            if self.faults.has_crashes:
+                raise _not_ported("a fault schedule with crash events",
+                                  "crash and bootstrap are deferred")
+        if self.gossip is not None and self.gossip.peer == "nearest":
+            raise _not_ported('GossipConfig(peer="nearest")',
+                              "it needs the geo slice")
         if self.ingest not in ("auto", "cuda", "torch"):
             raise ValueError(
                 f"ingest must be 'auto', 'cuda' or 'torch', got {self.ingest!r}"
             )
-        if self.lean and self.audit:
+        if self.lean and (
+            self.faults is not None or self.gossip is not None
+            or self.durability is not None or self.audit
+        ):
             raise ValueError(
-                "lean fidelity serves the flat throughput path only: "
-                "audit=False"
+                "lean fidelity serves the flat throughput path only: no "
+                "faults/gossip/durability, audit=False"
             )
+
+    # -- identity ---------------------------------------------------------
+
+    def _key(self) -> tuple:
+        f = self.faults
+        faults_key = None if f is None else (
+            f.up.tobytes(), f.link.tobytes(), f.crash.tobytes(), f.up.shape
+        )
+        return (
+            self.level, self.n_ops, self.n_clients, self.n_resources,
+            self.merge_every, self.delta, self.duot_cap, self.batch_size,
+            self.seed, self.audit, self.ingest, self.lean, self.topology,
+            self.n_shards, faults_key, self.schedule_unit, self.gossip,
+            self.durability, self.pending_cap, self.obs,
+        )
+
+    def __eq__(self, other: object) -> bool:
+        if not isinstance(other, EngineConfig):
+            return NotImplemented
+        return self._key() == other._key()
+
+    def __hash__(self) -> int:
+        return hash(self._key())
+
+    # -- derived plan -----------------------------------------------------
 
     @property
     def n_replicas(self) -> int:
         return 3
 
-    def resolved_pending_cap(self) -> int:
-        """The pending-ring bound: the all-up path sizes it to the batch."""
+    def resolved_pending_cap(self, w_read_fraction: float) -> int:
+        """The pending-ring bound this replay runs with.
+
+        Fault schedules hold a partition backlog (a write's slot stays
+        live until every replica has it), so the fault path sizes the
+        ring to the run's expected writes; the all-up path sizes it to
+        the batch.
+        """
         from repro_torch.engine.stream import cadence_plan
 
-        if self.pending_cap is not None:
-            return self.pending_cap
         sub, _, _, _ = cadence_plan(
             self.level, self.n_ops, self.batch_size, self.merge_every,
             self.delta,
         )
+        if self.pending_cap is not None:
+            return self.pending_cap
+        if self.faults is not None:
+            n_writes = int(round((1.0 - w_read_fraction) * self.n_ops))
+            return max(256, 2 * sub, n_writes + 1)
         return max(128, 2 * sub)

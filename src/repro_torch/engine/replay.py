@@ -1,10 +1,17 @@
-"""The epoch engine's flat replay (port of ``repro.engine.replay``).
+"""The epoch engine's replay (port of ``repro.engine.replay``).
 
-One round step — op ingest, boundary merge (or the lean merge),
-counters — runs once per merge round.  The reference scans it under one
-``jit``; here the round loop is Python, the stream and the schedule are
-moved to the device once, and the state stays on the device: per round
-the host reads only the DUOT size and the merge fixpoint's flags.
+One round step — heal-time hint drain and anti-entropy, failover, op
+ingest, hint enqueue, the boundary merge (masked under faults), the
+gossip exchange, WAL/snapshot journaling, counters and the obs
+histograms — runs once per merge round.  The reference scans it under
+one ``jit`` with every feature a statically gated section; here the
+round loop is Python and every section is a plain ``if``.  The per-round
+masks (``up``, ``conn``, ``faulty``, ``heal``, ``gossip``, ``snap``,
+``pairs``) stay on the host, so a ``lax.cond`` becomes an ``if`` with no
+device sync; the stream and what a merge or kernel consumes go to the
+device once.  Per round the host reads the DUOT size and one flag per
+merge-fixpoint pass.  Crash events, bootstrap, topology and sharding are
+not ported yet (``EngineConfig`` rejects them).
 """
 
 from __future__ import annotations
@@ -14,24 +21,45 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.core import availability as avail_lib
 from repro_torch.core import duot as duot_lib
 from repro_torch.core.replicated_store import ReplicatedStore
 from repro_torch.device import resolve_device
 from repro_torch.engine import stream as stream_lib
 from repro_torch.engine.config import EngineConfig
+from repro_torch.gossip.scheduler import gossip_pairs
+from repro_torch.kernels import ops as kernel_ops
+from repro_torch.obs import metrics as obs_lib
 
 
 class EpochEngine:
     """One workload replay on ``device`` (default ``"cuda"``).
 
     ``EpochEngine(config).replay(w)`` prepares the op stream, the
-    cadence plan and the apply-point schedule on the host, then runs the
-    round loop with the state on the device.
+    cadence plan, the apply-point schedule and the per-round masks on
+    the host, then runs the round loop with the state on the device.
+    Result assembly lives in :mod:`repro_torch.engine.results`.
     """
 
     def __init__(self, config: EngineConfig, device: str | torch.device = "cuda"):
         self.config = config
         self.device = resolve_device(device)
+        c = config
+        g = c.gossip
+        self.faults_on = c.faults is not None
+        self.g_on = g is not None and g.enabled
+        # Hinted handoff is a fault-path feature.
+        self.h_on = g is not None and g.handoff and self.faults_on
+        # The all-up path models durability host-side; only the fault
+        # path journals on the device.
+        self.d_on = (c.durability is not None and c.durability.enabled
+                     and self.faults_on)
+        self.w_on = self.d_on and c.durability.wal
+        self.s_on = self.d_on and c.durability.snapshot_every > 0
+        self.gx_on = g is not None and self.faults_on
+        self.o_on = c.obs is not None and c.obs.enabled
+        if self.o_on:
+            self.specs = obs_lib.build_metrics(c.obs, geo_on=False, h_on=self.h_on)
 
     def plan(self) -> tuple[int, int, int, bool]:
         c = self.config
@@ -39,76 +67,349 @@ class EpochEngine:
             c.level, c.n_ops, c.batch_size, c.merge_every, c.delta
         )
 
-    def store(self) -> ReplicatedStore:
+    def store(self, w) -> ReplicatedStore:
         c = self.config
         return ReplicatedStore(
             c.n_replicas, c.n_clients, c.n_resources, level=c.level,
             merge_every=c.merge_every, delta=c.delta,
-            pending_cap=c.resolved_pending_cap(),
-            duot_cap=c.duot_cap, ingest=c.ingest, device=self.device,
+            pending_cap=c.resolved_pending_cap(w.read_fraction),
+            duot_cap=c.duot_cap, ingest=c.ingest,
+            hint_cap=c.gossip.hint_cap if self.gx_on else 0,
+            durability=c.durability if self.d_on else None,
+            device=self.device,
         )
 
+    def _anchored_schedule(self, n_rounds: int, rem: int, sub: int):
+        """The fault schedule re-anchored onto this level's rounds: with
+        ``schedule_unit``, round ``t`` takes the masks of schedule epoch
+        ``t·sub // schedule_unit``."""
+        c = self.config
+        schedule = c.faults
+        if c.schedule_unit:
+            starts = np.arange(n_rounds + (1 if rem else 0)) * sub
+            idx = np.minimum(starts // c.schedule_unit, schedule.n_epochs - 1)
+            # Crash-free schedules only (EngineConfig rejects crashes).
+            schedule = avail_lib.FaultSchedule(schedule.up[idx], schedule.link[idx])
+        return schedule
+
+    def _fault_masks(self, n_rounds: int, rem: int, sub: int):
+        """(schedule, per-round host masks, tail host masks)."""
+        c = self.config
+        schedule = self._anchored_schedule(n_rounds, rem, sub)
+        schedule, masks, tail_masks = stream_lib.fault_epoch_inputs(
+            schedule, n_rounds, rem
+        )
+        n_epochs_total = n_rounds + (1 if rem else 0)
+        if c.gossip is not None:
+            g_active, g_pairs = gossip_pairs(3, n_epochs_total, c.gossip)
+            masks["gossip"] = g_active[:n_rounds]
+            masks["pairs"] = g_pairs[:n_rounds]
+            tail_masks["gossip"] = g_active[n_epochs_total - 1]
+            tail_masks["pairs"] = g_pairs[n_epochs_total - 1]
+        if c.durability is not None and c.durability.snapshot_every > 0:
+            se = c.durability.snapshot_every
+            snap = (np.arange(n_epochs_total) + 1) % se == 0
+            masks["snap"] = snap[:n_rounds]
+            tail_masks["snap"] = snap[n_epochs_total - 1]
+        return schedule, masks, tail_masks
+
     def prepare(self, w) -> dict[str, Any]:
-        """Host-side inputs of one replay: stream, plan, schedule."""
+        """Host-side inputs of one replay: stream, plan, schedule, masks."""
         c = self.config
         sub, rem, n_rounds, emulate = self.plan()
-        store = self.store()
+        store = self.store(w)
         stream = stream_lib.op_stream(
             w, c.n_ops, c.n_clients, c.n_resources, c.seed, store.n_replicas
         )
-        batched, tail = stream_lib.batch_inputs(
-            stream, store, sub, n_rounds, rem, emulate
-        )
+        schedule = masks = tail_masks = None
+        if self.faults_on:
+            schedule, masks, tail_masks = self._fault_masks(n_rounds, rem, sub)
+        if self.faults_on and emulate:
+            # The fault path builds its apply schedule by hand:
+            # synchronous levels defer to the masked merge under faults,
+            # and every level clamps faulty epochs.
+            batched = {
+                k: stream[k][: n_rounds * sub].reshape(n_rounds, sub)
+                for k in stream_lib.OP_COLS
+            }
+            tail = {k: stream[k][-max(rem, 1):] for k in stream_lib.OP_COLS}
+            if store.sync_every > 1:
+                apply_idx = store.schedule_stream(
+                    stream["client"], stream["home"], stream["kind"]
+                )
+            else:
+                apply_idx = np.zeros(c.n_ops, np.int32)
+            faulty_full = np.concatenate([
+                masks["faulty"],
+                np.asarray([tail_masks["faulty"]]) if rem else np.zeros(0, bool),
+            ])
+            apply_idx = stream_lib.clamp_apply_idx(
+                apply_idx, faulty_full, sub, c.n_ops
+            )
+            batched["apply_idx"] = apply_idx[: n_rounds * sub].reshape(n_rounds, sub)
+            tail["apply_idx"] = apply_idx[-max(rem, 1):]
+        else:
+            batched, tail = stream_lib.batch_inputs(
+                stream, store, sub, n_rounds, rem, emulate
+            )
 
         def dev(d):
             return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
                     for k, v in d.items()}
 
-        return {
+        prep = {
             "store": store, "batched": dev(batched),
             "tail": dev(tail), "sub": sub, "rem": rem, "n_rounds": n_rounds,
-            "emulate": emulate,
+            "emulate": emulate, "schedule": schedule, "masks": masks,
+            "tail_masks": tail_masks,
         }
+        if masks is not None:
+            # What the merges and kernels consume, on the device once.
+            prep["dev_masks"] = dev({"up": masks["up"], "conn": masks["conn"]})
+            prep["dev_tail_masks"] = dev({"up": tail_masks["up"],
+                                          "conn": tail_masks["conn"]})
+        return prep
+
+    def _init_carry(self, store: ReplicatedStore) -> dict:
+        dev = self.device
+        z = torch.zeros((), dtype=torch.int64, device=dev)
+        carry = {"st": store.init(), "stale": z, "viol": z, "reads": z}
+        if self.faults_on:
+            carry.update(ae=z, prop=z, fail=z)
+        if self.gx_on:
+            carry["gx"] = {"deliv": z, "ranges": z, "pairs": z, "gap": z}
+            if self.h_on:
+                carry["gx"].update(
+                    h_enq=z, h_drop=z,
+                    h_deliv=torch.zeros((store.n_replicas,), dtype=torch.int64,
+                                        device=dev),
+                )
+        if self.d_on:
+            # Crash events are not ported, so every recovery counter but
+            # the durability layer's own stays 0.
+            carry["rx"] = {k: 0 for k in (
+                "crashes", "wal_replayed", "rows_lost", "snap_read",
+                "boot_cells", "boot_pend", "boot_events",
+            )}
+        if self.o_on:
+            carry["obs"] = {
+                "hist": torch.zeros((len(self.specs), self.config.obs.n_bins),
+                                    dtype=torch.int32, device=dev),
+                "counters": {k: 0 for k in obs_lib.COUNTERS},
+            }
+        return carry
 
     def round_step(self, store: ReplicatedStore, carry: dict, ops: dict,
-                   step0: int, width: int, emulate: bool) -> dict:
-        """Ingest one round's ops, merge, and count reads/stale/violations."""
-        lean_merge = self.config.lean and emulate
+                   m: dict | None, step0: int, width: int, emulate: bool,
+                   ys: dict | None) -> dict:
+        """One merge round.  ``m`` holds the round's host masks (plus the
+        device ``up_t``/``conn_t``); ``ys`` collects the per-round series
+        (``None`` for the tail round, whose series are dropped)."""
+        c = self.config
+        dev = self.device
+        lean_merge = c.lean and emulate
+        st = carry["st"]
+        carry = dict(carry)
+        zero = torch.zeros((), dtype=torch.int64, device=dev)
+        if self.faults_on:
+            up, conn = m["up_t"], m["conn_t"]
+        if self.w_on:
+            # Applied copies at the start of the epoch: the epoch's
+            # growth is what each replica journals.
+            applied0 = st.cluster.pend_applied.sum(dim=0, dtype=torch.int32)
+        hd = None
+        if self.h_on and m["heal"]:
+            # Heal epoch: targeted hint deliveries front-run the full
+            # anti-entropy pass.
+            st, hd = store.drain_hints(st, up=up, link=conn)
+        if self.faults_on:
+            if m["heal"]:
+                # Reconcile the backlog along the newly available links
+                # before serving this epoch's ops.
+                st, ev = store.anti_entropy(st, up=up, link=conn)
+                carry["ae"] = carry["ae"] + ev
+            if m["up"].all():
+                home = ops["home"]
+            else:
+                # Ops whose home replica is down fail over to the next
+                # live replica in ring order.
+                home = avail_lib.reroute_ops(ops["home"], up)
+                carry["fail"] = carry["fail"] + (home != ops["home"]).sum()
+            if m["faulty"]:
+                # While a fault is active the closed-form cadence's
+                # "applied everywhere at the apply index" is wrong: defer
+                # pending-ring visibility to the real masked merges.
+                st = st._replace(pend_apply=torch.clamp(
+                    st.pend_apply, min=step0 + width))
+        else:
+            home = ops["home"]
+        if self.w_on:
+            # Ring slots claimed by this batch's writes overwrite their
+            # old applied bits; keep them so the journal counts gross
+            # applies.
+            pre_bits = st.cluster.pend_applied
+        # -- op ingest ----------------------------------------------------
         st, res = store.apply_batch(
-            carry["st"], client=ops["client"], replica=ops["home"],
+            st, client=ops["client"], replica=home,
             resource=ops["resource"], kind=ops["kind"],
             op_step0=step0 if emulate else None,
             apply_index=ops.get("apply_idx"),
-            record=not self.config.lean,
+            record=not c.lean,
             with_clocks=not lean_merge,
         )
+        ne = nd = zero
+        if self.h_on and m["faulty"]:
+            # Writes served during a fault leave hints for the replicas
+            # the coordinator could not reach this epoch.
+            st, ne, nd = store.enqueue_hints(
+                st, slot=res.slot, version=res.version, kind=ops["kind"],
+                home=home, conn=conn,
+            )
+        # -- boundary merge -----------------------------------------------
         if lean_merge:
             st, _ = store.merge(st, timed_only=True, boundary=step0 + width)
+        elif self.faults_on:
+            st, _, ev = store.merge_faulty(st, up=up, link=conn)
+            carry["prop"] = carry["prop"] + ev
         else:
             st, _ = store.merge(st)
+        # -- gossip anti-entropy ------------------------------------------
+        if self.gx_on:
+            gd = gr = gp = gg = zero
+            if self.g_on and m["gossip"]:
+                st, tel = store.gossip_round(
+                    st, pairs=m["pairs"], up=up, link=conn,
+                    n_ranges=c.gossip.n_ranges, impl=c.gossip.impl,
+                )
+                gd = tel["growth"].sum()
+                gr = tel["ranges"].sum()
+                gp = tel["valid"].sum()
+                gg = tel["gap_repaired"]
+            gx = dict(carry["gx"])
+            gx["deliv"] = gx["deliv"] + gd
+            gx["ranges"] = gx["ranges"] + gr
+            gx["pairs"] = gx["pairs"] + gp
+            gx["gap"] = gx["gap"] + gg
+            if self.h_on:
+                gx["h_enq"] = gx["h_enq"] + ne
+                gx["h_drop"] = gx["h_drop"] + nd
+                if hd is not None:
+                    gx["h_deliv"] = gx["h_deliv"] + hd
+            carry["gx"] = gx
+            if ys is not None:
+                ys["gossip"].append(torch.stack([x.to(torch.int64) for x in (gd, gr, gg)]))
+        # -- durability epilogue ------------------------------------------
+        if self.w_on:
+            # Journal each replica's applied deltas (new coordinator
+            # copies + merge/gossip deliveries), adding back the bits of
+            # recycled slots.  The reference's gather clamps the
+            # out-of-range slot Q of reads and dropped writes to Q-1.
+            q = pre_bits.shape[0]
+            is_w = ops["kind"] == duot_lib.WRITE
+            lost = (pre_bits[torch.clamp(res.slot, max=q - 1).long()].to(torch.int32)
+                    * is_w[:, None].to(torch.int32)).sum(dim=0, dtype=torch.int32)
+            growth = torch.clamp(
+                st.cluster.pend_applied.sum(dim=0, dtype=torch.int32)
+                - applied0 + lost, min=0,
+            )
+            st = store.wal_append(st, growth)
+        if self.s_on and m["snap"]:
+            # Periodic snapshot marker: persist applied state, truncate
+            # the journals.
+            st, _ = store.snapshot(st)
+        # -- counters -----------------------------------------------------
         is_read = ops["kind"] == duot_lib.READ
-        return {
-            "st": st,
-            "stale": carry["stale"] + res.stale.sum(),
-            "viol": carry["viol"] + res.violation.sum(),
-            "reads": carry["reads"] + is_read.sum(),
-        }
+        e_stale = res.stale.sum()
+        e_viol = res.violation.sum()
+        n_reads = is_read.sum()
+        carry["st"] = st
+        carry["stale"] = carry["stale"] + e_stale
+        carry["viol"] = carry["viol"] + e_viol
+        carry["reads"] = carry["reads"] + n_reads
+        # -- observability plane ------------------------------------------
+        if self.o_on:
+            # Staleness age = the resource's post-merge write frontier
+            # minus the version served; masked to violating reads it is
+            # the violation severity.
+            obs = c.obs
+            age = torch.clamp(
+                st.cluster.global_version[ops["resource"].long()] - res.version,
+                min=0,
+            ).to(torch.float32)
+            hist = carry["obs"]["hist"].clone()
+            hist[: self.n_op_metrics] += kernel_ops.histogram(
+                torch.stack([age, age]),
+                lo=self.ob_lo, hi=self.ob_hi, n_bins=obs.n_bins,
+                mask=torch.stack([is_read, res.violation]).to(torch.int32),
+                impl=obs.impl,
+            )
+            if self.h_on:
+                hist[self.n_op_metrics] += kernel_ops.histogram(
+                    st.hints.count.to(torch.float32),
+                    lo=self.depth_lo, hi=self.depth_hi, n_bins=obs.n_bins,
+                    impl=obs.impl,
+                )
+            c0 = carry["obs"]["counters"]
+            carry["obs"] = {"hist": hist, "counters": {
+                "ops": c0["ops"] + width,
+                "reads": c0["reads"] + n_reads,
+                "writes": c0["writes"] + width - n_reads,
+                "stale": c0["stale"] + e_stale,
+                "viol": c0["viol"] + e_viol,
+                "epochs": c0["epochs"] + 1,
+            }}
+            if ys is not None:
+                ys["obs"].append(torch.stack([e_stale, e_viol]))
+        return carry
 
     def replay(self, w) -> dict[str, Any]:
         """Run the whole workload; returns the :meth:`prepare` dict with
-        ``out``, the final carry (``st``, ``stale``, ``viol``, ``reads``)."""
+        ``out`` (the final carry) and ``per_round`` (the gossip and obs
+        series of the full rounds, or ``None``)."""
         prep = self.prepare(w)
         store = prep["store"]
         sub, rem, n_rounds = prep["sub"], prep["rem"], prep["n_rounds"]
-        z = torch.zeros((), dtype=torch.int64, device=self.device)
-        carry = {"st": store.init(), "stale": z, "viol": z, "reads": z}
+        if self.o_on:
+            lo, hi, self.n_op_metrics = obs_lib.batch_bounds(self.specs)
+            self.ob_lo = torch.from_numpy(lo).to(self.device)
+            self.ob_hi = torch.from_numpy(hi).to(self.device)
+            self.depth_lo = torch.zeros((), dtype=torch.float32, device=self.device)
+            self.depth_hi = torch.full((), self.config.obs.depth_hi,
+                                       dtype=torch.float32, device=self.device)
+        carry = self._init_carry(store)
+        ys = {"gossip": [], "obs": []}
         batched = prep["batched"]
+        masks = prep["masks"]
+
+        def round_masks(t: int | None) -> dict | None:
+            if masks is None:
+                return None
+            if t is None:
+                m = dict(prep["tail_masks"])
+                m["up_t"] = prep["dev_tail_masks"]["up"]
+                m["conn_t"] = prep["dev_tail_masks"]["conn"]
+                return m
+            m = {k: v[t] for k, v in masks.items()}
+            m["up_t"] = prep["dev_masks"]["up"][t]
+            m["conn_t"] = prep["dev_masks"]["conn"][t]
+            return m
+
         for t in range(n_rounds):
             ops = {k: v[t] for k, v in batched.items()}
-            carry = self.round_step(store, carry, ops, t * sub, sub,
-                                    prep["emulate"])
+            carry = self.round_step(store, carry, ops, round_masks(t), t * sub,
+                                    sub, prep["emulate"], ys)
         if rem:
-            carry = self.round_step(store, carry, prep["tail"], n_rounds * sub,
-                                    rem, prep["emulate"])
+            carry = self.round_step(store, carry, prep["tail"], round_masks(None),
+                                    n_rounds * sub, rem, prep["emulate"], None)
+        per_round = {}
+        if self.gx_on:
+            g = (torch.stack(ys["gossip"]).cpu().numpy() if ys["gossip"]
+                 else np.zeros((0, 3), np.int64))
+            per_round["gossip"] = (g[:, 0], g[:, 1], g[:, 2])
+        if self.o_on:
+            o = (torch.stack(ys["obs"]).cpu().numpy() if ys["obs"]
+                 else np.zeros((0, 2), np.int64))
+            per_round["obs"] = (o[:, 0], o[:, 1])
         prep["out"] = carry
+        prep["per_round"] = per_round or None
         return prep

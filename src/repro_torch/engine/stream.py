@@ -91,3 +91,42 @@ def batch_inputs(
         )
         tail["apply_idx"] = apply_idx[-max(rem, 1):]
     return batched, tail
+
+
+def fault_epoch_inputs(
+    schedule, n_rounds: int, rem: int,
+) -> tuple[object, dict[str, np.ndarray], dict[str, np.ndarray]]:
+    """(schedule, per-round mask arrays, tail mask arrays) of a crash-free
+    schedule sliced to the run's epochs: ``up``, the closed ``conn``,
+    ``faulty`` and ``heal``."""
+    n_epochs = n_rounds + (1 if rem else 0)
+    schedule = schedule.slice(n_epochs)
+    conn = schedule.closure()
+    faulty = schedule.faulty()
+    heals = schedule.heals()
+    per_round = {
+        "up": schedule.up[:n_rounds],
+        "conn": conn[:n_rounds],
+        "faulty": faulty[:n_rounds],
+        "heal": heals[:n_rounds],
+    }
+    t = n_epochs - 1
+    tail = {
+        "up": schedule.up[t],
+        "conn": conn[t],
+        "faulty": faulty[t],
+        "heal": heals[t],
+    }
+    return schedule, per_round, tail
+
+
+def clamp_apply_idx(
+    apply_idx: np.ndarray, faulty: np.ndarray, sub: int, n_ops: int,
+) -> np.ndarray:
+    """Defer emulated apply points to end-of-epoch in faulty epochs."""
+    out = np.asarray(apply_idx, np.int32).copy()
+    for t in np.flatnonzero(faulty):
+        lo = t * sub
+        hi = min(n_ops, lo + sub)
+        out[lo:hi] = np.maximum(out[lo:hi], hi)
+    return out

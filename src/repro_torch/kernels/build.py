@@ -27,7 +27,8 @@ import threading
 import time
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
-KERNELS = ("op_ingest", "vclock_audit", "vclock_chain")
+KERNELS = ("op_ingest", "vclock_audit", "vclock_chain", "digest_compare",
+           "histogram")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

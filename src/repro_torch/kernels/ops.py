@@ -12,12 +12,15 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import digest_compare as _dc
+from repro_torch.kernels import histogram as _hg
 from repro_torch.kernels import op_ingest as _oi
 from repro_torch.kernels import vclock_audit as _va
 from repro_torch.kernels import vclock_chain as _vch
 
 IMPLS = ("auto", "cuda", "torch")
-_COUNTED = {"op_ingest": _oi, "vclock_audit": _va, "vclock_chain": _vch}
+_COUNTED = {"op_ingest": _oi, "vclock_audit": _va, "vclock_chain": _vch,
+            "digest_compare": _dc, "histogram": _hg}
 
 
 def resolve_impl(impl: str | None, t: torch.Tensor) -> str:
@@ -112,3 +115,40 @@ def vclock_chain(client, replica, is_write, session_vc, replica_vc, *,
                                      replica_vc)
     return _vch.vclock_chain_cuda(client, replica, is_write, session_vc,
                                   replica_vc)
+
+
+def digest_compare(a, b, *, impl: str | None = "auto"):
+    """Diff two sides' range digests ``(..., 4)`` -> ``(differ, a_behind,
+    b_behind)`` bool masks over the leading axes — the contract of
+    ``repro.kernels.ref.digest_compare_ref``, bit for bit.  Both the
+    kernel and the plain version read the reference's packed rows."""
+    impl = resolve_impl(impl, a)
+    lead = tuple(a.shape[:-1])
+    packed = _dc.pack_digests(a.reshape(-1, a.shape[-1]), b.reshape(-1, b.shape[-1]))
+    if impl == "torch":
+        out = _dc.digest_compare_ref(packed)
+    else:
+        out = _dc.digest_compare_cuda(packed)
+    return tuple(out[:, col].to(torch.bool).reshape(lead)
+                 for col in (_dc.DIFFER, _dc.A_BEHIND, _dc.B_BEHIND))
+
+
+def histogram(values, *, lo, hi, n_bins: int, mask=None,
+              impl: str | None = "auto") -> torch.Tensor:
+    """Fixed-bin histograms of ``(M, B)`` (or ``(B,)``) observations ->
+    ``(M, n_bins)`` (or ``(n_bins,)``) int32 counts — the contract of
+    ``repro.kernels.ref.histogram_ref``, bit for bit.  ``lo``/``hi`` are
+    scalars or ``(M,)``; ``mask`` (same shape, 0/1) drops observations."""
+    impl = resolve_impl(impl, values)
+    one_d = values.dim() == 1
+    vals = torch.atleast_2d(values.to(torch.float32))
+    msk = (torch.ones(vals.shape, dtype=torch.int32, device=vals.device)
+           if mask is None else torch.atleast_2d(mask.to(torch.int32)))
+    params = _hg.metric_params(lo, hi, n_bins, device=vals.device)
+    if params.shape[0] == 1 and vals.shape[0] > 1:
+        params = params.expand(vals.shape[0], 2)
+    if impl == "torch":
+        out = _hg.histogram_ref(vals, msk, params, n_bins=n_bins)
+    else:
+        out = _hg.histogram_cuda(vals, msk, params, n_bins=n_bins)
+    return out[0] if one_d else out

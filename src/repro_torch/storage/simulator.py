@@ -1,5 +1,5 @@
-"""Cluster simulator: the paper's evaluation (§4), flat path (port of
-``repro.storage.simulator``).
+"""Cluster simulator: the paper's evaluation (§4) and its failure path
+(port of ``repro.storage.simulator``).
 
 Three coupled models produce every figure of the paper:
 
@@ -11,19 +11,30 @@ Three coupled models produce every figure of the paper:
     comes from the DUOT audit;
   * **Monetary** (Figs 14-15): measured traffic × Table-2 pricing
     through ``core.cost_model``.
+
+:func:`run_protocol_faulty` replays the same stream under replica
+outages and partitions, with gossip anti-entropy, hinted handoff and
+WAL/snapshot durability.  Every entry point is a thin
+:class:`repro_torch.engine.config.EngineConfig` over the one epoch engine.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import torch
 
+from repro_torch.core import availability as avail_lib
 from repro_torch.core import cost_model
 from repro_torch.core.consistency import ConsistencyLevel
+from repro_torch.core.replicated_store import DurabilityConfig
 from repro_torch.engine import results as engine_results
+from repro_torch.engine import stream as engine_stream
 from repro_torch.engine.config import EngineConfig
 from repro_torch.engine.replay import EpochEngine
+from repro_torch.gossip.scheduler import GossipConfig
+from repro_torch.obs.metrics import ObsConfig
 from repro_torch.storage.cluster import PAPER_CLUSTER, ClusterConfig
 from repro_torch.storage.ycsb import Workload
 
@@ -125,8 +136,9 @@ def run_protocol(
     audit: bool = True,
     ingest: str = "auto",
     lean: bool = False,
+    obs: ObsConfig | None = None,
     device: str | torch.device = "cuda",
-) -> dict[str, float]:
+) -> dict[str, Any]:
     """Run a scaled YCSB stream through the batched X-STCC engine.
 
     Synchronous and timed levels ingest ``batch_size``-op batches with
@@ -134,17 +146,95 @@ def run_protocol(
     levels (CAUSAL / ONE) batch at their real merge period.
     ``audit=False`` skips the end-of-run DUOT audit (severity 0);
     ``lean`` (emulated levels, ``audit=False``) drops the clock chain,
-    the DUOT record and the causal merge gate.  Runs on ``device``
-    (``"cuda"`` unless the caller asks for the CPU).
+    the DUOT record and the causal merge gate.  ``obs`` (an
+    :class:`~repro_torch.obs.metrics.ObsConfig`) adds an ``"obs"`` block
+    (histograms, percentiles, per-round stale/violation series) and
+    leaves every other key unchanged.  Runs on ``device`` (``"cuda"``
+    unless the caller asks for the CPU).
     """
     config = EngineConfig(
         level, n_ops=n_ops, n_clients=n_clients, n_resources=n_resources,
         merge_every=merge_every, delta=delta, duot_cap=duot_cap,
         seed=seed, batch_size=batch_size, audit=audit, ingest=ingest,
-        lean=lean,
+        lean=lean, obs=obs,
     )
     engine = EpochEngine(config, device=device)
-    return engine_results.assemble_flat(config, engine.replay(w))
+    return engine_results.assemble(config, engine.replay(w), w)
+
+
+def run_protocol_faulty(
+    level: ConsistencyLevel,
+    w: Workload,
+    *,
+    schedule=None,
+    n_ops: int = 6000,
+    n_clients: int = 16,
+    n_resources: int = 24,
+    merge_every: int = 8,
+    delta: int = 24,
+    duot_cap: int = 2048,
+    seed: int = 0,
+    batch_size: int = 128,
+    audit: bool = True,
+    ingest: str = "auto",
+    pending_cap: int | None = None,
+    n_shards: int = 1,
+    schedule_unit: int | None = None,
+    gossip: GossipConfig | None = None,
+    recovery: DurabilityConfig | None = None,
+    cfg: ClusterConfig = PAPER_CLUSTER,
+    pricing: cost_model.PricingScheme = cost_model.PAPER_PRICING,
+    obs: ObsConfig | None = None,
+    device: str | torch.device = "cuda",
+) -> dict[str, Any]:
+    """Run the protocol under replica outages and network partitions.
+
+    ``schedule`` is a :class:`repro_torch.core.availability.FaultSchedule`
+    whose epochs are this run's merge rounds (``None`` = all-up), sliced
+    or extended to the run; ``schedule_unit`` (ops per schedule epoch)
+    anchors it in op-index space instead, so one schedule describes the
+    same outage window for every level.  Per epoch the engine runs the
+    heal-time anti-entropy pass when connectivity gained an edge, fails
+    over ops whose home replica is down, defers the closed-form cadence
+    emulation to the masked merges while a fault is active, and merges
+    along live, connected pairs only.  With an all-up schedule every
+    step is the identity.
+
+    The pending ring holds the partition backlog, so ``pending_cap``
+    defaults to ``max(256, 2·sub, n_writes + 1)``.  ``gossip`` adds the
+    scheduled digest exchange (and, with ``hint_cap > 0``, hinted
+    handoff); ``recovery`` adds WAL/snapshot journaling, billed in
+    eq. 8 with a ``"recovery"`` block.  ``obs`` adds the ``"obs"``
+    block.  Crash events, ``n_shards > 1`` and ``peer="nearest"`` are
+    not ported yet and raise.  Runs on ``device`` (``"cuda"`` unless the
+    caller asks for the CPU).
+    """
+    if n_clients % n_shards or n_resources % n_shards or n_ops % n_shards:
+        raise ValueError(
+            f"n_clients={n_clients}, n_resources={n_resources}, and "
+            f"n_ops={n_ops} must all be divisible by n_shards={n_shards}"
+        )
+    if schedule is None:
+        s_ops = n_ops // n_shards
+        _, rem, n_rounds, _ = engine_stream.cadence_plan(
+            level, s_ops, batch_size, merge_every, delta
+        )
+        schedule = avail_lib.all_up(max(1, n_rounds + (1 if rem else 0)), 3)
+    if schedule.n_replicas != 3:
+        raise ValueError(
+            f"schedule covers {schedule.n_replicas} replicas; the paper "
+            "cluster has 3 DCs"
+        )
+    config = EngineConfig(
+        level, n_ops=n_ops, n_clients=n_clients, n_resources=n_resources,
+        merge_every=merge_every, delta=delta, duot_cap=duot_cap,
+        seed=seed, batch_size=batch_size, audit=audit, ingest=ingest,
+        faults=schedule, schedule_unit=schedule_unit, gossip=gossip,
+        durability=recovery, pending_cap=pending_cap, n_shards=n_shards,
+        obs=obs,
+    )
+    engine = EpochEngine(config, device=device)
+    return engine_results.assemble(config, engine.replay(w), w, cfg, pricing)
 
 
 def traffic_gb(

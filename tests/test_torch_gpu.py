@@ -14,7 +14,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import availability as av
 from repro_torch.core.consistency import EVAL_LEVELS, ConsistencyLevel
+from repro_torch.core.replicated_store import DurabilityConfig
+from repro_torch.gossip.scheduler import GossipConfig
+from repro_torch.kernels import digest_compare as dc
+from repro_torch.kernels import histogram as hg
 from repro_torch.kernels import ops
 from repro_torch.storage import simulator
 from repro_torch.storage.ycsb import WORKLOAD_A
@@ -117,3 +122,71 @@ def test_entry_points_default_to_the_card(cuda):
     want = simulator.run_protocol(ConsistencyLevel.X_STCC, WORKLOAD_A, n_ops=300,
                                   device="cpu")
     assert got == want
+
+
+@pytest.mark.parametrize("m", [1, 24, 255, 257, 65536])
+def test_digest_compare_kernel_matches_plain(cuda, m):
+    rng = np.random.default_rng(m)
+    extremes = np.asarray([2**31 - 1, -(2**31), 0, 1, -1], np.int64)
+    packed = rng.choice(extremes, (m, dc.DIG_COLS)).astype(np.int32)
+    packed[:, dc.VALID] = rng.integers(0, 2, m)
+    packed[::4, 4:8] = packed[::4, 0:4]               # equal rows
+    packed = _t(packed, cuda)
+    got = dc.digest_compare_cuda(packed)
+    want = dc.digest_compare_ref(packed)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("m,b", [(2, 128), (1, 3), (3, 5000)])
+@pytest.mark.parametrize("n_bins", [4, 64])
+def test_histogram_kernel_matches_plain(cuda, m, b, n_bins):
+    rng = np.random.default_rng(m * b + n_bins)
+    v = rng.integers(-50, 1200, (m, b)).astype(np.float32)
+    v[:, ::9] = 1e9
+    v[:, 1::9] = -1e9
+    v[:, 2::9] = np.nan
+    vals, mask = _t(v, cuda), _t(rng.integers(0, 2, (m, b), dtype=np.int32), cuda)
+    params = hg.metric_params(0.0, 1024.0, n_bins, device=cuda).expand(m, 2)
+    got = hg.histogram_cuda(vals, mask, params, n_bins=n_bins)
+    want = hg.histogram_ref(vals, mask, params, n_bins=n_bins)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+FAULT_CASES = {
+    **{f"faulty_allup/{lv.name}": (lv, {}) for lv in EVAL_LEVELS},
+    "faulty/X_STCC/outage": (ConsistencyLevel.X_STCC, dict(
+        schedule=av.replica_outage(5, 3, 1, 1, 3), schedule_unit=128,
+        gossip=GossipConfig(cadence=2, hint_cap=32),
+        recovery=DurabilityConfig(snapshot_every=2, wal=True))),
+    "faulty/CAUSAL/outage": (ConsistencyLevel.CAUSAL, dict(
+        schedule=av.replica_outage(5, 3, 1, 1, 3), schedule_unit=128, audit=False)),
+}
+
+
+def _plain(x):
+    if isinstance(x, dict):
+        return {k: _plain(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [_plain(v) for v in x]
+    return x
+
+
+@pytest.mark.parametrize("case", sorted(FAULT_CASES))
+def test_golden_fault_case_on_the_card(cuda, case):
+    level, kw = FAULT_CASES[case]
+    golden = json.loads(GOLDEN.read_text())[case]
+    got = simulator.run_protocol_faulty(level, WORKLOAD_A, n_ops=600, device=cuda, **kw)
+    assert _plain(got) == golden
+
+
+def test_fault_path_launches_every_kernel(cuda):
+    from repro_torch.obs.metrics import ObsConfig
+
+    level, kw = FAULT_CASES["faulty/X_STCC/outage"]
+    ops.reset_launch_counts()
+    simulator.run_protocol_faulty(level, WORKLOAD_A, n_ops=600, device=cuda,
+                                  obs=ObsConfig(), **kw)
+    counts = ops.launch_counts()
+    assert all(v > 0 for v in counts.values()), counts

@@ -56,7 +56,16 @@ def no_card():
         pytest.skip("a CUDA device is present; this checks the no-card behaviour")
 
 
-@pytest.mark.parametrize("entry", ["run_protocol", "evaluate_level", "engine", "store"])
+def test_every_new_module_is_covered():
+    """The fault-path slice's modules are among those imported above."""
+    mods = set(_port_modules())
+    for name in ("core.availability", "gossip", "gossip.digest", "gossip.scheduler",
+                 "kernels.digest_compare", "kernels.histogram", "obs", "obs.metrics"):
+        assert f"repro_torch.{name}" in mods, name
+
+
+@pytest.mark.parametrize("entry", ["run_protocol", "evaluate_level", "engine", "store",
+                                   "run_protocol_faulty"])
 def test_entry_points_refuse_cpu_fallback(no_card, entry):
     from repro_torch.core.consistency import ConsistencyLevel
     from repro_torch.core.replicated_store import ReplicatedStore
@@ -72,6 +81,8 @@ def test_entry_points_refuse_cpu_fallback(no_card, entry):
             ConsistencyLevel.ONE, WORKLOAD_A, engine_ops=50),
         "engine": lambda: EpochEngine(EngineConfig(ConsistencyLevel.ALL)),
         "store": lambda: ReplicatedStore(3, 4, 4),
+        "run_protocol_faulty": lambda: simulator.run_protocol_faulty(
+            ConsistencyLevel.X_STCC, WORKLOAD_A, n_ops=50),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()

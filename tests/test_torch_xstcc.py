@@ -119,9 +119,19 @@ def test_server_merge_timed_only_matches(use_ready):
 
 
 def test_server_merge_masks_are_not_ported():
+    """Fault masks go with the causal fixpoint only: a timed-only merge
+    refuses them, as the reference does; the masked fixpoint itself
+    equals the reference."""
     tst = tx.make_cluster(P, C, R, device=CPU)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tx.server_merge(tst, delta=1, up=torch.ones(P, dtype=torch.bool))
+    with pytest.raises(ValueError, match="timed_only"):
+        tx.server_merge(tst, delta=1, timed_only=True, up=torch.ones(P, dtype=torch.bool))
+    jst = _reference_state(seed=4).cluster
+    tst = convert.cluster_state_from_numpy(jax_to_numpy(jst), device=CPU)
+    up = np.asarray([True, False, True])
+    want, wn = jx.server_merge(jst, delta=1, up=jnp.asarray(up))
+    got, gn = tx.server_merge(tst, delta=1, up=torch.from_numpy(up))
+    assert_tree_equal(want, got, "masked merge")
+    assert int(wn) == int(gn)
 
 
 @pytest.mark.parametrize("seed", range(3))
