@@ -7,14 +7,16 @@ Phases, each of which must pass (any failure ends the run with a
 non-zero exit code):
 
   1. device   — the card's name, count and power limit; no card, no run;
-  2. build    — ``nvcc`` builds the five kernels from ``src/repro_torch/
+  2. build    — ``nvcc`` builds the six kernels from ``src/repro_torch/
                 csrc`` in parallel; prints seconds and ptxas register /
                 shared-memory / spill lines;
   3. kernels  — each kernel against its plain PyTorch version on the
-                card, outputs exactly equal, at the main paths' shapes
-                and beyond; CUDA-event times of both;
-  4. golden   — the seven ``protocol/*`` and eight fault cases of
-                ``tests/data/golden_wrappers.json`` reproduced on the card;
+                card, outputs exactly equal (bit for bit), at the main
+                paths' shapes and beyond; CUDA-event times of both;
+  4. golden   — the seven ``protocol/*``, eight fault and seven ``geo/*``
+                cases of ``tests/data/golden_wrappers.json`` on the card
+                (geo: the latency fields within rtol 1e-5, the rest
+                exact);
   5. main     — ``evaluate_level`` for WORKLOAD_A/B × six levels at the
                 defaults on the card, each equal to the same call on the
                 CPU in every field; kernel launch counts of this phase;
@@ -23,14 +25,23 @@ non-zero exit code):
                 gossip + hinted handoff, WAL/snapshot durability and the
                 obs plane, each equal to the same call on the CPU; kernel
                 launch counts of this phase;
-  7. scale    — one X_STCC replay at the paper's deployment (64 client
-                threads, 5,000,000 rows, 8,000,000 ops, B = 4096), then
-                the same deployment through the fault path;
-  8. profile  — ``torch.profiler`` over X_STCC and CAUSAL
-                ``run_protocol`` and an X_STCC fault run: device time by
-                kernel and the card's busy share of the unprofiled wall
-                time;
-  9. report   — one JSON line ``{"kernels": [...]}``, then the last line
+  7. geo      — ``run_protocol_geo`` for the six levels at the defaults
+                on the paper's topology and on a hot-region client skew,
+                X_STCC with nearest-peer gossip + WAL/snapshots + obs on
+                the paper's topology and on the 12-replica fleet, the
+                one-region identity with ``run_protocol``, and the
+                placement planner on the run's demand under two SLAs;
+                each equal to the same call on the CPU; launch counts;
+  8. scale    — one X_STCC replay at the paper's deployment (64 client
+                threads, 5,000,000 rows, 8,000,000 ops, B = 4096), the
+                same deployment through the fault path, the placement
+                planner over its 5,000,000 rows x 124 candidates, and the
+                geo replay on the paper's 12-replica fleet (4 per DC);
+  9. profile  — ``torch.profiler`` over X_STCC and CAUSAL
+                ``run_protocol``, an X_STCC fault run and an X_STCC geo
+                run: device time by kernel and the card's busy share of
+                the unprofiled wall time;
+ 10. report   — one JSON line ``{"kernels": [...]}``, then the last line
                 ``{"ok": true, "device": {...}}``.
 
 ``--phases`` runs a subset (a debugging aid; the report lines are
@@ -52,8 +63,8 @@ import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
-PHASES = ("device", "build", "kernels", "golden", "main", "faulty", "scale",
-          "profile")
+PHASES = ("device", "build", "kernels", "golden", "main", "faulty", "geo",
+          "scale", "profile")
 
 # H100 SXM peaks (NVIDIA data sheet, as tabulated in the repo's
 # measurement notes): HBM bandwidth, and the 32-bit non-tensor-core rate
@@ -74,6 +85,11 @@ SCALE_CUTS = (
 # The fault run's op count (halved, and the cut listed above, only if the
 # script would not fit its time limit; rows and clients are never cut).
 FAULT_SCALE_OPS = 8_000_000
+
+# The planner's candidate universe at the paper's 3 regions:
+# enumerate_candidates(3), every split of 1..12 replicas with at most 4
+# per region.
+N_CANDIDATES = 124
 
 
 def fault_kwargs(n_ops: int, unit: int) -> dict:
@@ -274,6 +290,17 @@ def _hist_inputs(rng, m, b, n_bins, device):
             params.contiguous())
 
 
+def _bits_equal(a, b) -> bool:
+    """Same shape and the same bits (f32 compared as int32), on the card."""
+    import torch
+
+    if a.shape != b.shape:
+        return False
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return bool(torch.equal(a, b))
+
+
 def phase_kernels() -> dict:
     import numpy as np
     import torch
@@ -282,8 +309,10 @@ def phase_kernels() -> dict:
     from repro_torch.kernels import histogram as hg
     from repro_torch.kernels import op_ingest as oi
     from repro_torch.kernels import ops
+    from repro_torch.kernels import placement_score as pls
     from repro_torch.kernels import vclock_audit as va
     from repro_torch.kernels import vclock_chain as vch
+    from torch_port_helpers import placement_inputs
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
@@ -437,11 +466,72 @@ def phase_kernels() -> dict:
     timings["histogram"] = time_hist(2, 128, 64, 200)
     timings["histogram@4096"] = time_hist(2, 4096, 64, 100)
 
+    # placement_score: the geo phase's R = 24, ragged tails, 65,536 and
+    # the paper's 5,000,000 rows; SLA bound 10 ms and none.
+    n_checked = 0
+    for r in (24, 1, 257, 65537, 65536, SCALE["n_resources"]):
+        args = placement_inputs(np.random.default_rng(r), r, dev)
+        for max_lat in (10.0, math.inf):
+            got = pls.placement_score_cuda(*args, max_latency_ms=max_lat)
+            want = pls.placement_score_ref(*args, max_latency_ms=max_lat)
+            torch.cuda.synchronize()
+            if not all(_bits_equal(g, w) for g, w in zip(got, want)):
+                fail(f"placement_score R={r} max_lat={max_lat}: differs from "
+                     f"the plain version (max abs err {_placement_err(got, want)})")
+            n_checked += 1
+            del got, want
+    torch.cuda.empty_cache()
+    log(f"[kernels] placement_score: {n_checked} cases bit-equal ((R, K, G) = "
+        f"(R, {N_CANDIDATES}, 3), R in 24,1,257,65537,65536,{SCALE['n_resources']} "
+        "x max_lat 10, inf; invalid, tied and zero-demand cells)")
+
+    def time_placement(r, iters):
+        args = placement_inputs(np.random.default_rng(r), r, dev)
+        reads, writes, rp, wp, rtt, meta = args
+        got = pls.placement_score_cuda(*args, max_latency_ms=10.0)
+        want = pls.placement_score_ref(*args, max_latency_ms=10.0)
+        if not all(_bits_equal(g, w) for g, w in zip(got, want)):
+            fail(f"placement_score timing R={r}: differs from the plain version")
+        err = _placement_err(got, want)
+        del got, want
+        ms = cuda_time_ms(
+            lambda: pls.placement_score_cuda(*args, max_latency_ms=10.0), iters)
+        plain = cuda_time_ms(
+            lambda: pls.placement_score_ref(*args, max_latency_ms=10.0),
+            max(1, iters // 10), warmup=1)
+        # The closest single PyTorch call: the cost term alone as one
+        # f32 product (TF32 off).  It rounds differently (no per-region
+        # FMA order) and computes no feasibility.
+        torch.backends.cuda.matmul.allow_tf32 = False
+        m1 = torch.cat([reads, writes], dim=1)
+        m2 = torch.cat([rp, wp], dim=1).T.contiguous()
+        store = meta[0][None, :]
+        lib = cuda_time_ms(lambda: torch.addmm(store, m1, m2), iters)
+        k, g = rp.shape
+        bnd = bound_ms(2 * r * g * 4 + 3 * k * g * 4 + 2 * k * 4 + r * k * 8,
+                       r * k * (8 * g + 1))
+        torch.cuda.empty_cache()
+        return {"ms": ms, "plain_ms": plain, "bound": bnd, "err": err,
+                "addmm_ms": lib, "shape": f"R={r}, K={k}, G={g}"}
+
+    timings["placement_score"] = time_placement(24, 200)
+    timings[f"placement_score@{SCALE['n_resources']}"] = time_placement(
+        SCALE["n_resources"], 20)
+
     for key, t in timings.items():
+        extra = (f", addmm (cost term only, not bit-exact) {t['addmm_ms']:.6f} ms"
+                 if "addmm_ms" in t else "")
         log(f"[kernels] time {key} ({t['shape']}): kernel {t['ms']:.6f} ms, "
             f"plain {t['plain_ms']:.6f} ms, bound {t['bound'][0]:.6f} ms "
-            f"({t['bound'][1]}), max_abs_err {t['err']}")
+            f"({t['bound'][1]}), max_abs_err {t['err']}{extra}")
     return timings
+
+
+def _placement_err(got, want) -> float:
+    """Largest |difference| over both outputs (utility as f32 values)."""
+    du = (got[0].double() - want[0].double()).abs().max()
+    df = (got[1].long() - want[1].long()).abs().max()
+    return max(float(du), float(df)) if got[0].numel() else 0.0
 
 
 # -- phase 4 ------------------------------------------------------------------
@@ -451,6 +541,7 @@ def phase_golden() -> None:
     from repro_torch.core.consistency import EVAL_LEVELS, ConsistencyLevel
     from repro_torch.storage import simulator as sim
     from repro_torch.storage.ycsb import WORKLOAD_A
+    from torch_port_helpers import GEO_LATENCY_RTOL, geo_mismatches
 
     path = ROOT / "tests" / "data" / "golden_wrappers.json"
     golden = json.loads(path.read_text())
@@ -481,6 +572,19 @@ def phase_golden() -> None:
         if got != golden[name]:
             fail(f"golden {name}: {got} != {golden[name]}")
         log(f"[golden] {name}: equal {json.dumps(got, sort_keys=True)}")
+
+    geo = {f"geo/{lv.name}": (lv, {}) for lv in EVAL_LEVELS}
+    geo["geo/X_STCC/gossip_recovery"] = (x, dict(
+        gossip=GossipConfig(cadence=2, hint_cap=32),
+        recovery=DurabilityConfig(snapshot_every=2, wal=True)))
+    for name, (lv, kw) in geo.items():
+        got = sim.run_protocol_geo(lv, WORKLOAD_A, n_ops=600, device="cuda", **kw)
+        bad = geo_mismatches(golden[name], got)
+        if bad:
+            fail(f"golden {name}: {bad[:8]}")
+        log(f"[golden] {name}: equal (latency within rtol {GEO_LATENCY_RTOL}: "
+            f"mean_latency_ms {got['mean_latency_ms']} vs golden "
+            f"{golden[name]['mean_latency_ms']})")
 
 
 # -- phase 5 ------------------------------------------------------------------
@@ -570,16 +674,157 @@ def phase_faulty() -> dict:
             f"{g['hints']['dropped']}/{g['hints']['delivered']}), wal_records "
             f"{r['wal_records']}, snapshot_cells {r['snapshot_cells']}, p99 age "
             f"{o['metrics']['staleness_age']['p99']}, total cost {got['cost']['total']}")
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k in FAULT_KERNELS if launches[k] == 0]
     if missing:
         fail(f"fault path never launched kernels {missing}")
     return launches
 
 
+# The kernels the fault path must launch (all but the planner's).
+FAULT_KERNELS = ("op_ingest", "vclock_audit", "vclock_chain", "digest_compare",
+                 "histogram")
+
+
 # -- phase 7 ------------------------------------------------------------------
 
 
-def phase_scale() -> dict:
+HOT_SKEW = (0,) * 11 + (1, 1, 1) + (2, 2)
+LOCAL_READS_MS = 1.0      # the second SLA of examples/geo_placement.py
+
+
+def geo_topologies() -> dict:
+    """The geo phase's topologies: the paper's 3 regions, the same with
+    the hot-region client skew, and the paper's 12-replica fleet."""
+    from repro_torch.geo import placement as pl
+    from repro_torch.geo.topology import PAPER_TOPOLOGY
+
+    return {
+        "paper": PAPER_TOPOLOGY,
+        "hot": dataclasses.replace(PAPER_TOPOLOGY, client_region=HOT_SKEW),
+        "fleet12": pl.fleet_topology(PAPER_TOPOLOGY,
+                                     pl.static_counts(PAPER_TOPOLOGY, 4)),
+    }
+
+
+def _plan_summary(plan) -> dict:
+    return {"total_cost": plan.total_cost, "n_feasible": plan.n_feasible,
+            "choices": plan.choice.tolist(), "utility": plan.utility.tolist(),
+            "cost": plan.cost.tolist(), "feasible": plan.feasible.tolist()}
+
+
+def phase_geo() -> dict:
+    import numpy as np
+    import torch
+
+    from repro_torch.core.consistency import EVAL_LEVELS, ConsistencyLevel
+    from repro_torch.core.replicated_store import DurabilityConfig
+    from repro_torch.engine import stream as engine_stream
+    from repro_torch.geo import placement as pl
+    from repro_torch.geo.topology import single_region
+    from repro_torch.gossip.scheduler import GossipConfig
+    from repro_torch.kernels import ops
+    from repro_torch.obs.metrics import ObsConfig
+    from repro_torch.policy.sla import SLA, SLA_RELAXED
+    from repro_torch.storage import simulator as sim
+    from repro_torch.storage.ycsb import WORKLOAD_A
+
+    topos = geo_topologies()
+    x = ConsistencyLevel.X_STCC
+    extras = dict(gossip=GossipConfig(cadence=2, peer="nearest"),
+                  recovery=DurabilityConfig(snapshot_every=2, wal=True),
+                  obs=ObsConfig())
+    runs = [(f"{t}/{lv.name}", lv, dict(topology=topos[t]))
+            for t in ("paper", "hot") for lv in EVAL_LEVELS]
+    runs += [(f"{t}/X_STCC/nearest+durability+obs", x,
+              dict(topology=topos[t], **extras)) for t in ("paper", "fleet12")]
+    one = single_region(3)
+    slas = (SLA_RELAXED, SLA("local-reads", max_read_latency_ms=LOCAL_READS_MS))
+    paper = topos["paper"]
+    stream = engine_stream.op_stream(WORKLOAD_A, 6000, 16, 24, 0, paper.n_replicas)
+    reads, writes = pl.region_demand(stream["client"], stream["kind"],
+                                     stream["resource"], paper, 24)
+
+    def planner(device):
+        out = {}
+        for sla in slas:
+            plan = pl.plan_placement(paper, reads, writes, sla, device=device)
+            static = pl.evaluate_counts(paper, pl.static_counts(paper, 4), reads,
+                                        writes, sla, device=device)
+            out[sla.name] = {"plan": _plan_summary(plan), "static": {
+                k: (v.tolist() if isinstance(v, np.ndarray) else v)
+                for k, v in static.items()}}
+        return out
+
+    # The counts cover the geo runs and the planner only; the one-region
+    # identity's geo and flat runs come after they are read.
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    on_card = {name: sim.run_protocol_geo(lv, WORKLOAD_A, device="cuda", **kw)
+               for name, lv, kw in runs}
+    plans = planner("cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    log(f"[geo] {len(runs)} run_protocol_geo + planner x{len(slas)} SLAs on the "
+        f"card: {wall:.3f} s; launches {launches}")
+    missing = [k for k in GEO_KERNELS if launches[k] == 0]
+    if missing:
+        fail(f"geo path never launched kernels {missing}")
+    for name, lv, kw in runs:
+        got = on_card[name]
+        want = sim.run_protocol_geo(lv, WORKLOAD_A, device="cpu", **kw)
+        if got != want:
+            fail(f"geo {name}: card != cpu: {_diff_keys(got, want)[:8]}")
+        for k in ("staleness_rate", "violation_rate", "severity"):
+            if not (math.isfinite(got[k]) and 0.0 <= got[k] <= 1.0):
+                fail(f"geo {name}: {k} = {got[k]} is not a rate")
+        if not math.isfinite(got["mean_latency_ms"]) or got["dropped_writes"]:
+            fail(f"geo {name}: mean_latency_ms {got['mean_latency_ms']}, "
+                 f"dropped_writes {got['dropped_writes']}")
+        line = (f"[geo] {name}: staleness {got['staleness_rate']}, violation "
+                f"{got['violation_rate']}, severity {got['severity']}, traffic "
+                f"{got['traffic_events']}, mean_latency_ms {got['mean_latency_ms']}, "
+                f"total_geo {got['cost']['total_geo']}")
+        if "gossip" in got:
+            line += (f", gossip repairs {got['gossip']['repair_events']}, "
+                     f"durable_gb {got['durability']['durable_gb']}, p99 latency "
+                     f"{got['obs']['metrics']['read_latency_ms']['p99']}")
+        log(line)
+    single = {lv.name: sim.run_protocol_geo(lv, WORKLOAD_A, topology=one,
+                                            device="cuda")
+              for lv in EVAL_LEVELS}
+    flat = {lv.name: sim.run_protocol(lv, WORKLOAD_A, device="cuda")
+            for lv in EVAL_LEVELS}
+    keys = ("staleness_rate", "violation_rate", "severity", "n_reads", "dropped_writes")
+    for lv in EVAL_LEVELS:
+        a = {k: single[lv.name][k] for k in keys}
+        b = {k: flat[lv.name][k] for k in keys}
+        if a != b:
+            fail(f"geo single_region(3) {lv.name}: {a} != run_protocol {b}")
+        if flat[lv.name] != sim.run_protocol(lv, WORKLOAD_A, device="cpu"):
+            fail(f"geo: run_protocol {lv.name} card != cpu")
+    log("[geo] single_region(3): protocol metrics equal run_protocol's for the "
+        "six levels")
+    want = planner("cpu")
+    if plans != want:
+        fail(f"geo planner: card != cpu: {_diff_keys(plans, want)[:8]}")
+    for name, p in plans.items():
+        log(f"[geo] planner {name}: plan ${p['plan']['total_cost']} "
+            f"({p['plan']['n_feasible']}/24 feasible) vs static 4-per-DC "
+            f"${p['static']['total_cost']} ({p['static']['n_feasible']}/24)")
+    return launches
+
+
+# The kernels the geo phase must launch: all six.
+GEO_KERNELS = ("placement_score", "op_ingest", "vclock_chain", "vclock_audit",
+               "digest_compare", "histogram")
+
+
+# -- phase 8 ------------------------------------------------------------------
+
+
+def phase_scale() -> None:
     import torch
 
     from repro_torch.core.consistency import ConsistencyLevel
@@ -637,7 +882,7 @@ def phase_scale() -> dict:
     if out["n_reads"] <= 0 or out["dropped_writes"] != 0:
         fail(f"scale fault run: n_reads {out['n_reads']}, dropped_writes "
              f"{out['dropped_writes']}")
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k in FAULT_KERNELS if launches[k] == 0]
     if missing:
         fail(f"scale fault run never launched kernels {missing}")
     g, r = out["gossip"], out["recovery"]
@@ -653,7 +898,126 @@ def phase_scale() -> dict:
         f"{out['obs']['metrics']['staleness_age']['p50']}/"
         f"{out['obs']['metrics']['staleness_age']['p99']}; max_memory_allocated "
         f"{peak} B; launches {launches}")
-    return {"wall_s": wall, "launches": launches, "peak_bytes": peak}
+    del out
+    torch.cuda.empty_cache()
+    scale_planner()
+    scale_geo()
+
+
+def scale_planner() -> None:
+    """The placement planner over the scale deployment: R = 5,000,000
+    resources x 124 candidates x 3 regions, with the 8,000,000-op stream's
+    demand, under SLA_RELAXED; against the static 4-per-DC placement."""
+    import numpy as np
+    import torch
+
+    from repro_torch.engine import stream as engine_stream
+    from repro_torch.geo import placement as pl
+    from repro_torch.geo.topology import PAPER_TOPOLOGY
+    from repro_torch.kernels import ops
+    from repro_torch.policy.sla import SLA_RELAXED
+    from repro_torch.storage.ycsb import WORKLOAD_A
+
+    r = SCALE["n_resources"]
+    t0 = time.perf_counter()
+    stream = engine_stream.op_stream(WORKLOAD_A, SCALE["n_ops"], SCALE["n_clients"],
+                                     r, 0, PAPER_TOPOLOGY.n_replicas)
+    reads, writes = pl.region_demand(stream["client"], stream["kind"],
+                                     stream["resource"], PAPER_TOPOLOGY, r)
+    del stream
+    demand_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    plan = pl.plan_placement(PAPER_TOPOLOGY, reads, writes, SLA_RELAXED,
+                             device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = ops.launch_counts()
+    static = pl.evaluate_counts(PAPER_TOPOLOGY, pl.static_counts(PAPER_TOPOLOGY, 4),
+                                reads, writes, SLA_RELAXED, device="cuda")
+    if plan.choice.shape != (r,) or launches["placement_score"] != 1:
+        fail(f"scale planner: choice {plan.choice.shape}, launches {launches}")
+    if not (math.isfinite(plan.total_cost) and plan.total_cost > 0):
+        fail(f"scale planner: total cost {plan.total_cost}")
+    # Wherever the static placement is feasible, the plan (which searched
+    # it) is feasible and no costlier.
+    both = static["feasible"]
+    if not plan.feasible[both].all() or (
+            plan.cost[both] > static["cost"][both]).any():
+        fail("scale planner: a plan is costlier than the static placement")
+    # The plan against the plain scoring's plan on the card (every row)
+    # and against the CPU's plan on every 997th row (argmax and gathers on
+    # another device): choice, counts, utility, feasibility and cost.
+    t0 = time.perf_counter()
+    plain = pl.plan_placement(PAPER_TOPOLOGY, reads, writes, SLA_RELAXED,
+                              impl="torch", device="cuda")
+    plain_s = time.perf_counter() - t0
+    rows = slice(None, None, 997)
+    cpu = pl.plan_placement(PAPER_TOPOLOGY, reads[rows], writes[rows], SLA_RELAXED,
+                            resource_gb=pl._resource_gb(pl.PAPER_CLUSTER, reads),
+                            device="cpu")
+    for label, want, sel in (("plain", plain, slice(None)), ("cpu", cpu, rows)):
+        for f in ("choice", "counts", "utility", "feasible", "cost"):
+            a, b = getattr(plan, f)[sel], getattr(want, f)
+            if a.dtype == np.float32:
+                a, b = a.view(np.int32), b.view(np.int32)
+            if not np.array_equal(a, b):
+                fail(f"scale planner: {f} differs from the {label} plan on "
+                     f"{int((a != b).sum())} rows")
+    counts, n = np.unique(plan.counts, axis=0, return_counts=True)
+    top = sorted(zip(n.tolist(), map(tuple, counts.tolist())), reverse=True)[:4]
+    log(f"[scale] planner R={r} K={plan.candidates.shape[0]} G=3 SLA_RELAXED: "
+        f"demand {demand_s:.3f} s (host), plan_placement wall {wall:.3f} s; "
+        f"max_memory_allocated {peak} B; feasible {plan.n_feasible}/{r}; total cost "
+        f"${plan.total_cost} vs static 4-per-DC ${static['total_cost']} "
+        f"({static['n_feasible']}/{r} feasible); top placements {top}; "
+        f"launches {launches}; choice/counts/utility/feasible/cost bit-equal to "
+        f"the plain scoring's plan on the card ({plain_s:.3f} s) on all {r} rows "
+        f"and to the CPU's plan on {cpu.choice.shape[0]} rows (every 997th)")
+
+
+def scale_geo() -> None:
+    """The geo replay at the paper's deployment: X_STCC over the
+    12-replica fleet (4 per DC, RF 12 as in the paper's Fig. 7)."""
+    import torch
+
+    from repro_torch.core.consistency import ConsistencyLevel
+    from repro_torch.kernels import ops
+    from repro_torch.storage import simulator as sim
+    from repro_torch.storage.ycsb import WORKLOAD_A
+
+    fleet = geo_topologies()["fleet12"]
+    log(f"[scale] geo run: X_STCC WORKLOAD_A {SCALE} on the 12-replica fleet "
+        f"{fleet.replica_region}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = sim.run_protocol_geo(ConsistencyLevel.X_STCC, WORKLOAD_A, topology=fleet,
+                               device="cuda", **SCALE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    for k in ("staleness_rate", "violation_rate", "severity"):
+        if not (math.isfinite(out[k]) and 0.0 <= out[k] <= 1.0):
+            fail(f"scale geo run: {k} = {out[k]} is not a rate")
+    if out["n_reads"] <= 0 or out["dropped_writes"] != 0:
+        fail(f"scale geo run: n_reads {out['n_reads']}, dropped_writes "
+             f"{out['dropped_writes']}")
+    if any(launches[k] == 0 for k in ("op_ingest", "vclock_chain", "vclock_audit")):
+        fail(f"scale geo run never launched a kernel: {launches}")
+    c = out["cost"]
+    log(f"[scale] geo run wall {wall:.3f} s; {SCALE['n_ops'] / wall:.1f} ops/s; "
+        f"staleness {out['staleness_rate']}; violation {out['violation_rate']}; "
+        f"severity {out['severity']}; n_reads {out['n_reads']}; traffic "
+        f"{out['traffic_events']}; mean_latency_ms {out['mean_latency_ms']}; bill "
+        f"network_geo ${c['network_geo']}, network_scalar ${c['network_scalar']}, "
+        f"total ${c['total']}, total_geo ${c['total_geo']}; max_memory_allocated "
+        f"{peak} B; launches {launches}")
 
 
 # -- phase 8 ------------------------------------------------------------------
@@ -679,6 +1043,9 @@ def phase_profile() -> None:
         ("X_STCC run_protocol_faulty(n_ops=6000, outage+gossip+hints+wal+obs)",
          lambda: sim.run_protocol_faulty(ConsistencyLevel.X_STCC, WORKLOAD_A,
                                          device="cuda", **fault_kw)),
+        ("X_STCC run_protocol_geo(n_ops=6000, PAPER_TOPOLOGY)",
+         lambda: sim.run_protocol_geo(ConsistencyLevel.X_STCC, WORKLOAD_A,
+                                      device="cuda")),
     )
     for label, run in runs:
         run()  # warm
@@ -722,11 +1089,15 @@ REPLACES = {
                        "src/repro/kernels/digest_compare.py:101"),
     "histogram": ("src/repro_torch/csrc/histogram.cu",
                   "src/repro/kernels/histogram.py:114"),
+    "placement_score": ("src/repro_torch/csrc/placement_score.cu",
+                        "src/repro/kernels/placement_score.py:71"),
 }
 # The path whose launch counts each kernel reports: the flat main path
-# for the first slice's kernels, the fault path for gossip and obs.
+# for the first slice's kernels, the fault path for gossip and obs, the
+# geo path for the planner.
 LAUNCH_PHASE = {"op_ingest": "main", "vclock_audit": "main", "vclock_chain": "main",
-                "digest_compare": "faulty", "histogram": "faulty"}
+                "digest_compare": "faulty", "histogram": "faulty",
+                "placement_score": "geo"}
 
 
 def main() -> None:
@@ -747,6 +1118,9 @@ def main() -> None:
     if not (SRC / "repro_torch").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout of the repo")
     sys.path.insert(0, str(SRC))
+    # The tests' JAX-free helpers: the geo comparison rule and the planner
+    # inputs are written once, there.
+    sys.path.insert(0, str(ROOT / "tests"))
 
     t_start = time.perf_counter()
     dev = phase_device()
@@ -756,7 +1130,8 @@ def main() -> None:
     if "golden" in phases:
         phase_golden()
     launches = {"main": phase_main() if "main" in phases else {},
-                "faulty": phase_faulty() if "faulty" in phases else {}}
+                "faulty": phase_faulty() if "faulty" in phases else {},
+                "geo": phase_geo() if "geo" in phases else {}}
     if "scale" in phases:
         phase_scale()
     if "profile" in phases:
@@ -773,8 +1148,11 @@ def main() -> None:
             "max_abs_err": t["err"], "match": t["err"] == 0,
             "shape": t["shape"], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
+            # No single PyTorch call computes any of these functions.
             "library_ms": None,
         })
+        if "addmm_ms" in t:
+            kernels[-1]["addmm_cost_term_ms"] = t["addmm_ms"]
     log(dev["smi"])    # the card's name and power limit again, beside the numbers
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

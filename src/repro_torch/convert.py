@@ -1,4 +1,5 @@
-"""Carry protocol state between the JAX package and the port.
+"""Carry protocol state and topologies between the JAX package and the
+port.
 
 The system has no weights; its state is ``ClusterState``, ``Duot``,
 ``HintState``, ``DuraState``, ``StoreState`` and the engine's ``obs``
@@ -7,6 +8,8 @@ dictionaries (``StoreState`` nests its ``cluster``, ``duot`` and, when
 present, ``hints`` and ``dura`` dictionaries; the obs carry is
 ``{"hist": ..., "counters": {name: ...}}``), so state taken from a
 reference run can be fed to the port and compared field by field.
+:func:`region_topology` rebuilds a reference ``RegionTopology`` from its
+plain fields, so both packages can run on one topology.
 """
 
 from __future__ import annotations
@@ -16,10 +19,12 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.core.cost_model import EgressMatrix
 from repro_torch.core.duot import Duot
 from repro_torch.core.replicated_store import DuraState, HintState, StoreState
 from repro_torch.core.xstcc import ClusterState
 from repro_torch.device import resolve_device
+from repro_torch.geo.topology import RegionTopology
 
 
 def _tensor(x, device: torch.device) -> torch.Tensor:
@@ -91,3 +96,26 @@ def to_numpy(state: NamedTuple) -> dict[str, Any]:
             continue
         out[f] = to_numpy(v) if isinstance(v, tuple) else v.detach().cpu().numpy()
     return out
+
+
+def region_topology(ref) -> RegionTopology:
+    """The port's :class:`RegionTopology` with the fields of ``ref``, any
+    object with ``replica_region``, ``rtt_ms``, ``client_region`` and an
+    ``egress`` holding ``pair_class``, ``class_per_gb`` and
+    ``class_tiers`` (the reference's topology, read without importing
+    its package)."""
+    e = ref.egress
+    return RegionTopology(
+        replica_region=tuple(int(r) for r in ref.replica_region),
+        rtt_ms=tuple(tuple(float(x) for x in row) for row in ref.rtt_ms),
+        egress=EgressMatrix(
+            pair_class=tuple(tuple(int(k) for k in row) for row in e.pair_class),
+            class_per_gb=tuple(float(x) for x in e.class_per_gb),
+            class_tiers=tuple(
+                tuple((float(u), float(p)) for u, p in tiers)
+                for tiers in e.class_tiers
+            ),
+        ),
+        client_region=(None if ref.client_region is None
+                       else tuple(int(r) for r in ref.client_region)),
+    )

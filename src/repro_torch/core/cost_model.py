@@ -38,6 +38,18 @@ def tiered_cost(
     return cost
 
 
+def tiered_marginal(
+    gb: float, flat_per_gb: float, tiers: tuple[tuple[float, float], ...]
+) -> float:
+    """$/GB of the tier the volume ``gb`` falls in (flat otherwise)."""
+    if not tiers:
+        return flat_per_gb
+    for up_to, price in tiers:
+        if gb < up_to:
+            return price
+    return tiers[-1][1]
+
+
 @dataclasses.dataclass(frozen=True)
 class PricingScheme:
     """Paper Table 2 (defaults) — all prices in USD.
@@ -57,16 +69,23 @@ class PricingScheme:
         """Inter-DC transfer cost, tiered when tiers are configured."""
         return tiered_cost(gb, self.inter_dc_per_gb, self.inter_dc_tiers)
 
+    def marginal_inter_dc_per_gb(self, gb: float = 0.0) -> float:
+        """$/GB of the tier the volume ``gb`` falls in (flat otherwise)."""
+        return tiered_marginal(gb, self.inter_dc_per_gb, self.inter_dc_tiers)
+
 
 PAPER_PRICING = PricingScheme()
 
 
 @dataclasses.dataclass(frozen=True)
 class EgressMatrix:
-    """Per-region-pair egress price classes over a ``G``-region topology.
+    """Per-region-pair egress pricing over a ``G``-region topology.
 
-    Only what the flat path's topology needs: the class table and the
-    degenerate two-class matrix of a scalar pricing scheme.
+    ``pair_class[g][h]`` assigns region pair ``(g, h)`` (traffic *from*
+    g *to* h) a price class; ``class_per_gb[k]`` is class k's flat $/GB
+    and ``class_tiers[k]`` its optional ``(up_to_gb, price)`` volume
+    tiers (as in :func:`tiered_cost`).  Class 0 is conventionally the
+    intra-region class.  All fields are tuples, so instances hash.
     """
 
     pair_class: tuple[tuple[int, ...], ...]      # (G, G) class ids
@@ -91,6 +110,29 @@ class EgressMatrix:
     def n_regions(self) -> int:
         return len(self.pair_class)
 
+    def _tiers(self, k: int) -> tuple[tuple[float, float], ...]:
+        return self.class_tiers[k] if self.class_tiers else ()
+
+    def pair_cost(self, g: int, h: int, gb: float) -> float:
+        """Cost of ``gb`` shipped from region ``g`` to region ``h``; each
+        pair bills its own tiered integral, so a pair with no traffic
+        costs exactly zero."""
+        k = self.pair_class[g][h]
+        return tiered_cost(gb, self.class_per_gb[k], self._tiers(k))
+
+    def pair_marginal(self, g: int, h: int, gb: float = 0.0) -> float:
+        """$/GB of the tier pair ``(g, h)``'s volume ``gb`` falls in."""
+        k = self.pair_class[g][h]
+        return tiered_marginal(gb, self.class_per_gb[k], self._tiers(k))
+
+    def price_matrix(self) -> list[list[float]]:
+        """(G, G) marginal-at-zero $/GB — the planner's analytic prices."""
+        g = self.n_regions
+        return [
+            [self.pair_marginal(i, j, 0.0) for j in range(g)]
+            for i in range(g)
+        ]
+
     @classmethod
     def from_pricing(cls, n_regions: int, pricing: PricingScheme) -> "EgressMatrix":
         """Intra pairs at ``intra_dc_per_gb``, inter pairs at the inter-DC
@@ -104,6 +146,20 @@ class EgressMatrix:
             class_per_gb=(pricing.intra_dc_per_gb, pricing.inter_dc_per_gb),
             class_tiers=((), tuple(pricing.inter_dc_tiers)),
         )
+
+
+def cost_network_matrix(*, traffic_gb, egress: EgressMatrix) -> float:
+    """Eq. (.8) generalized: a (G, G) traffic matrix billed per pair
+    through each pair's tiered price class (pairs summed in row-major
+    order, zero-traffic pairs skipped)."""
+    total = 0.0
+    g = egress.n_regions
+    for i in range(g):
+        for j in range(g):
+            vol = float(traffic_gb[i][j])
+            if vol:
+                total += egress.pair_cost(i, j, vol)
+    return total
 
 
 @dataclasses.dataclass(frozen=True)

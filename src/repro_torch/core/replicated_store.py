@@ -444,6 +444,32 @@ class ReplicatedStore:
         )
         return state._replace(cluster=cluster), n
 
+    def merge_geo(
+        self, state: StoreState, topology, *, delta: int | None = None,
+        up=None, link=None,
+    ) -> tuple[StoreState, torch.Tensor, torch.Tensor]:
+        """Two-tier region-grouped merge (see
+        :func:`repro_torch.core.xstcc.server_merge_geo`): the state equals
+        :meth:`merge`'s, and the third value is the ``(G, G)`` delivery
+        matrix (LAN fan-out on the diagonal, one WAN hop per (write,
+        newly reached region) off it).  ``up``/``link`` compose as in
+        :meth:`merge`."""
+        if topology.n_replicas != self.n_replicas:
+            raise ValueError(
+                f"topology places {topology.n_replicas} replicas, store "
+                f"has {self.n_replicas}"
+            )
+        d = self.delta if delta is None else delta
+        dev = state.cluster.pend_live.device
+        cluster, n, traffic = xstcc.server_merge_geo(
+            state.cluster, delta=d,
+            region=torch.from_numpy(topology.regions()).to(dev),
+            n_regions=topology.n_regions,
+            rtt_ms=torch.from_numpy(topology.rtt()).to(dev),
+            level=self.level, up=up, link=link,
+        )
+        return state._replace(cluster=cluster), n, traffic
+
     def merge_faulty(
         self, state: StoreState, *, up, link, delta: int | None = None,
     ) -> tuple[StoreState, torch.Tensor, torch.Tensor]:

@@ -471,3 +471,64 @@ def server_merge(
         clock=state.clock + 1,
     )
     return new, n
+
+
+def server_merge_geo(
+    state: ClusterState,
+    *,
+    delta: int,
+    region: torch.Tensor,
+    n_regions: int,
+    rtt_ms: torch.Tensor,
+    level=None,
+    up=None,
+    link=None,
+) -> tuple[ClusterState, torch.Tensor, torch.Tensor]:
+    """Two-tier (region-grouped) propagation step.
+
+    A write crosses the WAN once per destination region, then fans out
+    over the region's LAN.  The state equals :func:`server_merge`'s (the
+    flat fixpoint is the closure both tiers reach), so this runs the
+    flat merge and derives the tier of every delivery from the
+    ``pend_applied`` delta:
+
+      * a (write, replica) delivery lands in region ``h``; if a replica
+        of ``h`` held the write before this merge, the copy travels the
+        LAN — an ``(h, h)`` event;
+      * otherwise the first copy into ``h`` crosses the WAN from the
+        nearest region (by ``rtt_ms``, ties → lowest id) that held the
+        write before the merge — a ``(src, h)`` event — and the other
+        copies fan out on the LAN.
+
+    ``up``/``link`` pass through to the flat fixpoint.  Returns
+    ``(state, n_applied, traffic)``, ``traffic`` a ``(G, G)`` int32
+    matrix of delivery events.
+    """
+    dev = state.pend_applied.device
+    reg = torch.as_tensor(region, device=dev).long()
+    rtt = torch.as_tensor(rtt_ms, device=dev).to(torch.float32)
+    G = n_regions
+    before = state.pend_applied                                    # (Q, P)
+    new, n_applied = server_merge(state, delta=delta, level=level, up=up,
+                                  link=link)
+    newly = new.pend_applied & ~before
+    onehot = reg[:, None] == torch.arange(G, device=dev)[None, :]  # (P, G)
+    held = (before[:, :, None] & onehot[None]).any(dim=1)          # (Q, G)
+    new_in = (newly[:, :, None] & onehot[None]).sum(dim=1, dtype=torch.int32)
+    # The first copy into a region that held nothing crosses the WAN from
+    # the nearest pre-merge holder region.
+    inter = (new_in > 0) & ~held                                   # (Q, G)
+    big = torch.finfo(torch.float32).max
+    src_cost = torch.where(held[:, :, None], rtt[None], big)       # (Q, Gs, Gd)
+    # torch.argmin returns the first minimum (lowest region id on ties),
+    # as jnp.argmin does; a holder-less column falls to region 0 in both.
+    src = torch.argmin(src_cost, dim=1)                            # (Q, Gd)
+    dst = torch.arange(G, device=dev)[None, :].expand_as(src)
+    traffic = torch.zeros((G * G,), dtype=torch.int64, device=dev)
+    traffic.index_add_(0, (src * G + dst).reshape(-1),
+                       inter.reshape(-1).to(torch.int64))
+    intra = (new_in - inter.to(torch.int32)).sum(dim=0)            # (G,)
+    traffic = traffic.reshape(G, G)
+    traffic += torch.diag(intra.to(torch.int64))
+    return new, n_applied, traffic.to(torch.int32)
+

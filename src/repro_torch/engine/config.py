@@ -1,12 +1,12 @@
 """Configuration of the epoch engine (port of ``repro.engine.config``).
 
 One frozen dataclass holds every piece of a replay: level and cadence,
-batching, the fault schedule (``faults``, anchored per merge round or,
-with ``schedule_unit``, per op-index window), ``gossip``,
+batching, the region ``topology`` (two-tier merge, RTT latency, per-pair
+egress bill), the fault schedule (``faults``, anchored per merge round
+or, with ``schedule_unit``, per op-index window), ``gossip``,
 ``durability``, ``obs`` and the ``lean`` fidelity switch.  Pieces the
-port does not run yet raise ``NotImplementedError``: ``topology``,
-``n_shards > 1``, schedules with crash events, and
-``GossipConfig(peer="nearest")``.
+port does not run yet raise ``NotImplementedError``: ``n_shards > 1``,
+schedules with crash events, and a topology composed with faults.
 """
 
 from __future__ import annotations
@@ -60,10 +60,10 @@ class EngineConfig:
     obs: ObsConfig | None = None
 
     def __post_init__(self) -> None:
-        if self.topology is not None:
-            raise _not_ported("EngineConfig.topology", "it needs the geo slice")
         if self.n_shards < 1:
             raise ValueError(f"n_shards must be >= 1, got {self.n_shards}")
+        if self.topology is not None and self.n_shards > 1:
+            raise ValueError("topology does not compose with n_shards > 1")
         if self.n_shards > 1:
             raise _not_ported("EngineConfig.n_shards > 1",
                               "repro_torch runs one shard")
@@ -76,20 +76,21 @@ class EngineConfig:
             if self.faults.has_crashes:
                 raise _not_ported("a fault schedule with crash events",
                                   "crash and bootstrap are deferred")
-        if self.gossip is not None and self.gossip.peer == "nearest":
-            raise _not_ported('GossipConfig(peer="nearest")',
-                              "it needs the geo slice")
+            if self.topology is not None:
+                raise _not_ported("a topology composed with faults",
+                                  "geo + faults is deferred")
         if self.ingest not in ("auto", "cuda", "torch"):
             raise ValueError(
                 f"ingest must be 'auto', 'cuda' or 'torch', got {self.ingest!r}"
             )
         if self.lean and (
-            self.faults is not None or self.gossip is not None
-            or self.durability is not None or self.audit
+            self.faults is not None or self.topology is not None
+            or self.gossip is not None or self.durability is not None
+            or self.audit
         ):
             raise ValueError(
                 "lean fidelity serves the flat throughput path only: no "
-                "faults/gossip/durability, audit=False"
+                "faults/topology/gossip/durability, audit=False"
             )
 
     # -- identity ---------------------------------------------------------
@@ -119,7 +120,7 @@ class EngineConfig:
 
     @property
     def n_replicas(self) -> int:
-        return 3
+        return 3 if self.topology is None else self.topology.n_replicas
 
     def resolved_pending_cap(self, w_read_fraction: float) -> int:
         """The pending-ring bound this replay runs with.

@@ -1,17 +1,24 @@
 """The epoch engine's replay (port of ``repro.engine.replay``).
 
 One round step — heal-time hint drain and anti-entropy, failover, op
-ingest, hint enqueue, the boundary merge (masked under faults), the
-gossip exchange, WAL/snapshot journaling, counters and the obs
-histograms — runs once per merge round.  The reference scans it under
+ingest, hint enqueue, the boundary merge (masked under faults, two-tier
+over a region topology), the gossip exchange, WAL/snapshot journaling,
+counters, the per-region telemetry and the obs histograms — runs once
+per merge round.  The reference scans it under
 one ``jit`` with every feature a statically gated section; here the
 round loop is Python and every section is a plain ``if``.  The per-round
 masks (``up``, ``conn``, ``faulty``, ``heal``, ``gossip``, ``snap``,
 ``pairs``) stay on the host, so a ``lax.cond`` becomes an ``if`` with no
 device sync; the stream and what a merge or kernel consumes go to the
 device once.  Per round the host reads the DUOT size and one flag per
-merge-fixpoint pass.  Crash events, bootstrap, topology and sharding are
-not ported yet (``EngineConfig`` rejects them).
+merge-fixpoint pass.  Crash events, bootstrap, sharding and a topology
+composed with faults are not ported yet (``EngineConfig`` rejects them).
+
+One deliberate difference on the geo path: the reference sums each op's
+f32 RTT into a per-region f32 vector every round, in an order XLA picks.
+The port counts ops per (client region, serving region) pair in int64
+and forms the latency sums once, at the end, from those counts (see
+``results.assemble_geo``), so the card and the CPU agree exactly.
 """
 
 from __future__ import annotations
@@ -57,9 +64,23 @@ class EpochEngine:
         self.w_on = self.d_on and c.durability.wal
         self.s_on = self.d_on and c.durability.snapshot_every > 0
         self.gx_on = g is not None and self.faults_on
+        self.geo_on = c.topology is not None
+        # Geo gossip attributes its exchanges to region pairs (all-up).
+        self.ggx_on = self.g_on and self.geo_on and not self.faults_on
         self.o_on = c.obs is not None and c.obs.enabled
         if self.o_on:
-            self.specs = obs_lib.build_metrics(c.obs, geo_on=False, h_on=self.h_on)
+            self.specs = obs_lib.build_metrics(c.obs, geo_on=self.geo_on,
+                                               h_on=self.h_on)
+        if self.geo_on:
+            topo = c.topology
+            dev = self.device
+            self.client_reg = torch.from_numpy(
+                topo.client_region_of(np.arange(c.n_clients))).long().to(dev)
+            self.replica_reg = torch.from_numpy(topo.regions()).long().to(dev)
+            self.rtt = torch.from_numpy(topo.rtt()).to(dev)
+            self.all_up = torch.ones((topo.n_replicas,), dtype=torch.bool, device=dev)
+            self.all_conn = torch.ones((topo.n_replicas,) * 2, dtype=torch.bool,
+                                       device=dev)
 
     def plan(self) -> tuple[int, int, int, bool]:
         c = self.config
@@ -124,6 +145,16 @@ class EpochEngine:
         schedule = masks = tail_masks = None
         if self.faults_on:
             schedule, masks, tail_masks = self._fault_masks(n_rounds, rem, sub)
+        elif c.gossip is not None and c.gossip.enabled:
+            # All-up gossip: the scheduled pairs only, no fault masks.
+            n_epochs_total = n_rounds + (1 if rem else 0)
+            g_active, g_pairs = gossip_pairs(
+                store.n_replicas, n_epochs_total, c.gossip,
+                c.topology if c.gossip.peer == "nearest" else None,
+            )
+            masks = {"gossip": g_active[:n_rounds], "pairs": g_pairs[:n_rounds]}
+            tail_masks = {"gossip": g_active[n_epochs_total - 1],
+                          "pairs": g_pairs[n_epochs_total - 1]}
         if self.faults_on and emulate:
             # The fault path builds its apply schedule by hand:
             # synchronous levels defer to the masked merge under faults,
@@ -161,9 +192,9 @@ class EpochEngine:
             "store": store, "batched": dev(batched),
             "tail": dev(tail), "sub": sub, "rem": rem, "n_rounds": n_rounds,
             "emulate": emulate, "schedule": schedule, "masks": masks,
-            "tail_masks": tail_masks,
+            "tail_masks": tail_masks, "stream": stream,
         }
-        if masks is not None:
+        if self.faults_on:
             # What the merges and kernels consume, on the device once.
             prep["dev_masks"] = dev({"up": masks["up"], "conn": masks["conn"]})
             prep["dev_tail_masks"] = dev({"up": tail_masks["up"],
@@ -176,6 +207,19 @@ class EpochEngine:
         carry = {"st": store.init(), "stale": z, "viol": z, "reads": z}
         if self.faults_on:
             carry.update(ae=z, prop=z, fail=z)
+        if self.geo_on:
+            g = self.config.topology.n_regions
+            zg = torch.zeros((g,), dtype=torch.int64, device=dev)
+            carry["traffic"] = torch.zeros((g, g), dtype=torch.int64, device=dev)
+            # Per client region: stale reads, reads, and ops by serving
+            # region (the latency sums are formed from these at the end).
+            carry["reg"] = {"stale": zg, "reads": zg,
+                            "pairs": torch.zeros((g, g), dtype=torch.int64,
+                                                 device=dev)}
+        if self.ggx_on:
+            g = self.config.topology.n_regions
+            zgg = torch.zeros((g, g), dtype=torch.int64, device=dev)
+            carry["ggx"] = {"traffic": zgg, "digest": zgg, "ranges": z, "gap": z}
         if self.gx_on:
             carry["gx"] = {"deliv": z, "ranges": z, "pairs": z, "gap": z}
             if self.h_on:
@@ -268,6 +312,9 @@ class EpochEngine:
         # -- boundary merge -----------------------------------------------
         if lean_merge:
             st, _ = store.merge(st, timed_only=True, boundary=step0 + width)
+        elif self.geo_on:
+            st, _, tr = store.merge_geo(st, c.topology)
+            carry["traffic"] = carry["traffic"] + tr
         elif self.faults_on:
             st, _, ev = store.merge_faulty(st, up=up, link=conn)
             carry["prop"] = carry["prop"] + ev
@@ -298,6 +345,32 @@ class EpochEngine:
             carry["gx"] = gx
             if ys is not None:
                 ys["gossip"].append(torch.stack([x.to(torch.int64) for x in (gd, gr, gg)]))
+        elif self.ggx_on and m["gossip"]:
+            # Geo flavour: repair deliveries and digest payloads are
+            # attributed to the exchanging replicas' region pair.
+            st, tel = store.gossip_round(
+                st, pairs=m["pairs"], up=self.all_up, link=self.all_conn,
+                n_ranges=c.gossip.n_ranges, impl=c.gossip.impl,
+            )
+            g = c.topology.n_regions
+            pairs = torch.from_numpy(np.asarray(m["pairs"])).long().to(dev)
+            a, b = pairs[:, 0], pairs[:, 1]
+            ab = self.replica_reg[a] * g + self.replica_reg[b]
+            ba = self.replica_reg[b] * g + self.replica_reg[a]
+            mi = torch.arange(a.shape[0], device=dev)
+            growth = tel["growth"].long()
+            v = tel["valid"].long()
+            gt = torch.zeros((g * g,), dtype=torch.int64, device=dev)
+            gt.index_add_(0, ab, growth[mi, b]).index_add_(0, ba, growth[mi, a])
+            dg = torch.zeros((g * g,), dtype=torch.int64, device=dev)
+            dg.index_add_(0, ab, v).index_add_(0, ba, v)
+            ggx = carry["ggx"]
+            carry["ggx"] = {
+                "traffic": ggx["traffic"] + gt.reshape(g, g),
+                "digest": ggx["digest"] + dg.reshape(g, g),
+                "ranges": ggx["ranges"] + tel["ranges"].sum(),
+                "gap": ggx["gap"] + tel["gap_repaired"],
+            }
         # -- durability epilogue ------------------------------------------
         if self.w_on:
             # Journal each replica's applied deltas (new coordinator
@@ -326,6 +399,17 @@ class EpochEngine:
         carry["stale"] = carry["stale"] + e_stale
         carry["viol"] = carry["viol"] + e_viol
         carry["reads"] = carry["reads"] + n_reads
+        if self.geo_on:
+            g = c.topology.n_regions
+            creg = self.client_reg[ops["client"].long()]
+            hreg = self.replica_reg[home.long()]
+            reg = carry["reg"]
+            carry["reg"] = {
+                "stale": reg["stale"].index_add(0, creg, res.stale.long()),
+                "reads": reg["reads"].index_add(0, creg, is_read.long()),
+                "pairs": reg["pairs"].reshape(-1).index_add(
+                    0, creg * g + hreg, torch.ones_like(creg)).reshape(g, g),
+            }
         # -- observability plane ------------------------------------------
         if self.o_on:
             # Staleness age = the resource's post-merge write frontier
@@ -336,11 +420,15 @@ class EpochEngine:
                 st.cluster.global_version[ops["resource"].long()] - res.version,
                 min=0,
             ).to(torch.float32)
+            rows, row_mask = [age, age], [is_read, res.violation]
+            if self.geo_on:
+                rows.append(self.rtt[creg, hreg])
+                row_mask.append(is_read)
             hist = carry["obs"]["hist"].clone()
             hist[: self.n_op_metrics] += kernel_ops.histogram(
-                torch.stack([age, age]),
+                torch.stack(rows),
                 lo=self.ob_lo, hi=self.ob_hi, n_bins=obs.n_bins,
-                mask=torch.stack([is_read, res.violation]).to(torch.int32),
+                mask=torch.stack(row_mask).to(torch.int32),
                 impl=obs.impl,
             )
             if self.h_on:
@@ -386,12 +474,14 @@ class EpochEngine:
                 return None
             if t is None:
                 m = dict(prep["tail_masks"])
-                m["up_t"] = prep["dev_tail_masks"]["up"]
-                m["conn_t"] = prep["dev_tail_masks"]["conn"]
+                if self.faults_on:
+                    m["up_t"] = prep["dev_tail_masks"]["up"]
+                    m["conn_t"] = prep["dev_tail_masks"]["conn"]
                 return m
             m = {k: v[t] for k, v in masks.items()}
-            m["up_t"] = prep["dev_masks"]["up"][t]
-            m["conn_t"] = prep["dev_masks"]["conn"][t]
+            if self.faults_on:
+                m["up_t"] = prep["dev_masks"]["up"][t]
+                m["conn_t"] = prep["dev_masks"]["conn"][t]
             return m
 
         for t in range(n_rounds):

@@ -1,10 +1,15 @@
 """Result assembly for the epoch engine (port of
-``repro.engine.results``: the flat and fault-path dictionaries, the
+``repro.engine.results``: the flat, geo and fault-path dictionaries, the
 ``"obs"`` block and its cost attribution).
 
 Each ``assemble_*`` turns one :meth:`EpochEngine.replay` output into the
 reference's dictionary — same keys, same float arithmetic, same order of
-the billing terms — so results compare with ``==``.
+the billing terms — so results compare with ``==``.  The one exception
+is the geo path's latency: ``mean_latency_ms`` and
+``per_region.mean_latency_ms`` come from exact per-(client region,
+serving region) op counts, ``Σ count·f64(rtt_f32)``, where the reference
+adds f32 RTTs in an order XLA picks; the two agree within 1e-5
+relative.
 """
 
 from __future__ import annotations
@@ -39,6 +44,169 @@ def assemble_flat(config: EngineConfig, prep: dict) -> dict[str, float]:
         "n_reads": n_reads,
         "dropped_writes": int(st.cluster.pend_dropped),
     }
+
+
+def _region_latency(config: EngineConfig, out: dict):
+    """(reads, stale, ops, latency sums) per client region, int64 and f64:
+    the latency sum of region ``g`` is ``Σ_h count[g, h]·f64(rtt[g, h])``
+    over the serving regions ``h``."""
+    reg = out["reg"]
+    pairs = reg["pairs"].cpu().numpy().astype(np.int64)
+    rtt = config.topology.rtt().astype(np.float64)
+    lat = (pairs * rtt).sum(axis=1)
+    return (reg["reads"].cpu().numpy(), reg["stale"].cpu().numpy(),
+            pairs.sum(axis=1), lat)
+
+
+def assemble_geo(
+    config: EngineConfig,
+    prep: dict,
+    w: Workload,
+    cfg: ClusterConfig = PAPER_CLUSTER,
+    pricing: cost_model.PricingScheme = cost_model.PAPER_PRICING,
+) -> dict[str, Any]:
+    """The region-aware dictionary: protocol rates, the (G, G) traffic
+    matrix billed per pair (next to the aggregate-scalar bill), per-region
+    staleness and RTT latency, and the ``"gossip"`` / ``"durability"``
+    blocks when those subsystems ran."""
+    from repro_torch.storage.simulator import throughput_model
+
+    out = prep["out"]
+    topology = config.topology
+    gossip = config.gossip
+    recovery = config.durability
+    g_on = gossip is not None and gossip.enabled
+    st = out["st"]
+    n_reads = int(out["reads"])
+    n_reads_f = max(1, n_reads)
+    severity = _severity(config, prep["store"], st)
+    stale_rate = float(int(out["stale"])) / n_reads_f
+    n_ops = config.n_ops
+
+    # -- region-pair billing (eq. 8 over the measured traffic matrix) ----
+    events = out["traffic"].cpu().numpy().astype(np.int64)
+    prop_gb = events * cfg.row_bytes / 1e9
+    off = ~np.eye(topology.n_regions, dtype=bool)
+    inter_gb = float(prop_gb[off].sum())
+    intra_gb = float(np.diag(prop_gb).sum())
+    # One pricebook per run: a custom egress matrix wins, but the default
+    # paper-derived matrix follows a ``pricing`` override.
+    egress = topology.egress
+    if egress == cost_model.EgressMatrix.from_pricing(
+        topology.n_regions, cost_model.PAPER_PRICING
+    ):
+        egress = cost_model.EgressMatrix.from_pricing(topology.n_regions, pricing)
+    network_geo = cost_model.cost_network_matrix(traffic_gb=prop_gb, egress=egress)
+    network_scalar = cost_model.cost_network(
+        inter_dc_gb=inter_gb, intra_dc_gb=intra_gb, pricing=pricing
+    )
+    thr, _ = throughput_model(config.level, w, 64, cfg, stale_rate)
+    runtime_s = n_ops / thr
+    bill = cost_model.cost_all(
+        nb_instances=cfg.n_nodes,
+        runtime_hours=runtime_s / 3600.0,
+        hosted_gb=cfg.total_data_gb_after_replication,
+        months=runtime_s / (30 * 24 * 3600.0),
+        io_requests=float(n_ops)
+        * config.level.write_acks(cfg.replication_factor),
+        inter_dc_gb=inter_gb,
+        intra_dc_gb=intra_gb,
+        pricing=pricing,
+    )
+    cost = bill.as_dict()
+    cost["network_geo"] = network_geo
+    cost["network_scalar"] = network_scalar
+    cost["total_geo"] = cost["instances"] + cost["storage"] + network_geo
+
+    gossip_info = None
+    if g_on:
+        ggx = out["ggx"]
+        g_traffic = ggx["traffic"].cpu().numpy()
+        g_digest = ggx["digest"].cpu().numpy()
+        k_eff = max(1, min(gossip.n_ranges, config.n_resources))
+        repair_mat_gb = g_traffic.astype(np.float64) * cfg.row_bytes / 1e9
+        digest_mat_gb = g_digest.astype(np.float64) * k_eff * DIGEST_BYTES / 1e9
+        gossip_network_geo = cost_model.cost_network_matrix(
+            traffic_gb=repair_mat_gb + digest_mat_gb, egress=egress
+        )
+        cost["gossip_network_geo"] = gossip_network_geo
+        cost["total_geo"] += gossip_network_geo
+        gossip_info = {
+            "cadence": gossip.cadence,
+            "repair_events": g_traffic.tolist(),
+            "repair_gb": float(repair_mat_gb.sum()),
+            "digest_gb": float(digest_mat_gb.sum()),
+            "ranges_diffed": int(ggx["ranges"]),
+            "gap_repaired": int(ggx["gap"]),
+            "peer": gossip.peer,
+        }
+
+    durability_info = None
+    if recovery is not None and recovery.enabled:
+        # Steady-state durable-I/O model (all-up, host-side only): every
+        # write applies at all P replicas, and each snapshot persists the
+        # inter-marker working set capped at the key count.
+        n_epochs_total = prep["n_rounds"] + (1 if prep["rem"] else 0)
+        se = recovery.snapshot_every
+        n_snaps = n_epochs_total // se if se > 0 else 0
+        n_writes = int((prep["stream"]["kind"] == 1).sum())
+        wal_records_pp = n_writes if recovery.wal else 0
+        per_snap = (
+            min(config.n_resources, -(-n_writes // n_snaps)) if n_snaps else 0
+        )
+        snap_cells_pp = per_snap * n_snaps
+        per_region = np.bincount(topology.regions(), minlength=topology.n_regions)
+        dur_mat_gb = np.diag(
+            (snap_cells_pp + wal_records_pp) * per_region * cfg.row_bytes / 1e9
+        )
+        durability_network_geo = cost_model.cost_network_matrix(
+            traffic_gb=dur_mat_gb, egress=egress
+        )
+        cost["durability_network_geo"] = durability_network_geo
+        cost["total_geo"] += durability_network_geo
+        cost["durability_storage"] = cost_model.cost_storage(
+            hosted_gb=3 * config.n_resources * cfg.row_bytes / 1e9,
+            months=runtime_s / (30 * 24 * 3600.0),
+            io_requests=float(
+                (snap_cells_pp + wal_records_pp) * topology.n_replicas
+            ),
+            pricing=pricing,
+        )
+        durability_info = {
+            "snapshot_every": se,
+            "wal": recovery.wal,
+            "snapshots": n_snaps,
+            "snapshot_cells": snap_cells_pp * topology.n_replicas,
+            "wal_records": wal_records_pp * topology.n_replicas,
+            "durable_gb": float(dur_mat_gb.sum()),
+            "durable_gb_by_region": np.diag(dur_mat_gb).tolist(),
+        }
+
+    reg_reads, reg_stale, reg_ops, reg_lat = _region_latency(config, out)
+    result = {
+        "staleness_rate": stale_rate,
+        "violation_rate": float(int(out["viol"])) / n_reads_f,
+        "severity": severity,
+        "n_reads": n_reads,
+        "dropped_writes": int(st.cluster.pend_dropped),
+        "n_regions": topology.n_regions,
+        "traffic_events": events.tolist(),
+        "propagation_gb": prop_gb.tolist(),
+        "mean_latency_ms": float(reg_lat.sum() / max(1, reg_ops.sum())),
+        "per_region": {
+            "reads": reg_reads.tolist(),
+            "stale": reg_stale.tolist(),
+            "ops": reg_ops.tolist(),
+            "staleness_rate": (reg_stale / np.maximum(1, reg_reads)).tolist(),
+            "mean_latency_ms": (reg_lat / np.maximum(1, reg_ops)).tolist(),
+        },
+        "cost": cost,
+    }
+    if gossip_info is not None:
+        result["gossip"] = gossip_info
+    if durability_info is not None:
+        result["durability"] = durability_info
+    return result
 
 
 def assemble_faulty(
@@ -243,7 +411,8 @@ def _obs_block(config: EngineConfig, prep: dict) -> dict[str, Any]:
         config.gossip is not None and config.gossip.handoff
         and config.faults is not None
     )
-    specs = obs_lib.build_metrics(obs, geo_on=False, h_on=h_on)
+    specs = obs_lib.build_metrics(obs, geo_on=config.topology is not None,
+                                  h_on=h_on)
     block = obs_lib.summarize(obs, specs, hist, counters)
     pr = prep.get("per_round")
     if pr is not None and "obs" in pr:
@@ -285,6 +454,8 @@ def assemble(
     """Dispatch the replay output to its config's result shape."""
     if config.faults is not None:
         result = assemble_faulty(config, prep, w, cfg, pricing)
+    elif config.topology is not None:
+        result = assemble_geo(config, prep, w, cfg, pricing)
     else:
         result = assemble_flat(config, prep)
     if config.obs is not None and config.obs.enabled:

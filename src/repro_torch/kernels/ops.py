@@ -15,12 +15,13 @@ import torch
 from repro_torch.kernels import digest_compare as _dc
 from repro_torch.kernels import histogram as _hg
 from repro_torch.kernels import op_ingest as _oi
+from repro_torch.kernels import placement_score as _pls
 from repro_torch.kernels import vclock_audit as _va
 from repro_torch.kernels import vclock_chain as _vch
 
 IMPLS = ("auto", "cuda", "torch")
 _COUNTED = {"op_ingest": _oi, "vclock_audit": _va, "vclock_chain": _vch,
-            "digest_compare": _dc, "histogram": _hg}
+            "digest_compare": _dc, "histogram": _hg, "placement_score": _pls}
 
 
 def resolve_impl(impl: str | None, t: torch.Tensor) -> str:
@@ -152,3 +153,16 @@ def histogram(values, *, lo, hi, n_bins: int, mask=None,
     else:
         out = _hg.histogram_cuda(vals, msk, params, n_bins=n_bins)
     return out[0] if one_d else out
+
+
+def placement_score(reads, writes, read_price, write_price, read_rtt, cand_meta,
+                    *, max_latency_ms: float, impl: str | None = "auto"):
+    """(resources × candidate plans) placement scoring -> ``(utility (R, K)
+    f32, feasible (R, K) int32)`` — the fused contract of
+    ``repro.kernels.ref.placement_score_ref`` under ``jit``, bit for bit.
+    Inputs: ``reads``/``writes`` (R, G), ``read_price``/``write_price``/
+    ``read_rtt`` (K, G), ``cand_meta`` (2, K), all f32."""
+    impl = resolve_impl(impl, reads)
+    fn = _pls.placement_score_ref if impl == "torch" else _pls.placement_score_cuda
+    return fn(reads, writes, read_price, write_price, read_rtt, cand_meta,
+              max_latency_ms=max_latency_ms)

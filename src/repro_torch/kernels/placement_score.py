@@ -1,0 +1,156 @@
+"""The (resources × candidate plans) placement scorer.
+
+Port of ``repro.kernels.placement_score``: for every resource ``r`` with
+regional demand ``reads[r]``, ``writes[r]`` (``(G,)`` each) and every
+candidate placement ``k`` (pre-digested by
+``repro_torch.geo.placement.candidate_tables`` into ``(K, G)`` price and
+latency rows and ``(2, K)`` [storage $, validity]):
+
+    cost   = store[k];  excess = 0
+    for g in 0 .. G-1:                     (this order, always)
+        cost    = fma(reads[r, g],  read_price[k, g],  cost)
+        cost    = fma(writes[r, g], write_price[k, g], cost)
+        excess += 10 · ((reads + writes)[r, g] > 0 and rtt[k, g] > max_lat)
+    excess += 10 · not (valid[k] > 0)
+    feasible = excess == 0;   utility = -cost - 1e6 · excess
+
+Each cost update rounds once, as a fused multiply-add: the reference's
+jitted scorer (``ref.placement_score_ref`` under ``jit``, its tiled twin
+and its Pallas kernel) contracts ``cost + x · price`` into an FMA, and
+that fused result is the contract.
+
+  * :func:`placement_score_ref` — the plain version.  PyTorch has no
+    FMA that it promises on every device, so :func:`fma_f32` emulates
+    one exactly in float64;
+  * :func:`placement_score_cuda` — the hand-written kernel
+    (``csrc/placement_score.cu``), ``__fmaf_rn`` for the two updates.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+
+STRUCTURAL_WEIGHT = 10.0       # SLA excess per structural violation
+INFEASIBLE_PENALTY = 1.0e6     # utility cost per unit of excess
+
+ROWS_PER_CHUNK = 1 << 19       # plain version: rows scored per pass
+SMEM_MAX = 48 * 1024           # the kernel's static shared-memory budget
+
+launches = 0
+
+
+def fma_f32(x: torch.Tensor, y: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded f32 ``x·y + c`` on any device.
+
+    The product of two f32 values is exact in f64.  The f64 sum is
+    rounded to nearest; TwoSum gives its exact error, and where the
+    error is nonzero and the sum's last bit is even the sum steps one
+    f64 ulp toward the error — round-to-odd.  53 ≥ 2·24 + 2, so the
+    final round to f32 is the single rounding of the exact value.
+    """
+    p = x.to(torch.float64) * y.to(torch.float64)
+    c = c.to(torch.float64)
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, torch.inf, -torch.inf).to(torch.float64)
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return s.to(torch.float32)
+
+
+def _score_rows(reads, writes, rprice, wprice, rtt, meta, max_lat):
+    r, g = reads.shape
+    k = rprice.shape[0]
+    cost = meta[0][None, :].expand(r, k)
+    excess = torch.zeros((r, k), dtype=torch.float32, device=reads.device)
+    structural = torch.tensor(STRUCTURAL_WEIGHT, dtype=torch.float32,
+                              device=reads.device)
+    for gi in range(g):                 # fixed order, as the reference
+        rd, wr = reads[:, gi:gi + 1], writes[:, gi:gi + 1]
+        cost = fma_f32(rd, rprice[None, :, gi], cost)
+        cost = fma_f32(wr, wprice[None, :, gi], cost)
+        late = ((rd + wr) > 0) & (rtt[None, :, gi] > max_lat)
+        excess = excess + structural * late.to(torch.float32)
+    excess = excess + structural * (~(meta[1][None, :] > 0)).to(torch.float32)
+    feas = excess == 0
+    penalty = torch.tensor(INFEASIBLE_PENALTY, dtype=torch.float32,
+                           device=reads.device)
+    return -cost - penalty * excess, feas.to(torch.int32)
+
+
+def _check(reads, writes, rprice, wprice, rtt, meta):
+    r, g = reads.shape
+    k = rprice.shape[0]
+    for name, t, shape in (("writes", writes, (r, g)), ("read_price", rprice, (k, g)),
+                           ("write_price", wprice, (k, g)), ("read_rtt", rtt, (k, g)),
+                           ("cand_meta", meta, (2, k))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+
+
+def placement_score_ref(reads, writes, read_price, write_price, read_rtt,
+                        cand_meta, *, max_latency_ms: float):
+    """Plain version: ``(utility (R, K) f32, feasible (R, K) int32)``,
+    bit-equal to the reference's fused contract.  Scores
+    ``ROWS_PER_CHUNK`` rows at a time to bound its f64 temporaries."""
+    args = [t.to(torch.float32) for t in (reads, writes, read_price,
+                                          write_price, read_rtt, cand_meta)]
+    _check(*args)
+    reads, writes, rprice, wprice, rtt, meta = args
+    max_lat = torch.tensor(max_latency_ms, dtype=torch.float32, device=reads.device)
+    r, k = reads.shape[0], rprice.shape[0]
+    util = torch.empty((r, k), dtype=torch.float32, device=reads.device)
+    feas = torch.empty((r, k), dtype=torch.int32, device=reads.device)
+    for lo in range(0, r, ROWS_PER_CHUNK):
+        hi = min(r, lo + ROWS_PER_CHUNK)
+        util[lo:hi], feas[lo:hi] = _score_rows(
+            reads[lo:hi], writes[lo:hi], rprice, wprice, rtt, meta, max_lat)
+    return util, feas
+
+
+def _lib():
+    fn = build.load("placement_score").placement_score_launch
+    if fn.argtypes is None:
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [vp, vp, vp, vp, vp, vp, ctypes.c_longlong, ci, ci,
+                       ctypes.c_float, vp, vp, vp]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def placement_score_cuda(reads, writes, read_price, write_price, read_rtt,
+                         cand_meta, *, max_latency_ms: float):
+    """Launch ``csrc/placement_score.cu`` on CUDA f32 tensors; returns
+    ``(utility, feasible)``.  The resource axis needs no padding: the
+    kernel masks the ragged tail itself."""
+    global launches
+    ins = [t.contiguous() for t in (reads, writes, read_price, write_price,
+                                    read_rtt, cand_meta)]
+    if not all(t.is_cuda for t in ins):
+        raise ValueError("placement_score_cuda needs CUDA tensors")
+    if any(t.dtype != torch.float32 for t in ins):
+        raise ValueError("placement_score_cuda needs float32 tensors")
+    _check(*ins)
+    reads, writes, rprice, wprice, rtt, meta = ins
+    r, g = reads.shape
+    k = rprice.shape[0]
+    if (3 * k * g + 2 * k) * 4 > SMEM_MAX:
+        raise ValueError(f"placement_score_cuda: K={k}, G={g} exceed one "
+                         "block's shared memory")
+    util = torch.empty((r, k), dtype=torch.float32, device=reads.device)
+    feas = torch.empty((r, k), dtype=torch.int32, device=reads.device)
+    if r == 0 or k == 0:
+        return util, feas
+    err = _lib()(
+        reads.data_ptr(), writes.data_ptr(), rprice.data_ptr(), wprice.data_ptr(),
+        rtt.data_ptr(), meta.data_ptr(), r, k, g, float(max_latency_ms),
+        util.data_ptr(), feas.data_ptr(), build.stream_ptr(reads),
+    )
+    build.check(err, "placement_score")
+    launches += 1
+    return util, feas

@@ -11,9 +11,10 @@ bookkeeping around that state: which metrics a configuration records
 
 Distribution metrics, in row order: ``staleness_age`` (write frontier
 minus served version, per read), ``violation_severity`` (the same ages
-masked to violating reads), ``hint_depth`` (per-replica hint-queue
-depth each epoch; handoff + faults only).  The geo row
-``read_latency_ms`` needs the geo slice and is not ported yet.
+masked to violating reads), ``read_latency_ms`` (the RTT between the
+client's and the serving replica's regions, per read; geo only),
+``hint_depth`` (per-replica hint-queue depth each epoch; handoff +
+faults only).
 """
 
 from __future__ import annotations
@@ -71,16 +72,15 @@ def build_metrics(
 ) -> tuple[MetricSpec, ...]:
     """The metric registry of one engine configuration: per-op metrics
     first (one kernel call bins them together), then per-epoch state."""
-    if geo_on:
-        raise NotImplementedError(
-            "the geo obs row read_latency_ms is not ported yet: it needs "
-            "the geo slice"
-        )
     specs = [
         MetricSpec("staleness_age", 0.0, obs.age_hi, True, "reads"),
         MetricSpec("violation_severity", 0.0, obs.age_hi, True,
                    "violations"),
     ]
+    if geo_on:
+        specs.append(MetricSpec(
+            "read_latency_ms", 0.0, obs.latency_hi_ms, True, "reads"
+        ))
     if h_on:
         specs.append(MetricSpec(
             "hint_depth", 0.0, obs.depth_hi, False, "replicas"

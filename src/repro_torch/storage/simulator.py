@@ -12,9 +12,11 @@ Three coupled models produce every figure of the paper:
   * **Monetary** (Figs 14-15): measured traffic × Table-2 pricing
     through ``core.cost_model``.
 
-:func:`run_protocol_faulty` replays the same stream under replica
-outages and partitions, with gossip anti-entropy, hinted handoff and
-WAL/snapshot durability.  Every entry point is a thin
+:func:`run_protocol_geo` replays the same stream over a region topology
+(two-tier merge, RTT-matrix latency, per-pair egress bill);
+:func:`run_protocol_faulty` replays it under replica outages and
+partitions, with gossip anti-entropy, hinted handoff and WAL/snapshot
+durability.  Every entry point is a thin
 :class:`repro_torch.engine.config.EngineConfig` over the one epoch engine.
 """
 
@@ -162,6 +164,65 @@ def run_protocol(
     return engine_results.assemble(config, engine.replay(w), w)
 
 
+def run_protocol_geo(
+    level: ConsistencyLevel,
+    w: Workload,
+    *,
+    topology=None,
+    n_ops: int = 6000,
+    n_clients: int = 16,
+    n_resources: int = 24,
+    merge_every: int = 8,
+    delta: int = 24,
+    duot_cap: int = 2048,
+    seed: int = 0,
+    batch_size: int = 128,
+    audit: bool = True,
+    ingest: str = "auto",
+    gossip: GossipConfig | None = None,
+    recovery: DurabilityConfig | None = None,
+    cfg: ClusterConfig = PAPER_CLUSTER,
+    pricing: cost_model.PricingScheme = cost_model.PAPER_PRICING,
+    obs: ObsConfig | None = None,
+    device: str | torch.device = "cuda",
+) -> dict[str, Any]:
+    """Run the protocol with region-aware propagation and billing.
+
+    Same engine and op stream as :func:`run_protocol`, over a
+    :class:`repro_torch.geo.topology.RegionTopology` (default: the
+    paper's 3-region :data:`~repro_torch.geo.topology.PAPER_TOPOLOGY`):
+
+      * the boundary merge is the two-tier region-grouped merge — the
+        flat merge's state, with every delivery attributed to a region
+        pair (LAN fan-out on the diagonal, one WAN hop per (write, newly
+        reached region) off it);
+      * the ``(G, G)`` traffic matrix is billed per pair through the
+        topology's egress matrix, next to the aggregate-scalar bill;
+      * per-op latency is the RTT between the client's region and the
+        serving replica's region, reported per region with staleness.
+
+    On :func:`~repro_torch.geo.topology.single_region` the protocol
+    metrics equal :func:`run_protocol`'s.  ``gossip`` adds the scheduled
+    digest exchange (``peer="nearest"`` orders peers by region RTT),
+    billed per region pair; ``recovery`` bills the steady-state WAL and
+    snapshot I/O on the matrix's diagonal; ``obs`` adds the ``"obs"``
+    block with the ``read_latency_ms`` row.  Runs on ``device``
+    (``"cuda"`` unless the caller asks for the CPU).
+    """
+    if topology is None:
+        from repro_torch.geo.topology import PAPER_TOPOLOGY
+
+        topology = PAPER_TOPOLOGY
+    config = EngineConfig(
+        level, n_ops=n_ops, n_clients=n_clients, n_resources=n_resources,
+        merge_every=merge_every, delta=delta, duot_cap=duot_cap,
+        seed=seed, batch_size=batch_size, audit=audit, ingest=ingest,
+        topology=topology, gossip=gossip, durability=recovery, obs=obs,
+    )
+    engine = EpochEngine(config, device=device)
+    return engine_results.assemble(config, engine.replay(w), w, cfg, pricing)
+
+
 def run_protocol_faulty(
     level: ConsistencyLevel,
     w: Workload,
@@ -205,8 +266,8 @@ def run_protocol_faulty(
     scheduled digest exchange (and, with ``hint_cap > 0``, hinted
     handoff); ``recovery`` adds WAL/snapshot journaling, billed in
     eq. 8 with a ``"recovery"`` block.  ``obs`` adds the ``"obs"``
-    block.  Crash events, ``n_shards > 1`` and ``peer="nearest"`` are
-    not ported yet and raise.  Runs on ``device`` (``"cuda"`` unless the
+    block.  Crash events and ``n_shards > 1`` are not ported yet and
+    raise.  Runs on ``device`` (``"cuda"`` unless the
     caller asks for the CPU).
     """
     if n_clients % n_shards or n_resources % n_shards or n_ops % n_shards:

@@ -24,6 +24,7 @@ from repro_torch.core import xstcc as tx
 from repro_torch.core.consistency import ConsistencyLevel as TL
 from repro_torch.core.replicated_store import DurabilityConfig
 from repro_torch.engine.config import EngineConfig
+from repro_torch.geo.topology import PAPER_TOPOLOGY
 from repro_torch.gossip.scheduler import GossipConfig
 from repro_torch.obs.metrics import ObsConfig
 from repro_torch.storage.cluster import ClusterConfig as TCluster
@@ -156,18 +157,23 @@ def test_make_cluster_matches():
                       tx.make_cluster(3, 4, 6, pending_cap=9, device=CPU))
 
 
+_GEO_FAULTS = dict(topology=PAPER_TOPOLOGY, faults=tav.all_up(5, 3))
+
+
 @pytest.mark.parametrize("pieces", [
-    pytest.param(dict(topology=object()), id="topology-value0"),
+    pytest.param(_GEO_FAULTS, id="topology-value0"),
     pytest.param(dict(faults=tav.replica_crash(5, 3, 1, 2)), id="faults-value1"),
-    pytest.param(dict(gossip=GossipConfig(cadence=2, peer="nearest")), id="gossip-value2"),
+    pytest.param(dict(_GEO_FAULTS, gossip=GossipConfig(cadence=2, peer="nearest")),
+                 id="gossip-value2"),
     pytest.param(dict(faults=tav.replica_crash(5, 3, 0, 1), durability=DurabilityConfig()),
                  id="durability-value3"),
-    pytest.param(dict(topology=object(), obs=ObsConfig()), id="obs-value4"),
+    pytest.param(dict(_GEO_FAULTS, obs=ObsConfig()), id="obs-value4"),
     pytest.param(dict(n_shards=2), id="n_shards-2"),
 ])
 def test_engine_config_rejects_unported_pieces(pieces):
-    """Crash schedules, topology (and with it the geo obs rows), sharding
-    and nearest-peer gossip are not ported yet."""
+    """Crash schedules, a topology composed with faults (with its
+    nearest-peer gossip and geo obs rows) and sharding are not ported
+    yet."""
     with pytest.raises(NotImplementedError, match="not ported yet"):
         EngineConfig(TL.X_STCC, **pieces)
 

@@ -27,11 +27,11 @@ from repro_torch.core.consistency import ConsistencyLevel as TL
 from repro_torch.core.replicated_store import DurabilityConfig
 from repro_torch.core.replicated_store import ReplicatedStore as TStore
 from repro_torch.engine.config import EngineConfig
+from repro_torch.geo.topology import PAPER_TOPOLOGY
 from repro_torch.gossip import digest as tdig
 from repro_torch.gossip import scheduler as tsched
 from repro_torch.kernels import digest_compare as tdc
 from repro_torch.kernels import ops
-from repro_torch.obs import metrics as tobs
 from repro_torch.storage import simulator as tsim
 from repro_torch.storage.ycsb import WORKLOAD_A
 
@@ -271,11 +271,10 @@ def test_deferred_pieces_raise():
     with pytest.raises(NotImplementedError, match="not ported yet"):
         tsim.run_protocol_faulty(TL.X_STCC, WORKLOAD_A, n_ops=600, n_shards=2, device=CPU)
     with pytest.raises(NotImplementedError, match="not ported yet"):
+        EngineConfig(TL.X_STCC, topology=PAPER_TOPOLOGY, faults=tav.all_up(5, 3))
+    # Nearest-peer gossip needs a topology, in the port as in the reference.
+    with pytest.raises(ValueError, match="RegionTopology"):
         tsim.run_protocol_faulty(TL.X_STCC, WORKLOAD_A, n_ops=600, device=CPU,
                                  gossip=tsched.GossipConfig(cadence=2, peer="nearest"))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        EngineConfig(TL.X_STCC, topology=object())
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(ValueError, match="RegionTopology"):
         tsched.gossip_pairs(3, 4, tsched.GossipConfig(cadence=1, peer="nearest"))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tobs.build_metrics(tobs.ObsConfig(), geo_on=True, h_on=False)

@@ -17,12 +17,19 @@ import torch
 from repro_torch.core import availability as av
 from repro_torch.core.consistency import EVAL_LEVELS, ConsistencyLevel
 from repro_torch.core.replicated_store import DurabilityConfig
+from repro_torch.geo import placement as pl
+from repro_torch.geo.topology import PAPER_TOPOLOGY
 from repro_torch.gossip.scheduler import GossipConfig
 from repro_torch.kernels import digest_compare as dc
 from repro_torch.kernels import histogram as hg
 from repro_torch.kernels import ops
+from repro_torch.kernels import placement_score as pls
+from repro_torch.obs.metrics import ObsConfig
+from repro_torch.policy.sla import SLA_RELAXED
 from repro_torch.storage import simulator
 from repro_torch.storage.ycsb import WORKLOAD_A
+
+from torch_port_helpers import as_lists, geo_mismatches, placement_inputs
 
 pytestmark = pytest.mark.gpu
 
@@ -165,28 +172,60 @@ FAULT_CASES = {
 }
 
 
-def _plain(x):
-    if isinstance(x, dict):
-        return {k: _plain(v) for k, v in x.items()}
-    if isinstance(x, (list, tuple)):
-        return [_plain(v) for v in x]
-    return x
-
-
 @pytest.mark.parametrize("case", sorted(FAULT_CASES))
 def test_golden_fault_case_on_the_card(cuda, case):
     level, kw = FAULT_CASES[case]
     golden = json.loads(GOLDEN.read_text())[case]
     got = simulator.run_protocol_faulty(level, WORKLOAD_A, n_ops=600, device=cuda, **kw)
-    assert _plain(got) == golden
+    assert as_lists(got) == golden
 
 
 def test_fault_path_launches_every_kernel(cuda):
-    from repro_torch.obs.metrics import ObsConfig
-
     level, kw = FAULT_CASES["faulty/X_STCC/outage"]
     ops.reset_launch_counts()
     simulator.run_protocol_faulty(level, WORKLOAD_A, n_ops=600, device=cuda,
                                   obs=ObsConfig(), **kw)
+    counts = ops.launch_counts()
+    # Every kernel but the placement planner's runs on the fault path.
+    assert all(v > 0 for k, v in counts.items() if k != "placement_score"), counts
+
+
+@pytest.mark.parametrize("r", [1, 24, 257, 65537])
+@pytest.mark.parametrize("max_lat", [10.0, float("inf")])
+def test_placement_score_kernel_matches_plain(cuda, r, max_lat):
+    args = placement_inputs(np.random.default_rng(r), r, cuda)
+    got = pls.placement_score_cuda(*args, max_latency_ms=max_lat)
+    want = pls.placement_score_ref(*args, max_latency_ms=max_lat)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    assert torch.equal(got[1], want[1])
+
+
+GEO_CASES = {
+    **{f"geo/{lv.name}": (lv, {}) for lv in EVAL_LEVELS},
+    "geo/X_STCC/gossip_recovery": (ConsistencyLevel.X_STCC, dict(
+        gossip=GossipConfig(cadence=2, hint_cap=32),
+        recovery=DurabilityConfig(snapshot_every=2, wal=True))),
+}
+
+
+@pytest.mark.parametrize("case", sorted(GEO_CASES))
+def test_golden_geo_case_on_the_card(cuda, case):
+    level, kw = GEO_CASES[case]
+    golden = json.loads(GOLDEN.read_text())[case]
+    got = simulator.run_protocol_geo(level, WORKLOAD_A, n_ops=600, device=cuda, **kw)
+    assert geo_mismatches(golden, got) == []
+    want = simulator.run_protocol_geo(level, WORKLOAD_A, n_ops=600, device="cpu", **kw)
+    assert got == want
+
+
+def test_geo_path_launches_every_kernel(cuda):
+    ops.reset_launch_counts()
+    simulator.run_protocol_geo(
+        ConsistencyLevel.X_STCC, WORKLOAD_A, n_ops=600, device=cuda, obs=ObsConfig(),
+        gossip=GossipConfig(cadence=2, peer="nearest"))
+    reads = np.ones((24, 3), np.float32)
+    plan = pl.plan_placement(PAPER_TOPOLOGY, reads, reads, SLA_RELAXED, device=cuda)
+    assert plan.choice.shape == (24,)
     counts = ops.launch_counts()
     assert all(v > 0 for v in counts.values()), counts

@@ -7,6 +7,7 @@ import subprocess
 import sys
 import textwrap
 
+import numpy as np
 import pytest
 import torch
 
@@ -34,6 +35,9 @@ def test_every_module_imports_without_jax_or_repro():
             importlib.import_module(name)
         sys.path.insert(0, {str(ROOT)!r})
         importlib.import_module("chip_smoke")
+        # chip_smoke.py uses the tests' helpers on the card's machine.
+        sys.path.insert(0, {str(ROOT / "tests")!r})
+        importlib.import_module("torch_port_helpers")
         print("ok", len({_port_modules()!r}))
     """)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -57,20 +61,27 @@ def no_card():
 
 
 def test_every_new_module_is_covered():
-    """The fault-path slice's modules are among those imported above."""
+    """The fault-path and geo slices' modules are among those imported
+    above."""
     mods = set(_port_modules())
     for name in ("core.availability", "gossip", "gossip.digest", "gossip.scheduler",
-                 "kernels.digest_compare", "kernels.histogram", "obs", "obs.metrics"):
+                 "kernels.digest_compare", "kernels.histogram", "obs", "obs.metrics",
+                 "geo", "geo.topology", "geo.placement", "policy", "policy.sla",
+                 "kernels.placement_score"):
         assert f"repro_torch.{name}" in mods, name
 
 
 @pytest.mark.parametrize("entry", ["run_protocol", "evaluate_level", "engine", "store",
-                                   "run_protocol_faulty"])
+                                   "run_protocol_faulty", "run_protocol_geo",
+                                   "plan_placement"])
 def test_entry_points_refuse_cpu_fallback(no_card, entry):
     from repro_torch.core.consistency import ConsistencyLevel
     from repro_torch.core.replicated_store import ReplicatedStore
     from repro_torch.engine.config import EngineConfig
     from repro_torch.engine.replay import EpochEngine
+    from repro_torch.geo import placement
+    from repro_torch.geo.topology import PAPER_TOPOLOGY
+    from repro_torch.policy.sla import SLA_RELAXED
     from repro_torch.storage import simulator
     from repro_torch.storage.ycsb import WORKLOAD_A
 
@@ -83,6 +94,11 @@ def test_entry_points_refuse_cpu_fallback(no_card, entry):
         "store": lambda: ReplicatedStore(3, 4, 4),
         "run_protocol_faulty": lambda: simulator.run_protocol_faulty(
             ConsistencyLevel.X_STCC, WORKLOAD_A, n_ops=50),
+        "run_protocol_geo": lambda: simulator.run_protocol_geo(
+            ConsistencyLevel.X_STCC, WORKLOAD_A, n_ops=50),
+        "plan_placement": lambda: placement.plan_placement(
+            PAPER_TOPOLOGY, np.ones((4, 3), np.float32), np.ones((4, 3), np.float32),
+            SLA_RELAXED),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()

@@ -1,22 +1,25 @@
 """Shared helpers of the ``test_torch_*`` files: move state between the
-JAX reference and the PyTorch port as numpy arrays, and compare it."""
+JAX reference and the PyTorch port as numpy arrays, and compare it.
+Imports JAX's package only inside the helpers that need it, so that
+``test_torch_gpu.py`` can use the rest on a machine without JAX."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro.core.consistency import ConsistencyLevel as JLevel
 from repro_torch.core.consistency import ConsistencyLevel as TLevel
 
 CPU = "cpu"
 
 
-def jlevel(level: TLevel) -> JLevel:
+def jlevel(level: TLevel):
+    from repro.core.consistency import ConsistencyLevel as JLevel
+
     return JLevel[level.name]
 
 
-def tlevel(level: JLevel) -> TLevel:
+def tlevel(level) -> TLevel:
     return TLevel[level.name]
 
 
@@ -52,3 +55,60 @@ def assert_tree_equal(want, got, context: str = "") -> None:
         np.testing.assert_array_equal(
             np.asarray(w), as_np(g), err_msg=f"{context}.{f} diverged"
         )
+
+
+# The geo path's one stated tolerance: the reference adds f32 RTTs in an
+# order XLA picks, the port forms the same sums exactly from op counts.
+GEO_LATENCY_RTOL = 1e-5
+
+
+def as_lists(x):
+    """``x`` with every tuple turned into a list (as JSON gives it back)."""
+    if isinstance(x, dict):
+        return {k: as_lists(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [as_lists(v) for v in x]
+    return x
+
+
+def geo_mismatches(want, got, path: str = "") -> list[str]:
+    """Fields of a geo result that differ from the reference's (tuples
+    and lists alike): exact everywhere except ``mean_latency_ms`` (and
+    its per-region list), held within ``GEO_LATENCY_RTOL``."""
+    if isinstance(want, dict) and isinstance(got, dict):
+        if set(want) != set(got):
+            return [f"{path}: keys {sorted(set(want) ^ set(got))}"]
+        return [m for k in sorted(want)
+                for m in geo_mismatches(want[k], got[k], f"{path}.{k}")]
+    if path.endswith("mean_latency_ms"):
+        a, b = (v if isinstance(v, list) else [v] for v in (want, got))
+        if len(a) != len(b) or not np.allclose(a, b, rtol=GEO_LATENCY_RTOL, atol=0):
+            return [f"{path}: {want} vs {got}"]
+        return []
+    return [] if as_lists(want) == as_lists(got) else [f"{path}: {want} != {got}"]
+
+
+def placement_inputs(rng, r: int, device):
+    """Planner inputs at R resources: the paper topology's 124 candidate
+    tables with every 17th candidate invalid and every 9th a copy of its
+    left neighbour (tied utilities), demand counts with every 5th row
+    zero and every 3rd row scaled to non-integers."""
+    from repro_torch.geo import placement as pl
+    from repro_torch.geo.topology import PAPER_TOPOLOGY
+
+    tabs = pl.candidate_tables(PAPER_TOPOLOGY, pl.enumerate_candidates(3),
+                               resource_gb=1.0 / max(1, r))
+    rp, wp, rtt = (tabs[k].copy() for k in ("read_price", "write_price", "read_rtt"))
+    meta = tabs["cand_meta"].copy()
+    dup = np.arange(1, rp.shape[0], 9)
+    for t in (rp, wp, rtt):
+        t[dup] = t[dup - 1]
+    meta[:, dup] = meta[:, dup - 1]
+    meta[1, ::17] = 0.0
+    reads = rng.integers(0, 6, (r, 3)).astype(np.float32)
+    writes = rng.integers(0, 6, (r, 3)).astype(np.float32)
+    reads[::3] *= rng.random(reads[::3].shape).astype(np.float32)
+    reads[::5] = 0.0
+    writes[::5] = 0.0
+    return tuple(torch.as_tensor(x, device=device)
+                 for x in (reads, writes, rp, wp, rtt, meta))
