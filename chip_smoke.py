@@ -7,7 +7,7 @@ Phases, each of which must pass (any failure ends the run with a
 non-zero exit code):
 
   1. device   — the card's name, count and power limit; no card, no run;
-  2. build    — ``nvcc`` builds the six kernels from ``src/repro_torch/
+  2. build    — ``nvcc`` builds the seven kernels from ``src/repro_torch/
                 csrc`` in parallel; prints seconds and ptxas register /
                 shared-memory / spill lines;
   3. kernels  — each kernel against its plain PyTorch version on the
@@ -32,16 +32,24 @@ non-zero exit code):
                 one-region identity with ``run_protocol``, and the
                 placement planner on the run's demand under two SLAs;
                 each equal to the same call on the CPU; launch counts;
-  8. scale    — one X_STCC replay at the paper's deployment (64 client
+  8. adaptive — ``run_protocol_adaptive`` for PHASED_RW and PHASED_RWR x
+                SLA_RELAXED and SLA_STRICT over the six levels at 6400
+                ops, each equal to the same call on the CPU, and one
+                ``CadenceController.run_scan`` card vs CPU; launch counts
+                (one ``policy_score`` per epoch, no audit);
+  9. scale    — one X_STCC replay at the paper's deployment (64 client
                 threads, 5,000,000 rows, 8,000,000 ops, B = 4096), the
                 same deployment through the fault path, the placement
-                planner over its 5,000,000 rows x 124 candidates, and the
-                geo replay on the paper's 12-replica fleet (4 per DC);
-  9. profile  — ``torch.profiler`` over X_STCC and CAUSAL
-                ``run_protocol``, an X_STCC fault run and an X_STCC geo
-                run: device time by kernel and the card's busy share of
-                the unprofiled wall time;
- 10. report   — one JSON line ``{"kernels": [...]}``, then the last line
+                planner over its 5,000,000 rows x 124 candidates, the
+                geo replay on the paper's 12-replica fleet (4 per DC),
+                the adaptive run over the same 64 clients and 5,000,000
+                rows (ops cut, see ``ADAPTIVE_SCALE_CUTS``) and the
+                controller over a 1,000,000-session fleet;
+ 10. profile  — ``torch.profiler`` over X_STCC and CAUSAL
+                ``run_protocol``, an X_STCC fault run, an X_STCC geo run
+                and an adaptive run: device time by kernel and the card's
+                busy share of the unprofiled wall time;
+ 11. report   — one JSON line ``{"kernels": [...]}``, then the last line
                 ``{"ok": true, "device": {...}}``.
 
 ``--phases`` runs a subset (a debugging aid; the report lines are
@@ -64,7 +72,7 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
 PHASES = ("device", "build", "kernels", "golden", "main", "faulty", "geo",
-          "scale", "profile")
+          "adaptive", "scale", "profile")
 
 # H100 SXM peaks (NVIDIA data sheet, as tabulated in the repo's
 # measurement notes): HBM bandwidth, and the 32-bit non-tensor-core rate
@@ -90,6 +98,24 @@ FAULT_SCALE_OPS = 8_000_000
 # enumerate_candidates(3), every split of 1..12 replicas with at most 4
 # per region.
 N_CANDIDATES = 124
+
+# The adaptive phase's size: the reference's bench_policy.py runs.
+ADAPTIVE_OPS = 6400
+# The adaptive scale run: the paper's 64 threads and 5,000,000 rows.
+ADAPTIVE_SCALE = dict(n_clients=64, n_resources=5_000_000, n_ops=65_536)
+ADAPTIVE_SCALE_CUTS = (
+    "cuts of scale: 65,536 ops of the paper's 8,000,000 (32 epochs of 2048, "
+    "the default epoch rule's own result). CAUSAL and ONE merge every 8 and "
+    "16 ops, so each op costs their telemetry passes a launch-bound round at "
+    "R = 5,000,000; 131,072 ops were estimated at ~252 s from the flat scale "
+    "run's 10.2 ms per round, above the ~200 s this run may take. Clients "
+    "and rows are not cut"
+)
+# The controller at fleet width: sessions, epochs, and the CPU check's
+# stride over the sessions.
+FLEET_SESSIONS = 1_000_000
+FLEET_EPOCHS = 32
+FLEET_STRIDE = 997
 
 
 def fault_kwargs(n_ops: int, unit: int) -> dict:
@@ -310,9 +336,10 @@ def phase_kernels() -> dict:
     from repro_torch.kernels import op_ingest as oi
     from repro_torch.kernels import ops
     from repro_torch.kernels import placement_score as pls
+    from repro_torch.kernels import policy_score as ps
     from repro_torch.kernels import vclock_audit as va
     from repro_torch.kernels import vclock_chain as vch
-    from torch_port_helpers import placement_inputs
+    from torch_port_helpers import placement_inputs, policy_inputs
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
@@ -517,6 +544,48 @@ def phase_kernels() -> dict:
     timings["placement_score"] = time_placement(24, 200)
     timings[f"placement_score@{SCALE['n_resources']}"] = time_placement(
         SCALE["n_resources"], 20)
+
+    # policy_score: the adaptive run's S = 64, ragged widths and a fleet
+    # of 1,000,003 sessions (a multiple of no block), over the six levels
+    # and a two-level table; count-0 cells, invalid rows, rf 0 and 1, inf
+    # bounds, SLA_STRICT and SLA_RELAXED rows.
+    from repro_torch.core.consistency import ConsistencyLevel
+
+    two = (ConsistencyLevel.ONE, ConsistencyLevel.X_STCC)
+    n_checked = 0
+    for s in (64, 1, 16, 129, 1000, FLEET_SESSIONS + 3):
+        for levels in (None, two):
+            args = policy_inputs(np.random.default_rng(s), s, dev, levels=levels)
+            got = ps.policy_score_cuda(*args)
+            want = ps.policy_score_ref(*args)
+            torch.cuda.synchronize()
+            if not all(_bits_equal(g, w) for g, w in zip(got, want)):
+                fail(f"policy_score S={s} L={args[1].shape[1]}: differs from "
+                     f"the plain version (max abs err {_placement_err(got, want)})")
+            n_checked += 1
+    log(f"[kernels] policy_score: {n_checked} cases bit-equal (S in 64,1,16,129,"
+        f"1000,{FLEET_SESSIONS + 3} x L in 6,2; count-0 cells, invalid rows, rf "
+        "0 and 1, inf bounds, SLA_STRICT and SLA_RELAXED rows)")
+
+    def time_policy(s, iters):
+        args = policy_inputs(np.random.default_rng(s), s, dev)
+        got = ps.policy_score_cuda(*args)
+        want = ps.policy_score_ref(*args)
+        if not all(_bits_equal(g, w) for g, w in zip(got, want)):
+            fail(f"policy_score timing S={s}: differs from the plain version")
+        err = _placement_err(got, want)
+        ms = cuda_time_ms(lambda: ps.policy_score_cuda(*args), iters)
+        plain = cuda_time_ms(lambda: ps.policy_score_ref(*args), max(1, iters // 10),
+                             warmup=1)
+        n_levels = args[1].shape[1]
+        bnd = bound_ms(s * ps.SP_COLS * 4 + ps.LVL_COLS * n_levels * 4
+                       + 3 * s * n_levels * 4 + 2 * s * n_levels * 4,
+                       s * n_levels * 20)
+        return {"ms": ms, "plain_ms": plain, "bound": bnd, "err": err,
+                "shape": f"S={s}, L={n_levels}"}
+
+    timings["policy_score"] = time_policy(64, 200)
+    timings[f"policy_score@{FLEET_SESSIONS + 3}"] = time_policy(FLEET_SESSIONS + 3, 50)
 
     for key, t in timings.items():
         extra = (f", addmm (cost term only, not bit-exact) {t['addmm_ms']:.6f} ms"
@@ -824,6 +893,109 @@ GEO_KERNELS = ("placement_score", "op_ingest", "vclock_chain", "vclock_audit",
 # -- phase 8 ------------------------------------------------------------------
 
 
+def adaptive_equal(got: dict, want: dict) -> list[str]:
+    """Fields of two ``run_protocol_adaptive`` results that differ (the
+    ``choice`` arrays compared whole; every other field exactly)."""
+    import numpy as np
+
+    bad = [] if np.array_equal(got["choice"], want["choice"]) else ["choice"]
+    rest = lambda d: {k: v for k, v in d.items() if k != "choice"}  # noqa: E731
+    return bad + _diff_keys(rest(got), rest(want))
+
+
+def telemetry_rounds(n_ops: int, epoch_size: int) -> int:
+    """Telemetry rounds of one adaptive run over the six policy levels: an
+    emulated level runs one round per epoch, CAUSAL and ONE one per merge."""
+    from repro_torch.core.replicated_store import merge_cadence
+    from repro_torch.policy.sla import POLICY_LEVELS
+
+    rounds = 0
+    for lv in POLICY_LEVELS:
+        sync_every, _ = merge_cadence(lv, 8, 24)
+        emulate = sync_every == 1 or lv.is_timed
+        rounds += n_ops // (epoch_size if emulate else sync_every)
+    return rounds
+
+
+def cadence_telemetry(seed: int, n_epochs: int, n_arms: int) -> dict:
+    """Seeded per-arm gossip telemetry: GB (real-valued), stale and read
+    counts."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return {"gb": (rng.random((n_epochs, n_arms)) * 3e-3).astype(np.float32),
+            "stale": rng.integers(0, 50, (n_epochs, n_arms)),
+            "reads": rng.integers(50, 100, n_epochs)}
+
+
+def phase_adaptive() -> dict:
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.policy.controller import CadenceController
+    from repro_torch.policy.sla import SLA_RELAXED, SLA_STRICT
+    from repro_torch.storage import simulator as sim
+    from repro_torch.storage.ycsb import PHASED_RW, PHASED_RWR
+
+    runs = [(w, sla) for w in (PHASED_RW, PHASED_RWR)
+            for sla in (SLA_RELAXED, SLA_STRICT)]
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    on_card = [sim.run_protocol_adaptive(w, sla, n_ops=ADAPTIVE_OPS, device="cuda")
+               for w, sla in runs]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    n_ops, epoch = on_card[0]["n_ops"], on_card[0]["epoch_size"]
+    epochs = n_ops // epoch
+    rounds = len(runs) * telemetry_rounds(n_ops, epoch)
+    log(f"[adaptive] run_protocol_adaptive x{len(runs)} on the card ({n_ops} ops, "
+        f"{epochs} epochs of {epoch}, six levels): {wall:.3f} s; launches {launches}")
+    want_launches = {"policy_score": len(runs) * epochs, "op_ingest": rounds,
+                     "vclock_chain": rounds, "vclock_audit": 0}
+    bad = {k: (launches[k], v) for k, v in want_launches.items() if launches[k] != v}
+    if bad:
+        fail(f"adaptive launch counts (got, want): {bad}")
+    for (w, sla), got in zip(runs, on_card):
+        want = sim.run_protocol_adaptive(w, sla, n_ops=ADAPTIVE_OPS, device="cpu")
+        diff = adaptive_equal(got, want)
+        if diff:
+            fail(f"adaptive {w.name} {sla.name}: card != cpu: {diff[:8]}")
+        a = got["adaptive"]
+        for k in ("staleness_rate", "violation_rate"):
+            if not (math.isfinite(a[k]) and 0.0 <= a[k] <= 1.0):
+                fail(f"adaptive {w.name} {sla.name}: {k} = {a[k]} is not a rate")
+        if got["choice"].shape != (epochs, 16) or not math.isclose(
+                sum(a["level_share"].values()), 1.0):
+            fail(f"adaptive {w.name} {sla.name}: choice {got['choice'].shape}, "
+                 f"level_share {a['level_share']}")
+        log(f"[adaptive] {w.name} {sla.name}: cost {a['cost']}, staleness "
+            f"{a['staleness_rate']}, violation {a['violation_rate']}, level_share "
+            f"{a['level_share']}, cheapest feasible static "
+            f"{got['cheapest_feasible_static']} "
+            f"{ {k: v['cost'] for k, v in got['static'].items()} }")
+
+    tel = cadence_telemetry(3, 40, 5)
+    states, traces = {}, {}
+    for dev in ("cuda", "cpu"):
+        st, tr = CadenceController(eps0=0.3, device=dev).run_scan(3, tel)
+        states[dev], traces[dev] = st, {k: v.cpu() for k, v in tr.items()}
+    for k in traces["cpu"]:
+        if not _bits_equal(traces["cuda"][k], traces["cpu"][k]):
+            fail(f"CadenceController.run_scan: trace {k} card != cpu")
+    for f in ("gb_win", "stale_win", "reads_win", "played_win"):
+        if not _bits_equal(getattr(states["cuda"], f).cpu(), getattr(states["cpu"], f)):
+            fail(f"CadenceController.run_scan: {f} card != cpu")
+    log(f"[adaptive] CadenceController.run_scan (40 epochs, 5 arms): card == cpu; "
+        f"arms {np.bincount(traces['cpu']['arm'].numpy(), minlength=5).tolist()}")
+    return launches
+
+
+# -- phase 9 ------------------------------------------------------------------
+
+
 def phase_scale() -> None:
     import torch
 
@@ -902,6 +1074,9 @@ def phase_scale() -> None:
     torch.cuda.empty_cache()
     scale_planner()
     scale_geo()
+    torch.cuda.empty_cache()
+    scale_adaptive()
+    scale_fleet_controller()
 
 
 def scale_planner() -> None:
@@ -1020,7 +1195,125 @@ def scale_geo() -> None:
         f"{peak} B; launches {launches}")
 
 
-# -- phase 8 ------------------------------------------------------------------
+def scale_adaptive() -> None:
+    """The adaptive run over the paper's 64 clients and 5,000,000 rows
+    (ops cut, see ``ADAPTIVE_SCALE_CUTS``): the telemetry pass of the six
+    levels, the controller with the kernel, and the same controller with
+    the plain scorer on the same telemetry and draws."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.policy.controller import AdaptiveController
+    from repro_torch.policy.sla import SLA_RELAXED
+    from repro_torch.storage import simulator as sim
+    from repro_torch.storage.ycsb import PHASED_RW
+
+    log(f"[scale] adaptive run: PHASED_RW SLA_RELAXED {ADAPTIVE_SCALE}, six levels")
+    log(f"[scale] {ADAPTIVE_SCALE_CUTS}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    tel = sim.adaptive_telemetry(PHASED_RW, device="cuda", **ADAPTIVE_SCALE)
+    torch.cuda.synchronize()
+    tel_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    out = sim.run_protocol_adaptive(PHASED_RW, SLA_RELAXED, telemetry=tel,
+                                    device="cuda", **ADAPTIVE_SCALE)
+    torch.cuda.synchronize()
+    ctrl_s = time.perf_counter() - t1
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    epoch, t = tel["epoch_size"], tel["telemetry"]
+    epochs = tel["n_ops"] // epoch
+    if not (t["reads"].sum(axis=1) + t["writes"].sum(axis=1) == epoch).all():
+        fail("scale adaptive: an epoch's reads + writes differ from the epoch size")
+    rounds = telemetry_rounds(tel["n_ops"], epoch)
+    if (launches["policy_score"] != epochs or launches["op_ingest"] != rounds
+            or launches["vclock_audit"] != 0):
+        fail(f"scale adaptive: launches {launches}, want {epochs} policy_score and "
+             f"{rounds} op_ingest")
+    # The same controller with the plain scorer, on the same telemetry and
+    # draws: the result and the whole trace bit for bit.
+    plain = sim.run_protocol_adaptive(PHASED_RW, SLA_RELAXED, telemetry=tel,
+                                      impl="torch", device="cuda", **ADAPTIVE_SCALE)
+    diff = adaptive_equal(out, plain)
+    if diff:
+        fail(f"scale adaptive: kernel result != plain result: {diff[:8]}")
+    traces = [AdaptiveController(ADAPTIVE_SCALE["n_clients"], SLA_RELAXED, eps0=0.02,
+                                 impl=impl, device="cuda").run_scan(0, t)[1]
+              for impl in ("auto", "torch")]
+    for k in traces[0]:
+        if not _bits_equal(traces[0][k], traces[1][k]):
+            fail(f"scale adaptive: trace {k} differs between the kernel and the "
+                 "plain scorer")
+    if not np.array_equal(traces[0]["choice"].cpu().numpy(), out["choice"]):
+        fail("scale adaptive: run_scan's choice differs from the run's")
+    a = out["adaptive"]
+    log(f"[scale] adaptive run: telemetry {tel_s:.3f} s ({rounds} rounds), "
+        f"controller + result {ctrl_s:.3f} s, wall {tel_s + ctrl_s:.3f} s; "
+        f"{tel['n_ops']} ops, {epochs} epochs of {epoch}; max_memory_allocated "
+        f"{peak} B; launches {launches}; cost {a['cost']}, staleness "
+        f"{a['staleness_rate']}, violation {a['violation_rate']}, level_share "
+        f"{a['level_share']}; cheapest feasible static "
+        f"{out['cheapest_feasible_static']} at "
+        f"{ {k: v['cost'] for k, v in out['static'].items()} }; result and "
+        "trace bit-equal to the plain scorer's on the card")
+
+
+def scale_fleet_controller() -> None:
+    """The controller at fleet width: 1,000,000 sessions over 32 epochs
+    of seeded synthetic telemetry on the card; every 997th session
+    against the same run on the CPU (sessions are independent rows)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.policy.controller import AdaptiveController, make_draws
+    from repro_torch.policy.sla import POLICY_LEVELS, SLA_RELAXED
+
+    s, e, n_levels = FLEET_SESSIONS, FLEET_EPOCHS, len(POLICY_LEVELS)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    reads = torch.randint(0, 64, (e, s), generator=g, device=dev)
+    writes = torch.randint(0, 64, (e, s), generator=g, device=dev)
+    top = (reads[..., None] + 1).to(torch.float32)
+    stale = (torch.rand((e, s, n_levels), generator=g, device=dev) * top).floor()
+    viol = (torch.rand((e, s, n_levels), generator=g, device=dev) ** 4 * top).floor()
+    tel = {"stale": stale, "viol": viol, "reads": reads, "writes": writes}
+    draws = make_draws(0, (e, s), n_levels, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    ctrl = AdaptiveController(s, SLA_RELAXED, device=dev)
+    state, trace = ctrl.run_scan(0, tel, draws=draws)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = ops.launch_counts()
+    if launches["policy_score"] != e:
+        fail(f"scale controller: {launches['policy_score']} policy_score launches, "
+             f"want {e}")
+    rows = torch.arange(0, s, FLEET_STRIDE, device=dev)
+    sub = {k: v[:, rows].cpu() for k, v in tel.items()}
+    c_state, c_trace = AdaptiveController(rows.numel(), SLA_RELAXED, device="cpu").run_scan(
+        0, sub, draws=tuple(d[:, rows].cpu() for d in draws))
+    for k in c_trace:
+        if not _bits_equal(trace[k][:, rows].cpu(), c_trace[k]):
+            fail(f"scale controller: trace {k} differs from the CPU's")
+    for f in ("stale_win", "viol_win", "reads_win"):
+        if not _bits_equal(getattr(state, f)[:, rows].cpu(), getattr(c_state, f)):
+            fail(f"scale controller: {f} differs from the CPU's")
+    share = torch.bincount(trace["choice"].reshape(-1).long(), minlength=n_levels)
+    log(f"[scale] controller S={s} L={n_levels} E={e} (synthetic telemetry): run_scan "
+        f"wall {wall:.3f} s ({wall / e * 1e3:.3f} ms per epoch); "
+        f"max_memory_allocated {peak} B; launches {launches}; choices per level "
+        f"{share.tolist()}; trace and windows bit-equal to the CPU's on "
+        f"{rows.numel()} sessions (every {FLEET_STRIDE}th)")
+
+
+# -- phase 10 -----------------------------------------------------------------
 
 
 def phase_profile() -> None:
@@ -1029,8 +1322,9 @@ def phase_profile() -> None:
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.consistency import ConsistencyLevel
+    from repro_torch.policy.sla import SLA_RELAXED
     from repro_torch.storage import simulator as sim
-    from repro_torch.storage.ycsb import WORKLOAD_A
+    from repro_torch.storage.ycsb import PHASED_RW, WORKLOAD_A
 
     # CAUSAL's rounds are all alike; 2000 ops (250 rounds) keep the
     # profiler's own overhead small.
@@ -1046,6 +1340,8 @@ def phase_profile() -> None:
         ("X_STCC run_protocol_geo(n_ops=6000, PAPER_TOPOLOGY)",
          lambda: sim.run_protocol_geo(ConsistencyLevel.X_STCC, WORKLOAD_A,
                                       device="cuda")),
+        ("run_protocol_adaptive(PHASED_RW, SLA_RELAXED, defaults)",
+         lambda: sim.run_protocol_adaptive(PHASED_RW, SLA_RELAXED, device="cuda")),
     )
     for label, run in runs:
         run()  # warm
@@ -1091,13 +1387,15 @@ REPLACES = {
                   "src/repro/kernels/histogram.py:114"),
     "placement_score": ("src/repro_torch/csrc/placement_score.cu",
                         "src/repro/kernels/placement_score.py:71"),
+    "policy_score": ("src/repro_torch/csrc/policy_score.cu",
+                     "src/repro/kernels/policy_score.py:91"),
 }
 # The path whose launch counts each kernel reports: the flat main path
 # for the first slice's kernels, the fault path for gossip and obs, the
-# geo path for the planner.
+# geo path for the planner, the adaptive path for the policy scorer.
 LAUNCH_PHASE = {"op_ingest": "main", "vclock_audit": "main", "vclock_chain": "main",
                 "digest_compare": "faulty", "histogram": "faulty",
-                "placement_score": "geo"}
+                "placement_score": "geo", "policy_score": "adaptive"}
 
 
 def main() -> None:
@@ -1131,7 +1429,8 @@ def main() -> None:
         phase_golden()
     launches = {"main": phase_main() if "main" in phases else {},
                 "faulty": phase_faulty() if "faulty" in phases else {},
-                "geo": phase_geo() if "geo" in phases else {}}
+                "geo": phase_geo() if "geo" in phases else {},
+                "adaptive": phase_adaptive() if "adaptive" in phases else {}}
     if "scale" in phases:
         phase_scale()
     if "profile" in phases:

@@ -76,6 +76,28 @@ class PricingScheme:
 
 PAPER_PRICING = PricingScheme()
 
+# GCP-style preset: the classic network-egress tiering (0-1 TB at
+# $0.12/GB, 1-10 TB at $0.11, beyond at $0.08) applied to the inter-DC
+# hop, e2-small-equivalent instances, PD-balanced storage, and Cloud
+# Storage class-A-like request pricing.  A second provider shows that
+# cost orderings across consistency levels are not a single-provider
+# artifact.
+GCP_PRICING = PricingScheme(
+    compute_unit_per_hour=0.0335,
+    storage_gb_month=0.10,
+    storage_per_million_requests=0.40,
+    intra_dc_per_gb=0.00,
+    inter_dc_per_gb=0.08,
+    inter_dc_tiers=((1024.0, 0.12), (10240.0, 0.11), (float("inf"), 0.08)),
+)
+
+# The reference's third preset prices a TPU instance, which the port does
+# not run on; it is left out.
+PRICING_PRESETS: dict[str, PricingScheme] = {
+    "paper": PAPER_PRICING,
+    "gcp": GCP_PRICING,
+}
+
 
 @dataclasses.dataclass(frozen=True)
 class EgressMatrix:

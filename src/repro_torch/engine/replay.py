@@ -48,9 +48,13 @@ class EpochEngine:
     Result assembly lives in :mod:`repro_torch.engine.results`.
     """
 
-    def __init__(self, config: EngineConfig, device: str | torch.device = "cuda"):
+    def __init__(self, config: EngineConfig, device: str | torch.device = "cuda",
+                 *, telemetry: bool = False):
         self.config = config
         self.device = resolve_device(device)
+        # Telemetry mode (the adaptive control plane's feed): per-client
+        # count vectors per round, and no DUOT record.
+        self.telemetry = telemetry
         c = config
         g = c.gossip
         self.faults_on = c.faults is not None
@@ -298,7 +302,7 @@ class EpochEngine:
             resource=ops["resource"], kind=ops["kind"],
             op_step0=step0 if emulate else None,
             apply_index=ops.get("apply_idx"),
-            record=not c.lean,
+            record=not (c.lean or self.telemetry),
             with_clocks=not lean_merge,
         )
         ne = nd = zero
@@ -410,6 +414,16 @@ class EpochEngine:
                 "pairs": reg["pairs"].reshape(-1).index_add(
                     0, creg * g + hreg, torch.ones_like(creg)).reshape(g, g),
             }
+        if self.telemetry and ys is not None:
+            # Per-client stale, violation, read and write counts: one
+            # int64 scatter-add over the four (C,) rows.
+            n = c.n_clients
+            cl = ops["client"].long()
+            tel = torch.zeros((4 * n,), dtype=torch.int64, device=dev)
+            tel.index_add_(0, torch.cat([cl, cl + n, cl + 2 * n, cl + 3 * n]),
+                           torch.cat([res.stale, res.violation, is_read,
+                                      ~is_read]).long())
+            ys["tel"].append(tel.reshape(4, n))
         # -- observability plane ------------------------------------------
         if self.o_on:
             # Staleness age = the resource's post-merge write frontier
@@ -465,7 +479,7 @@ class EpochEngine:
             self.depth_hi = torch.full((), self.config.obs.depth_hi,
                                        dtype=torch.float32, device=self.device)
         carry = self._init_carry(store)
-        ys = {"gossip": [], "obs": []}
+        ys = {"gossip": [], "obs": [], "tel": []}
         batched = prep["batched"]
         masks = prep["masks"]
 
@@ -503,3 +517,45 @@ class EpochEngine:
         prep["out"] = carry
         prep["per_round"] = per_round or None
         return prep
+
+
+def session_telemetry_runner(
+    level, n_clients: int, n_resources: int, merge_every: int, delta: int,
+    sub: int, emulate: bool, device: str | torch.device = "cuda",
+):
+    """``(store, run)`` emitting per-client counts per ``sub``-op round.
+
+    The adaptive control plane's telemetry feed: the flat round step in
+    telemetry mode — per-client counts per round, the DUOT skipped — with
+    the reference's ring sizes (DUOT 64 entries, pending ring ``max(128,
+    2·sub)``).  ``run(batched)`` takes ``(n_rounds, sub)`` arrays of the
+    op columns (plus ``apply_idx`` for the emulated timed levels): the
+    stream tiles exactly, with no tail round.  It returns ``(stale, viol,
+    reads, writes)``, each ``(n_rounds, C)`` int64 numpy.
+    """
+    pending_cap = max(128, 2 * sub)
+    config = EngineConfig(
+        level, n_ops=sub, n_clients=n_clients, n_resources=n_resources,
+        merge_every=merge_every, delta=delta, duot_cap=64, batch_size=sub,
+        pending_cap=pending_cap,
+    )
+    engine = EpochEngine(config, device=device, telemetry=True)
+    store = ReplicatedStore(
+        3, n_clients, n_resources, level=level, merge_every=merge_every,
+        delta=delta, pending_cap=pending_cap, duot_cap=64, ingest="auto",
+        device=engine.device,
+    )
+
+    def run(batched: dict[str, np.ndarray]):
+        cols = {k: torch.from_numpy(np.ascontiguousarray(v)).to(engine.device)
+                for k, v in batched.items()}
+        carry = engine._init_carry(store)
+        ys = {"tel": []}
+        for t in range(cols["client"].shape[0]):
+            ops = {k: v[t] for k, v in cols.items()}
+            carry = engine.round_step(store, carry, ops, None, t * sub, sub,
+                                      emulate, ys)
+        tel = torch.stack(ys["tel"]).cpu().numpy()
+        return tuple(tel[:, i] for i in range(4))
+
+    return store, run

@@ -7,7 +7,7 @@ import numpy as np
 
 from repro_torch.core.consistency import ConsistencyLevel
 from repro_torch.core.replicated_store import merge_cadence
-from repro_torch.storage.ycsb import Workload, generate
+from repro_torch.storage.ycsb import PhasedWorkload, Workload, generate, generate_phased
 
 OP_COLS = ("client", "kind", "resource", "home")
 
@@ -45,6 +45,15 @@ def op_stream(
     return attach_clients(
         ops, n_ops, n_clients, n_resources, seed, n_replicas
     )
+
+
+def op_stream_phased(
+    pw: PhasedWorkload, n_ops: int, n_clients: int, n_resources: int,
+    seed: int,
+) -> dict[str, np.ndarray]:
+    """Phase-shifting variant of :func:`op_stream` (same client model)."""
+    ops = generate_phased(pw, n_ops=n_ops, n_keys=n_resources, seed=seed)
+    return attach_clients(ops, n_ops, n_clients, n_resources, seed)
 
 
 def cadence_plan(

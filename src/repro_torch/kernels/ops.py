@@ -16,12 +16,14 @@ from repro_torch.kernels import digest_compare as _dc
 from repro_torch.kernels import histogram as _hg
 from repro_torch.kernels import op_ingest as _oi
 from repro_torch.kernels import placement_score as _pls
+from repro_torch.kernels import policy_score as _ps
 from repro_torch.kernels import vclock_audit as _va
 from repro_torch.kernels import vclock_chain as _vch
 
 IMPLS = ("auto", "cuda", "torch")
 _COUNTED = {"op_ingest": _oi, "vclock_audit": _va, "vclock_chain": _vch,
-            "digest_compare": _dc, "histogram": _hg, "placement_score": _pls}
+            "digest_compare": _dc, "histogram": _hg, "placement_score": _pls,
+            "policy_score": _ps}
 
 
 def resolve_impl(impl: str | None, t: torch.Tensor) -> str:
@@ -166,3 +168,16 @@ def placement_score(reads, writes, read_price, write_price, read_rtt, cand_meta,
     fn = _pls.placement_score_ref if impl == "torch" else _pls.placement_score_cuda
     return fn(reads, writes, read_price, write_price, read_rtt, cand_meta,
               max_latency_ms=max_latency_ms)
+
+
+def policy_score(sess, table, stale, viol, count, *, impl: str | None = "auto"):
+    """(sessions × levels) SLA scoring -> ``(utility (S, L) f32, feasible
+    (S, L) int32)`` — the fused contract of ``repro.kernels.ref.
+    policy_score_ref`` under ``jit``, bit for bit.  Inputs: ``sess``
+    (S, SP_COLS), ``table`` (LVL_COLS, L), ``stale``/``viol``/``count``
+    (S, L), all f32.  The reference pads S to its block with invalid rows
+    and strips them; here neither version pads, and invalid rows
+    (``SP_VALID == 0``) score 0 / 0 as there."""
+    impl = resolve_impl(impl, stale)
+    fn = _ps.policy_score_ref if impl == "torch" else _ps.policy_score_cuda
+    return fn(sess, table, stale, viol, count)

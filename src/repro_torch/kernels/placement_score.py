@@ -20,8 +20,9 @@ and its Pallas kernel) contracts ``cost + x · price`` into an FMA, and
 that fused result is the contract.
 
   * :func:`placement_score_ref` — the plain version.  PyTorch has no
-    FMA that it promises on every device, so :func:`fma_f32` emulates
-    one exactly in float64;
+    FMA that it promises on every device, so
+    :func:`repro_torch.kernels.fp.fma_f32` emulates one exactly in
+    float64;
   * :func:`placement_score_cuda` — the hand-written kernel
     (``csrc/placement_score.cu``), ``__fmaf_rn`` for the two updates.
 """
@@ -33,6 +34,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.fp import fma_f32
 
 STRUCTURAL_WEIGHT = 10.0       # SLA excess per structural violation
 INFEASIBLE_PENALTY = 1.0e6     # utility cost per unit of excess
@@ -41,26 +43,6 @@ ROWS_PER_CHUNK = 1 << 19       # plain version: rows scored per pass
 SMEM_MAX = 48 * 1024           # the kernel's static shared-memory budget
 
 launches = 0
-
-
-def fma_f32(x: torch.Tensor, y: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """Correctly rounded f32 ``x·y + c`` on any device.
-
-    The product of two f32 values is exact in f64.  The f64 sum is
-    rounded to nearest; TwoSum gives its exact error, and where the
-    error is nonzero and the sum's last bit is even the sum steps one
-    f64 ulp toward the error — round-to-odd.  53 ≥ 2·24 + 2, so the
-    final round to f32 is the single rounding of the exact value.
-    """
-    p = x.to(torch.float64) * y.to(torch.float64)
-    c = c.to(torch.float64)
-    s = p + c
-    bb = s - p
-    err = (p - (s - bb)) + (c - bb)
-    even = (s.view(torch.int64) & 1) == 0
-    toward = torch.where(err > 0, torch.inf, -torch.inf).to(torch.float64)
-    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
-    return s.to(torch.float32)
 
 
 def _score_rows(reads, writes, rprice, wprice, rtt, meta, max_lat):

@@ -23,6 +23,7 @@ import dataclasses
 from typing import NamedTuple
 
 import numpy as np
+import torch
 
 # Percentiles every summary renders, in order.
 PERCENTILES = (50.0, 90.0, 99.0)
@@ -144,3 +145,33 @@ def host_percentile(
     rank = int(np.floor(q / 100.0 * np.float32(n - 1)))
     idx = int(np.sum(np.cumsum(counts) <= rank))
     return float(lo + min(idx, counts.shape[0] - 1) * width)
+
+
+# -- bandit windows -------------------------------------------------------------
+# The policy controllers' state (``ControllerState`` / ``CadenceState``)
+# records epochs and aggregates windowed sums through these, so their
+# forgetting semantics cannot drift apart.
+
+
+def window_init(window: int, shape: tuple[int, ...], *, device="cpu"):
+    """A zeroed f32 ``(window, *shape)`` ring."""
+    return torch.zeros((window, *shape), dtype=torch.float32, device=device)
+
+
+def window_record(win, ptr: int, sample):
+    """Overwrite slot ``ptr % window`` with this epoch's sample (old
+    evidence in that slot ages out — the bandit forgetting scheme).  The
+    reference returns a new ring; this writes the slot in place and
+    returns ``win``."""
+    win[ptr % win.shape[0]] = sample
+    return win
+
+
+def window_total(win):
+    """Windowed sum over the ring axis, added slot by slot in index order
+    (the reference's reduction order on the CPU; the policy windows hold
+    integer counts below 2^24, whose sums are exact in any order)."""
+    total = win[0].clone()
+    for i in range(1, win.shape[0]):
+        total += win[i]
+    return total

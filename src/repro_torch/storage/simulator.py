@@ -16,7 +16,9 @@ Three coupled models produce every figure of the paper:
 (two-tier merge, RTT-matrix latency, per-pair egress bill);
 :func:`run_protocol_faulty` replays it under replica outages and
 partitions, with gossip anti-entropy, hinted handoff and WAL/snapshot
-durability.  Every entry point is a thin
+durability.  :func:`run_protocol_adaptive` re-selects each session's
+level every merge epoch through the adaptive control plane
+(``repro_torch.policy``).  Every replay is a thin
 :class:`repro_torch.engine.config.EngineConfig` over the one epoch engine.
 """
 
@@ -25,20 +27,21 @@ from __future__ import annotations
 import dataclasses
 from typing import Any
 
+import numpy as np
 import torch
 
 from repro_torch.core import availability as avail_lib
 from repro_torch.core import cost_model
 from repro_torch.core.consistency import ConsistencyLevel
-from repro_torch.core.replicated_store import DurabilityConfig
+from repro_torch.core.replicated_store import DurabilityConfig, merge_cadence
 from repro_torch.engine import results as engine_results
 from repro_torch.engine import stream as engine_stream
 from repro_torch.engine.config import EngineConfig
-from repro_torch.engine.replay import EpochEngine
+from repro_torch.engine.replay import EpochEngine, session_telemetry_runner
 from repro_torch.gossip.scheduler import GossipConfig
 from repro_torch.obs.metrics import ObsConfig
 from repro_torch.storage.cluster import PAPER_CLUSTER, ClusterConfig
-from repro_torch.storage.ycsb import Workload
+from repro_torch.storage.ycsb import PhasedWorkload, Workload
 
 # Server-side repair work per stale read, in units of one op's service
 # cost (ONE repairs across DCs; X-STCC fixes up locally via the DUOT).
@@ -296,6 +299,242 @@ def run_protocol_faulty(
     )
     engine = EpochEngine(config, device=device)
     return engine_results.assemble(config, engine.replay(w), w, cfg, pricing)
+
+
+# ---------------------------------------------------------------------------
+# Adaptive mode: per-session level selection over merge epochs
+# ---------------------------------------------------------------------------
+
+
+def level_session_telemetry(
+    level: ConsistencyLevel,
+    stream: dict[str, np.ndarray],
+    *,
+    n_clients: int,
+    n_resources: int,
+    epoch_size: int,
+    merge_every: int = 8,
+    delta: int = 24,
+    device: str | torch.device = "cuda",
+) -> dict[str, np.ndarray]:
+    """Per-(epoch, session) protocol telemetry of one level on a stream.
+
+    Runs the whole stream through the level's engine (the stream is
+    level-independent, so this is the exact counterfactual of "every
+    session at this level") and returns (E, S) int64 count arrays:
+    ``stale``, ``viol``, ``reads``, ``writes``.  ``len(stream)`` must be
+    a multiple of ``epoch_size``, and ``epoch_size`` a multiple of the
+    level's merge cadence (so epochs align with real merge boundaries).
+    The engine is the epoch engine in telemetry mode
+    (:func:`repro_torch.engine.replay.session_telemetry_runner`), on
+    ``device``.
+    """
+    n_ops = len(stream["client"])
+    sync_every, _ = merge_cadence(level, merge_every, delta)
+    emulate = sync_every == 1 or level.is_timed
+    sub = epoch_size if emulate else sync_every
+    if n_ops % epoch_size or epoch_size % sub:
+        raise ValueError(
+            f"n_ops={n_ops} must tile into epochs of {epoch_size}, and "
+            f"epochs into merge sub-batches of {sub}"
+        )
+    n_sub = n_ops // sub
+
+    store, run = session_telemetry_runner(
+        level, n_clients, n_resources, merge_every, delta, sub, emulate,
+        device=device,
+    )
+    batched = {k: stream[k].reshape(n_sub, sub) for k in engine_stream.OP_COLS}
+    if emulate and store.sync_every > 1:
+        apply_idx = store.schedule_stream(
+            stream["client"], stream["home"], stream["kind"]
+        )
+        batched["apply_idx"] = apply_idx.reshape(n_sub, sub)
+    stale, viol, reads, writes = run(batched)
+
+    per_epoch = epoch_size // sub
+    n_epochs = n_ops // epoch_size
+
+    def fold(y):
+        return y.reshape(n_epochs, per_epoch, n_clients).sum(1)
+
+    return {
+        "stale": fold(stale), "viol": fold(viol),
+        "reads": fold(reads), "writes": fold(writes),
+    }
+
+
+def adaptive_telemetry(
+    w: Workload | PhasedWorkload,
+    *,
+    n_ops: int = 6400,
+    n_clients: int = 16,
+    n_resources: int = 24,
+    epoch_size: int | None = None,
+    levels: tuple[ConsistencyLevel, ...] | None = None,
+    merge_every: int = 8,
+    delta: int = 24,
+    seed: int = 0,
+    device: str | torch.device = "cuda",
+) -> dict[str, Any]:
+    """The telemetry pass of :func:`run_protocol_adaptive` (same
+    arguments): the run's ``n_ops`` (cut to whole epochs), ``epoch_size``
+    and ``levels``, and ``telemetry``, the (E, S, L) ``stale``/``viol``
+    and (E, S) ``reads``/``writes`` counts of every level on the run's
+    stream."""
+    from repro_torch.policy import sla as sla_lib
+
+    if levels is None:
+        levels = sla_lib.POLICY_LEVELS
+    if epoch_size is None:
+        # ~32 controller consultations, aligned to the slowest cadence
+        # (ONE merges every 2*merge_every ops).
+        align = 2 * merge_every
+        epoch_size = max(align, (n_ops // 32) // align * align)
+    n_ops = (n_ops // epoch_size) * epoch_size
+
+    if isinstance(w, PhasedWorkload):
+        stream = engine_stream.op_stream_phased(w, n_ops, n_clients, n_resources, seed)
+    else:
+        stream = engine_stream.op_stream(w, n_ops, n_clients, n_resources, seed)
+    per_level = [
+        level_session_telemetry(
+            lv, stream, n_clients=n_clients, n_resources=n_resources,
+            epoch_size=epoch_size, merge_every=merge_every, delta=delta,
+            device=device,
+        )
+        for lv in levels
+    ]
+    return {
+        "n_ops": n_ops,
+        "epoch_size": epoch_size,
+        "levels": tuple(levels),
+        "telemetry": {
+            "stale": np.stack([t["stale"] for t in per_level], axis=-1),
+            "viol": np.stack([t["viol"] for t in per_level], axis=-1),
+            # Read/write counts are stream properties, equal across levels.
+            "reads": per_level[0]["reads"],
+            "writes": per_level[0]["writes"],
+        },
+    }
+
+
+def run_protocol_adaptive(
+    w: Workload | PhasedWorkload,
+    sla,
+    *,
+    n_ops: int = 6400,
+    n_clients: int = 16,
+    n_resources: int = 24,
+    epoch_size: int | None = None,
+    levels: tuple[ConsistencyLevel, ...] | None = None,
+    merge_every: int = 8,
+    delta: int = 24,
+    seed: int = 0,
+    window: int = 8,
+    eps0: float = 0.02,
+    eps_decay: float = 0.9,
+    margin: float = 0.8,
+    cfg: ClusterConfig = PAPER_CLUSTER,
+    pricing: cost_model.PricingScheme = cost_model.PAPER_PRICING,
+    impl: str = "auto",
+    draws=None,
+    telemetry: dict[str, Any] | None = None,
+    device: str | torch.device = "cuda",
+) -> dict[str, Any]:
+    """Adaptive mode: re-consult the controller every merge epoch.
+
+    The op stream is cut into merge epochs (``epoch_size`` ops, each a
+    whole number of the engine's merge cadences).  Every epoch the
+    :class:`repro_torch.policy.controller.AdaptiveController` selects each
+    session's consistency level from its SLA-scored telemetry window
+    (``policy_score`` on the card); the epoch's ops then run at the
+    selected levels and the measured per-session staleness/violations
+    feed back into the window.  Because the op stream is
+    level-independent, per-level telemetry is exact and precomputed
+    (:func:`adaptive_telemetry`; pass its result as ``telemetry`` to
+    reuse one pass).  The returned frontier compares the adaptive trace
+    with every static level priced on the same telemetry.
+
+    ``draws`` is the controller's ``(explore_u, arm)``, each (E, S);
+    ``None`` draws them from a CPU generator seeded with ``seed`` (the
+    reference's ``jax.random`` stream cannot be reproduced).  The
+    adaptive cost sums the per-epoch f32 costs in f64.  Runs on
+    ``device`` (``"cuda"`` unless the caller asks for the CPU).
+    """
+    from repro_torch.policy import sla as sla_lib
+    from repro_torch.policy.controller import AdaptiveController
+
+    if telemetry is None:
+        telemetry = adaptive_telemetry(
+            w, n_ops=n_ops, n_clients=n_clients, n_resources=n_resources,
+            epoch_size=epoch_size, levels=levels, merge_every=merge_every,
+            delta=delta, seed=seed, device=device,
+        )
+    n_ops, epoch_size, levels = (telemetry[k] for k in ("n_ops", "epoch_size",
+                                                        "levels"))
+    tel = telemetry["telemetry"]
+    controller = AdaptiveController(
+        n_clients, sla, levels=levels, window=window, eps0=eps0,
+        eps_decay=eps_decay, margin=margin, cfg=cfg, pricing=pricing,
+        merge_every=merge_every, delta=delta, impl=impl, device=device,
+    )
+    _, trace = controller.run_scan(seed, tel, draws=draws)
+
+    reads_total = float(tel["reads"].sum())
+    writes_total = float(tel["writes"].sum())
+    table = controller.table.cpu().numpy()
+
+    def level_static(j: int) -> dict[str, Any]:
+        stale = float(tel["stale"][..., j].sum())
+        viol = float(tel["viol"][..., j].sum())
+        cost = (
+            reads_total * float(table[sla_lib.LVL_READ_COST, j])
+            + stale * float(table[sla_lib.LVL_REPAIR_COST, j])
+            + writes_total * float(table[sla_lib.LVL_WRITE_COST, j])
+        )
+        stale_rate = stale / max(1.0, reads_total)
+        viol_rate = viol / max(1.0, reads_total)
+        feasible = (
+            stale_rate <= sla.max_stale_read_rate
+            and viol_rate <= sla.max_violation_rate
+            and float(table[sla_lib.LVL_READ_LAT, j]) <= sla.max_read_latency_ms
+            and float(table[sla_lib.LVL_STALE_AGE, j]) <= sla.max_staleness_ms
+        )
+        return {
+            "cost": cost, "staleness_rate": stale_rate,
+            "violation_rate": viol_rate, "feasible": feasible,
+        }
+
+    static = {lv.value: level_static(j) for j, lv in enumerate(levels)}
+    feasible_costs = {k: v["cost"] for k, v in static.items() if v["feasible"]}
+    cheapest = (min(feasible_costs, key=feasible_costs.get) if feasible_costs
+                else None)
+
+    # On the host, in a fixed order: the card and the CPU agree exactly.
+    # The played counts are integer-valued f32.
+    adaptive_stale = float(trace["stale"].cpu().numpy().astype(np.int64).sum())
+    adaptive_viol = float(trace["viol"].cpu().numpy().astype(np.int64).sum())
+    adaptive_cost = float(trace["cost"].cpu().numpy().astype(np.float64).sum())
+    choice = trace["choice"].cpu().numpy()                  # (E, S)
+    level_share = {
+        lv.value: float((choice == j).mean()) for j, lv in enumerate(levels)
+    }
+    return {
+        "workload": w.name,
+        "sla": sla.name,
+        "n_ops": n_ops,
+        "epoch_size": epoch_size,
+        "adaptive": {
+            "cost": adaptive_cost,
+            "staleness_rate": adaptive_stale / max(1.0, reads_total),
+            "violation_rate": adaptive_viol / max(1.0, reads_total),
+            "level_share": level_share,
+        },
+        "static": static,
+        "cheapest_feasible_static": cheapest,
+        "choice": choice,
+    }
 
 
 def traffic_gb(

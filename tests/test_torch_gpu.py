@@ -24,12 +24,14 @@ from repro_torch.kernels import digest_compare as dc
 from repro_torch.kernels import histogram as hg
 from repro_torch.kernels import ops
 from repro_torch.kernels import placement_score as pls
+from repro_torch.kernels import policy_score as ps
 from repro_torch.obs.metrics import ObsConfig
-from repro_torch.policy.sla import SLA_RELAXED
+from repro_torch.policy.controller import AdaptiveController, CadenceController
+from repro_torch.policy.sla import SLA_RELAXED, SLA_STRICT
 from repro_torch.storage import simulator
-from repro_torch.storage.ycsb import WORKLOAD_A
+from repro_torch.storage.ycsb import PHASED_RW, PHASED_RWR, WORKLOAD_A
 
-from torch_port_helpers import as_lists, geo_mismatches, placement_inputs
+from torch_port_helpers import as_lists, geo_mismatches, placement_inputs, policy_inputs
 
 pytestmark = pytest.mark.gpu
 
@@ -186,8 +188,10 @@ def test_fault_path_launches_every_kernel(cuda):
     simulator.run_protocol_faulty(level, WORKLOAD_A, n_ops=600, device=cuda,
                                   obs=ObsConfig(), **kw)
     counts = ops.launch_counts()
-    # Every kernel but the placement planner's runs on the fault path.
-    assert all(v > 0 for k, v in counts.items() if k != "placement_score"), counts
+    # Every kernel but the placement planner's and the policy scorer's runs
+    # on the fault path.
+    assert all(v > 0 for k, v in counts.items()
+               if k not in ("placement_score", "policy_score")), counts
 
 
 @pytest.mark.parametrize("r", [1, 24, 257, 65537])
@@ -228,4 +232,51 @@ def test_geo_path_launches_every_kernel(cuda):
     plan = pl.plan_placement(PAPER_TOPOLOGY, reads, reads, SLA_RELAXED, device=cuda)
     assert plan.choice.shape == (24,)
     counts = ops.launch_counts()
-    assert all(v > 0 for v in counts.values()), counts
+    # Every kernel but the adaptive path's policy scorer.
+    assert all(v > 0 for k, v in counts.items() if k != "policy_score"), counts
+
+
+@pytest.mark.parametrize("s", [1, 64, 129, 1000, 65537])
+@pytest.mark.parametrize("two_levels", [False, True])
+def test_policy_score_kernel_matches_plain(cuda, s, two_levels):
+    levels = (ConsistencyLevel.ONE, ConsistencyLevel.X_STCC) if two_levels else None
+    args = policy_inputs(np.random.default_rng(s), s, cuda, levels=levels)
+    got = ps.policy_score_cuda(*args)
+    want = ps.policy_score_ref(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    assert torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("w", [PHASED_RW, PHASED_RWR], ids=lambda w: w.name)
+@pytest.mark.parametrize("sla", [SLA_RELAXED, SLA_STRICT], ids=lambda s: s.name)
+def test_adaptive_run_on_the_card_equals_cpu(cuda, w, sla):
+    kw = dict(n_ops=1536, epoch_size=64)
+    ops.reset_launch_counts()
+    got = simulator.run_protocol_adaptive(w, sla, device=cuda, **kw)
+    counts = ops.launch_counts()
+    want = simulator.run_protocol_adaptive(w, sla, device="cpu", **kw)
+    assert np.array_equal(got.pop("choice"), want.pop("choice"))
+    assert got == want
+    # One scoring launch per epoch; the telemetry mode records no DUOT.
+    assert counts["policy_score"] == 1536 // 64
+    assert counts["vclock_audit"] == 0 and counts["op_ingest"] > 0
+
+
+def test_controllers_on_the_card_equal_cpu(cuda):
+    rng = np.random.default_rng(0)
+    e, s = 16, 300
+    reads = rng.integers(0, 40, (e, s))
+    tel = {"stale": np.minimum(rng.integers(0, 30, (e, s, 6)), reads[..., None]),
+           "viol": np.minimum(rng.integers(0, 5, (e, s, 6)), reads[..., None]),
+           "reads": reads, "writes": rng.integers(0, 40, (e, s))}
+    runs = [AdaptiveController(s, SLA_STRICT, eps0=0.3, device=d).run_scan(1, tel)[1]
+            for d in (cuda, "cpu")]
+    for k in runs[1]:
+        assert torch.equal(runs[0][k].cpu(), runs[1][k]), k
+    ctel = {"gb": rng.random((e, 5)).astype(np.float32) * 1e-3,
+            "stale": rng.integers(0, 50, (e, 5)), "reads": rng.integers(50, 100, e)}
+    runs = [CadenceController(eps0=0.3, device=d).run_scan(2, ctel)[1]
+            for d in (cuda, "cpu")]
+    for k in runs[1]:
+        assert torch.equal(runs[0][k].cpu(), runs[1][k]), k

@@ -61,19 +61,22 @@ def no_card():
 
 
 def test_every_new_module_is_covered():
-    """The fault-path and geo slices' modules are among those imported
-    above."""
+    """The fault-path, geo and adaptive slices' modules are among those
+    imported above."""
     mods = set(_port_modules())
     for name in ("core.availability", "gossip", "gossip.digest", "gossip.scheduler",
                  "kernels.digest_compare", "kernels.histogram", "obs", "obs.metrics",
                  "geo", "geo.topology", "geo.placement", "policy", "policy.sla",
-                 "kernels.placement_score"):
+                 "kernels.placement_score", "kernels.policy_score", "kernels.fp",
+                 "policy.controller"):
         assert f"repro_torch.{name}" in mods, name
 
 
 @pytest.mark.parametrize("entry", ["run_protocol", "evaluate_level", "engine", "store",
                                    "run_protocol_faulty", "run_protocol_geo",
-                                   "plan_placement"])
+                                   "plan_placement", "run_protocol_adaptive",
+                                   "level_session_telemetry", "adaptive_controller",
+                                   "cadence_controller", "level_table"])
 def test_entry_points_refuse_cpu_fallback(no_card, entry):
     from repro_torch.core.consistency import ConsistencyLevel
     from repro_torch.core.replicated_store import ReplicatedStore
@@ -81,9 +84,10 @@ def test_entry_points_refuse_cpu_fallback(no_card, entry):
     from repro_torch.engine.replay import EpochEngine
     from repro_torch.geo import placement
     from repro_torch.geo.topology import PAPER_TOPOLOGY
-    from repro_torch.policy.sla import SLA_RELAXED
+    from repro_torch.policy import controller
+    from repro_torch.policy.sla import SLA_RELAXED, level_table
     from repro_torch.storage import simulator
-    from repro_torch.storage.ycsb import WORKLOAD_A
+    from repro_torch.storage.ycsb import PHASED_RW, WORKLOAD_A
 
     calls = {
         "run_protocol": lambda: simulator.run_protocol(
@@ -99,6 +103,15 @@ def test_entry_points_refuse_cpu_fallback(no_card, entry):
         "plan_placement": lambda: placement.plan_placement(
             PAPER_TOPOLOGY, np.ones((4, 3), np.float32), np.ones((4, 3), np.float32),
             SLA_RELAXED),
+        "run_protocol_adaptive": lambda: simulator.run_protocol_adaptive(
+            PHASED_RW, SLA_RELAXED, n_ops=64),
+        "level_session_telemetry": lambda: simulator.level_session_telemetry(
+            ConsistencyLevel.X_STCC, {k: np.zeros(64, np.int32) for k in (
+                "client", "kind", "resource", "home")},
+            n_clients=4, n_resources=4, epoch_size=64),
+        "adaptive_controller": lambda: controller.AdaptiveController(4, SLA_RELAXED),
+        "cadence_controller": lambda: controller.CadenceController(),
+        "level_table": lambda: level_table(),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()

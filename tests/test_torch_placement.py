@@ -20,7 +20,7 @@ from repro.policy.sla import SLA_RELAXED as J_RELAXED
 from repro.policy.sla import SLA_STRICT as J_STRICT
 from repro_torch import convert
 from repro_torch.geo import placement as tpl
-from repro_torch.kernels import ops
+from repro_torch.kernels import fp, ops
 from repro_torch.kernels import placement_score as tps
 from repro_torch.policy import sla as tsla
 
@@ -80,7 +80,7 @@ def test_fma_emulation_matches_exact_oracle_on_random_triples():
     y = (rng.standard_normal(n) * 10.0 ** rng.integers(-6, 7, n)).astype(np.float32)
     c = (rng.standard_normal(n) * 10.0 ** rng.integers(-6, 7, n)).astype(np.float32)
     c[::7] = -(x[::7].astype(np.float64) * y[::7]).astype(np.float32)  # cancellation
-    got = tps.fma_f32(*(torch.from_numpy(v) for v in (x, y, c))).numpy()
+    got = fp.fma_f32(*(torch.from_numpy(v) for v in (x, y, c))).numpy()
     np.testing.assert_array_equal(_bits(got), _bits(_fma_oracle(x, y, c)))
 
 
@@ -115,7 +115,7 @@ def test_fma_emulation_survives_double_rounding_cases():
     want = _fma_oracle(x, y, c)
     naive = (x.astype(np.float64) * y + c).astype(np.float32)
     assert (_bits(naive) != _bits(want)).all()       # the cases are adversarial
-    got = tps.fma_f32(*(torch.from_numpy(v) for v in (x, y, c))).numpy()
+    got = fp.fma_f32(*(torch.from_numpy(v) for v in (x, y, c))).numpy()
     np.testing.assert_array_equal(_bits(got), _bits(want))
 
 

@@ -112,3 +112,66 @@ def placement_inputs(rng, r: int, device):
     writes[::5] = 0.0
     return tuple(torch.as_tensor(x, device=device)
                  for x in (reads, writes, rp, wp, rtt, meta))
+
+
+def policy_inputs(rng, s: int, device, *, levels=None):
+    """``policy_score`` inputs at S sessions over the six policy levels'
+    table (CAUSAL's and ONE's data age is inf): SLA_STRICT and
+    SLA_RELAXED rows mixed, read fractions with exact 0 and 1, inf latency
+    and age bounds on some rows, every 17th row invalid, a quarter of the
+    cells unobserved (count 0), and rates formed as the controller forms
+    them (f32 count ratios)."""
+    from repro_torch.policy import sla
+
+    table = sla.level_table(levels or sla.POLICY_LEVELS, device="cpu")
+    n_levels = table.shape[1]
+    strict = sla.session_params(sla.SLA_STRICT, s, device="cpu").numpy()
+    relaxed = sla.session_params(sla.SLA_RELAXED, s, device="cpu").numpy()
+    sess = np.where((rng.random(s) < 0.5)[:, None], strict, relaxed)
+    rf = rng.random(s).astype(np.float32)
+    rf[::7] = 0.0
+    rf[3::7] = 1.0
+    sess[:, sla.SP_READ_FRAC] = rf
+    sess[::11, sla.SP_MAX_LAT] = np.inf
+    sess[5::13, sla.SP_MAX_AGE] = np.inf
+    sess[::17, sla.SP_VALID] = 0.0
+    reads = rng.integers(0, 200, (s, n_levels))
+    reads[rng.random((s, n_levels)) < 0.25] = 0
+    denom = np.maximum(reads, 1).astype(np.float32)
+    stale = (rng.integers(0, 201, (s, n_levels)) * reads // 200).astype(np.float32) / denom
+    viol = (rng.integers(0, 21, (s, n_levels)) * reads // 200).astype(np.float32) / denom
+    return tuple(torch.as_tensor(np.ascontiguousarray(x), device=device)
+                 for x in (sess, table.numpy(), stale, viol, reads.astype(np.float32)))
+
+
+# The adaptive path's one stated tolerance: the reference sums the (E, S)
+# per-epoch f32 costs in f32, in an order XLA picks; the port sums the
+# same (bit-equal) costs in f64.
+ADAPTIVE_COST_RTOL = 1e-6
+
+
+def adaptive_mismatches(want: dict, got: dict) -> list[str]:
+    """Fields of a ``run_protocol_adaptive`` result that differ from the
+    reference's: ``adaptive.cost`` within ``ADAPTIVE_COST_RTOL``, the
+    ``choice`` array and every other field exact."""
+    bad = []
+    if set(want) != set(got):
+        return [f"keys {sorted(set(want) ^ set(got))}"]
+    for k in want:
+        if k == "choice":
+            if not np.array_equal(np.asarray(want[k]), np.asarray(got[k])):
+                bad.append("choice")
+        elif k == "adaptive":
+            a, b = want[k], got[k]
+            if set(a) != set(b):
+                bad.append(f"adaptive keys {sorted(set(a) ^ set(b))}")
+                continue
+            for kk in a:
+                if kk == "cost":
+                    if not np.isclose(a[kk], b[kk], rtol=ADAPTIVE_COST_RTOL, atol=0):
+                        bad.append(f"adaptive.cost: {a[kk]} vs {b[kk]}")
+                elif a[kk] != b[kk]:
+                    bad.append(f"adaptive.{kk}: {a[kk]} != {b[kk]}")
+        elif want[k] != got[k]:
+            bad.append(f"{k}: {want[k]} != {got[k]}")
+    return bad
