@@ -7,7 +7,7 @@ Phases, each of which must pass (any failure ends the run with a
 non-zero exit code):
 
   1. device   — the card's name, count and power limit; no card, no run;
-  2. build    — ``nvcc`` builds the seven kernels from ``src/repro_torch/
+  2. build    — ``nvcc`` builds the eight kernels from ``src/repro_torch/
                 csrc`` in parallel; prints seconds and ptxas register /
                 shared-memory / spill lines;
   3. kernels  — each kernel against its plain PyTorch version on the
@@ -37,19 +37,35 @@ non-zero exit code):
                 ops, each equal to the same call on the CPU, and one
                 ``CadenceController.run_scan`` card vs CPU; launch counts
                 (one ``policy_score`` per epoch, no audit);
-  9. scale    — one X_STCC replay at the paper's deployment (64 client
-                threads, 5,000,000 rows, 8,000,000 ops, B = 4096), the
-                same deployment through the fault path, the placement
-                planner over its 5,000,000 rows x 124 candidates, the
-                geo replay on the paper's 12-replica fleet (4 per DC),
-                the adaptive run over the same 64 clients and 5,000,000
-                rows (ops cut, see ``ADAPTIVE_SCALE_CUTS``) and the
-                controller over a 1,000,000-session fleet;
- 10. profile  — ``torch.profiler`` over X_STCC and CAUSAL
-                ``run_protocol``, an X_STCC fault run, an X_STCC geo run
-                and an adaptive run: device time by kernel and the card's
-                busy share of the unprofiled wall time;
- 11. report   — one JSON line ``{"kernels": [...]}``, then the last line
+  9. serving  — ``ServingEngine`` on the paper's 12-replica fleet with 64
+                sessions, X_STCC by default and an ``AdaptiveController``,
+                through a seeded schedule (rolling publish, outages, a
+                rebuilding replica, external floors, ``route_batch`` and
+                ``serve_with_retry`` rounds, ``adapt_sessions`` after each
+                epoch), equal to the same script on the CPU in every
+                counter, replica, version, region statistic, level and
+                floor; a ``ShardedServingRouter`` (4 shards x 16
+                sessions) likewise; launch counts (one ``session_floor``
+                per guarded ``route_batch``, one ``op_ingest`` and one
+                ``vclock_chain`` per store read, one ``policy_score`` per
+                epoch, no audit);
+ 10. scale    — one X_STCC replay at the paper's deployment (64 client
+                threads, 5,000,000 rows, 8,000,000 ops, B = 4096) and
+                ``admit_batch`` on its final state, the same deployment
+                through the fault path, the placement planner over its
+                5,000,000 rows x 124 candidates, the geo replay on the
+                paper's 12-replica fleet (4 per DC), the adaptive run
+                over the same 64 clients and 5,000,000 rows (ops cut,
+                see ``ADAPTIVE_SCALE_CUTS``), the controller over a
+                1,000,000-session fleet, and serving at 16,384 sessions
+                and through 16 router shards of 4,096, each equal to the
+                same run with the plain versions on the card;
+ 11. profile  — ``torch.profiler`` over X_STCC and CAUSAL
+                ``run_protocol``, an X_STCC fault run, an X_STCC geo run,
+                an adaptive run and the serving schedule: device time by
+                kernel and the card's busy share of the unprofiled wall
+                time;
+ 12. report   — one JSON line ``{"kernels": [...]}``, then the last line
                 ``{"ok": true, "device": {...}}``.
 
 ``--phases`` runs a subset (a debugging aid; the report lines are
@@ -72,7 +88,7 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
 PHASES = ("device", "build", "kernels", "golden", "main", "faulty", "geo",
-          "adaptive", "scale", "profile")
+          "adaptive", "serving", "scale", "profile")
 
 # H100 SXM peaks (NVIDIA data sheet, as tabulated in the repo's
 # measurement notes): HBM bandwidth, and the 32-bit non-tensor-core rate
@@ -93,6 +109,9 @@ SCALE_CUTS = (
 # The fault run's op count (halved, and the cut listed above, only if the
 # script would not fit its time limit; rows and clients are never cut).
 FAULT_SCALE_OPS = 8_000_000
+# admit_batch on the flat scale run's final state: this many of its
+# 4096-op batches, kernel against plain.
+ADMIT_BATCHES = 8
 
 # The planner's candidate universe at the paper's 3 regions:
 # enumerate_candidates(3), every split of 1..12 replicas with at most 4
@@ -116,6 +135,20 @@ ADAPTIVE_SCALE_CUTS = (
 FLEET_SESSIONS = 1_000_000
 FLEET_EPOCHS = 32
 FLEET_STRIDE = 997
+
+# The serving phase: the paper's 64 client threads as sessions on the
+# 12-replica fleet, 8 epochs of 4 rounds; the router at 4 shards x 16.
+SERVING = dict(n_sessions=64, n_epochs=8, rounds=4)
+ROUTER = dict(n_shards=4, sessions_per_shard=16, n_epochs=8, rounds=4)
+# Serving at scale: 16,384 sessions (every one routed once per round),
+# and the router at 16 shards x 4,096 sessions.
+SERVING_SCALE = dict(n_sessions=16_384, n_epochs=8, rounds=4)
+ROUTER_SCALE = dict(n_shards=16, sessions_per_shard=4096, n_epochs=2, rounds=2)
+SERVING_SCALE_CUTS = (
+    "cuts of scale: none for the engine (16,384 sessions, 8 epochs x 4 "
+    "rounds); the router runs 2 epochs x 2 rounds, as its plain run walks "
+    "16 x 4,096 clock chains per round in Python"
+)
 
 
 def fault_kwargs(n_ops: int, unit: int) -> dict:
@@ -268,15 +301,80 @@ def _audit_inputs(rng, m, n, device):
 
 
 def _chain_inputs(rng, b, c, device):
+    """Random chain inputs; the (C, C) session clocks are drawn on the
+    device (a 16,384-wide clock is 1 GiB)."""
     import torch
 
     t = lambda x: torch.as_tensor(x, dtype=torch.int32, device=device)  # noqa: E731
+    g = torch.Generator(device=device).manual_seed(int(rng.integers(0, 2**31)))
     return dict(
         client=t(rng.integers(0, c, b)), replica=t(rng.integers(0, 3, b)),
         is_write=t(rng.integers(0, 2, b)),
-        session_vc=t(rng.integers(0, 50, (c, c))),
+        session_vc=torch.randint(0, 50, (c, c), generator=g, dtype=torch.int32,
+                                 device=device),
         replica_vc=t(rng.integers(0, 50, (3, c))),
     )
+
+
+# session_floor's (P, C, R, B) at the serving scale (12 replicas, 16,384
+# sessions, one model, every session once) and on the paper's store (12
+# replicas, 64 clients, 5,000,000 rows, one 4096-op batch).
+SESSION_FLOOR_SERVING = (12, 16_384, 1, 16_384)
+# The chain's device-memory walk timed at the serving scale's clock width
+# and batch: one component per session, every session once.
+CHAIN_WIDE = 16_384
+SESSION_FLOOR_PAPER = (12, 64, 5_000_000, 4096)
+
+
+def _admit_inputs(shape, device, *, seed: int, dup: bool = False):
+    """``(rv, rf, wf, client, replica, resource, valid)`` at (P, C, R, B),
+    drawn on the device; ``dup`` makes every pair of ops and every third
+    op share one (client, resource) cell."""
+    import torch
+
+    p, c, r, b = shape
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def ri(hi, size):
+        return torch.randint(0, hi, size, generator=g, dtype=torch.int32, device=device)
+
+    rv, rf, wf = ri(40, (p, r)), ri(40, (c, r)), ri(40, (c, r))
+    cl, pl, res = ri(c, (b,)), ri(p, (b,)), ri(r, (b,))
+    if dup:
+        cl[1::2], res[1::2] = cl[0::2][: b // 2], res[0::2][: b // 2]
+        cl[2::3], res[2::3] = cl[0], res[0]
+    valid = torch.rand((b,), generator=g, device=device) < 0.8
+    return rv, rf, wf, cl, pl, res, valid
+
+
+def time_session_floor(shape, device, iters: int) -> dict:
+    """The kernel, its plain version and one ``scatter_reduce_`` (the
+    floor update alone) at one shape, with the bound with and without the
+    (C, R) copy into the separate output."""
+    from repro_torch.kernels import session_floor as sf
+
+    p, c, r, b = shape
+    args = _admit_inputs(shape, device, seed=b)[:-1]
+    got = sf.session_admit_cuda(*args)
+    want = sf.session_admit_ref(*args)
+    require_equal(f"session_floor timing {shape}", got, want)
+    err = max_abs_err(got, want)
+    del got
+    ms = cuda_time_ms(lambda: sf.session_admit_cuda(*args), iters)
+    plain = cuda_time_ms(lambda: sf.session_admit_ref(*args), iters)
+    scratch = args[1].clone().view(-1)
+    idx = args[3].long() * r + args[5].long()
+    served = want[0]
+    scatter = cuda_time_ms(
+        lambda: scratch.scatter_reduce_(0, idx, served, "amax"), iters)
+    # Per op: 3 index words read, 3 gathered words, 3 output words (adm
+    # is a byte) and one atomic read-modify-write; ~10 integer operations.
+    op_bytes = b * (3 * 4 + 3 * 4 + (4 + 1 + 4) + 2 * 4)
+    copy = 2 * c * r * 4
+    del want, scratch, idx, served
+    return {"ms": ms, "plain_ms": plain, "bound": bound_ms(op_bytes + copy, b * 10),
+            "bound_nocopy": bound_ms(op_bytes, b * 10), "scatter_ms": scatter,
+            "err": err, "shape": f"P={p}, C={c}, R={r}, B={b}"}
 
 
 def _digest_rows(rng, m, device):
@@ -337,6 +435,7 @@ def phase_kernels() -> dict:
     from repro_torch.kernels import ops
     from repro_torch.kernels import placement_score as pls
     from repro_torch.kernels import policy_score as ps
+    from repro_torch.kernels import session_floor as sf
     from repro_torch.kernels import vclock_audit as va
     from repro_torch.kernels import vclock_chain as vch
     from torch_port_helpers import placement_inputs, policy_inputs
@@ -587,9 +686,56 @@ def phase_kernels() -> dict:
     timings["policy_score"] = time_policy(64, 200)
     timings[f"policy_score@{FLEET_SESSIONS + 3}"] = time_policy(FLEET_SESSIONS + 3, 50)
 
+    # vclock_chain on clocks too wide for one block's shared memory: the
+    # device-memory walk, at the serving router's and the serving scale's
+    # one component per session.
+    for b, c in ((300, 500), (64, 2100), (1, 4096)):
+        kw = _chain_inputs(rng, b, c, dev)
+        require_equal(f"vclock_chain B={b} C={c}", ops.vclock_chain(**kw, impl="cuda"),
+                      ops.vclock_chain(**kw, impl="torch"))
+    torch.cuda.synchronize()
+    log("[kernels] vclock_chain (device-memory clocks): equal at (B,C) in "
+        "(300,500),(64,2100),(1,4096)")
+    timings[f"vclock_chain@{CHAIN_WIDE}x{CHAIN_WIDE}"] = time_chain(CHAIN_WIDE,
+                                                                  CHAIN_WIDE, 3)
+
+    # session_floor: the reference tests' shapes, the serving phase's
+    # (P, C, R, B) = (12, 64, 1, 64), the serving scale's 16,384 sessions
+    # and the paper's store (64 clients x 5,000,000 rows); both enforce
+    # settings, distinct and duplicate (c, r) pairs, all ops valid and a
+    # partly valid batch.
+    n_checked = 0
+    for shape in ((2, 3, 4, 10), (4, 16, 8, 100), (8, 64, 1, 256), (12, 64, 1, 64),
+                  SESSION_FLOOR_SERVING, SESSION_FLOOR_PAPER):
+        for dup in (False, True):
+            args = _admit_inputs(shape, dev, seed=n_checked, dup=dup)
+            for enforce in (True, False):
+                for valid in (None, args[-1]):
+                    got = sf.session_admit_cuda(*args[:-1], enforce=enforce, valid=valid)
+                    want = sf.session_admit_ref(*args[:-1], enforce=enforce, valid=valid)
+                    torch.cuda.synchronize()
+                    require_equal(f"session_floor {shape} dup={dup} enforce={enforce} "
+                                  f"valid={valid is not None}", got, want)
+                    n_checked += 1
+                    del got, want
+            del args
+    torch.cuda.empty_cache()
+    log(f"[kernels] session_floor: {n_checked} cases equal ((P,C,R,B) in (2,3,4,10),"
+        f"(4,16,8,100),(8,64,1,256),(12,64,1,64),{SESSION_FLOOR_SERVING},"
+        f"{SESSION_FLOOR_PAPER} x distinct/duplicate (c, r) x enforce x all/partly valid)")
+    timings["session_floor"] = time_session_floor((12, 64, 1, 64), dev, 200)
+    timings["session_floor@16384"] = time_session_floor(SESSION_FLOOR_SERVING, dev, 100)
+    timings[f"session_floor@{SCALE['n_resources']}"] = time_session_floor(
+        SESSION_FLOOR_PAPER, dev, 20)
+    torch.cuda.empty_cache()
+
     for key, t in timings.items():
         extra = (f", addmm (cost term only, not bit-exact) {t['addmm_ms']:.6f} ms"
                  if "addmm_ms" in t else "")
+        if "scatter_ms" in t:
+            extra += (f", scatter_reduce_ (floor update only) {t['scatter_ms']:.6f} ms, "
+                      f"bound without the (C, R) copy {t['bound_nocopy'][0]:.6f} ms "
+                      f"({t['bound_nocopy'][1]})")
         log(f"[kernels] time {key} ({t['shape']}): kernel {t['ms']:.6f} ms, "
             f"plain {t['plain_ms']:.6f} ms, bound {t['bound'][0]:.6f} ms "
             f"({t['bound'][1]}), max_abs_err {t['err']}{extra}")
@@ -996,10 +1142,154 @@ def phase_adaptive() -> dict:
 # -- phase 9 ------------------------------------------------------------------
 
 
+class _NoModel:
+    """The serving phases route and count; they compute with no model."""
+
+    prefill = decode_step = None
+
+
+def run_serving(device, *, n_sessions: int, n_epochs: int, rounds: int,
+                impl: str = "auto"):
+    """The serving schedule on the 12-replica fleet: ``n_sessions``
+    sessions, X_STCC by default, an ``AdaptiveController`` (SLA_RELAXED,
+    eps0 0.1, seeded draws).  Returns ``(engine, api, log)``."""
+    from repro_torch.core.consistency import ConsistencyLevel
+    from repro_torch.policy.controller import AdaptiveController
+    from repro_torch.policy.sla import SLA_RELAXED
+    from repro_torch.serve import ServingEngine
+    from torch_port_helpers import PortServingApi, plain, serving_script
+
+    eng = ServingEngine(_NoModel(), ConsistencyLevel.X_STCC, max_replicas=12,
+                        max_sessions=n_sessions, impl=impl, device=device)
+    eng.set_topology(geo_topologies()["fleet12"])
+    eng.attach_controller(AdaptiveController(n_sessions, SLA_RELAXED, eps0=0.1,
+                                             impl=impl, device=device), seed=0)
+    api = PortServingApi()
+    log = serving_script(api, eng, seed=0, n_epochs=n_epochs, rounds=rounds,
+                         n_sessions=n_sessions)
+    return eng, api, plain(log)
+
+
+def run_router(device, *, n_shards: int, sessions_per_shard: int, n_epochs: int,
+               rounds: int, impl: str = "auto"):
+    """The router schedule over the 12 replicas, ages binned one version
+    wide; returns ``(router, log)``."""
+    from repro_torch.serve import ShardedServingRouter
+    from torch_port_helpers import PortServingApi, plain, router_script
+
+    router = ShardedServingRouter(n_shards, sessions_per_shard, max_replicas=12,
+                                  age_hi=64.0, impl=impl, device=device)
+    log = router_script(PortServingApi(), router, seed=0, n_epochs=n_epochs, rounds=rounds)
+    return router, plain(log)
+
+
+def _store_diff(a, b, prefix: str = "") -> list[str]:
+    """Fields of two port store states (or lists of them, one per shard)
+    that differ, compared on the first one's device."""
+    import torch
+
+    if isinstance(a, list):
+        return [d for k, (x, y) in enumerate(zip(a, b))
+                for d in _store_diff(x, y, f"{prefix}{k}.")]
+    out = []
+    for f in a._fields:
+        x, y = getattr(a, f), getattr(b, f)
+        if x is None or y is None:
+            if (x is None) != (y is None):
+                out.append(prefix + f)
+        elif isinstance(x, tuple):
+            out += _store_diff(x, y, f"{prefix}{f}.")
+        elif x.shape != y.shape or not torch.equal(x, y.to(x.device)):
+            out.append(prefix + f)
+    return out
+
+
+def serving_counts(log: list, api) -> tuple[int, int]:
+    """(store reads, serve_with_retry serves) of one schedule: every
+    completed ``route_batch`` and every served ``serve_with_retry`` (an
+    int in the log) reads the store once."""
+    serves = sum(isinstance(x, int) for x in log)
+    return api.ok_batches + serves, serves
+
+
+def phase_serving() -> dict:
+    import torch
+
+    from repro_torch.kernels import ops
+    from torch_port_helpers import serving_counters
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    eng, api, slog = run_serving("cuda", **SERVING)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    reads, serves = serving_counts(slog, api)
+    want = {"session_floor": api.guarded_batches, "op_ingest": reads,
+            "vclock_chain": reads, "policy_score": SERVING["n_epochs"],
+            "vclock_audit": 0}
+    bad = {k: (launches[k], v) for k, v in want.items() if launches[k] != v}
+    if bad or api.guarded_batches == 0:
+        fail(f"serving launch counts (got, want): {bad}, guarded batches "
+             f"{api.guarded_batches}")
+    c_eng, _, c_log = run_serving("cpu", **SERVING)
+    if slog != c_log:
+        bad = [i for i, (a, b) in enumerate(zip(slog, c_log)) if a != b]
+        fail(f"serving: card log != cpu log at steps {bad[:8]}")
+    got, ref = serving_counters(eng), serving_counters(c_eng)
+    diff = _diff_keys(got, ref)
+    if diff:
+        fail(f"serving: card != cpu: {diff[:8]}")
+    diff = _store_diff(eng._st, c_eng._st)
+    if diff:
+        fail(f"serving: store state card != cpu in {diff[:8]}")
+    counters = {k: got[k] for k in ("stale_serves", "total_serves", "reroutes",
+                                    "failovers", "retries", "timeouts", "downgrades",
+                                    "retry_wait_ms")}
+    if min(counters[k] for k in ("total_serves", "reroutes", "failovers", "retries")) <= 0:
+        fail(f"serving: the schedule left a path unexercised: {counters}")
+    share = {lv: sum(1 for x in got["levels"].values() if x == lv)
+             for lv in sorted(set(got["levels"].values()))}
+    log(f"[serving] ServingEngine {SERVING} on the 12-replica fleet: card "
+                f"{wall:.3f} s, {reads} store reads ({api.ok_batches} route_batch, "
+                f"{serves} serve_with_retry), launches {launches}; card == cpu in "
+                f"every counter, replica, version, region statistic, level, floor "
+                f"and the store state; {counters}")
+    rs = got["region_stats"]
+    log(f"[serving] region_stats serves {rs['serves']}, stale {rs['stale']}, "
+        f"mean_latency_ms {rs['mean_latency_ms']}, p50 {rs['p50_latency_ms']}, "
+        f"p99 {rs['p99_latency_ms']}; final levels {share}")
+
+    ops.reset_launch_counts()
+    router, r_log = run_router("cuda", **ROUTER)
+    r_launches = ops.launch_counts()
+    c_router, c_r_log = run_router("cpu", **ROUTER)
+    if r_log != c_r_log:
+        fail("serving: router card log != cpu log")
+    diff = _diff_keys(serving_counters(router), serving_counters(c_router))
+    diff += _store_diff(router._st, c_router._st)
+    if diff:
+        fail(f"serving: router card != cpu: {diff[:8]}")
+    if r_launches["session_floor"] == 0:
+        fail(f"serving: the router never launched session_floor: {r_launches}")
+    rc = serving_counters(router)
+    log(f"[serving] ShardedServingRouter {ROUTER}: card == cpu; age_stats "
+        f"{rc['age_stats']}, reroutes {rc['reroutes']}, failovers {rc['failovers']}, "
+        f"stale {rc['stale_serves']}/{rc['total_serves']}; launches {r_launches}")
+    return launches
+
+
+# -- phase 10 -----------------------------------------------------------------
+
+
 def phase_scale() -> None:
     import torch
 
     from repro_torch.core.consistency import ConsistencyLevel
+    from repro_torch.engine import results as engine_results
+    from repro_torch.engine.config import EngineConfig
+    from repro_torch.engine.replay import EpochEngine
     from repro_torch.kernels import ops
     from repro_torch.storage import simulator as sim
     from repro_torch.storage.ycsb import WORKLOAD_A
@@ -1010,8 +1300,11 @@ def phase_scale() -> None:
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    out = sim.run_protocol(ConsistencyLevel.X_STCC, WORKLOAD_A, device="cuda",
-                           **SCALE)
+    # run_protocol's three steps, written out to keep the final state for
+    # admit_batch below.
+    config = EngineConfig(ConsistencyLevel.X_STCC, **SCALE)
+    prep = EpochEngine(config, device="cuda").replay(WORKLOAD_A)
+    out = engine_results.assemble(config, prep, WORKLOAD_A)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = ops.launch_counts()
@@ -1029,6 +1322,8 @@ def phase_scale() -> None:
         f"n_reads {out['n_reads']}; dropped_writes {out['dropped_writes']}; "
         f"max_memory_allocated {peak} B; launches {launches}")
     del out
+    scale_admit(prep)
+    del prep
     torch.cuda.empty_cache()
 
     # The same deployment through the fault path.
@@ -1077,6 +1372,129 @@ def phase_scale() -> None:
     torch.cuda.empty_cache()
     scale_adaptive()
     scale_fleet_controller()
+    torch.cuda.empty_cache()
+    scale_serving()
+
+
+def scale_admit(prep: dict) -> None:
+    """``admit_batch`` on the flat scale run's final state (64 clients x
+    5,000,000 rows): its first ``ADMIT_BATCHES`` 4096-op batches, chained,
+    through the kernel and through the plain version, equal in served
+    versions, admissibility and the whole state."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    store, st = prep["store"], prep["out"]["st"]
+    batches = [{"client": prep["batched"]["client"][t],
+                "replica": prep["batched"]["home"][t],
+                "resource": prep["batched"]["resource"][t]}
+               for t in range(ADMIT_BATCHES)]
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    walls = {}
+    states = {}
+    for impl in ("auto", "torch"):
+        ops.reset_launch_counts()
+        s, outs = st, []
+        start.record()
+        for kw in batches:
+            s, served, adm, floor = store.admit_batch(s, impl=impl, **kw)
+            outs.append((served, adm, floor))
+        end.record()
+        torch.cuda.synchronize()
+        walls[impl] = start.elapsed_time(end) / ADMIT_BATCHES
+        states[impl] = (s, outs, ops.launch_counts()["session_floor"])
+    (sk, ok, nk), (sp, op, npl) = states["auto"], states["torch"]
+    if nk != ADMIT_BATCHES or npl != 0:
+        fail(f"scale admit_batch: {nk} kernel launches, {npl} for the plain run")
+    for t, (k, p) in enumerate(zip(ok, op)):
+        if not all(torch.equal(a, b) for a, b in zip(k, p)):
+            fail(f"scale admit_batch: batch {t} differs between kernel and plain")
+    diff = _store_diff(sk, sp)
+    if diff:
+        fail(f"scale admit_batch: state differs in {diff}")
+    adm = sum(int(b.sum()) for _, b, _ in ok)
+    raised = int((sk.cluster.read_floor != st.cluster.read_floor).sum())
+    log(f"[scale] admit_batch on the flat run's final state (C={store.n_clients}, "
+        f"R={store.n_resources}), {ADMIT_BATCHES} batches of "
+        f"{batches[0]['client'].shape[0]} ops: kernel {walls['auto']:.6f} ms, plain "
+        f"{walls['torch']:.6f} ms per batch (CUDA events); {adm} of "
+        f"{ADMIT_BATCHES * batches[0]['client'].shape[0]} admissible, {raised} "
+        "floors raised; served, admissible and state equal to the plain version")
+
+
+def scale_serving() -> None:
+    """Serving at scale: the schedule at 16,384 sessions on the 12-replica
+    fleet and the router at 16 shards x 4,096 sessions, each through the
+    kernels and through the plain versions on the card, equal in every
+    field."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from torch_port_helpers import serving_counters
+
+    log(f"[scale] serving: ServingEngine {SERVING_SCALE} on the 12-replica fleet; "
+        f"router {ROUTER_SCALE}")
+    log(f"[scale] {SERVING_SCALE_CUTS}")
+    runs = {}
+    for impl in ("auto", "torch"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        eng, api, slog = run_serving("cuda", impl=impl, **SERVING_SCALE)
+        torch.cuda.synchronize()
+        runs[impl] = dict(eng=eng, api=api, log=slog, wall=time.perf_counter() - t0,
+                          peak=torch.cuda.max_memory_allocated(),
+                          launches=ops.launch_counts())
+    k, p = runs["auto"], runs["torch"]
+    if k["log"] != p["log"]:
+        fail("scale serving: kernel log != plain log")
+    diff = _diff_keys(serving_counters(k["eng"]), serving_counters(p["eng"]))
+    diff += _store_diff(k["eng"]._st, p["eng"]._st)
+    if diff:
+        fail(f"scale serving: kernel run != plain run: {diff[:8]}")
+    reads, serves = serving_counts(k["log"], k["api"])
+    kl = k["launches"]
+    if (kl["session_floor"] != k["api"].guarded_batches or kl["op_ingest"] != reads
+            or kl["vclock_chain"] != reads
+            or kl["policy_score"] != SERVING_SCALE["n_epochs"]
+            or sum(p["launches"].values()) != 0):
+        fail(f"scale serving: launches {kl} (plain {p['launches']}), want "
+             f"{k['api'].guarded_batches} session_floor, {reads} op_ingest")
+    c = serving_counters(k["eng"])
+    counters = {f: c[f] for f in ("stale_serves", "total_serves", "reroutes",
+                                  "failovers", "retries", "timeouts", "downgrades",
+                                  "retry_wait_ms")}
+    n_rb = k["api"].ok_batches
+    log(f"[scale] serving engine: kernels {k['wall']:.3f} s ({n_rb} route_batch of "
+        f"{SERVING_SCALE['n_sessions']} sessions, {serves} serve_with_retry, "
+        f"{SERVING_SCALE['n_epochs']} adapt_sessions; "
+        f"{k['wall'] / max(1, n_rb) * 1e3:.1f} ms per round on average), plain "
+        f"{p['wall']:.3f} s; peaks {k['peak']} / {p['peak']} B; launches {kl}; "
+        f"{counters}; region p99 {c['region_stats']['p99_latency_ms']}; equal in "
+        "every field and the store state")
+    del runs, k, p
+    torch.cuda.empty_cache()
+
+    rruns = {}
+    for impl in ("auto", "torch"):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        router, rlog = run_router("cuda", impl=impl, **ROUTER_SCALE)
+        torch.cuda.synchronize()
+        rruns[impl] = (router, rlog, time.perf_counter() - t0, ops.launch_counts())
+    (rk, lk, wk, nk), (rp, lp, wp, _) = rruns["auto"], rruns["torch"]
+    diff = [] if lk == lp else ["log"]
+    diff += _diff_keys(serving_counters(rk), serving_counters(rp))
+    diff += _store_diff(rk._st, rp._st)
+    if diff:
+        fail(f"scale router: kernel run != plain run: {diff[:8]}")
+    rc = serving_counters(rk)
+    log(f"[scale] router {ROUTER_SCALE}: kernels {wk:.3f} s, plain {wp:.3f} s; "
+        f"launches {nk}; age_stats {rc['age_stats']}; stale "
+        f"{rc['stale_serves']}/{rc['total_serves']}; equal in every field")
 
 
 def scale_planner() -> None:
@@ -1313,7 +1731,7 @@ def scale_fleet_controller() -> None:
         f"{rows.numel()} sessions (every {FLEET_STRIDE}th)")
 
 
-# -- phase 10 -----------------------------------------------------------------
+# -- phase 11 -----------------------------------------------------------------
 
 
 def phase_profile() -> None:
@@ -1342,6 +1760,8 @@ def phase_profile() -> None:
                                       device="cuda")),
         ("run_protocol_adaptive(PHASED_RW, SLA_RELAXED, defaults)",
          lambda: sim.run_protocol_adaptive(PHASED_RW, SLA_RELAXED, device="cuda")),
+        (f"ServingEngine schedule {SERVING} on the 12-replica fleet",
+         lambda: run_serving("cuda", **SERVING)),
     )
     for label, run in runs:
         run()  # warm
@@ -1389,13 +1809,17 @@ REPLACES = {
                         "src/repro/kernels/placement_score.py:71"),
     "policy_score": ("src/repro_torch/csrc/policy_score.cu",
                      "src/repro/kernels/policy_score.py:91"),
+    "session_floor": ("src/repro_torch/csrc/session_floor.cu",
+                      "src/repro/kernels/session_floor.py:99"),
 }
 # The path whose launch counts each kernel reports: the flat main path
 # for the first slice's kernels, the fault path for gossip and obs, the
-# geo path for the planner, the adaptive path for the policy scorer.
+# geo path for the planner, the adaptive path for the policy scorer, the
+# serving path for the session-floor admission.
 LAUNCH_PHASE = {"op_ingest": "main", "vclock_audit": "main", "vclock_chain": "main",
                 "digest_compare": "faulty", "histogram": "faulty",
-                "placement_score": "geo", "policy_score": "adaptive"}
+                "placement_score": "geo", "policy_score": "adaptive",
+                "session_floor": "serving"}
 
 
 def main() -> None:
@@ -1430,7 +1854,8 @@ def main() -> None:
     launches = {"main": phase_main() if "main" in phases else {},
                 "faulty": phase_faulty() if "faulty" in phases else {},
                 "geo": phase_geo() if "geo" in phases else {},
-                "adaptive": phase_adaptive() if "adaptive" in phases else {}}
+                "adaptive": phase_adaptive() if "adaptive" in phases else {},
+                "serving": phase_serving() if "serving" in phases else {}}
     if "scale" in phases:
         phase_scale()
     if "profile" in phases:
@@ -1452,6 +1877,9 @@ def main() -> None:
         })
         if "addmm_ms" in t:
             kernels[-1]["addmm_cost_term_ms"] = t["addmm_ms"]
+        if "scatter_ms" in t:
+            kernels[-1]["scatter_reduce_floor_only_ms"] = t["scatter_ms"]
+            kernels[-1]["bound_ms_without_copy"] = t["bound_nocopy"][0]
     log(dev["smi"])    # the card's name and power limit again, beside the numbers
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

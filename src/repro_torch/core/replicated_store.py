@@ -19,6 +19,10 @@
     :meth:`~ReplicatedStore.drain_hints` over :class:`HintState`;
   * **durability** — :class:`DurabilityConfig`, :class:`DuraState`,
     :meth:`~ReplicatedStore.snapshot`, :meth:`~ReplicatedStore.wal_append`;
+  * **serving**   — :meth:`~ReplicatedStore.install`,
+    :meth:`~ReplicatedStore.read_batch` / :meth:`~ReplicatedStore.write_batch`,
+    :meth:`~ReplicatedStore.session_floor` and the batched admission
+    check :meth:`~ReplicatedStore.admit_batch` (``kernels.ops.session_admit``);
   * **audit**     — :meth:`ReplicatedStore.audit`.
 """
 
@@ -412,6 +416,30 @@ class ReplicatedStore:
         return StoreState(cluster=res.state, duot=duot, pend_apply=pend_apply,
                           hints=state.hints, dura=state.dura), res
 
+    def write_batch(self, state: StoreState, *, client, replica, resource,
+                    record: bool = True) -> tuple[StoreState, xstcc.BatchResult]:
+        """A batch of client writes, with scalar-loop semantics."""
+        c = torch.as_tensor(client, device=self.device).to(torch.int32)
+        return self.apply_batch(
+            state, client=c, replica=replica, resource=resource,
+            kind=torch.full(c.shape, xstcc.WRITE, dtype=torch.int32,
+                            device=self.device),
+            record=record,
+        )
+
+    def read_batch(self, state: StoreState, *, client, replica, resource,
+                   record: bool = True, enforce=None) -> tuple[StoreState, xstcc.BatchResult]:
+        """A batch of session reads, with scalar-loop semantics;
+        ``enforce`` overrides the level's session enforcement, per batch
+        or per op (a ``(B,)`` bool)."""
+        c = torch.as_tensor(client, device=self.device).to(torch.int32)
+        return self.apply_batch(
+            state, client=c, replica=replica, resource=resource,
+            kind=torch.full(c.shape, xstcc.READ, dtype=torch.int32,
+                            device=self.device),
+            record=record, enforce=enforce,
+        )
+
     # -- server side ----------------------------------------------------------
 
     def merge(
@@ -698,6 +726,58 @@ class ReplicatedStore:
             wal_total=du.wal_total + rec.sum(dtype=torch.int32),
         )
         return state._replace(dura=dura)
+
+    # -- serving: snapshot installs and session floors ------------------------
+
+    def install(self, state: StoreState, *, replica, resource, version) -> StoreState:
+        """Server-side snapshot install (the serving layer's ``publish``):
+        an externally assigned version raises the replica's applied
+        version and the global frontier; no session, no clock."""
+        cl = state.cluster
+        dev = cl.replica_version.device
+        p, r, v = torch.broadcast_tensors(*(
+            torch.as_tensor(x, device=dev).to(torch.int32)
+            for x in (replica, resource, version)))
+        cluster = cl._replace(
+            replica_version=xstcc._scatter_max(
+                cl.replica_version, p.long() * self.n_resources + r.long(), v),
+            global_version=xstcc._scatter_max(cl.global_version, r.long(), v),
+        )
+        return state._replace(cluster=cluster)
+
+    def session_floor(self, state: StoreState, client, resource) -> torch.Tensor:
+        """The MR/RYW floor: the least version admissible for the session."""
+        cl = state.cluster
+        dev = cl.read_floor.device
+        c = torch.as_tensor(client, device=dev).long()
+        r = torch.as_tensor(resource, device=dev).long()
+        return torch.maximum(cl.read_floor[c, r], cl.write_floor[c, r])
+
+    def admit_batch(self, state: StoreState, *, client, replica, resource,
+                    impl: str | None = None,
+                    ) -> tuple[StoreState, torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Batched admission check + floor update (the serving hot loop).
+
+        Checks ``replica_version[p, r] >= max(read_floor, write_floor)``
+        for each op against the *pre-batch* floors (the router admits a
+        batch concurrently), serves ``max(replica_version, floor)`` under
+        session enforcement, and raises the read floors, through
+        ``kernels.ops.session_admit`` (``impl`` defaults to the store's
+        ``ingest``: the kernel on the card, the plain version on the
+        CPU).  Returns ``(state, served, admissible, floor)``: the
+        reference's triple, plus each op's pre-batch floor (what
+        :meth:`session_floor` gives), which the routers need as well.
+        """
+        cl = state.cluster
+        dev = cl.read_floor.device
+        c, p, r = (torch.as_tensor(x, device=dev).to(torch.int32)
+                   for x in (client, replica, resource))
+        served, adm, floor, new_rf = kernel_ops.session_admit(
+            cl.replica_version, cl.read_floor, cl.write_floor, c, p, r,
+            enforce=self.enforce_sessions,
+            impl=self.ingest if impl is None else impl,
+        )
+        return state._replace(cluster=cl._replace(read_floor=new_rf)), served, adm, floor
 
     # -- audit ----------------------------------------------------------------
 

@@ -22,12 +22,23 @@
 // less.  The real limit is the serial dependence along the batch: B steps
 // of a few shared-memory operations each, which one block of C threads
 // runs at a few tens of nanoseconds per op.
+//
+// Wide clocks: when the C x C session clocks and P x C replica clocks do
+// not fit one block's shared memory (C above ~230 at P = 3; the serving
+// engine keeps one clock component per session, C = 16,384), the same
+// walk runs on the outputs in device memory.  The launch copies the
+// clocks into the outputs on the stream, and thread n of a grid of
+// ceil(C / 256) blocks walks column n there; a warp's 32 columns are 32
+// consecutive words, so each step is one coalesced load per table and
+// one store.  Each step waits on its loads (device-memory latency, not
+// bandwidth): B steps of ~1 us at worst.
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int CHUNK = 1024;
+constexpr size_t SMEM_MAX = 232448;  // shared memory one H100 block can use
 
 __global__ void chain_kernel(const int* __restrict__ client,
                              const int* __restrict__ replica,
@@ -72,6 +83,41 @@ __global__ void chain_kernel(const int* __restrict__ client,
   for (int k = threadIdx.x; k < p * c; k += blockDim.x) new_replica_vc[k] = s_rvc[k];
 }
 
+// The same chain on clocks held in device memory: svc and rvc are the
+// outputs, already holding the input clocks.
+__global__ void chain_kernel_global(const int* __restrict__ client,
+                                    const int* __restrict__ replica,
+                                    const int* __restrict__ is_write, int b,
+                                    int c, int* __restrict__ vcs,
+                                    int* __restrict__ svc,
+                                    int* __restrict__ rvc) {
+  __shared__ int s_cli[CHUNK];
+  __shared__ int s_rep[CHUNK];
+  __shared__ int s_w[CHUNK];
+  const long long n = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  for (int base = 0; base < b; base += CHUNK) {
+    const int len = min(CHUNK, b - base);
+    __syncthreads();
+    for (int k = threadIdx.x; k < len; k += blockDim.x) {
+      s_cli[k] = client[base + k];
+      s_rep[k] = replica[base + k];
+      s_w[k] = is_write[base + k];
+    }
+    __syncthreads();
+    if (n < c) {
+      for (int k = 0; k < len; ++k) {
+        const long long ci = s_cli[k], pi = s_rep[k];
+        int* sp = svc + ci * c + n;
+        int* rp = rvc + pi * c + n;
+        const int v = max(*sp, *rp) + (n == ci);
+        *sp = v;
+        if (s_w[k]) *rp = max(*rp, v);
+        vcs[(long long)(base + k) * c + n] = v;
+      }
+    }
+  }
+}
+
 }  // namespace
 
 // client/replica/is_write: (b,) int32; session_vc: (c, c); replica_vc:
@@ -82,9 +128,24 @@ extern "C" int vclock_chain_launch(const int* client, const int* replica,
                                    const int* replica_vc, int c, int p,
                                    int* vcs, int* new_session_vc,
                                    int* new_replica_vc, void* stream) {
-  if (c <= 0 || p <= 0 || c > 1024) return (int)cudaErrorInvalidValue;
+  if (c <= 0 || p <= 0 || b < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t smem = ((size_t)c * c + (size_t)p * c + 3 * CHUNK) * sizeof(int);
+  if (c > 1024 || smem > SMEM_MAX) {
+    cudaError_t e = cudaMemcpyAsync(new_session_vc, session_vc,
+                                    (size_t)c * c * sizeof(int),
+                                    cudaMemcpyDeviceToDevice, s);
+    if (e == cudaSuccess)
+      e = cudaMemcpyAsync(new_replica_vc, replica_vc,
+                          (size_t)p * c * sizeof(int),
+                          cudaMemcpyDeviceToDevice, s);
+    if (e != cudaSuccess) return (int)e;
+    if (b == 0) return (int)cudaGetLastError();
+    const int threads = 256;
+    chain_kernel_global<<<(c + threads - 1) / threads, threads, 0, s>>>(
+        client, replica, is_write, b, c, vcs, new_session_vc, new_replica_vc);
+    return (int)cudaGetLastError();
+  }
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

@@ -17,13 +17,14 @@ from repro_torch.kernels import histogram as _hg
 from repro_torch.kernels import op_ingest as _oi
 from repro_torch.kernels import placement_score as _pls
 from repro_torch.kernels import policy_score as _ps
+from repro_torch.kernels import session_floor as _sf
 from repro_torch.kernels import vclock_audit as _va
 from repro_torch.kernels import vclock_chain as _vch
 
 IMPLS = ("auto", "cuda", "torch")
 _COUNTED = {"op_ingest": _oi, "vclock_audit": _va, "vclock_chain": _vch,
             "digest_compare": _dc, "histogram": _hg, "placement_score": _pls,
-            "policy_score": _ps}
+            "policy_score": _ps, "session_floor": _sf}
 
 
 def resolve_impl(impl: str | None, t: torch.Tensor) -> str:
@@ -181,3 +182,17 @@ def policy_score(sess, table, stale, viol, count, *, impl: str | None = "auto"):
     impl = resolve_impl(impl, stale)
     fn = _ps.policy_score_ref if impl == "torch" else _ps.policy_score_cuda
     return fn(sess, table, stale, viol, count)
+
+
+def session_admit(replica_version, read_floor, write_floor, client, replica,
+                  resource, *, enforce: bool = True, valid=None,
+                  impl: str | None = "auto"):
+    """Batched session-floor admission -> ``(served (B,) int32, admissible
+    (B,) bool, floor (B,) int32, new_read_floor (C, R) int32)`` — the
+    contract of ``repro.kernels.ref.session_admit_ref``, exact.  Every op
+    is checked against the pre-batch floors; ``valid`` (B,) bool masks
+    ops out (all valid when omitted)."""
+    impl = resolve_impl(impl, read_floor)
+    fn = _sf.session_admit_ref if impl == "torch" else _sf.session_admit_cuda
+    return fn(replica_version, read_floor, write_floor, client, replica, resource,
+              enforce=enforce, valid=valid)

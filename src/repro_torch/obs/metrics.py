@@ -1,5 +1,6 @@
 """Typed metric registry of the observability plane (port of
-``repro.obs.metrics``, the registry and summary half).
+``repro.obs.metrics``: the registry, the summary, the serving tier's
+:class:`HostHistogram` and the bandit windows).
 
 The engine carries an ``obs`` block through its round loop: one
 ``(M, n_bins)`` int32 histogram matrix — one row per registered
@@ -145,6 +146,49 @@ def host_percentile(
     rank = int(np.floor(q / 100.0 * np.float32(n - 1)))
     idx = int(np.sum(np.cumsum(counts) <= rank))
     return float(lo + min(idx, counts.shape[0] - 1) * width)
+
+
+class HostHistogram:
+    """Fixed-bin histogram over numpy accumulators — the serving tier's
+    per-region latency and staleness-age state, with the device plane's
+    bin and percentile rules (saturating edge bins, lower-edge ranks).
+    Observations are f32 and ``(values - lo) / width`` stays f32 (NumPy
+    >= 2 keeps a Python float from widening an f32 array), so the bins
+    equal the reference's."""
+
+    def __init__(self, lo: float, hi: float, n_bins: int = 64):
+        if n_bins < 2 or hi <= lo:
+            raise ValueError(f"bad histogram range [{lo}, {hi}) x {n_bins}")
+        self.lo = float(lo)
+        self.hi = float(hi)
+        self.n_bins = int(n_bins)
+        self.width = (self.hi - self.lo) / self.n_bins
+        self.counts = np.zeros(self.n_bins, np.int64)
+
+    def observe(self, values, weights=None) -> None:
+        values = np.atleast_1d(np.asarray(values, np.float32))
+        idx = np.clip(
+            np.floor((values - self.lo) / self.width).astype(np.int64),
+            0, self.n_bins - 1,
+        )
+        if weights is None:
+            np.add.at(self.counts, idx, 1)
+        else:
+            np.add.at(self.counts, idx,
+                      np.atleast_1d(np.asarray(weights, np.int64)))
+
+    @property
+    def count(self) -> int:
+        return int(self.counts.sum())
+
+    def percentile(self, q: float) -> float:
+        return host_percentile(self.counts, self.lo, self.width, q)
+
+    def summary(self) -> dict:
+        out = {"count": self.count}
+        for q in PERCENTILES:
+            out[f"p{q:g}"] = self.percentile(q)
+        return out
 
 
 # -- bandit windows -------------------------------------------------------------

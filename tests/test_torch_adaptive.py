@@ -23,26 +23,13 @@ from repro_torch.policy import sla as tsla
 from repro_torch.storage import simulator as tsim
 from repro_torch.storage import ycsb as ty
 
-from torch_port_helpers import CPU, adaptive_mismatches, jlevel
+from torch_port_helpers import CPU, adaptive_mismatches, jlevel, reference_draws
 
 torch.set_num_threads(1)
 
 PHASED = {"rw": (jy.PHASED_RW, ty.PHASED_RW), "rwr": (jy.PHASED_RWR, ty.PHASED_RWR)}
 SLAS = {"relaxed": (jsla.SLA_RELAXED, tsla.SLA_RELAXED),
         "strict": (jsla.SLA_STRICT, tsla.SLA_STRICT)}
-
-
-def reference_draws(seed: int, n_epochs: int, shape: tuple, n_arms: int):
-    """The reference controllers' exploration draws: ``PRNGKey(seed)``,
-    split once per epoch, the epoch key split into explore and arm keys."""
-    key = jax.random.PRNGKey(seed)
-    us, arms = [], []
-    for _ in range(n_epochs):
-        key, sub = jax.random.split(key)
-        k_explore, k_arm = jax.random.split(sub)
-        us.append(np.asarray(jax.random.uniform(k_explore, shape)))
-        arms.append(np.asarray(jax.random.randint(k_arm, shape, 0, n_arms, jnp.int32)))
-    return np.stack(us), np.stack(arms)
 
 
 def _bits(x) -> np.ndarray:

@@ -98,7 +98,7 @@ def test_vclock_audit_kernel_matches_plain(cuda, m, n, delta):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("b,c", [(1, 4), (128, 16), (3000, 64)])
+@pytest.mark.parametrize("b,c", [(1, 4), (128, 16), (3000, 64), (300, 500), (64, 2100)])
 def test_vclock_chain_kernel_matches_plain(cuda, b, c):
     rng = np.random.default_rng(b)
     args = (
@@ -188,10 +188,10 @@ def test_fault_path_launches_every_kernel(cuda):
     simulator.run_protocol_faulty(level, WORKLOAD_A, n_ops=600, device=cuda,
                                   obs=ObsConfig(), **kw)
     counts = ops.launch_counts()
-    # Every kernel but the placement planner's and the policy scorer's runs
-    # on the fault path.
+    # Every kernel but the placement planner's, the policy scorer's and
+    # the serving admission's runs on the fault path.
     assert all(v > 0 for k, v in counts.items()
-               if k not in ("placement_score", "policy_score")), counts
+               if k not in ("placement_score", "policy_score", "session_floor")), counts
 
 
 @pytest.mark.parametrize("r", [1, 24, 257, 65537])
@@ -232,8 +232,10 @@ def test_geo_path_launches_every_kernel(cuda):
     plan = pl.plan_placement(PAPER_TOPOLOGY, reads, reads, SLA_RELAXED, device=cuda)
     assert plan.choice.shape == (24,)
     counts = ops.launch_counts()
-    # Every kernel but the adaptive path's policy scorer.
-    assert all(v > 0 for k, v in counts.items() if k != "policy_score"), counts
+    # Every kernel but the adaptive path's policy scorer and the serving
+    # path's admission check.
+    assert all(v > 0 for k, v in counts.items()
+               if k not in ("policy_score", "session_floor")), counts
 
 
 @pytest.mark.parametrize("s", [1, 64, 129, 1000, 65537])
@@ -280,3 +282,53 @@ def test_controllers_on_the_card_equal_cpu(cuda):
             for d in (cuda, "cpu")]
     for k in runs[1]:
         assert torch.equal(runs[0][k].cpu(), runs[1][k]), k
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 4, 10), (4, 16, 8, 100), (8, 64, 1, 256),
+                                   (12, 16384, 1, 16384), (3, 7, 5, 1)],
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("enforce", [True, False])
+@pytest.mark.parametrize("dup", [False, True])
+def test_session_floor_kernel_matches_plain(cuda, shape, enforce, dup):
+    p, c, r, b = shape
+    rng = np.random.default_rng(b + dup)
+    rv, rf, wf = (_t(rng.integers(0, 40, s, dtype=np.int32), cuda)
+                  for s in ((p, r), (c, r), (c, r)))
+    cl, pl, res = (_t(rng.integers(0, n, b, dtype=np.int32), cuda) for n in (c, p, r))
+    if dup:
+        cl[1::2], res[1::2] = cl[0], res[0]
+    valid = _t(rng.random(b) < 0.8, cuda)
+    rf0 = rf.clone()
+    for v in (None, valid):
+        got = ops.session_admit(rv, rf, wf, cl, pl, res, enforce=enforce, valid=v,
+                                impl="cuda")
+        want = ops.session_admit(rv, rf, wf, cl, pl, res, enforce=enforce, valid=v,
+                                 impl="torch")
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    assert torch.equal(rf, rf0)   # the input floors are untouched
+
+
+@pytest.mark.parametrize("level", ["X_STCC", "ONE"])
+def test_serving_on_the_card_equals_cpu(cuda, level):
+    from repro_torch.serve import ServingEngine
+    from torch_port_helpers import PortServingApi, plain, serving_counters, serving_script
+
+    class Null:
+        prefill = decode_step = None
+
+    out = []
+    for dev in (cuda, "cpu"):
+        eng = ServingEngine(Null(), ConsistencyLevel[level], max_replicas=12,
+                            max_sessions=64, device=dev)
+        eng.set_topology(pl.fleet_topology(PAPER_TOPOLOGY,
+                                           pl.static_counts(PAPER_TOPOLOGY, 4)))
+        eng.attach_controller(AdaptiveController(64, SLA_RELAXED, device=dev))
+        ops.reset_launch_counts()
+        log = serving_script(PortServingApi(), eng, seed=0, n_epochs=4, rounds=2,
+                             n_sessions=64)
+        out.append((plain(log), serving_counters(eng), ops.launch_counts()))
+    assert out[0][:2] == out[1][:2]
+    assert out[0][2]["session_floor"] > 0 and out[0][2]["policy_score"] == 4
+    assert out[0][2]["vclock_audit"] == 0 and out[1][2]["session_floor"] == 0

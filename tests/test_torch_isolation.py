@@ -61,14 +61,15 @@ def no_card():
 
 
 def test_every_new_module_is_covered():
-    """The fault-path, geo and adaptive slices' modules are among those
-    imported above."""
+    """The fault-path, geo, adaptive and serving slices' modules are among
+    those imported above."""
     mods = set(_port_modules())
     for name in ("core.availability", "gossip", "gossip.digest", "gossip.scheduler",
                  "kernels.digest_compare", "kernels.histogram", "obs", "obs.metrics",
                  "geo", "geo.topology", "geo.placement", "policy", "policy.sla",
                  "kernels.placement_score", "kernels.policy_score", "kernels.fp",
-                 "policy.controller"):
+                 "policy.controller", "serve", "serve.engine",
+                 "kernels.session_floor"):
         assert f"repro_torch.{name}" in mods, name
 
 
@@ -76,7 +77,9 @@ def test_every_new_module_is_covered():
                                    "run_protocol_faulty", "run_protocol_geo",
                                    "plan_placement", "run_protocol_adaptive",
                                    "level_session_telemetry", "adaptive_controller",
-                                   "cadence_controller", "level_table"])
+                                   "cadence_controller", "level_table",
+                                   "serving_engine", "sharded_serving_router",
+                                   "admit_batch"])
 def test_entry_points_refuse_cpu_fallback(no_card, entry):
     from repro_torch.core.consistency import ConsistencyLevel
     from repro_torch.core.replicated_store import ReplicatedStore
@@ -86,6 +89,7 @@ def test_entry_points_refuse_cpu_fallback(no_card, entry):
     from repro_torch.geo.topology import PAPER_TOPOLOGY
     from repro_torch.policy import controller
     from repro_torch.policy.sla import SLA_RELAXED, level_table
+    from repro_torch import serve
     from repro_torch.storage import simulator
     from repro_torch.storage.ycsb import PHASED_RW, WORKLOAD_A
 
@@ -112,9 +116,26 @@ def test_entry_points_refuse_cpu_fallback(no_card, entry):
         "adaptive_controller": lambda: controller.AdaptiveController(4, SLA_RELAXED),
         "cadence_controller": lambda: controller.CadenceController(),
         "level_table": lambda: level_table(),
+        "serving_engine": lambda: serve.ServingEngine(object()),
+        "sharded_serving_router": lambda: serve.ShardedServingRouter(2, 4),
+        "admit_batch": lambda: ReplicatedStore(2, 2, 1).admit_batch(
+            None, client=[0], replica=[0], resource=[0]),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
+
+
+def test_admit_batch_never_falls_back_to_the_plain_version():
+    """A CPU store asked for the card's kernel raises; it does not run
+    the plain version instead."""
+    from repro_torch.core.replicated_store import ReplicatedStore
+
+    store = ReplicatedStore(2, 2, 1, device="cpu")
+    with pytest.raises(ValueError, match="CUDA"):
+        store.admit_batch(store.init(), client=[0], replica=[0], resource=[0],
+                          impl="cuda")
+    assert store.admit_batch(store.init(), client=[0], replica=[0],
+                             resource=[0])[2].tolist() == [True]
 
 
 def test_chip_smoke_refuses_to_run_without_a_card(no_card, tmp_path):

@@ -57,6 +57,24 @@ def assert_tree_equal(want, got, context: str = "") -> None:
         )
 
 
+def reference_draws(seed: int, n_epochs: int, shape: tuple, n_arms: int):
+    """The reference controllers' exploration draws: ``PRNGKey(seed)``,
+    split once per epoch, the epoch key split into explore and arm keys
+    (the key chain of ``run_scan`` and of the serving engine's
+    ``adapt_sessions``)."""
+    import jax
+    import jax.numpy as jnp
+
+    key = jax.random.PRNGKey(seed)
+    us, arms = [], []
+    for _ in range(n_epochs):
+        key, sub = jax.random.split(key)
+        k_explore, k_arm = jax.random.split(sub)
+        us.append(np.asarray(jax.random.uniform(k_explore, shape)))
+        arms.append(np.asarray(jax.random.randint(k_arm, shape, 0, n_arms, jnp.int32)))
+    return np.stack(us), np.stack(arms)
+
+
 # The geo path's one stated tolerance: the reference adds f32 RTTs in an
 # order XLA picks, the port forms the same sums exactly from op counts.
 GEO_LATENCY_RTOL = 1e-5
@@ -175,3 +193,177 @@ def adaptive_mismatches(want: dict, got: dict) -> list[str]:
         elif want[k] != got[k]:
             bad.append(f"{k}: {want[k]} != {got[k]}")
     return bad
+
+
+# -- serving ----------------------------------------------------------------------
+
+SERVING_COUNTERS = ("stale_serves", "total_serves", "reroutes", "failovers", "retries",
+                    "timeouts", "downgrades", "retry_wait_ms")
+ROUTER_COUNTERS = ("stale_serves", "total_serves", "reroutes", "failovers")
+
+
+def attempt(fn, *args, **kwargs):
+    """``fn(...)``'s value, or ``("raise", type name, message)`` for a
+    routing failure (``RuntimeError``, ``ServeTimeout`` included).  The
+    port's ``RoutingError`` is logged as the ``RuntimeError`` the
+    reference raises in its place."""
+    try:
+        return fn(*args, **kwargs)
+    except RuntimeError as e:
+        name = type(e).__name__
+        return ("raise", "RuntimeError" if name == "RoutingError" else name, str(e))
+
+
+def plain(x):
+    """``x`` with arrays, tensors and tuples as (nested) Python lists."""
+    if isinstance(x, dict):
+        return {k: plain(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [plain(v) for v in x]
+    if isinstance(x, np.generic):
+        return x.item()
+    if hasattr(x, "shape"):
+        return as_np(x).tolist()
+    return x
+
+
+def serving_counters(unit) -> dict:
+    """What a serving engine or router of either package has counted:
+    its counters, per-session telemetry and levels, replica versions and
+    health, region statistics and histogram counts, or (a router) its
+    age statistics.  The store state is compared apart."""
+    if hasattr(unit, "age_stats"):
+        out = {k: getattr(unit, k) for k in ROUTER_COUNTERS}
+        out["age_stats"] = unit.age_stats()
+        out["age_counts"] = unit._age_hist.counts.tolist()
+        out["versions"] = unit._versions.tolist()
+        return out
+    out = {k: getattr(unit, k) for k in SERVING_COUNTERS}
+    out["sess"] = [unit._sess_stale.tolist(), unit._sess_viol.tolist(),
+                   unit._sess_serves.tolist()]
+    out["levels"] = {s: lv.name for s, lv in sorted(unit.session_levels.items())}
+    out["replicas"] = [r.version for r in unit.replicas]
+    out["up"] = [unit.replica_up.tolist(), unit.replica_rebuilding.tolist()]
+    if unit._topology is not None:
+        out["region_stats"] = unit.region_stats()
+        out["region_counts"] = [h.counts.tolist() for h in unit._region_hist]
+    if unit._controller is not None:
+        st = unit._ctl_state
+        out["controller"] = {f: plain(getattr(st, f)) for f in
+                             ("stale_win", "viol_win", "reads_win", "ptr", "epoch")}
+    return out
+
+
+class PortServingApi:
+    """The schedules' adapter for the port's engine and router (either
+    device).  Counts the ``route_batch`` calls that carry a guarded
+    session (each launches ``session_floor`` once on the card) and those
+    that complete (each is one store read)."""
+
+    def __init__(self):
+        self.guarded_batches = 0
+        self.ok_batches = 0
+
+    @staticmethod
+    def session(i: int):
+        from repro_torch.serve import ServeSession
+
+        return ServeSession(i)
+
+    @staticmethod
+    def policy(**kw):
+        from repro_torch.serve import RetryPolicy
+
+        return RetryPolicy(**kw)
+
+    def route_batch(self, eng, sessions, preferred=None):
+        self.guarded_batches += any(eng.level_for(s.session_id).is_session_guarded
+                                    for s in sessions)
+        rep, srv = eng.route_batch(sessions, preferred=preferred)
+        self.ok_batches += 1
+        return rep.tolist(), srv.tolist()
+
+    @staticmethod
+    def router_route(router, sid, preferred=None):
+        rep, srv = router.route(sid, preferred=preferred)
+        return rep.tolist(), srv.tolist()
+
+
+def serving_script(api, eng, *, seed: int, n_epochs: int, rounds: int,
+                   n_sessions: int, retries_per_round: int = 4) -> list:
+    """A seeded serving schedule over ``eng`` (either package's engine,
+    driven through ``api``: ``session(i)``, ``route_batch(eng, sessions,
+    preferred)``, ``policy(**kw)``).  Every replica starts at version 1.
+    Each epoch publishes a new version on one replica (a rolling
+    publish), takes up to two replicas down, raises an eighth of the
+    sessions' external floors to the previous version, and runs
+    ``rounds`` of ``route_batch`` over every session (nearest or random
+    preferred replicas), each followed by ``serve_with_retry`` for a few
+    sessions.  Then a few late requests arrive with floors at the newest
+    version, whose replica is rebuilding every third epoch from the
+    first: they retry, then degrade (odd session ids) or time out (even
+    ones).  The epoch ends with ``adapt_sessions`` when a controller is
+    attached.  Returns the log of what every call returned."""
+    rng = np.random.default_rng(seed)
+    n = eng.max_replicas
+    for _ in range(n):
+        eng.publish(None, 1)
+    sessions = [api.session(i) for i in range(n_sessions)]
+    log = []
+    version = 1
+    for e in range(n_epochs):
+        version += 1
+        newest = e % n
+        eng.publish(None, version, replica=newest)
+        up = np.ones(n, bool)
+        up[rng.choice(n, int(rng.integers(0, 3)), replace=False)] = False
+        eng.set_replica_health(up)
+        for s in rng.choice(n_sessions, max(1, n_sessions // 8), replace=False):
+            sessions[s].read_floor = max(sessions[s].read_floor, version - 1)
+
+        def serve(late: bool):
+            for s in rng.choice(n_sessions, retries_per_round, replace=False).tolist():
+                if late:
+                    sessions[s].read_floor = version
+                pol = api.policy(max_retries=2, degrade=bool(s % 2), seed=e)
+                log.append(attempt(eng.serve_with_retry, sessions[s], policy=pol))
+
+        for k in range(rounds):
+            pref = None if k % 2 == 0 else rng.integers(0, n, n_sessions).tolist()
+            log.append(attempt(api.route_batch, eng, sessions, pref))
+            serve(late=False)
+        if e % 3 == 0:
+            eng.mark_rebuilding(newest)
+        serve(late=True)
+        eng.finish_rebuilding(newest)
+        if eng._controller is not None:
+            levels = eng.adapt_sessions()
+            log.append([levels[s].name for s in range(n_sessions)])
+    log.append([s.read_floor for s in sessions])
+    return log
+
+
+def router_script(api, router, *, seed: int, n_epochs: int, rounds: int) -> list:
+    """A seeded schedule over a ``ShardedServingRouter`` of either package
+    (routed through ``api.router_route(router, sid, preferred)``): every
+    replica starts at version 1; each epoch installs a new version on one
+    replica and takes up to two replicas down, then routes every
+    shard-local session once per round (nearest-by-id or random preferred
+    replicas) and records the age statistics."""
+    rng = np.random.default_rng(seed)
+    n = router.max_replicas
+    s, b = router.n_shards, router.sessions_per_shard
+    for r in range(n):
+        router.install(r, 1)
+    log = []
+    for e in range(n_epochs):
+        router.install(e % n, e + 2)
+        up = np.ones(n, bool)
+        up[rng.choice(n, int(rng.integers(0, 3)), replace=False)] = False
+        router.set_replica_health(up)
+        for k in range(rounds):
+            sid = np.stack([rng.permutation(b) for _ in range(s)])
+            pref = None if k % 2 == 0 else rng.integers(0, n, (s, b))
+            log.append(attempt(api.router_route, router, sid, pref))
+        log.append(router.age_stats())
+    return log
