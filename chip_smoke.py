@@ -7,7 +7,7 @@ Phases, each of which must pass (any failure ends the run with a
 non-zero exit code):
 
   1. device   — the card's name, count and power limit; no card, no run;
-  2. build    — ``nvcc`` builds the eight kernels from ``src/repro_torch/
+  2. build    — ``nvcc`` builds the nine kernels from ``src/repro_torch/
                 csrc`` in parallel; prints seconds and ptxas register /
                 shared-memory / spill lines;
   3. kernels  — each kernel against its plain PyTorch version on the
@@ -49,7 +49,18 @@ non-zero exit code):
                 per guarded ``route_batch``, one ``op_ingest`` and one
                 ``vclock_chain`` per store read, one ``policy_score`` per
                 epoch, no audit);
- 10. scale    — one X_STCC replay at the paper's deployment (64 client
+ 10. model    — B.8 ``flash_attention`` against its plain version at the
+                reference's FA_CASES and at gemma-2b's and qwen2-7b's full
+                attention shapes (atol = rtol 2e-5 in f32, 2e-2 in bf16;
+                CUDA-event times of the kernel, the plain version and
+                SDPA); gemma-2b's ``forward`` at full width in bf16 (B = 1,
+                S = 2048) with the kernel (18 launches) and with the plain
+                attention, and in f32 (S = 512) within 1e-3 of each other;
+                ``ServingEngine.generate`` on it (3 replicas, 6 requests,
+                a failover), its routing equal to the same schedule on the
+                CPU on a reduced gemma-2b; in f32, every served step's
+                logits within 1e-3 of the kernel ``forward``;
+ 11. scale    — one X_STCC replay at the paper's deployment (64 client
                 threads, 5,000,000 rows, 8,000,000 ops, B = 4096) and
                 ``admit_batch`` on its final state, the same deployment
                 through the fault path, the placement planner over its
@@ -60,12 +71,12 @@ non-zero exit code):
                 1,000,000-session fleet, and serving at 16,384 sessions
                 and through 16 router shards of 4,096, each equal to the
                 same run with the plain versions on the card;
- 11. profile  — ``torch.profiler`` over X_STCC and CAUSAL
+ 12. profile  — ``torch.profiler`` over X_STCC and CAUSAL
                 ``run_protocol``, an X_STCC fault run, an X_STCC geo run,
                 an adaptive run and the serving schedule: device time by
                 kernel and the card's busy share of the unprofiled wall
                 time;
- 12. report   — one JSON line ``{"kernels": [...]}``, then the last line
+ 13. report   — one JSON line ``{"kernels": [...]}``, then the last line
                 ``{"ok": true, "device": {...}}``.
 
 ``--phases`` runs a subset (a debugging aid; the report lines are
@@ -88,7 +99,7 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
 PHASES = ("device", "build", "kernels", "golden", "main", "faulty", "geo",
-          "adaptive", "serving", "scale", "profile")
+          "adaptive", "serving", "model", "scale", "profile")
 
 # H100 SXM peaks (NVIDIA data sheet, as tabulated in the repo's
 # measurement notes): HBM bandwidth, and the 32-bit non-tensor-core rate
@@ -1282,6 +1293,311 @@ def phase_serving() -> dict:
 
 # -- phase 10 -----------------------------------------------------------------
 
+# B.8's shapes: tests/test_kernels.py's FA_CASES, then the full attention
+# of gemma-2b (MQA, head_dim 256) at the model phase's S = 2048 and at
+# 4096 in bf16 and f32, and of qwen2-7b (a query-head group of 7).
+# (b, h, hkv, s, hd, causal, window, dtype)
+FA_CASES = (
+    (2, 4, 2, 256, 64, True, 0, "float32"),
+    (1, 2, 1, 128, 128, True, 0, "float32"),
+    (1, 4, 4, 256, 64, False, 0, "float32"),
+    (2, 2, 2, 256, 64, True, 64, "float32"),
+    (1, 8, 2, 384, 64, True, 0, "bfloat16"),
+    (1, 1, 1, 128, 256, True, 0, "float32"),
+    (1, 8, 1, 2048, 256, True, 0, "bfloat16"),
+    (1, 8, 1, 4096, 256, True, 0, "bfloat16"),
+    (1, 8, 1, 4096, 256, True, 0, "float32"),
+    (1, 28, 4, 4096, 128, True, 0, "bfloat16"),
+)
+# The main path's shape: gemma-2b's forward at B = 1, S = 2048, bf16.
+FA_MAIN = (1, 8, 1, 2048, 256, True, 0, "bfloat16")
+PEAK_BF16_OPS_S = 989e12   # bf16 tensor cores, dense
+MODEL = dict(arch="gemma-2b", seq=2048, f32_seq=512, prompt=128, tokens=16)
+MODEL_CUTS = ("cuts of scale: none in width (gemma-2b's 18 layers, d_model 2048, "
+              "8 query heads over 1 KV head of 256, d_ff 16384, 256,000 tokens); "
+              "batch 1; random weights from seeds 0 and 1")
+
+
+def fa_work(case) -> tuple[int, int]:
+    """(bytes, FLOP) of one attention call: q, k, v read once and the
+    output written once; 4 hd FLOP (QK^T and PV) per visible (query, key)
+    pair, counting the pairs the mask leaves."""
+    b, h, hkv, s, hd, causal, window, dtype = case
+    size = 2 if dtype == "bfloat16" else 4
+    n_bytes = size * hd * (2 * b * h * s + 2 * b * hkv * s)
+    if not causal:
+        pairs = s * s
+    else:
+        w = window if window > 0 else s
+        pairs = sum(min(i + 1, w) for i in range(s))
+    return n_bytes, 4 * hd * pairs * b * h
+
+
+def _fa_inputs(case, dev):
+    import torch
+
+    b, h, hkv, s, hd, _, _, dtype = case
+    g = torch.Generator(device=dev).manual_seed(s * hd + h)
+    dt = getattr(torch, dtype)
+    return [torch.randn(shape, generator=g, device=dev).to(dt)
+            for shape in ((b, h, s, hd), (b, hkv, s, hd), (b, hkv, s, hd))]
+
+
+def _sdpa(q, k, v, causal: bool, window: int):
+    """One PyTorch call computing the same function (the yardstick; the
+    port never calls it)."""
+    import torch
+    import torch.nn.functional as F
+
+    if causal and window > 0:
+        s = q.shape[2]
+        i = torch.arange(s, device=q.device)
+        mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
+    return F.scaled_dot_product_attention(q, k, v, is_causal=causal, enable_gqa=True)
+
+
+def time_flash(case, dev) -> dict:
+    """B.8 at one shape: the kernel against its plain version on the same
+    inputs (atol = rtol = 2e-5 in f32, 2e-2 in bf16); CUDA-event times
+    of the kernel, the plain version and SDPA; the bound."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    *_, causal, window, dtype = case
+    q, k, v = _fa_inputs(case, dev)
+    got = fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
+    want = fa.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    tol = 2e-2 if dtype == "bfloat16" else 2e-5
+    err = float((got.float() - want.float()).abs().max())
+    if not torch.allclose(got.float(), want.float(), atol=tol, rtol=tol):
+        fail(f"flash_attention {case}: kernel differs from the plain version "
+             f"(max abs err {err}, tolerance {tol})")
+    n_bytes, n_ops = fa_work(case)
+    iters = 5 if case[3] >= 2048 else 50
+    peak = PEAK_BF16_OPS_S if dtype == "bfloat16" else PEAK_OPS_S
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, n_ops / peak
+    out = {
+        "err": err, "match": True, "shape": str(case),
+        "ms": cuda_time_ms(lambda: fa.flash_attention_cuda(
+            q, k, v, causal=causal, window=window), iters),
+        "plain_ms": cuda_time_ms(lambda: fa.flash_attention_ref(
+            q, k, v, causal=causal, window=window), iters),
+        "library_ms": cuda_time_ms(lambda: _sdpa(q, k, v, causal, window), iters),
+        "bound": (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"),
+        "bytes": n_bytes, "flop": n_ops,
+    }
+    del q, k, v, got, want
+    return out
+
+
+class _Recorder:
+    """A model whose prefill and decode keep every logits tensor they
+    return (the served path's logits, read back after ``generate``)."""
+
+    def __init__(self, model):
+        self.model, self.logits = model, []
+
+    def prefill(self, params, batch):
+        logits, cache = self.model.prefill(params, batch)
+        self.logits.append(logits[:, -1])
+        return logits, cache
+
+    def decode_step(self, params, cache, tokens):
+        logits, cache = self.model.decode_step(params, cache, tokens)
+        self.logits.append(logits[:, -1])
+        return logits, cache
+
+
+def _to(tree, **kw):
+    if isinstance(tree, dict):
+        return {k: _to(v, **kw) for k, v in tree.items()}
+    return tree.to(**kw)
+
+
+def run_model_serving(device, cfg, params_ab, prompts):
+    """The model-serving schedule (``tests/torch_port_helpers``) on
+    ``device``: returns ``(log, counters, engine)``."""
+    from repro_torch.serve import ServeSession, ServingEngine
+    from repro_torch.models import build_model
+    from torch_port_helpers import (MODEL_SERVING, model_serving_counters,
+                                    model_serving_script)
+
+    eng = ServingEngine(build_model(cfg), device=device)
+    max_seq = MODEL["prompt"] + MODEL["tokens"]
+    log = model_serving_script(
+        eng, params_ab, lambda i: {"tokens": prompts[i].to(device), "max_seq": max_seq},
+        ServeSession, n_tokens=MODEL["tokens"], **MODEL_SERVING)
+    return log, model_serving_counters(eng), eng
+
+
+def phase_model() -> tuple[dict, dict]:
+    """B.8 against its plain version (a), gemma-2b's forward at full width
+    with and without the kernel (b), and ``ServingEngine.generate`` on it
+    (c).  Returns ``(timings, launches)``; the launches are those of (b)'s
+    kernel forward, the main path of this slice."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.serve import ServeSession, ServingEngine
+    from torch_port_helpers import MODEL_SERVING
+
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+
+    # (a) the kernel at every listed shape.
+    timings = {}
+    for case in FA_CASES:
+        t = time_flash(case, dev)
+        key = "flash_attention" if case == FA_MAIN else f"flash_attention@{case}"
+        timings[key] = t
+        log(f"[model] flash_attention {case}: kernel {t['ms']:.6f} ms, plain "
+            f"{t['plain_ms']:.6f} ms, SDPA {t['library_ms']:.6f} ms, bound "
+            f"{t['bound'][0]:.6f} ms ({t['bound'][1]}; {t['bytes']} B, {t['flop']} FLOP), "
+            f"max_abs_err {t['err']}")
+    torch.cuda.empty_cache()
+    t_a = time.perf_counter() - t_phase
+
+    # (b) gemma-2b's forward at full width.
+    base = get_config(MODEL["arch"])
+    log(f"[model] {MODEL['arch']}: {base.param_count()} parameters; {MODEL_CUTS}")
+    flash = build_model(dataclasses.replace(base, use_flash_kernel=True))
+    plain = build_model(base)
+    t0 = time.perf_counter()
+    params = flash.init(0, device=dev)
+    params_b = flash.init(1, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    g = torch.Generator(device=dev).manual_seed(7)
+    tokens = torch.randint(0, base.vocab_size, (1, MODEL["seq"]), generator=g, device=dev,
+                           dtype=torch.int32)
+
+    def wall(fn, reps=3):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) / reps
+
+    with torch.inference_mode():
+        ops.reset_launch_counts()
+        lg_flash, _ = flash.forward(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        if launches["flash_attention"] != base.n_layers:
+            fail(f"model: forward launched flash_attention {launches['flash_attention']} "
+                 f"times, want {base.n_layers}")
+        (lg_flash, _), flash_s = wall(lambda: flash.forward(params, {"tokens": tokens}))
+        (lg_plain, _), plain_s = wall(lambda: plain.forward(params, {"tokens": tokens}))
+        if lg_flash.shape != (1, MODEL["seq"], base.vocab_size) or not torch.isfinite(
+                lg_flash).all():
+            fail(f"model: bf16 logits {tuple(lg_flash.shape)} not finite or misshapen")
+        bf16_diff = float((lg_flash.float() - lg_plain.float()).abs().max())
+        scale = float(lg_plain.float().abs().max())
+        del lg_flash, lg_plain
+        log(f"[model] forward bf16 B=1 S={MODEL['seq']}: kernel {flash_s:.4f} s, plain "
+            f"attention {plain_s:.4f} s; max |logit diff| {bf16_diff} (max |logit| "
+            f"{scale}); init of two param sets {init_s:.3f} s; launches {launches}")
+        log_profile("model", f"forward bf16 S={MODEL['seq']} with the kernel",
+                    lambda: flash.forward(params, {"tokens": tokens}), flash_s)
+
+        # f32: the kernel against the plain attention within 1e-3.
+        f32 = dataclasses.replace(base, dtype="float32")
+        params32 = _to(params, dtype=torch.float32)
+        tok32 = tokens[:, :MODEL["f32_seq"]]
+        ops.reset_launch_counts()
+        lg32, _ = build_model(dataclasses.replace(f32, use_flash_kernel=True)).forward(
+            params32, {"tokens": tok32})
+        n32 = ops.launch_counts()["flash_attention"]
+        ref32, _ = build_model(f32).forward(params32, {"tokens": tok32})
+        torch.cuda.synchronize()
+        err32 = float((lg32 - ref32).abs().max())
+        if n32 != base.n_layers or not torch.allclose(lg32, ref32, atol=1e-3, rtol=1e-3):
+            fail(f"model: f32 forward S={MODEL['f32_seq']} kernel vs plain attention: "
+                 f"max abs err {err32}, launches {n32}")
+        del lg32, ref32
+        log(f"[model] forward f32 B=1 S={MODEL['f32_seq']}: logits within atol = rtol = "
+            f"1e-3 of the plain attention (max abs err {err32}); {n32} launches")
+
+        # (c) serving: the schedule on the bf16 model, against the CPU's on a
+        # reduced gemma-2b (routing does not depend on the model).
+        prompts = [torch.randint(0, base.vocab_size, (1, MODEL["prompt"]), generator=g,
+                                 device=dev, dtype=torch.int32)
+                   for _ in range(MODEL_SERVING["n_requests"])]
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s_log, counters, s_eng = run_model_serving(dev, base, (params, params_b), prompts)
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        s_launches = ops.launch_counts()
+        small = reduced(base)
+        sp = [build_model(small).init(s, device="cpu") for s in (0, 1)]
+        cpu_prompts = [(p.cpu() % small.vocab_size) for p in prompts]
+        c_log, c_counters, _ = run_model_serving(torch.device("cpu"), small, sp, cpu_prompts)
+        if [r for _, r in s_log] != [r for _, r in c_log] or counters != c_counters:
+            fail(f"model serving: card {counters} {[r for _, r in s_log]} != cpu "
+                 f"{c_counters} {[r for _, r in c_log]}")
+        for toks, _ in s_log:
+            if len(toks[0]) != MODEL["tokens"] or not all(
+                    0 <= t < base.vocab_size for t in toks[0]):
+                fail(f"model serving: bad tokens {toks}")
+        if s_launches["op_ingest"] == 0:
+            fail(f"model serving never read the store through op_ingest: {s_launches}")
+        n_tok = MODEL_SERVING["n_requests"] * MODEL["tokens"]
+        log(f"[model] ServingEngine X_STCC, 3 replicas (versions 1-3, params A/B/A), "
+            f"{MODEL_SERVING['n_requests']} requests x prompt {MODEL['prompt']} + "
+            f"{MODEL['tokens']} tokens, replica {MODEL_SERVING['fail_replica']} down after "
+            f"request {MODEL_SERVING['fail_after']}: {serve_s:.3f} s ({n_tok / serve_s:.1f} "
+            f"tokens/s); replicas {[r for _, r in s_log]}, counters {counters} == cpu "
+            f"(reduced); launches {s_launches}")
+        one = {"tokens": prompts[0], "max_seq": MODEL["prompt"] + MODEL["tokens"]}
+        _, one_s = wall(lambda: s_eng.generate(ServeSession(1), one, MODEL["tokens"]), 1)
+        log_profile("model", f"one generate (prompt {MODEL['prompt']}, {MODEL['tokens']} "
+                    "tokens) after the schedule",
+                    lambda: s_eng.generate(ServeSession(1), one, MODEL["tokens"]), one_s)
+
+        # f32: each served step's logits against the kernel forward over the
+        # same tokens (later positions are padding: the mask is causal).
+        rec = _Recorder(build_model(dataclasses.replace(f32, use_flash_kernel=True)))
+        eng = ServingEngine(rec, device=dev)
+        eng.publish(params32, version=1)
+        max_seq = MODEL["prompt"] + MODEL["tokens"]
+        out, _ = eng.generate(ServeSession(0), {"tokens": prompts[0], "max_seq": max_seq},
+                              MODEL["tokens"])
+        seq = torch.zeros((1, 256), dtype=torch.int32, device=dev)
+        seq[:, :MODEL["prompt"]] = prompts[0]
+        seq[:, MODEL["prompt"]:max_seq] = out
+        ops.reset_launch_counts()
+        full, _ = rec.model.forward(params32, {"tokens": seq})
+        torch.cuda.synchronize()
+        steps = torch.stack(rec.logits, dim=1)                # (1, tokens, V)
+        want = full[:, MODEL["prompt"] - 1:max_seq - 1]
+        dec_err = float((steps - want).abs().max())
+        if ops.launch_counts()["flash_attention"] != base.n_layers or not torch.allclose(
+                steps, want, atol=1e-3, rtol=1e-3):
+            fail(f"model: f32 decode logits vs the kernel forward: max abs err {dec_err}")
+        del params32, full, steps, want
+    torch.cuda.empty_cache()
+    log(f"[model] f32 generate: {MODEL['tokens']} served steps' logits within atol = "
+        f"rtol = 1e-3 of the kernel forward (max abs err {dec_err}); phase "
+        f"{time.perf_counter() - t_phase:.1f} s ((a) {t_a:.1f} s); max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated()} B")
+    return timings, launches
+
+
+# -- phase 11 -----------------------------------------------------------------
+
 
 def phase_scale() -> None:
     import torch
@@ -1731,13 +2047,39 @@ def scale_fleet_controller() -> None:
         f"{rows.numel()} sessions (every {FLEET_STRIDE}th)")
 
 
-# -- phase 11 -----------------------------------------------------------------
+# -- phase 12 -----------------------------------------------------------------
+
+
+def log_profile(tag: str, label: str, run, wall: float) -> None:
+    """Profile one call of ``run`` and log its device time by kernel and
+    the card's busy share of ``wall`` (the unprofiled wall time)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    # Device-side rows only (kernels, copies, fills): the host-op rows
+    # repeat the time of the kernels they launched.
+    rows = [(e.self_device_time_total, e.count, e.key)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    rows.sort(reverse=True)
+    if not rows:
+        log(f"[{tag}] {label}: wall {wall:.4f} s unprofiled; "
+            "torch.profiler recorded no device time (busy share not measured)")
+        return
+    busy = sum(r[0] for r in rows) / 1e6
+    log(f"[{tag}] {label}: wall {wall:.4f} s "
+        f"unprofiled; device kernel time {busy:.4f} s; busy share "
+        f"{busy / wall:.4f}; idle share {1 - busy / wall:.4f}")
+    for us, count, key in rows[:8]:
+        log(f"[{tag}]   {us / 1e3:10.3f} ms  x{count:<6d} {key[:90]}")
 
 
 def phase_profile() -> None:
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.consistency import ConsistencyLevel
     from repro_torch.policy.sla import SLA_RELAXED
@@ -1770,25 +2112,7 @@ def phase_profile() -> None:
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            run()
-            torch.cuda.synchronize()
-        # Device-side rows only (kernels, copies, fills): the host-op rows
-        # repeat the time of the kernels they launched.
-        rows = [(e.self_device_time_total, e.count, e.key)
-                for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-        rows.sort(reverse=True)
-        if not rows:
-            log(f"[profile] {label}: wall {wall:.4f} s unprofiled; "
-                "torch.profiler recorded no device time (busy share not measured)")
-            continue
-        busy = sum(r[0] for r in rows) / 1e6
-        log(f"[profile] {label}: wall {wall:.4f} s "
-            f"unprofiled; device kernel time {busy:.4f} s; busy share "
-            f"{busy / wall:.4f}; idle share {1 - busy / wall:.4f}")
-        for us, count, key in rows[:8]:
-            log(f"[profile]   {us / 1e3:10.3f} ms  x{count:<6d} {key[:90]}")
+        log_profile("profile", label, run, wall)
 
 
 # -- main ---------------------------------------------------------------------
@@ -1811,15 +2135,18 @@ REPLACES = {
                      "src/repro/kernels/policy_score.py:91"),
     "session_floor": ("src/repro_torch/csrc/session_floor.cu",
                       "src/repro/kernels/session_floor.py:99"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:103"),
 }
 # The path whose launch counts each kernel reports: the flat main path
 # for the first slice's kernels, the fault path for gossip and obs, the
 # geo path for the planner, the adaptive path for the policy scorer, the
-# serving path for the session-floor admission.
+# serving path for the session-floor admission, the model's forward for
+# the attention kernel.
 LAUNCH_PHASE = {"op_ingest": "main", "vclock_audit": "main", "vclock_chain": "main",
                 "digest_compare": "faulty", "histogram": "faulty",
                 "placement_score": "geo", "policy_score": "adaptive",
-                "session_floor": "serving"}
+                "session_floor": "serving", "flash_attention": "model"}
 
 
 def main() -> None:
@@ -1856,6 +2183,9 @@ def main() -> None:
                 "geo": phase_geo() if "geo" in phases else {},
                 "adaptive": phase_adaptive() if "adaptive" in phases else {},
                 "serving": phase_serving() if "serving" in phases else {}}
+    if "model" in phases:
+        model_timings, launches["model"] = phase_model()
+        timings.update(model_timings)
     if "scale" in phases:
         phase_scale()
     if "profile" in phases:
@@ -1869,11 +2199,12 @@ def main() -> None:
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[LAUNCH_PHASE[name]][name],
-            "max_abs_err": t["err"], "match": t["err"] == 0,
+            "max_abs_err": t["err"], "match": t.get("match", t["err"] == 0),
             "shape": t["shape"], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
-            # No single PyTorch call computes any of these functions.
-            "library_ms": None,
+            # SDPA for the attention; no single PyTorch call computes any
+            # of the other functions.
+            "library_ms": t.get("library_ms"),
         })
         if "addmm_ms" in t:
             kernels[-1]["addmm_cost_term_ms"] = t["addmm_ms"]

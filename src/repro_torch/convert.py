@@ -1,7 +1,7 @@
 """Carry protocol state and topologies between the JAX package and the
 port.
 
-The system has no weights; its state is ``ClusterState``, ``Duot``,
+The storage system has no weights; its state is ``ClusterState``, ``Duot``,
 ``HintState``, ``DuraState``, ``StoreState`` and the engine's ``obs``
 carry.  The JAX package's pytrees cross as ``{field: np.ndarray}``
 dictionaries (``StoreState`` nests its ``cluster``, ``duot`` and, when
@@ -9,7 +9,9 @@ present, ``hints`` and ``dura`` dictionaries; the obs carry is
 ``{"hist": ..., "counters": {name: ...}}``), so state taken from a
 reference run can be fed to the port and compared field by field.
 :func:`region_topology` rebuilds a reference ``RegionTopology`` from its
-plain fields, so both packages can run on one topology.
+plain fields, so both packages can run on one topology.  The LM
+substrate's parameters cross as the reference's nested param dict of
+numpy arrays (:func:`params_from_numpy`), leaf for leaf.
 """
 
 from __future__ import annotations
@@ -65,6 +67,25 @@ def store_state_from_numpy(d: dict[str, Any], device="cuda") -> StoreState:
         hints=hint_state_from_numpy(d["hints"], dev) if d.get("hints") is not None else None,
         dura=dura_state_from_numpy(d["dura"], dev) if d.get("dura") is not None else None,
     )
+
+
+def _leaf_tensor(x, device: torch.device) -> torch.Tensor:
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":
+        # ml_dtypes' bfloat16 (JAX's) crosses through its 16-bit pattern:
+        # torch.from_numpy does not take that dtype.
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def params_from_numpy(tree: dict[str, Any], device="cuda") -> dict[str, Any]:
+    """The port's parameter dict from the reference's param pytree given as
+    nested dicts of numpy arrays (``jax.tree.map(np.asarray, params)``):
+    the same keys and leaf shapes, the same values and dtypes (bf16 bit
+    for bit)."""
+    dev = resolve_device(device)
+    return {k: params_from_numpy(v, dev) if isinstance(v, dict) else _leaf_tensor(v, dev)
+            for k, v in tree.items()}
 
 
 def obs_from_numpy(d: dict[str, Any], device="cuda") -> dict[str, Any]:

@@ -1,0 +1,45 @@
+"""X-STCC core on PyTorch (port of ``repro.core``).
+
+Modules:
+  vector_clock — Fidge/Mattern clock algebra.
+  availability — FaultSchedule availability timelines (outages,
+                 partitions, closure, heal detection).
+  duot         — Distributed User Operations Table (bounded op log).
+  audit        — eq. 1a–1d pair classification + violation detection.
+  consistency  — ConsistencyLevel.
+  xstcc        — the protocol engine (sessions + timed-causal merge),
+                 one op at a time and batched.
+  replicated_store — the ReplicatedStore facade consumed by the
+                 storage and serve layers.
+  cost_model   — Appendix B monetary cost model (Table 2 pricing).
+
+Not ported yet, so not exported: ``odg``, ``staleness``,
+``ConsistencyPolicy``, ``PAPER_LEVELS`` and ``policy_for``.
+"""
+
+from repro_torch.core import (
+    audit,
+    availability,
+    cost_model,
+    duot,
+    replicated_store,
+    vector_clock,
+    xstcc,
+)
+from repro_torch.core.availability import FaultSchedule
+from repro_torch.core.consistency import ConsistencyLevel
+from repro_torch.core.replicated_store import ReplicatedStore, StoreState
+
+__all__ = [
+    "audit",
+    "availability",
+    "FaultSchedule",
+    "cost_model",
+    "duot",
+    "replicated_store",
+    "vector_clock",
+    "xstcc",
+    "ReplicatedStore",
+    "StoreState",
+    "ConsistencyLevel",
+]

@@ -1,5 +1,6 @@
-"""X-STCC protocol engine — paper §3.4 (port of ``repro.core.xstcc``;
-the geo merge and the one-at-a-time sequential merge are not ported yet).
+"""X-STCC protocol engine — paper §3.4 (port of ``repro.core.xstcc``,
+the geo merge included; the one-at-a-time sequential merge is not
+ported yet).
 
 A functional state machine over ``(clients × replicas × resources)``:
 

@@ -3,11 +3,20 @@
 
 from __future__ import annotations
 
+from typing import TYPE_CHECKING
+
 import numpy as np
 
 from repro_torch.core.consistency import ConsistencyLevel
 from repro_torch.core.replicated_store import merge_cadence
-from repro_torch.storage.ycsb import PhasedWorkload, Workload, generate, generate_phased
+
+if TYPE_CHECKING:
+    # Annotation-only: the ycsb import is deferred into op_stream /
+    # op_stream_phased, as in the reference, so that ``import
+    # repro_torch.engine`` works before ``repro_torch.storage`` finishes
+    # initializing (its __init__ pulls the simulator, which imports
+    # this package).
+    from repro_torch.storage.ycsb import PhasedWorkload, Workload
 
 OP_COLS = ("client", "kind", "resource", "home")
 
@@ -41,6 +50,8 @@ def op_stream(
     n_replicas: int = 3,
 ) -> dict[str, np.ndarray]:
     """The YCSB op stream of one run."""
+    from repro_torch.storage.ycsb import generate
+
     ops = generate(w, n_ops=n_ops, n_keys=n_resources, seed=seed)
     return attach_clients(
         ops, n_ops, n_clients, n_resources, seed, n_replicas
@@ -52,6 +63,8 @@ def op_stream_phased(
     seed: int,
 ) -> dict[str, np.ndarray]:
     """Phase-shifting variant of :func:`op_stream` (same client model)."""
+    from repro_torch.storage.ycsb import generate_phased
+
     ops = generate_phased(pw, n_ops=n_ops, n_keys=n_resources, seed=seed)
     return attach_clients(ops, n_ops, n_clients, n_resources, seed)
 

@@ -28,7 +28,8 @@ import time
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 KERNELS = ("op_ingest", "vclock_audit", "vclock_chain", "digest_compare",
-           "histogram", "placement_score", "policy_score", "session_floor")
+           "histogram", "placement_score", "policy_score", "session_floor",
+           "flash_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import digest_compare as _dc
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import histogram as _hg
 from repro_torch.kernels import op_ingest as _oi
 from repro_torch.kernels import placement_score as _pls
@@ -24,7 +25,7 @@ from repro_torch.kernels import vclock_chain as _vch
 IMPLS = ("auto", "cuda", "torch")
 _COUNTED = {"op_ingest": _oi, "vclock_audit": _va, "vclock_chain": _vch,
             "digest_compare": _dc, "histogram": _hg, "placement_score": _pls,
-            "policy_score": _ps, "session_floor": _sf}
+            "policy_score": _ps, "session_floor": _sf, "flash_attention": _fa}
 
 
 def resolve_impl(impl: str | None, t: torch.Tensor) -> str:
@@ -196,3 +197,39 @@ def session_admit(replica_version, read_floor, write_floor, client, replica,
     fn = _sf.session_admit_ref if impl == "torch" else _sf.session_admit_cuda
     return fn(replica_version, read_floor, write_floor, client, replica, resource,
               enforce=enforce, valid=valid)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    layout: str = "bshd", block_q: int = 128, block_k: int = 128,
+                    impl: str | None = "auto"):
+    """GQA flash attention — the contract of ``repro.kernels.ref.
+    flash_attention_ref`` (atol = rtol 2e-5 in f32, 2e-2 in bf16).
+
+    layout ``"bshd"``: q (B, S, H, hd), k/v (B, T, Hkv, hd) — the model
+    substrate's layout, read and written in place through strides (no
+    transposed copy); ``"bhsd"``: q (B, H, S, hd), k/v (B, Hkv, T, hd).
+    ``block_q`` / ``block_k`` keep the reference's signature and its
+    divisibility rule (``S % min(block_q, S) == 0``, likewise for T), which
+    raises ``ValueError`` here where the reference asserts; the kernel
+    tiles by its own 64 x 64 blocks, and the result does not depend on
+    the block shape."""
+    if layout not in ("bshd", "bhsd"):
+        raise ValueError(f"unknown layout {layout!r}; expected 'bshd' or 'bhsd'")
+    impl = resolve_impl(impl, q)
+    if layout == "bshd":
+        q, k, v = (x.transpose(1, 2) for x in (q, k, v))
+    s, t = q.shape[2], k.shape[2]
+    bq, bk = min(block_q, s), min(block_k, t)
+    if bq <= 0 or bk <= 0 or s % bq or t % bk:
+        raise ValueError(f"sequence lengths S={s}, T={t} must be multiples of "
+                         f"block_q={bq}, block_k={bk}")
+    if impl == "torch":
+        out = _fa.flash_attention_ref(q, k, v, causal=causal, window=window)
+        return out.transpose(1, 2) if layout == "bshd" else out
+    if layout == "bshd":
+        b, h, _, hd = q.shape
+        out = torch.empty((b, s, h, hd), dtype=q.dtype, device=q.device)
+        _fa.flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                 out=out.transpose(1, 2))
+        return out
+    return _fa.flash_attention_cuda(q, k, v, causal=causal, window=window)

@@ -188,10 +188,11 @@ def test_fault_path_launches_every_kernel(cuda):
     simulator.run_protocol_faulty(level, WORKLOAD_A, n_ops=600, device=cuda,
                                   obs=ObsConfig(), **kw)
     counts = ops.launch_counts()
-    # Every kernel but the placement planner's, the policy scorer's and
-    # the serving admission's runs on the fault path.
+    # Every kernel but the placement planner's, the policy scorer's, the
+    # serving admission's and the model's attention runs on the fault path.
     assert all(v > 0 for k, v in counts.items()
-               if k not in ("placement_score", "policy_score", "session_floor")), counts
+               if k not in ("placement_score", "policy_score", "session_floor",
+                            "flash_attention")), counts
 
 
 @pytest.mark.parametrize("r", [1, 24, 257, 65537])
@@ -232,10 +233,10 @@ def test_geo_path_launches_every_kernel(cuda):
     plan = pl.plan_placement(PAPER_TOPOLOGY, reads, reads, SLA_RELAXED, device=cuda)
     assert plan.choice.shape == (24,)
     counts = ops.launch_counts()
-    # Every kernel but the adaptive path's policy scorer and the serving
-    # path's admission check.
+    # Every kernel but the adaptive path's policy scorer, the serving
+    # path's admission check and the model's attention.
     assert all(v > 0 for k, v in counts.items()
-               if k not in ("policy_score", "session_floor")), counts
+               if k not in ("policy_score", "session_floor", "flash_attention")), counts
 
 
 @pytest.mark.parametrize("s", [1, 64, 129, 1000, 65537])
@@ -332,3 +333,147 @@ def test_serving_on_the_card_equals_cpu(cuda, level):
     assert out[0][:2] == out[1][:2]
     assert out[0][2]["session_floor"] > 0 and out[0][2]["policy_score"] == 4
     assert out[0][2]["vclock_audit"] == 0 and out[1][2]["session_floor"] == 0
+
+
+# -- B.8 flash_attention ------------------------------------------------------
+
+# (b, h, hkv, s, t, hd, causal, window, dtype): the reference's FA_CASES
+# (tests/test_kernels.py), then ragged 64-row tiles, S != T, head dims 32
+# and 256 in bf16, a window in bf16, and qwen2-7b's group of 7.
+FA_GPU_CASES = [
+    (2, 4, 2, 256, 256, 64, True, 0, "float32"),
+    (1, 2, 1, 128, 128, 128, True, 0, "float32"),
+    (1, 4, 4, 256, 256, 64, False, 0, "float32"),
+    (2, 2, 2, 256, 256, 64, True, 64, "float32"),
+    (1, 8, 2, 384, 384, 64, True, 0, "bfloat16"),
+    (1, 1, 1, 128, 128, 256, True, 0, "float32"),
+    (1, 2, 1, 96, 96, 32, True, 0, "float32"),
+    (2, 8, 1, 160, 160, 256, True, 0, "bfloat16"),
+    (1, 4, 2, 200, 200, 128, True, 50, "bfloat16"),
+    (1, 3, 3, 100, 70, 64, False, 0, "bfloat16"),
+    (1, 2, 2, 64, 130, 64, True, 0, "float32"),
+    (1, 14, 2, 192, 192, 128, True, 0, "bfloat16"),
+]
+
+
+def _fa_inputs(case, dev):
+    from repro_torch.kernels import flash_attention as fa  # noqa: F401
+
+    b, h, hkv, s, t, hd, _, _, dtype = case
+    g = torch.Generator(device=dev).manual_seed(s * hd + h)
+    dt = getattr(torch, dtype)
+    return [torch.randn(shape, generator=g, device=dev).to(dt)
+            for shape in ((b, h, s, hd), (b, hkv, t, hd), (b, hkv, t, hd))]
+
+
+def _fa_tol(dtype):
+    return 2e-2 if dtype == "bfloat16" else 2e-5
+
+
+@pytest.mark.parametrize("case", FA_GPU_CASES, ids=str)
+def test_flash_attention_kernel_matches_plain(cuda, case):
+    from repro_torch.kernels import flash_attention as fa
+
+    *_, causal, window, dtype = case
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = _fa_inputs(case, cuda)
+    n0 = fa.launches
+    got = fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
+    want = fa.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.launches == n0 + 1 and got.dtype == q.dtype
+    tol = _fa_tol(dtype)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_ops_layouts_on_the_card(cuda, dtype):
+    """``ops.flash_attention`` under ``impl="auto"`` launches the kernel on
+    CUDA tensors, in both layouts (``bshd`` read and written through
+    strides), and equals the plain version."""
+    case = (2, 8, 2, 256, 256, 128, True, 0, dtype)
+    q, k, v = _fa_inputs(case, cuda)
+    ops.reset_launch_counts()
+    got = ops.flash_attention(q, k, v, layout="bhsd")
+    sw = [x.transpose(1, 2).contiguous() for x in (q, k, v)]
+    got_bshd = ops.flash_attention(*sw)
+    want = ops.flash_attention(q, k, v, layout="bhsd", impl="torch")
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == 2
+    tol = _fa_tol(dtype)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    assert torch.equal(got_bshd.transpose(1, 2), got)
+
+
+def test_flash_attention_kernel_refuses_what_it_cannot_run(cuda):
+    from repro_torch.kernels import flash_attention as fa
+
+    q = torch.zeros((1, 2, 64, 48), device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention_cuda(q, q, q)
+    q = torch.zeros((1, 2, 64, 64), device=cuda, dtype=torch.float16)
+    with pytest.raises(ValueError, match="bf16"):
+        fa.flash_attention_cuda(q, q, q)
+    q = torch.zeros((1, 2, 64, 64), device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="backward"):
+        fa.flash_attention_cuda(q, q.detach(), q.detach())
+
+
+@pytest.mark.parametrize("arch,over", [("gemma-2b", {}), ("qwen2-7b", {"n_kv_heads": 2})])
+def test_model_forward_on_the_card_matches_cpu(cuda, arch, over):
+    """A reduced model's forward on the card, through the kernel, against
+    the plain attention on the CPU (f32, TF32 off)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced(get_config(arch), **over)
+    model = build_model(dataclasses.replace(cfg, use_flash_kernel=True))
+    params = model.init(0, device="cpu")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 64), dtype=np.int32))
+    ops.reset_launch_counts()
+    with torch.inference_mode():
+        got, _ = model.forward(_to(params, cuda),
+                               {"tokens": tokens.to(cuda)})
+        want, _ = build_model(cfg).forward(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == cfg.n_layers
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def test_model_generate_on_the_card_equals_cpu(cuda):
+    """``ServingEngine.generate`` on a reduced gemma-2b: the tokens,
+    replicas and routing counters of the card equal the CPU's."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import build_model
+    from repro_torch.serve import ServeSession, ServingEngine
+    from torch_port_helpers import (MODEL_SERVING, model_serving_counters,
+                                    model_serving_script)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced(get_config("gemma-2b"))
+    model = build_model(cfg)
+    params = [model.init(seed, device="cpu") for seed in (0, 1)]
+    rng = np.random.default_rng(0)
+    prompts = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 8), dtype=np.int32))
+               for _ in range(MODEL_SERVING["n_requests"])]
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        eng = ServingEngine(model, device=dev)
+        with torch.inference_mode():
+            log = model_serving_script(
+                eng, [_to(p, dev) for p in params],
+                lambda i: {"tokens": prompts[i].to(dev), "max_seq": 12}, ServeSession,
+                n_tokens=4, **MODEL_SERVING)
+        out.append((log, model_serving_counters(eng)))
+    assert out[0] == out[1]
+    assert out[0][1]["failovers"] == 1

@@ -1,6 +1,7 @@
 """The port stands alone: no JAX, no ``repro``, and no silent CPU
 fallback of its entry points."""
 
+import ast
 import pathlib
 import re
 import subprocess
@@ -69,8 +70,53 @@ def test_every_new_module_is_covered():
                  "geo", "geo.topology", "geo.placement", "policy", "policy.sla",
                  "kernels.placement_score", "kernels.policy_score", "kernels.fp",
                  "policy.controller", "serve", "serve.engine",
-                 "kernels.session_floor"):
+                 "kernels.session_floor", "configs", "configs.base",
+                 "configs.registry", "configs.shapes", "configs.gemma_2b",
+                 "models", "models.common", "models.mlp", "models.attention",
+                 "models.transformer", "models.model_zoo", "kernels.flash_attention",
+                 "launch", "launch.serve"):
         assert f"repro_torch.{name}" in mods, name
+
+
+# What each package's __init__ leaves out: names whose module is not
+# ported yet, and the reference's JAX-only programs.
+NOT_EXPORTED = {
+    "core": {"odg", "staleness", "ConsistencyPolicy", "PAPER_LEVELS", "policy_for"},
+    "engine": {"jit_entries", "unified_runner"},
+    "storage": {"run_protocol_scalar"},
+    "kernels": {"ref"},
+    "obs": set(),
+    "configs": set(),
+    "serve": set(),
+    "models": {"abstract_params"},
+}
+
+
+def _reference_exports(pkg: str) -> set[str]:
+    """The names the reference's ``__init__`` imports (read, not imported)."""
+    tree = ast.parse((ROOT / "src" / "repro" / pkg / "__init__.py").read_text())
+    return {a.asname or a.name for node in tree.body if isinstance(node, ast.ImportFrom)
+            for a in node.names}
+
+
+@pytest.mark.parametrize("pkg", sorted(NOT_EXPORTED))
+def test_package_surfaces_mirror_the_reference(pkg):
+    import importlib
+
+    mod = importlib.import_module(f"repro_torch.{pkg}")
+    want = _reference_exports(pkg)
+    assert NOT_EXPORTED[pkg] <= want
+    missing = {n for n in want - NOT_EXPORTED[pkg] if not hasattr(mod, n)}
+    assert not missing, f"repro_torch.{pkg} lacks {sorted(missing)}"
+    assert not any(hasattr(mod, n) for n in NOT_EXPORTED[pkg])
+
+
+def test_documented_imports_work():
+    from repro_torch.engine import EngineConfig
+    from repro_torch.obs import ObsConfig
+    from repro_torch.storage import run_protocol
+
+    assert callable(run_protocol) and EngineConfig and ObsConfig
 
 
 @pytest.mark.parametrize("entry", ["run_protocol", "evaluate_level", "engine", "store",
@@ -79,7 +125,8 @@ def test_every_new_module_is_covered():
                                    "level_session_telemetry", "adaptive_controller",
                                    "cadence_controller", "level_table",
                                    "serving_engine", "sharded_serving_router",
-                                   "admit_batch"])
+                                   "admit_batch", "model_init", "init_cache",
+                                   "make_batch", "params_from_numpy", "serve_launcher"])
 def test_entry_points_refuse_cpu_fallback(no_card, entry):
     from repro_torch.core.consistency import ConsistencyLevel
     from repro_torch.core.replicated_store import ReplicatedStore
@@ -89,10 +136,13 @@ def test_entry_points_refuse_cpu_fallback(no_card, entry):
     from repro_torch.geo.topology import PAPER_TOPOLOGY
     from repro_torch.policy import controller
     from repro_torch.policy.sla import SLA_RELAXED, level_table
-    from repro_torch import serve
+    from repro_torch import configs, convert, serve
+    from repro_torch.launch import serve as serve_launcher
+    from repro_torch.models import build_model
     from repro_torch.storage import simulator
     from repro_torch.storage.ycsb import PHASED_RW, WORKLOAD_A
 
+    gemma = configs.reduced(configs.get_config("gemma-2b"))
     calls = {
         "run_protocol": lambda: simulator.run_protocol(
             ConsistencyLevel.X_STCC, WORKLOAD_A, n_ops=50),
@@ -120,6 +170,11 @@ def test_entry_points_refuse_cpu_fallback(no_card, entry):
         "sharded_serving_router": lambda: serve.ShardedServingRouter(2, 4),
         "admit_batch": lambda: ReplicatedStore(2, 2, 1).admit_batch(
             None, client=[0], replica=[0], resource=[0]),
+        "model_init": lambda: build_model(gemma).init(0),
+        "init_cache": lambda: build_model(gemma).init_cache(1, 8),
+        "make_batch": lambda: configs.make_batch(gemma, configs.TRAIN_4K),
+        "params_from_numpy": lambda: convert.params_from_numpy({"w": np.ones(2)}),
+        "serve_launcher": lambda: serve_launcher.main(["--arch", "gemma-2b", "--reduced"]),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()

@@ -367,3 +367,37 @@ def router_script(api, router, *, seed: int, n_epochs: int, rounds: int) -> list
             log.append(attempt(api.router_route, router, sid, pref))
         log.append(router.age_stats())
     return log
+
+
+# The model-serving schedule: 3 replicas publish two distinct parameter
+# sets as versions 1-3 (A, B, A); 6 requests over 3 sessions; replica 0
+# fails after the third request, so session 0's next request fails over.
+MODEL_SERVING = dict(n_requests=6, n_sessions=3, fail_after=3, fail_replica=0)
+MODEL_SERVING_COUNTERS = ("stale_serves", "total_serves", "reroutes", "failovers")
+
+
+def model_serving_script(eng, params_ab, prompt, session, *, n_tokens: int,
+                         n_requests: int, n_sessions: int, fail_after: int,
+                         fail_replica: int) -> list:
+    """Run the model-serving schedule on ``eng`` (either package's engine).
+    ``params_ab`` is the pair of parameter sets, ``prompt(i)`` request
+    ``i``'s batch (with ``max_seq``), ``session(i)`` a new session.
+    Returns ``[(tokens as lists, replica), ...]`` per request."""
+    a, b = params_ab
+    for version, params in enumerate((a, b, a), start=1):
+        eng.publish(params, version=version)
+    sessions = [session(i) for i in range(n_sessions)]
+    out = []
+    for i in range(n_requests):
+        if i == fail_after:
+            eng.fail_replica(fail_replica)
+        toks, replica = eng.generate(sessions[i % n_sessions], prompt(i), n_tokens)
+        out.append((as_np(toks).tolist(), int(replica)))
+    return out
+
+
+def model_serving_counters(eng) -> dict:
+    """The routing counters the model-serving schedule is held to."""
+    out = {k: getattr(eng, k) for k in MODEL_SERVING_COUNTERS}
+    out["replicas"] = [r.version for r in eng.replicas]
+    return out
