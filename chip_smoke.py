@@ -8,11 +8,16 @@ non-zero exit code):
 
   1. device   — the card's name, count and power limit; no card, no run;
   2. build    — ``nvcc`` builds the nine kernels from ``src/repro_torch/
-                csrc`` in parallel; prints seconds and ptxas register /
-                shared-memory / spill lines;
+                csrc`` in parallel; prints seconds, ptxas register /
+                shared-memory / spill lines per instantiation and the
+                attention kernels' dynamic shared memory;
   3. kernels  — each kernel against its plain PyTorch version on the
                 card, outputs exactly equal (bit for bit), at the main
-                paths' shapes and beyond; CUDA-event times of both;
+                paths' shapes and beyond; CUDA-event times of both; for
+                ``op_ingest`` also the bound at the INT32 rate, the CUDA
+                kernels one call runs (``torch.profiler``), and its
+                one-CTA kernel against its tile kernels at B = 128..1024
+                (the ``SMALL_MAX`` threshold);
   4. golden   — the seven ``protocol/*``, eight fault and seven ``geo/*``
                 cases of ``tests/data/golden_wrappers.json`` on the card
                 (geo: the latency fields within rtol 1e-5, the rest
@@ -49,7 +54,8 @@ non-zero exit code):
                 per guarded ``route_batch``, one ``op_ingest`` and one
                 ``vclock_chain`` per store read, one ``policy_score`` per
                 epoch, no audit);
- 10. model    — B.8 ``flash_attention`` against its plain version at the
+ 10. model    — B.8 ``flash_attention`` (an FFMA kernel in f32, a wgmma
+                kernel in bf16) against its plain version at the
                 reference's FA_CASES and at gemma-2b's and qwen2-7b's full
                 attention shapes (atol = rtol 2e-5 in f32, 2e-2 in bf16;
                 CUDA-event times of the kernel, the plain version and
@@ -106,6 +112,10 @@ PHASES = ("device", "build", "kernels", "golden", "main", "faulty", "geo",
 # used for the integer compare/select work of these kernels.
 PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = 67e12
+# The INT32 issue rate: 64 lanes per SM per clock x 132 SMs x 1.98 GHz.
+# PEAK_OPS_S (the f32 FMA rate) counts an FMA as two operations, so the
+# integer kernels' bounds are also given at this rate (B.1: "bound_ms_int32").
+PEAK_INT32_OPS_S = 64 * 132 * 1.98e9
 
 # The scale run: the paper's deployment (§4.1) — 64 YCSB threads, a
 # 5,000,000-row table, 8,000,000 ops — in 4096-op batches.
@@ -212,6 +222,24 @@ def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def cuda_kernels_per_call(fn) -> int | None:
+    """CUDA kernels one call of ``fn`` launches, from ``torch.profiler``
+    (``None`` where the profiler records no device activity)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+            and "ingest" in e.key]
+    return sum(e.count for e in rows) if rows else None
+
+
 def max_abs_err(a, b) -> int:
     return max(int((x.long() - y.long()).abs().max()) if x.numel() else 0
                for x, y in zip(a, b))
@@ -262,6 +290,17 @@ def phase_build() -> None:
         for line in info["log"].splitlines():
             if re.search(r"registers|spill|smem|Compiling entry", line):
                 log(f"[build]   {line.strip()}")
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    for dtype, kernel in ((torch.float32, "flash_fwd_kernel"),
+                          (torch.bfloat16, "flash_bf16_kernel")):
+        log(f"[build]   flash_attention :: {kernel}: dynamic smem " + ", ".join(
+            f"hd {hd}: {fa.smem_bytes(dtype, hd)} B" for hd in fa.HEAD_DIMS))
+    log("[build]   flash_bf16_kernel: ptxas counts the launch bound (384 threads, "
+        "1 CTA/SM: 168); setmaxnreg gives the producer warpgroup 24 and each "
+        "consumer warpgroup 240")
 
 
 # -- phase 3 ------------------------------------------------------------------
@@ -484,12 +523,40 @@ def phase_kernels() -> dict:
         plain = cuda_time_ms(lambda: ops.op_ingest(**kw, impl="torch"), iters)
         q = packed.pend.shape[0]
         pairs = b * (b - 1) / 2
-        bnd = bound_ms(b * 9 * 4 + q * 4 * 4 + b * 3 * 4, pairs * 13 + 4 * b * q)
-        return {"ms": ms, "plain_ms": plain, "bound": bnd,
+        n_bytes, n_ops = b * 9 * 4 + q * 4 * 4 + b * 3 * 4, pairs * 13 + 4 * b * q
+        bnd = bound_ms(n_bytes, n_ops)
+        bnd_int = max(n_bytes / PEAK_BYTES_S, n_ops / PEAK_INT32_OPS_S) * 1e3
+        kernels = cuda_kernels_per_call(lambda: oi.op_ingest_cuda(packed))
+        log(f"[kernels] op_ingest B={b}, Qp={q}: {ms:.6f} ms, plain {plain:.6f} ms; "
+            f"bound {bnd[0]:.6f} ms at the f32 FMA rate ({bnd[1]}), {bnd_int:.6f} ms "
+            f"at the INT32 rate; CUDA kernels per call {kernels}")
+        return {"ms": ms, "plain_ms": plain, "bound": bnd, "bound_int32": bnd_int,
+                "cuda_kernels_per_call": kernels,
                 "err": max_abs_err(got, want), "shape": f"B={b}, Qp={q}"}
 
     timings["op_ingest"] = time_ingest(128, False)
     timings["op_ingest@4096"] = time_ingest(4096, True)
+    if timings["op_ingest"]["cuda_kernels_per_call"] not in (1, None):
+        fail(f"op_ingest at B=128 ran {timings['op_ingest']['cuda_kernels_per_call']} "
+             "CUDA kernels per call, want 1")
+
+    # The one-CTA kernel against the tile kernels on either side of
+    # SMALL_MAX: the measurement behind the threshold.
+    small_max = oi.SMALL_MAX
+    for b in (128, 256, 512, 1024):
+        kw = _ingest_inputs(np.random.default_rng(b + 1), b, 24 if b <= 128 else 512,
+                            cadence=True, pending=True, device=dev)
+        packed = oi.pack_ops(**kw)
+        want = ops.op_ingest(**kw, impl="torch")
+        row = []
+        for limit in (1024, 0):               # one CTA, then the tiles
+            oi.SMALL_MAX = limit
+            require_equal(f"op_ingest B={b} SMALL_MAX={limit}",
+                          oi.op_ingest_cuda(packed), want)
+            row.append(cuda_time_ms(lambda: oi.op_ingest_cuda(packed), 200))
+        oi.SMALL_MAX = small_max
+        log(f"[kernels] op_ingest B={b}, Qp={packed.pend.shape[0]}: one CTA {row[0]:.6f} ms, "
+            f"tiles {row[1]:.6f} ms (SMALL_MAX = {oi.SMALL_MAX})")
 
     # vclock_audit: the main path's (2048, 16), a wider clock, a ragged M.
     for m, n in ((2048, 16), (4096, 64), (1000, 16)):
@@ -2211,6 +2278,11 @@ def main() -> None:
         if "scatter_ms" in t:
             kernels[-1]["scatter_reduce_floor_only_ms"] = t["scatter_ms"]
             kernels[-1]["bound_ms_without_copy"] = t["bound_nocopy"][0]
+        if "bound_int32" in t:
+            # bound_ms counts B.1's integer work at the f32 FMA rate (67 T/s);
+            # this one at the INT32 issue rate (~16.7 T op/s).
+            kernels[-1]["bound_ms_int32"] = t["bound_int32"]
+            kernels[-1]["cuda_kernels_per_call"] = t["cuda_kernels_per_call"]
     log(dev["smi"])    # the card's name and power limit again, beside the numbers
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

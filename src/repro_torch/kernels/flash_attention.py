@@ -13,10 +13,21 @@ Masked scores are ``NEG_INF = -2**30``.
 
   * :func:`flash_attention_ref` — the plain version, the reference's
     oracle written in PyTorch;
-  * :func:`flash_attention_cuda` — the hand-written kernel
-    (``csrc/flash_attention.cu``): one CTA per (b, h, 64-row q block),
-    K/V tiles staged through shared memory, the online-softmax state in
-    registers, f32 FFMA for f32 and bf16 inputs alike.
+  * :func:`flash_attention_blocked` — the plain twin of the bf16 kernel's
+    tile math: an online softmax over 64-key blocks in the log2 domain,
+    with the probabilities rounded to bf16 before ``P · V``;
+  * :func:`flash_schedule` — the bf16 kernel's work list: every (b, h,
+    128-row q tile) once, the tiles with the most causal key blocks first;
+  * :func:`flash_attention_cuda` — the hand-written kernels
+    (``csrc/flash_attention.cu``), chosen by dtype with no fallback:
+    f32 runs an FFMA kernel (no TF32: it would miss 2e-5), one CTA per
+    (b, h, 64-row q block) with K/V staged through shared memory; bf16
+    runs a wgmma kernel, one CTA of a TMA producer warpgroup and two
+    consumer warpgroups per 128-row q tile, K/V streaming through a
+    two-stage mbarrier ring, both products on the tensor cores.  The
+    bf16 kernel reads q, k and v through TMA tensor maps, so their base
+    addresses and (b, h, s) strides must be multiples of 16 bytes; it
+    raises otherwise and never copies.
 
 The reference defines no backward for its kernel (no ``custom_vjp``), and
 neither does the port: :func:`flash_attention_cuda` raises when asked
@@ -34,8 +45,15 @@ from repro_torch.kernels import build
 NEG_INF = -2.0 ** 30
 HEAD_DIMS = (32, 64, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# The bf16 kernel's tile: 128 q rows per CTA (two warpgroups of 64), 64
+# keys per pipeline stage.
+BLOCK_Q = 128
+BLOCK_K = 64
+LOG2E = 1.4426950408889634
 
 launches = 0
+# (b, h, s, t, causal, device) -> the work list on that device.
+_SCHEDULES: dict = {}
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
@@ -62,14 +80,88 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
     return out.reshape(b, h, s, hd).to(q.dtype)
 
 
+def flash_attention_blocked(q, k, v, *, causal: bool = True, window: int = 0,
+                            softmax_scale: float | None = None,
+                            block_k: int = BLOCK_K):
+    """Plain twin of the bf16 kernel's numerics.  Per ``block_k`` keys:
+    scores ``q · kᵀ`` in f32 scaled into the log2 domain, the kernel's
+    masks (``NEG_INF`` for masked keys), the running max and sum, and
+    ``P · V`` with P rounded to bf16 (for bf16 inputs) and summed in f32.
+    Same layouts and result dtype as :func:`flash_attention_ref`."""
+    b, h, s, hd = q.shape
+    hkv, t = k.shape[1], k.shape[2]
+    g = h // hkv
+    scale = ((hd ** -0.5) if softmax_scale is None else softmax_scale) * LOG2E
+    qf = q.reshape(b, hkv, g, s, hd).to(torch.float32)
+    m = torch.full((b, hkv, g, s), NEG_INF, device=q.device)
+    l = torch.zeros((b, hkv, g, s), device=q.device)
+    acc = torch.zeros((b, hkv, g, s, hd), device=q.device)
+    qpos = torch.arange(s, device=q.device)[:, None]
+    for k0 in range(0, t, block_k):
+        kb = k[:, :, k0:k0 + block_k].to(torch.float32)
+        vb = v[:, :, k0:k0 + block_k].to(torch.float32)
+        x = torch.einsum("bkgsd,bknd->bkgsn", qf, kb) * scale
+        if causal:
+            kpos = torch.arange(k0, k0 + kb.shape[2], device=q.device)[None, :]
+            masked = kpos > qpos
+            if window > 0:
+                masked = masked | (kpos <= qpos - window)
+            x = torch.where(masked, torch.tensor(NEG_INF, device=q.device), x)
+        m_new = torch.maximum(m, x.amax(dim=-1))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(x - m_new[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        if q.dtype == torch.bfloat16:
+            p = p.to(torch.bfloat16).to(torch.float32)
+        acc = acc * alpha[..., None] + torch.einsum("bkgsn,bknd->bkgsd", p, vb)
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(b, h, s, hd).to(q.dtype)
+
+
+def flash_schedule(b: int, h: int, s: int, t: int | None = None, *,
+                   causal: bool = True) -> list[int]:
+    """The bf16 kernel's work list: one entry ``(bi * h + hi) * n_qt + qt``
+    per (batch, head, ``BLOCK_Q``-row q tile), ordered by the number of
+    key blocks the tile loads (``ceil(min(t, q0 + BLOCK_Q) / BLOCK_K)``
+    under ``causal``), most first, ties in index order.  The kernel runs
+    CTA ``i`` on entry ``i``, so the longest tiles start first."""
+    t = s if t is None else t
+    n_qt = -(-s // BLOCK_Q)
+
+    def work(qt):
+        end = min(t, (qt + 1) * BLOCK_Q) if causal else t
+        return -(-end // BLOCK_K)
+
+    items = range(b * h * n_qt)
+    return sorted(items, key=lambda i: (-work(i % n_qt), i))
+
+
+def _schedule(b, h, s, t, causal, device) -> torch.Tensor:
+    key = (b, h, s, t, bool(causal), device)
+    if key not in _SCHEDULES:
+        _SCHEDULES[key] = torch.tensor(flash_schedule(b, h, s, t, causal=causal),
+                                       dtype=torch.int32, device=device)
+    return _SCHEDULES[key]
+
+
 def _lib():
     fn = build.load("flash_attention").flash_attention_launch
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci,
-                       ctypes.POINTER(ctypes.c_longlong), ci, ci, ctypes.c_float, vp]
+                       ctypes.POINTER(ctypes.c_longlong), ci, ci, ctypes.c_float,
+                       vp, ci, vp]
         fn.restype = ci
     return fn
+
+
+def smem_bytes(dtype: torch.dtype, hd: int) -> int:
+    """Dynamic shared memory of the kernel instantiation that runs
+    ``dtype`` at head dim ``hd`` (bytes; builds the library if needed)."""
+    fn = build.load("flash_attention").flash_attention_smem_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_longlong
+    return int(fn(_DTYPES[dtype], hd))
 
 
 def _rows(t: torch.Tensor) -> torch.Tensor:
@@ -110,12 +202,25 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, window: int = 0,
         raise ValueError("out must be a (B, H, S, hd) view of q's dtype with a "
                          "contiguous last axis")
     scale = (hd ** -0.5) if softmax_scale is None else softmax_scale
-    strides = (ctypes.c_longlong * 12)(*(x.stride(i) for x in (q, k, v, out)
-                                         for i in range(3)))
+    st = [x.stride()[:3] for x in (q, k, v, out)]
+    sched, n_items = None, 0
+    if q.dtype == torch.bfloat16:
+        for name, x, xs in zip("qkv", (q, k, v), st):
+            if x.data_ptr() % 16 or any(e % 8 for e in xs):
+                raise ValueError(f"flash_attention_cuda (bf16) reads {name} through a "
+                                 "TMA tensor map: its base address and (b, h, s) strides "
+                                 f"must be multiples of 16 bytes, got strides {xs}")
+        if out.data_ptr() % 4 or any(e % 2 for e in st[3]):
+            raise ValueError("flash_attention_cuda (bf16) writes bf16 pairs: out needs "
+                             "even (b, h, s) strides and a 4-byte aligned base")
+        sched = _schedule(b, h, s, t, causal, q.device)
+        n_items = sched.numel()
+    strides = (ctypes.c_longlong * 12)(*(e for xs in st for e in xs))
     err = _lib()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _DTYPES[q.dtype],
         b, h, hkv, s, t, hd, strides, int(bool(causal)), int(window),
-        float(scale), build.stream_ptr(q),
+        float(scale), None if sched is None else sched.data_ptr(), n_items,
+        build.stream_ptr(q),
     )
     build.check(err, "flash_attention")
     launches += 1

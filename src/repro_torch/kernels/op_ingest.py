@@ -15,12 +15,21 @@ Visibility is the closed-form cadence predicate
     visible(i, j) = is_write(j) ∧ same_resource ∧
                     (replica(i) == replica(j) ∨ op_index(i) >= apply_index(j))
 
-Two implementations, integer-exact and equal bit for bit:
+Integer-exact implementations, equal bit for bit:
 
   * :func:`op_ingest_ref` — the plain PyTorch version, a port of
     ``repro.kernels.ref.op_ingest_ref`` with dense ``(B, B)`` masks;
-  * :func:`op_ingest_cuda` — the hand-written kernel
-    (``csrc/op_ingest.cu``), three launches over 128-row tiles.
+  * :func:`op_ingest_chunked` — the plain twin of the large-batch kernels'
+    decomposition: partials per :func:`ingest_plan` entry, combined by
+    integer add (occ) and max (raw, floor);
+  * :func:`op_ingest_cuda` — the hand-written kernels
+    (``csrc/op_ingest.cu``).  A padded batch of at most ``SMALL_MAX`` rows
+    runs ONE CUDA kernel: one CTA, one thread per row, the three passes
+    separated by ``__syncthreads()``.  A larger batch runs three (one per
+    pass, the pending sweep inside the first), each over 32-row tiles
+    whose 16 warps split the candidates as :func:`ingest_plan` says.
+    Either way the call allocates one ``(5, Bp)`` int32 buffer (rows occ,
+    raw, floor, verw, contrib) and counts one launch.
 """
 
 from __future__ import annotations
@@ -43,9 +52,20 @@ OP_COLS = 16
 PVER, PRES, PLIVE, PAPPLY = 0, 1, 2, 3
 PEND_COLS = 8
 
-# Kernel launches made by op_ingest_cuda (one per call, three CUDA
-# kernels each).
+# The large-batch kernels' tile: 32 rows (one per lane), 16 warps that
+# split the candidates.
+ROWS = 32
+WARPS = 16
+# Padded batches up to SMALL_MAX rows run the one-CTA kernel (one CUDA
+# launch; it takes at most 1024): on the H100 the tile kernels tie it at
+# 256 rows and win above (chip_smoke.py's kernels phase times both).
+SMALL_MAX = 128
+
+# Kernel launches made by op_ingest_cuda (one per call: one CUDA kernel
+# up to SMALL_MAX rows, three above).
 launches = 0
+# (bp, qp, device) -> the plan on that device.
+_PLANS: dict = {}
 
 
 def _i32(x, device) -> torch.Tensor:
@@ -151,18 +171,90 @@ def pack_ops(
     return Packed(meta=meta, pend=pend, b=b)
 
 
+def ingest_plan(bp: int, qp: int) -> torch.Tensor:
+    """The large-batch kernels' slice table, ``(bp // ROWS, WARPS, 4)``
+    int32: for row tile ``t`` (rows ``ROWS t .. ROWS t + ROWS - 1``) and warp
+    ``w``, the batch candidates ``[lo, hi)`` and pending slots ``[plo,
+    phi)`` that warp tests.  The tile's candidates ``[0, ROWS (t + 1))``
+    (the kernel masks ``j >= i``) and the ring ``[0, qp)`` are each cut
+    into ``WARPS`` contiguous slices, so every pair ``(i, j < i)`` and every
+    (row, slot) pair falls in exactly one entry."""
+    def cuts(n):
+        c = -(-n // WARPS)
+        return [(min(n, w * c), min(n, (w + 1) * c)) for w in range(WARPS)]
+
+    pend = cuts(qp)
+    plan = [[(lo, hi, plo, phi) for (lo, hi), (plo, phi) in
+             zip(cuts(ROWS * (t + 1)), pend)] for t in range(bp // ROWS)]
+    return torch.tensor(plan, dtype=torch.int32).reshape(bp // ROWS, WARPS, 4)
+
+
+def op_ingest_chunked(packed: Packed) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain twin of the large-batch kernels: each pass sums (occ) or
+    maxes (raw, floor) one partial per plan entry, as the warps do, with
+    the pending max joined in pass 1.  Equal to :func:`op_ingest_ref` bit
+    for bit (integer add and max do not depend on order)."""
+    meta, pend, b = packed
+    bp, qp = meta.shape[0], pend.shape[0]
+    plan = ingest_plan(bp, qp)
+    cli, rep, res = meta[:, CLIENT], meta[:, REPLICA], meta[:, RESOURCE]
+    w, gi, app = meta[:, IS_WRITE] > 0, meta[:, OPIDX], meta[:, APPLYIDX]
+    zero = torch.zeros((), dtype=torch.int32, device=meta.device)
+    occ = torch.zeros(bp, dtype=torch.int32, device=meta.device)
+    raw = meta[:, RAW0].clone()
+    floor = meta[:, FLOOR0].clone()
+
+    def entries():
+        for t in range(bp // ROWS):
+            i = torch.arange(t * ROWS, (t + 1) * ROWS, device=meta.device)
+            for lo, hi, plo, phi in plan[t].tolist():
+                j = torch.arange(lo, hi, device=meta.device)
+                yield i, j, (j[None, :] < i[:, None]), plo, phi
+
+    def part_max(mask, vals):
+        return torch.where(mask, vals[None, :], zero).amax(dim=1) if mask.shape[1] else zero
+
+    for i, j, lower, plo, phi in entries():        # pass 1 + pending
+        occ[i] += (lower & w[j][None, :] & (res[j][None, :] == res[i][:, None])).sum(
+            dim=1, dtype=torch.int32)
+        pq = pend[plo:phi]
+        pvis = ((pq[:, PLIVE] > 0)[None, :] & (pq[:, PRES][None, :] == res[i][:, None])
+                & (gi[i][:, None] >= pq[:, PAPPLY][None, :]))
+        raw[i] = torch.maximum(raw[i], part_max(pvis, pq[:, PVER]))
+    verw = torch.where(w, meta[:, GLOBAL0] + occ + 1, zero)
+    for i, j, lower, _, _ in entries():             # pass 2
+        vis = (lower & w[j][None, :] & (res[j][None, :] == res[i][:, None])
+               & ((rep[j][None, :] == rep[i][:, None]) | (gi[i][:, None] >= app[j][None, :])))
+        raw[i] = torch.maximum(raw[i], part_max(vis, verw[j]))
+    contrib = torch.where(w, verw, raw)
+    for i, j, lower, _, _ in entries():             # pass 3
+        same = (lower & (res[j][None, :] == res[i][:, None])
+                & (cli[j][None, :] == cli[i][:, None]))
+        floor[i] = torch.maximum(floor[i], part_max(same, contrib[j]))
+    return occ[:b], raw[:b], floor[:b]
+
+
+def _plan(bp: int, qp: int, device) -> torch.Tensor:
+    key = (bp, qp, device)
+    if key not in _PLANS:
+        _PLANS[key] = ingest_plan(bp, qp).to(device)
+    return _PLANS[key]
+
+
 def _lib():
     lib = build.load("op_ingest")
     fn = lib.op_ingest_launch
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, ci, vp, ci, vp, vp, vp, vp, vp, vp]
+        fn.argtypes = [vp, ci, vp, ci, vp, vp, vp]
         fn.restype = ci
     return fn
 
 
 def op_ingest_cuda(packed: Packed) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch ``csrc/op_ingest.cu`` on CUDA tensors; ``(occ, raw, floor)``."""
+    """Launch ``csrc/op_ingest.cu`` on CUDA tensors; ``(occ, raw, floor)``.
+    A padded batch of at most ``SMALL_MAX`` rows runs the one-CTA kernel,
+    a larger one the three tile kernels."""
     global launches
     meta, pend, b = packed
     if not meta.is_cuda or not pend.is_cuda:
@@ -170,16 +262,13 @@ def op_ingest_cuda(packed: Packed) -> tuple[torch.Tensor, torch.Tensor, torch.Te
     for t in (meta, pend):
         if t.dtype != torch.int32 or not t.is_contiguous():
             raise ValueError("op_ingest_cuda needs contiguous int32 tensors")
-    bp = meta.shape[0]
+    bp, qp = meta.shape[0], pend.shape[0]
     if bp % TILE:
         raise ValueError(f"padded batch {bp} is not a multiple of {TILE}")
+    plan = None if bp <= SMALL_MAX else _plan(bp, qp, meta.device)
     out = torch.empty((5, bp), dtype=torch.int32, device=meta.device)
-    fn = _lib()
-    err = fn(
-        meta.data_ptr(), bp, pend.data_ptr(), pend.shape[0],
-        out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
-        out[3].data_ptr(), out[4].data_ptr(), build.stream_ptr(meta),
-    )
+    err = _lib()(meta.data_ptr(), bp, pend.data_ptr(), qp, out.data_ptr(),
+                 None if plan is None else plan.data_ptr(), build.stream_ptr(meta))
     build.check(err, "op_ingest")
     launches += 1
     return out[0, :b], out[1, :b], out[2, :b]

@@ -210,9 +210,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     transposed copy); ``"bhsd"``: q (B, H, S, hd), k/v (B, Hkv, T, hd).
     ``block_q`` / ``block_k`` keep the reference's signature and its
     divisibility rule (``S % min(block_q, S) == 0``, likewise for T), which
-    raises ``ValueError`` here where the reference asserts; the kernel
-    tiles by its own 64 x 64 blocks, and the result does not depend on
-    the block shape."""
+    raises ``ValueError`` here where the reference asserts; the kernels
+    tile by their own blocks (64 x 64 in f32, 128 q rows x 64 keys in
+    bf16), and the result does not depend on the block shape."""
     if layout not in ("bshd", "bhsd"):
         raise ValueError(f"unknown layout {layout!r}; expected 'bshd' or 'bhsd'")
     impl = resolve_impl(impl, q)

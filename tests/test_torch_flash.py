@@ -124,3 +124,74 @@ def test_no_quiet_fallback_and_no_backward():
     with pytest.raises(RuntimeError, match="backward"):
         fa.flash_attention_cuda(q.requires_grad_(), k, v)
     assert ops.launch_counts()["flash_attention"] == 0
+
+
+# -- the bf16 kernel's work list and its tile numerics -------------------------
+
+
+@pytest.mark.parametrize("b,h,s,t,causal", [
+    (1, 8, 2048, 2048, True), (2, 3, 300, 300, True), (1, 4, 100, 300, False),
+    (2, 2, 300, 70, True), (1, 1, 1, 1, True),
+])
+def test_flash_schedule_covers_every_tile_once(b, h, s, t, causal):
+    """Every (b, h, q tile) exactly once, tiles with more key blocks
+    first, ties in index order."""
+    sched = fa.flash_schedule(b, h, s, t, causal=causal)
+    n_qt = -(-s // fa.BLOCK_Q)
+    assert sorted(sched) == list(range(b * h * n_qt))
+
+    def work(i):
+        end = min(t, (i % n_qt + 1) * fa.BLOCK_Q) if causal else t
+        return -(-end // fa.BLOCK_K)
+
+    keys = [(-work(i), i) for i in sched]
+    assert keys == sorted(keys)
+
+
+def _inputs_st(case, seed):
+    """Like ``_inputs`` with S != T allowed: (b, h, hkv, s, t, hd, ...)."""
+    b, h, hkv, s, t, hd, _, _, dtype = case
+    rng = np.random.default_rng(seed)
+    arrs = [rng.standard_normal(shape, dtype=np.float32)
+            for shape in ((b, h, s, hd), (b, hkv, t, hd), (b, hkv, t, hd))]
+    j = [jnp.asarray(a).astype(getattr(jnp, dtype)) for a in arrs]
+    tt = [torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrs]
+    return j, tt
+
+
+@pytest.mark.parametrize("case", CASES, ids=str)
+def test_blocked_twin_matches_oracle_and_pallas(case):
+    """The bf16 kernel's numerics (P rounded to bf16 before P . V) stay
+    within the contract of the oracle and of the Pallas kernel."""
+    *_, causal, window, dtype = case
+    (jq, jk, jv), (q, k, v) = _inputs(case, seed=4)
+    got = fa.flash_attention_blocked(q, k, v, causal=causal, window=window, block_k=16)
+    assert got.dtype == q.dtype
+    _close(got, jax_ref(jq, jk, jv, causal=causal, window=window), dtype)
+    want = pallas_flash(jq, jk, jv, causal=causal, window=window, block_q=16,
+                        block_k=16, interpret=True)
+    _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("case", [
+    (1, 2, 1, 200, 70, 64, True, 16, "bfloat16"),
+    (1, 4, 2, 130, 130, 32, True, 0, "bfloat16"),
+    (1, 3, 3, 60, 150, 128, False, 0, "bfloat16"),
+], ids=str)
+def test_blocked_twin_ragged_lengths_and_masked_rows(case):
+    """Lengths off the 64-key block, S != T, and rows whose keys are all
+    masked (S > T with a window: uniform weights, as in the oracle)."""
+    *_, causal, window, dtype = case
+    (jq, jk, jv), (q, k, v) = _inputs_st(case, seed=5)
+    got = fa.flash_attention_blocked(q, k, v, causal=causal, window=window)
+    _close(got, jax_ref(jq, jk, jv, causal=causal, window=window), dtype)
+
+
+@pytest.mark.parametrize("s", [512, 1024])
+def test_blocked_twin_at_gemma_width(s):
+    """gemma-2b's attention (8 query heads over one KV head of 256) in
+    bf16 with the kernel's 64-key blocks, against the oracle."""
+    case = (1, 8, 1, s, 256, True, 0, "bfloat16")
+    (jq, jk, jv), (q, k, v) = _inputs(case, seed=6)
+    got = fa.flash_attention_blocked(q, k, v)
+    _close(got, jax_ref(jq, jk, jv, causal=True), "bfloat16")

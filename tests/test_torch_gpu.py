@@ -79,6 +79,45 @@ def test_op_ingest_kernel_matches_plain(cuda, b, pending):
         assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize("b", [1, 127, 128, 129, 1000, 4096, 4097])
+@pytest.mark.parametrize("pending", [False, True])
+@pytest.mark.parametrize("small_max", [None, 1024, 0], ids=["auto", "one_cta", "tiles"])
+def test_op_ingest_designs_match_plain(cuda, monkeypatch, b, pending, small_max):
+    """Both kernel designs, on either side of ``SMALL_MAX`` (``auto``; the
+    one-CTA kernel wherever it fits, up to 1024 padded rows; the tile
+    kernels at any size), bit for bit against the plain version; one
+    counted launch per call."""
+    from repro_torch.kernels import op_ingest as oi
+
+    if small_max is not None:
+        monkeypatch.setattr(oi, "SMALL_MAX", small_max)
+    rng = np.random.default_rng(b + 7)
+    t = lambda x: _t(np.asarray(x, np.int32), cuda)  # noqa: E731
+    kw = dict(
+        client=t(rng.integers(0, 16, b)), replica=t(rng.integers(0, 3, b)),
+        resource=t(rng.integers(0, 24 if b <= 128 else 512, b)),
+        is_write=_t(rng.integers(0, 2, b) > 0, cuda),
+        g0=t(rng.integers(0, 40, b)), raw0=t(rng.integers(0, 40, b)),
+        floor0=t(rng.integers(0, 40, b)), op_index=t(np.arange(b) + 100),
+        apply_index=t(rng.integers(100, 100 + 2 * b, b)),
+    )
+    if pending:
+        q = 2 * b + 5
+        kw.update(
+            pend_version=t(rng.integers(0, 60, q)),
+            pend_resource=t(rng.integers(0, 24 if b <= 128 else 512, q)),
+            pend_live=_t(rng.integers(0, 2, q) > 0, cuda),
+            pend_apply=t(rng.integers(100, 100 + 2 * b, q)),
+        )
+    n0 = oi.launches
+    got = oi.op_ingest_cuda(oi.pack_ops(**kw))
+    want = oi.op_ingest_ref(**kw)
+    torch.cuda.synchronize()
+    assert oi.launches == n0 + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
 @pytest.mark.parametrize("m,n", [(100, 16), (2048, 16), (333, 64)])
 @pytest.mark.parametrize("delta", [0, 8])
 def test_vclock_audit_kernel_matches_plain(cuda, m, n, delta):
@@ -384,6 +423,72 @@ def test_flash_attention_kernel_matches_plain(cuda, case):
     assert fa.launches == n0 + 1 and got.dtype == q.dtype
     tol = _fa_tol(dtype)
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+# The bf16 wgmma kernel: head dims 32 / 64 / 128 / 256, groups 1, 2, 8,
+# lengths off the 64-key and 128-row tiles, S != T both ways, windows,
+# non-causal, gemma-2b's full shape, and rows whose keys are all masked
+# (S > T with a window: rows i >= T - 1 + window see no key).
+FA_BF16_CASES = [
+    (1, 2, 2, 96, 96, 32, True, 0, "bfloat16"),
+    (1, 2, 1, 64, 192, 32, True, 0, "bfloat16"),
+    (1, 4, 2, 130, 130, 64, True, 0, "bfloat16"),
+    (1, 4, 2, 300, 100, 64, True, 0, "bfloat16"),
+    (1, 2, 1, 200, 70, 64, True, 16, "bfloat16"),
+    (1, 8, 1, 333, 333, 128, True, 0, "bfloat16"),
+    (1, 4, 4, 100, 300, 128, False, 0, "bfloat16"),
+    (2, 8, 1, 200, 200, 256, True, 32, "bfloat16"),
+    (1, 8, 1, 2048, 2048, 256, True, 0, "bfloat16"),
+    (1, 8, 8, 257, 257, 256, False, 0, "bfloat16"),
+]
+
+
+@pytest.mark.parametrize("case", FA_BF16_CASES, ids=str)
+def test_flash_attention_bf16_kernel_matches_plain(cuda, case):
+    from repro_torch.kernels import flash_attention as fa
+
+    *_, causal, window, dtype = case
+    q, k, v = _fa_inputs(case, cuda)
+    n0 = fa.launches
+    got = fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
+    want = fa.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.launches == n0 + 1 and got.dtype == torch.bfloat16
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("hd,h,hkv", [(256, 8, 1), (128, 28, 4), (32, 4, 2)])
+def test_flash_attention_bf16_reads_model_layout_in_place(cuda, hd, h, hkv):
+    """(B, S, H, hd) tensors passed as transposed views (no copy), into a
+    (B, S, H, hd) output view: the same answer as contiguous inputs."""
+    from repro_torch.kernels import flash_attention as fa
+
+    case = (2, h, hkv, 160, 160, hd, True, 0, "bfloat16")
+    q, k, v = _fa_inputs(case, cuda)
+    want = fa.flash_attention_cuda(q, k, v)
+    sw = [x.transpose(1, 2).contiguous().transpose(1, 2) for x in (q, k, v)]
+    out = torch.empty((2, 160, h, hd), dtype=torch.bfloat16, device=cuda)
+    n0 = fa.launches
+    fa.flash_attention_cuda(*sw, out=out.transpose(1, 2))
+    torch.cuda.synchronize()
+    assert fa.launches == n0 + 1
+    assert torch.equal(out.transpose(1, 2), want)
+    torch.testing.assert_close(want.float(), fa.flash_attention_ref(q, k, v).float(),
+                               atol=2e-2, rtol=2e-2)
+
+
+def test_flash_attention_bf16_refuses_unaligned_views(cuda):
+    """A row stride that is not a 16-byte multiple cannot be a TMA tensor
+    map: the wrapper raises rather than copying."""
+    from repro_torch.kernels import flash_attention as fa
+
+    base = torch.zeros((1, 2, 64, 68), device=cuda, dtype=torch.bfloat16)
+    q = base[..., :64]
+    n0 = fa.launches
+    with pytest.raises(ValueError, match="16 bytes"):
+        fa.flash_attention_cuda(q, q, q)
+    assert fa.launches == n0
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -111,3 +111,33 @@ def test_dispatch_rules():
     before = ops.launch_counts()
     ops.op_ingest(**kw)
     assert ops.launch_counts() == before        # the plain version launches nothing
+
+
+@pytest.mark.parametrize("bp,qp", [(128, 8), (256, 264), (1024, 2056), (4096, 8200)])
+def test_ingest_plan_covers_every_pair_once(bp, qp):
+    """Per 32-row tile, the warps' batch slices cut [0, 32 (t + 1)) and the
+    pending slices cut [0, qp), disjoint: every (i, j < i) pair and every
+    (row, pending slot) pair is tested by exactly one warp."""
+    plan = oi.ingest_plan(bp, qp)
+    assert plan.shape == (bp // oi.ROWS, oi.WARPS, 4) and plan.dtype == torch.int32
+    for t in range(bp // oi.ROWS):
+        batch = np.zeros(oi.ROWS * (t + 1), np.int64)
+        pend = np.zeros(qp, np.int64)
+        for lo, hi, plo, phi in plan[t].tolist():
+            batch[lo:hi] += 1
+            pend[plo:phi] += 1
+        assert (batch == 1).all() and (pend == 1).all()
+
+
+@pytest.mark.parametrize("cadence", CADENCES)
+@pytest.mark.parametrize("b", [1, 127, 128, 129, 300])
+def test_chunked_twin_matches_reference(b, cadence):
+    """Partials per plan entry, combined by add and max, equal the plain
+    version and the JAX ``ref.op_ingest_ref`` bit for bit."""
+    kw = _inputs(b * 13 + len(cadence), b, cadence)
+    tkw = ops_defaults({k: torch.from_numpy(v) for k, v in kw.items()})
+    got = [x.numpy() for x in oi.op_ingest_chunked(oi.pack_ops(**tkw))]
+    want = [np.asarray(x) for x in j_ref(**{k: jnp.asarray(v) for k, v in kw.items()})]
+    for name, w, g, p in zip(("occ", "raw", "floor"), want, got, _port(kw)):
+        np.testing.assert_array_equal(w, g, err_msg=f"{name} vs ref")
+        np.testing.assert_array_equal(p, g, err_msg=f"{name} vs plain")
