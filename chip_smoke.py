@@ -17,7 +17,14 @@ non-zero exit code):
                 ``op_ingest`` also the bound at the INT32 rate, the CUDA
                 kernels one call runs (``torch.profiler``), and its
                 one-CTA kernel against its tile kernels at B = 128..1024
-                (the ``SMALL_MAX`` threshold);
+                (the ``SMALL_MAX`` threshold); ``vclock_chain``'s three
+                designs (one-CTA walk, max-plus segments, dependence
+                levels), each forced, on adversarial mixes at the narrow
+                and the wide width, timed on the main path's own mixes
+                (the flat WORKLOAD_A batch, the serving read batch) with
+                each schedule's serial depth, and walk against segments
+                at B = 128..1024; ``histogram`` one CTA and clusters per
+                row, int32, bool and no masks;
   4. golden   — the seven ``protocol/*``, eight fault and seven ``geo/*``
                 cases of ``tests/data/golden_wrappers.json`` on the card
                 (geo: the latency fields within rtol 1e-5, the rest
@@ -222,22 +229,69 @@ def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def cuda_kernels_per_call(fn) -> int | None:
-    """CUDA kernels one call of ``fn`` launches, from ``torch.profiler``
-    (``None`` where the profiler records no device activity)."""
+PROFILED_CALLS = 10      # calls of one profiling session
+PROFILE_TRIES = 3        # sessions tried before a count is "not measured"
+
+
+def _device_rows(fn, key: str | None):
+    """``torch.profiler``'s device rows (kernels, copies, fills) of
+    ``PROFILED_CALLS`` calls of ``fn``, those whose name holds ``key`` if
+    given.  The profiler now and then records nothing, or not every
+    call, in a session: a session whose device operations are not a
+    whole multiple of the calls is tried again, up to ``PROFILE_TRIES``
+    times; ``[]`` if none was whole."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
-            and "ingest" in e.key]
-    return sum(e.count for e in rows) if rows else None
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILED_CALLS):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+                and (key is None or key in e.key)]
+        n = sum(e.count for e in rows)
+        if n and n % PROFILED_CALLS == 0:
+            return rows
+    return []
+
+
+def cuda_kernels_per_call(fn, key: str | None = None) -> int | None:
+    """CUDA kernels (and copies, fills) one call of ``fn`` runs, from
+    ``torch.profiler``, those whose name holds ``key`` if given (``None``:
+    not measured, the profiler recorded no whole session)."""
+    rows = _device_rows(fn, key)
+    return sum(e.count for e in rows) // PROFILED_CALLS if rows else None
+
+
+def device_ms_per_call(fn) -> float | None:
+    """Device time of one call of ``fn`` (its kernels, copies and fills),
+    from ``torch.profiler``: the card's own share of a call whose CUDA-event
+    time the host's launch cost may set (``None``: not measured)."""
+    rows = _device_rows(fn, None)
+    return (sum(e.self_device_time_total for e in rows) / 1e3 / PROFILED_CALLS
+            if rows else None)
+
+
+def require_one_kernel(name: str, kernels: int | None) -> None:
+    """Fail unless the profiler saw exactly one CUDA kernel per call."""
+    if kernels is None:
+        fail(f"{name}: CUDA kernels per call not measured (the profiler recorded "
+             f"no whole session in {PROFILE_TRIES} tries)")
+    if kernels != 1:
+        fail(f"{name} ran {kernels} CUDA kernels per call, want 1")
+
+
+def host_bound_ms(fn, iters: int, repeats: int = 5) -> tuple[float, list[float]]:
+    """Median and all of ``repeats`` CUDA-event timings of ``fn``: for
+    calls whose time is the host's launch cost, which jitters between
+    timings more than the kernels do."""
+    runs = [cuda_time_ms(fn, iters) for _ in range(repeats)]
+    return sorted(runs)[len(runs) // 2], runs
 
 
 def max_abs_err(a, b) -> int:
@@ -350,28 +404,52 @@ def _audit_inputs(rng, m, n, device):
     )
 
 
-def _chain_inputs(rng, b, c, device):
-    """Random chain inputs; the (C, C) session clocks are drawn on the
-    device (a 16,384-wide clock is 1 GiB)."""
+def _chain_inputs(rng, b, c, device, *, p: int = 3, mix: str = "random"):
+    """Chain inputs of one ``tests/torch_port_helpers.chain_mix``, or the
+    flat scale run's own first batch (``mix="stream"``: the WORKLOAD_A
+    stream at 64 clients, replica = the op's home); the (C, C) session
+    clocks are drawn on the device (a 16,384-wide clock is 1 GiB)."""
     import torch
+
+    from torch_port_helpers import chain_mix
 
     t = lambda x: torch.as_tensor(x, dtype=torch.int32, device=device)  # noqa: E731
     g = torch.Generator(device=device).manual_seed(int(rng.integers(0, 2**31)))
+    if mix == "stream":
+        from repro_torch.engine.stream import op_stream
+        from repro_torch.storage.ycsb import WORKLOAD_A
+
+        ops = op_stream(WORKLOAD_A, b, c, SCALE["n_resources"], 0, p)
+        cl, rp, w = ops["client"], ops["home"], ops["kind"]
+    else:
+        cl, rp, w = chain_mix(mix, rng, b, c, p)
     return dict(
-        client=t(rng.integers(0, c, b)), replica=t(rng.integers(0, 3, b)),
-        is_write=t(rng.integers(0, 2, b)),
+        client=t(cl), replica=t(rp), is_write=t(w),
         session_vc=torch.randint(0, 50, (c, c), generator=g, dtype=torch.int32,
                                  device=device),
-        replica_vc=t(rng.integers(0, 50, (3, c))),
+        replica_vc=t(rng.integers(0, 50, (p, c))),
     )
+
+
+# The chain's adversarial checks: (B, C, P) and the designs each forces
+# (besides the automatic choice), at the narrow and the wide width.
+CHAIN_CHECKS = (
+    ((128, 16, 3), ("small", "segments", "levels")),
+    ((4096, 64, 3), ("small", "segments", "levels")),
+    ((1, 16, 1), ("small", "segments", "levels")),
+    ((2500, 40, 12), ("small", "segments", "levels")),
+    ((300, 500, 3), ("levels",)),
+    ((64, 2100, 12), ("levels",)),
+    ((1, 4096, 3), ("levels",)),
+)
 
 
 # session_floor's (P, C, R, B) at the serving scale (12 replicas, 16,384
 # sessions, one model, every session once) and on the paper's store (12
 # replicas, 64 clients, 5,000,000 rows, one 4096-op batch).
 SESSION_FLOOR_SERVING = (12, 16_384, 1, 16_384)
-# The chain's device-memory walk timed at the serving scale's clock width
-# and batch: one component per session, every session once.
+# The chain timed at the serving scale's clock width and batch: one
+# component per session, every session once.
 CHAIN_WIDE = 16_384
 SESSION_FLOOR_PAPER = (12, 64, 5_000_000, 4096)
 
@@ -526,7 +604,7 @@ def phase_kernels() -> dict:
         n_bytes, n_ops = b * 9 * 4 + q * 4 * 4 + b * 3 * 4, pairs * 13 + 4 * b * q
         bnd = bound_ms(n_bytes, n_ops)
         bnd_int = max(n_bytes / PEAK_BYTES_S, n_ops / PEAK_INT32_OPS_S) * 1e3
-        kernels = cuda_kernels_per_call(lambda: oi.op_ingest_cuda(packed))
+        kernels = cuda_kernels_per_call(lambda: oi.op_ingest_cuda(packed), "ingest")
         log(f"[kernels] op_ingest B={b}, Qp={q}: {ms:.6f} ms, plain {plain:.6f} ms; "
             f"bound {bnd[0]:.6f} ms at the f32 FMA rate ({bnd[1]}), {bnd_int:.6f} ms "
             f"at the INT32 rate; CUDA kernels per call {kernels}")
@@ -536,9 +614,7 @@ def phase_kernels() -> dict:
 
     timings["op_ingest"] = time_ingest(128, False)
     timings["op_ingest@4096"] = time_ingest(4096, True)
-    if timings["op_ingest"]["cuda_kernels_per_call"] not in (1, None):
-        fail(f"op_ingest at B=128 ran {timings['op_ingest']['cuda_kernels_per_call']} "
-             "CUDA kernels per call, want 1")
+    require_one_kernel("op_ingest at B=128", timings["op_ingest"]["cuda_kernels_per_call"])
 
     # The one-CTA kernel against the tile kernels on either side of
     # SMALL_MAX: the measurement behind the threshold.
@@ -589,31 +665,68 @@ def phase_kernels() -> dict:
     timings["vclock_audit"] = time_audit(2048, 16, 8, 50)
     timings["vclock_audit@16384"] = time_audit(16384, 64, 8, 5)
 
-    # vclock_chain: the main path's (128, 16) and the scale run's (4096, 64).
-    for b, c in ((128, 16), (4096, 64), (1, 16), (2500, 40)):
-        kw = _chain_inputs(rng, b, c, dev)
-        got = ops.vclock_chain(**kw, impl="cuda")
-        want = ops.vclock_chain(**kw, impl="torch")
-        torch.cuda.synchronize()
-        require_equal(f"vclock_chain B={b} C={c}", got, want)
-    log("[kernels] vclock_chain: equal at (B,C) in (128,16),(4096,64),"
-        "(1,16),(2500,40)")
+    # vclock_chain: every design the shape allows, forced, and the
+    # automatic one, on every adversarial mix, narrow and wide.
+    from torch_port_helpers import CHAIN_MIXES
 
-    def time_chain(b, c, iters):
-        kw = _chain_inputs(np.random.default_rng(b), b, c, dev)
-        got = vch.vclock_chain_cuda(**kw)
+    n_checked = 0
+    for (b, c, p), designs in CHAIN_CHECKS:
+        for mix in CHAIN_MIXES:
+            bb = min(b, c) if mix == "reads_once" else b
+            kw = _chain_inputs(rng, bb, c, dev, p=p, mix=mix)
+            want = vch.vclock_chain_ref(**kw)
+            for design in (None,) + designs:
+                got = vch.vclock_chain_cuda(**kw, design=design)
+                torch.cuda.synchronize()
+                require_equal(f"vclock_chain {mix} B={bb} C={c} P={p} design={design}",
+                              got, want)
+                n_checked += 1
+            del kw, want, got
+    torch.cuda.empty_cache()
+    log(f"[kernels] vclock_chain: {n_checked} cases equal ((B,C,P) in "
+        f"{', '.join(str(k) for k, _ in CHAIN_CHECKS)} x mixes {', '.join(CHAIN_MIXES)} "
+        "x the automatic and every forced design)")
+
+    def time_chain(b, c, iters, *, p=3, mix="random", design=None):
+        kw = _chain_inputs(np.random.default_rng(b), b, c, dev, p=p, mix=mix)
+        got = vch.vclock_chain_cuda(**kw, design=design)
         want = vch.vclock_chain_ref(**kw)
-        require_equal(f"vclock_chain timing B={b}", got, want)
-        ms = cuda_time_ms(lambda: vch.vclock_chain_cuda(**kw), iters)
+        require_equal(f"vclock_chain timing B={b} C={c} {mix}", got, want)
+        err = max_abs_err(got, want)
+        del got, want
+        design = design or vch.design_for(b, c, p)
+        ms, runs = host_bound_ms(lambda: vch.vclock_chain_cuda(**kw, design=design),
+                                 iters, 5 if b * c <= 2**20 else 1)
         plain = cuda_time_ms(lambda: vch.vclock_chain_ref(**kw),
                              max(1, iters // 20), warmup=1)
-        p = 3
         bnd = bound_ms(3 * b * 4 + 2 * (c * c + p * c) * 4 + b * c * 4, b * c * 4)
-        return {"ms": ms, "plain_ms": plain, "bound": bnd,
-                "err": max_abs_err(got, want), "shape": f"B={b}, C={c}"}
+        depth = vch.serial_depth(design, kw["client"], kw["replica"], kw["is_write"],
+                                 c, p)
+        small = b * c <= 2**20
+        kernels = cuda_kernels_per_call(
+            lambda: vch.vclock_chain_cuda(**kw, design=design)) if small else None
+        dev_ms = device_ms_per_call(
+            lambda: vch.vclock_chain_cuda(**kw, design=design)) if small else None
+        del kw
+        torch.cuda.empty_cache()
+        return {"ms": ms, "runs": runs, "device_ms": dev_ms, "plain_ms": plain,
+                "bound": bnd, "err": err, "depth": depth, "design": design,
+                "cuda_kernels_per_call": kernels, "shape": f"B={b}, C={c}, P={p}, {mix}"}
 
     timings["vclock_chain"] = time_chain(128, 16, 200)
-    timings["vclock_chain@4096"] = time_chain(4096, 64, 20)
+    require_one_kernel("vclock_chain at (128, 16)",
+                       timings["vclock_chain"]["cuda_kernels_per_call"])
+    timings["vclock_chain@4096"] = time_chain(4096, 64, 50)
+    timings["vclock_chain@4096/workload_a"] = time_chain(4096, 64, 50, mix="stream")
+    # The one-CTA walk against the segment design on either side of
+    # SMALL_MAX: the measurement behind the threshold.
+    # Host-bound at these sizes, so the device times decide.
+    for c in (16, 64):
+        for b in (128, 256, 512, 1024):
+            row = [time_chain(b, c, 100, design=d) for d in ("small", "segments")]
+            log(f"[kernels] vclock_chain B={b}, C={c}: one-CTA walk {row[0]['ms']:.6f} "
+                f"ms (device {row[0]['device_ms']} ms), segments {row[1]['ms']:.6f} ms "
+                f"(device {row[1]['device_ms']} ms) (SMALL_MAX = {vch.SMALL_MAX})")
 
     # digest_compare: the fault path's 3 pairs x 8 ranges, and wider
     # fleets; every case mixes overflowing, equal and invalid rows.
@@ -640,35 +753,62 @@ def phase_kernels() -> dict:
     timings["digest_compare@65536"] = time_digest(65536, 50)
 
     # histogram: the fault path's (2, B) op rows and (1, 3) hint depths,
-    # a geo-width (3, 65536); empty rows, saturated edges, NaN, masks.
+    # wide rows to (3, 65536); empty rows, saturated edges, NaN, masks.
     n_checked = 0
-    for m, b in ((2, 128), (2, 4096), (1, 3), (3, 65536), (2, 1), (1, 1025)):
+    for m, b in ((2, 128), (2, 4096), (1, 3), (3, 65536), (2, 1), (1, 1025), (2, 4097)):
         for n_bins in (4, 64):
             vals, mask, params = _hist_inputs(rng, m, b, n_bins, dev)
-            require_equal(f"histogram M={m} B={b} bins={n_bins}",
-                          [hg.histogram_cuda(vals, mask, params, n_bins=n_bins)],
-                          [hg.histogram_ref(vals, mask, params, n_bins=n_bins)])
-            n_checked += 1
+            want = hg.histogram_ref(vals, mask, params, n_bins=n_bins)
+            nomask = hg.histogram_ref(vals, None, params, n_bins=n_bins)
+            cached = hg.row_params(0.0, 1024.0, n_bins, m, dev)
+            for msk, prm, ref in ((mask, params, want), (mask > 0, cached, want),
+                                  (None, params, nomask)):
+                require_equal(f"histogram M={m} B={b} bins={n_bins}",
+                              [hg.histogram_cuda(vals, msk, prm, n_bins=n_bins)], [ref])
+                run = torch.full_like(ref, 3)
+                hg.histogram_cuda(vals, msk, prm, n_bins=n_bins, out=run)
+                require_equal(f"histogram accumulate M={m} B={b}", [run], [ref + 3])
+                n_checked += 2
     torch.cuda.synchronize()
     log(f"[kernels] histogram: {n_checked} cases equal ((M,B) in (2,128),"
-        "(2,4096),(1,3),(3,65536),(2,1),(1,1025) x bins 4,64)")
+        "(2,4096),(1,3),(3,65536),(2,1),(1,1025),(2,4097) x bins 4,64 x int32 / bool / "
+        "no mask, per-row and cached params x writing / accumulating)")
 
     def time_hist(m, b, n_bins, iters):
+        """The engine's call (counts added into a running (M, n_bins)
+        buffer, which then holds every call's counts exactly), and beside
+        it a call that allocates and writes its output."""
         vals, mask, params = _hist_inputs(np.random.default_rng(b), m, b, n_bins, dev)
         got = hg.histogram_cuda(vals, mask, params, n_bins=n_bins)
         want = hg.histogram_ref(vals, mask, params, n_bins=n_bins)
         require_equal(f"histogram timing M={m} B={b}", [got], [want])
-        ms = cuda_time_ms(lambda: hg.histogram_cuda(vals, mask, params, n_bins=n_bins),
-                          iters)
+        run = torch.zeros_like(want)
+        ms, runs = host_bound_ms(
+            lambda: hg.histogram_cuda(vals, mask, params, n_bins=n_bins, out=run), iters)
+        require_equal(f"histogram timing M={m} B={b}, accumulated", [run],
+                      [want * len(runs) * (iters + 3)])
+        write_ms, _ = host_bound_ms(
+            lambda: hg.histogram_cuda(vals, mask, params, n_bins=n_bins), iters)
         plain = cuda_time_ms(lambda: hg.histogram_ref(vals, mask, params, n_bins=n_bins),
                              iters)
         bnd = bound_ms(m * b * 8 + m * 8 + m * n_bins * 4, m * b * 8)
-        return {"ms": ms, "plain_ms": plain, "bound": bnd,
-                "err": max_abs_err([got], [want]),
+        kernels = cuda_kernels_per_call(
+            lambda: hg.histogram_cuda(vals, mask, params, n_bins=n_bins, out=run))
+        require_one_kernel(f"histogram at ({m}, {b})", kernels)
+        dev_ms = device_ms_per_call(
+            lambda: hg.histogram_cuda(vals, mask, params, n_bins=n_bins, out=run))
+        log(f"[kernels] histogram M={m}, B={b}: accumulating {ms:.6f} ms, writing a new "
+            f"output {write_ms:.6f} ms (medians of five timings)")
+        return {"ms": ms, "runs": runs, "device_ms": dev_ms, "write_ms": write_ms,
+                "plain_ms": plain, "bound": bnd, "err": max_abs_err([got], [want]),
+                "cuda_kernels_per_call": kernels,
                 "shape": f"M={m}, B={b}, bins={n_bins}"}
 
     timings["histogram"] = time_hist(2, 128, 64, 200)
-    timings["histogram@4096"] = time_hist(2, 4096, 64, 100)
+    timings["histogram@4096"] = time_hist(2, 4096, 64, 200)
+    # Rows wider than any driven path's (its batches are at most 4096 ops)
+    # on the same one CTA per row: what a wide row costs without a cluster.
+    timings["histogram@65536"] = time_hist(3, 65536, 64, 50)
 
     # placement_score: the geo phase's R = 24, ragged tails, 65,536 and
     # the paper's 5,000,000 rows; SLA bound 10 ms and none.
@@ -764,18 +904,13 @@ def phase_kernels() -> dict:
     timings["policy_score"] = time_policy(64, 200)
     timings[f"policy_score@{FLEET_SESSIONS + 3}"] = time_policy(FLEET_SESSIONS + 3, 50)
 
-    # vclock_chain on clocks too wide for one block's shared memory: the
-    # device-memory walk, at the serving router's and the serving scale's
-    # one component per session.
-    for b, c in ((300, 500), (64, 2100), (1, 4096)):
-        kw = _chain_inputs(rng, b, c, dev)
-        require_equal(f"vclock_chain B={b} C={c}", ops.vclock_chain(**kw, impl="cuda"),
-                      ops.vclock_chain(**kw, impl="torch"))
-    torch.cuda.synchronize()
-    log("[kernels] vclock_chain (device-memory clocks): equal at (B,C) in "
-        "(300,500),(64,2100),(1,4096)")
+    # vclock_chain at the serving scale's one component per session: the
+    # random mix and the serving read batch (reads only, each session
+    # once, 12 replicas).
     timings[f"vclock_chain@{CHAIN_WIDE}x{CHAIN_WIDE}"] = time_chain(CHAIN_WIDE,
-                                                                  CHAIN_WIDE, 3)
+                                                                  CHAIN_WIDE, 5)
+    timings[f"vclock_chain@{CHAIN_WIDE}x{CHAIN_WIDE}/serving_reads"] = time_chain(
+        CHAIN_WIDE, CHAIN_WIDE, 10, p=12, mix="reads_once")
 
     # session_floor: the reference tests' shapes, the serving phase's
     # (P, C, R, B) = (12, 64, 1, 64), the serving scale's 16,384 sessions
@@ -814,6 +949,13 @@ def phase_kernels() -> dict:
             extra += (f", scatter_reduce_ (floor update only) {t['scatter_ms']:.6f} ms, "
                       f"bound without the (C, R) copy {t['bound_nocopy'][0]:.6f} ms "
                       f"({t['bound_nocopy'][1]})")
+        if "runs" in t and len(t["runs"]) > 1:
+            extra += (", median of " + " / ".join(f"{r:.6f}" for r in t["runs"])
+                      + f" ms; device time {t['device_ms']} ms per call (profiler)")
+        if "depth" in t:
+            extra += f", design {t['design']}, serial depth {t['depth']} steps"
+        if "cuda_kernels_per_call" in t:
+            extra += f", CUDA kernels per call {t['cuda_kernels_per_call']}"
         log(f"[kernels] time {key} ({t['shape']}): kernel {t['ms']:.6f} ms, "
             f"plain {t['plain_ms']:.6f} ms, bound {t['bound'][0]:.6f} ms "
             f"({t['bound'][1]}), max_abs_err {t['err']}{extra}")
@@ -1819,17 +1961,37 @@ def scale_serving() -> None:
     log(f"[scale] serving: ServingEngine {SERVING_SCALE} on the 12-replica fleet; "
         f"router {ROUTER_SCALE}")
     log(f"[scale] {SERVING_SCALE_CUTS}")
+    # Every clock chain the kernel run makes: (B, C, P, design).
+    from repro_torch.kernels import vclock_chain as vch
+
+    chain_calls = []
+    launch_chain = vch.vclock_chain_cuda
+
+    def recorded_chain(client, replica, is_write, session_vc, replica_vc, **kw):
+        b, c, p = client.shape[0], session_vc.shape[0], replica_vc.shape[0]
+        chain_calls.append((b, c, p, kw.get("design") or vch.design_for(b, c, p)))
+        return launch_chain(client, replica, is_write, session_vc, replica_vc, **kw)
+
     runs = {}
     for impl in ("auto", "torch"):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launch_counts()
+        vch.vclock_chain_cuda = recorded_chain
         t0 = time.perf_counter()
-        eng, api, slog = run_serving("cuda", impl=impl, **SERVING_SCALE)
-        torch.cuda.synchronize()
+        try:
+            eng, api, slog = run_serving("cuda", impl=impl, **SERVING_SCALE)
+            torch.cuda.synchronize()
+        finally:
+            vch.vclock_chain_cuda = launch_chain
         runs[impl] = dict(eng=eng, api=api, log=slog, wall=time.perf_counter() - t0,
                           peak=torch.cuda.max_memory_allocated(),
                           launches=ops.launch_counts())
+    by_shape = {}
+    for call in chain_calls:
+        by_shape[call] = by_shape.get(call, 0) + 1
+    log(f"[scale] serving engine: {len(chain_calls)} clock chains, by (B, C, P, design): "
+        + ", ".join(f"{k} x {n}" for k, n in sorted(by_shape.items())))
     k, p = runs["auto"], runs["torch"]
     if k["log"] != p["log"]:
         fail("scale serving: kernel log != plain log")
@@ -2117,9 +2279,11 @@ def scale_fleet_controller() -> None:
 # -- phase 12 -----------------------------------------------------------------
 
 
-def log_profile(tag: str, label: str, run, wall: float) -> None:
-    """Profile one call of ``run`` and log its device time by kernel and
-    the card's busy share of ``wall`` (the unprofiled wall time)."""
+def log_profile(tag: str, label: str, run, wall: float, rounds: int = 0) -> None:
+    """Profile one call of ``run`` and log its device time by kernel, the
+    card's busy share of ``wall`` (the unprofiled wall time) and the
+    device operations (kernels, copies, fills) it ran, per round when
+    ``rounds`` is given."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2138,9 +2302,12 @@ def log_profile(tag: str, label: str, run, wall: float) -> None:
             "torch.profiler recorded no device time (busy share not measured)")
         return
     busy = sum(r[0] for r in rows) / 1e6
+    n_ops = sum(r[1] for r in rows)
+    per_round = f" ({n_ops / rounds:.2f} per round of {rounds})" if rounds else ""
     log(f"[{tag}] {label}: wall {wall:.4f} s "
         f"unprofiled; device kernel time {busy:.4f} s; busy share "
-        f"{busy / wall:.4f}; idle share {1 - busy / wall:.4f}")
+        f"{busy / wall:.4f}; idle share {1 - busy / wall:.4f}; {n_ops} device "
+        f"operations{per_round}")
     for us, count, key in rows[:8]:
         log(f"[{tag}]   {us / 1e3:10.3f} ms  x{count:<6d} {key[:90]}")
 
@@ -2156,30 +2323,31 @@ def phase_profile() -> None:
     # CAUSAL's rounds are all alike; 2000 ops (250 rounds) keep the
     # profiler's own overhead small.
     fault_kw = fault_kwargs(6000, 128)
+    # (label, run, rounds): the fault run's 6000 ops in 128-op rounds.
     runs = (
         ("X_STCC run_protocol(n_ops=6000)", lambda: sim.run_protocol(
-            ConsistencyLevel.X_STCC, WORKLOAD_A, n_ops=6000, device="cuda")),
+            ConsistencyLevel.X_STCC, WORKLOAD_A, n_ops=6000, device="cuda"), 0),
         ("CAUSAL run_protocol(n_ops=2000)", lambda: sim.run_protocol(
-            ConsistencyLevel.CAUSAL, WORKLOAD_A, n_ops=2000, device="cuda")),
+            ConsistencyLevel.CAUSAL, WORKLOAD_A, n_ops=2000, device="cuda"), 0),
         ("X_STCC run_protocol_faulty(n_ops=6000, outage+gossip+hints+wal+obs)",
          lambda: sim.run_protocol_faulty(ConsistencyLevel.X_STCC, WORKLOAD_A,
-                                         device="cuda", **fault_kw)),
+                                         device="cuda", **fault_kw), -(-6000 // 128)),
         ("X_STCC run_protocol_geo(n_ops=6000, PAPER_TOPOLOGY)",
          lambda: sim.run_protocol_geo(ConsistencyLevel.X_STCC, WORKLOAD_A,
-                                      device="cuda")),
+                                      device="cuda"), 0),
         ("run_protocol_adaptive(PHASED_RW, SLA_RELAXED, defaults)",
-         lambda: sim.run_protocol_adaptive(PHASED_RW, SLA_RELAXED, device="cuda")),
+         lambda: sim.run_protocol_adaptive(PHASED_RW, SLA_RELAXED, device="cuda"), 0),
         (f"ServingEngine schedule {SERVING} on the 12-replica fleet",
-         lambda: run_serving("cuda", **SERVING)),
+         lambda: run_serving("cuda", **SERVING), 0),
     )
-    for label, run in runs:
+    for label, run, rounds in runs:
         run()  # warm
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        log_profile("profile", label, run, wall)
+        log_profile("profile", label, run, wall, rounds)
 
 
 # -- main ---------------------------------------------------------------------
@@ -2282,7 +2450,16 @@ def main() -> None:
             # bound_ms counts B.1's integer work at the f32 FMA rate (67 T/s);
             # this one at the INT32 issue rate (~16.7 T op/s).
             kernels[-1]["bound_ms_int32"] = t["bound_int32"]
+        if "cuda_kernels_per_call" in t:
             kernels[-1]["cuda_kernels_per_call"] = t["cuda_kernels_per_call"]
+        if "depth" in t:
+            kernels[-1]["design"] = t["design"]
+            kernels[-1]["serial_depth"] = t["depth"]
+        if "write_ms" in t:
+            # ms is the engine's accumulating call; this one allocates.
+            kernels[-1]["write_ms"] = t["write_ms"]
+        if t.get("device_ms") is not None:
+            kernels[-1]["device_ms_per_call"] = t["device_ms"]
     log(dev["smi"])    # the card's name and power limit again, beside the numbers
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

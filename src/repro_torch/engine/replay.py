@@ -438,18 +438,20 @@ class EpochEngine:
             if self.geo_on:
                 rows.append(self.rtt[creg, hreg])
                 row_mask.append(is_read)
-            hist = carry["obs"]["hist"].clone()
-            hist[: self.n_op_metrics] += kernel_ops.histogram(
+            # The counts are added into the run's own (M, n_bins) buffer
+            # in place (made by _init_carry, held by no one else).
+            hist = carry["obs"]["hist"]
+            kernel_ops.histogram(
                 torch.stack(rows),
                 lo=self.ob_lo, hi=self.ob_hi, n_bins=obs.n_bins,
-                mask=torch.stack(row_mask).to(torch.int32),
+                mask=torch.stack(row_mask), out=hist[: self.n_op_metrics],
                 impl=obs.impl,
             )
             if self.h_on:
-                hist[self.n_op_metrics] += kernel_ops.histogram(
+                kernel_ops.histogram(
                     st.hints.count.to(torch.float32),
-                    lo=self.depth_lo, hi=self.depth_hi, n_bins=obs.n_bins,
-                    impl=obs.impl,
+                    lo=0.0, hi=self.depth_hi, n_bins=obs.n_bins,
+                    out=hist[self.n_op_metrics], impl=obs.impl,
                 )
             c0 = carry["obs"]["counters"]
             carry["obs"] = {"hist": hist, "counters": {
@@ -472,12 +474,9 @@ class EpochEngine:
         store = prep["store"]
         sub, rem, n_rounds = prep["sub"], prep["rem"], prep["n_rounds"]
         if self.o_on:
-            lo, hi, self.n_op_metrics = obs_lib.batch_bounds(self.specs)
-            self.ob_lo = torch.from_numpy(lo).to(self.device)
-            self.ob_hi = torch.from_numpy(hi).to(self.device)
-            self.depth_lo = torch.zeros((), dtype=torch.float32, device=self.device)
-            self.depth_hi = torch.full((), self.config.obs.depth_hi,
-                                       dtype=torch.float32, device=self.device)
+            # Host bounds: the histogram params are computed once.
+            self.ob_lo, self.ob_hi, self.n_op_metrics = obs_lib.batch_bounds(self.specs)
+            self.depth_hi = float(self.config.obs.depth_hi)
         carry = self._init_carry(store)
         ys = {"gossip": [], "obs": [], "tel": []}
         batched = prep["batched"]

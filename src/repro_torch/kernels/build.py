@@ -113,7 +113,19 @@ def check(err: int, name: str) -> None:
 
 
 def stream_ptr(t) -> int:
-    """PyTorch's current stream on ``t``'s device, as a C pointer."""
+    """PyTorch's current stream on ``t``'s device, as a C pointer (the
+    raw handle, without building a ``torch.cuda.Stream``: a few
+    microseconds less per launch)."""
+    global _RAW_STREAM
+    if _RAW_STREAM is None:
+        import torch
+
+        _RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", False)
+    if _RAW_STREAM:
+        return _RAW_STREAM(t.get_device())
     import torch
 
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+_RAW_STREAM = None

@@ -138,25 +138,31 @@ def digest_compare(a, b, *, impl: str | None = "auto"):
                  for col in (_dc.DIFFER, _dc.A_BEHIND, _dc.B_BEHIND))
 
 
-def histogram(values, *, lo, hi, n_bins: int, mask=None,
+def histogram(values, *, lo, hi, n_bins: int, mask=None, out=None,
               impl: str | None = "auto") -> torch.Tensor:
     """Fixed-bin histograms of ``(M, B)`` (or ``(B,)``) observations ->
     ``(M, n_bins)`` (or ``(n_bins,)``) int32 counts — the contract of
     ``repro.kernels.ref.histogram_ref``, bit for bit.  ``lo``/``hi`` are
-    scalars or ``(M,)``; ``mask`` (same shape, 0/1) drops observations."""
+    scalars or ``(M,)`` (host values: the params are computed once, see
+    ``histogram.row_params``); ``mask`` (same shape, 0/1 or bool) drops
+    observations.  With ``out`` (same shape as the result, int32) the
+    counts are added into it in place and ``out`` is returned."""
     impl = resolve_impl(impl, values)
     one_d = values.dim() == 1
-    vals = torch.atleast_2d(values.to(torch.float32))
-    msk = (torch.ones(vals.shape, dtype=torch.int32, device=vals.device)
-           if mask is None else torch.atleast_2d(mask.to(torch.int32)))
-    params = _hg.metric_params(lo, hi, n_bins, device=vals.device)
-    if params.shape[0] == 1 and vals.shape[0] > 1:
-        params = params.expand(vals.shape[0], 2)
+    vals = torch.atleast_2d(values)
+    m = vals.shape[0]
+    msk = None if mask is None else torch.atleast_2d(mask)
+    acc = None if out is None else out.view(m, n_bins)
+    params = _hg.row_params(lo, hi, n_bins, m, vals.device)
     if impl == "torch":
-        out = _hg.histogram_ref(vals, msk, params, n_bins=n_bins)
+        counts = _hg.histogram_ref(vals, msk, params, n_bins=n_bins)
+        if acc is not None:
+            acc += counts
     else:
-        out = _hg.histogram_cuda(vals, msk, params, n_bins=n_bins)
-    return out[0] if one_d else out
+        counts = _hg.histogram_cuda(vals, msk, params, n_bins=n_bins, out=acc)
+    if acc is not None:
+        return out
+    return counts[0] if one_d else counts
 
 
 def placement_score(reads, writes, read_price, write_price, read_rtt, cand_meta,

@@ -31,7 +31,8 @@ from repro_torch.policy.sla import SLA_RELAXED, SLA_STRICT
 from repro_torch.storage import simulator
 from repro_torch.storage.ycsb import PHASED_RW, PHASED_RWR, WORKLOAD_A
 
-from torch_port_helpers import as_lists, geo_mismatches, placement_inputs, policy_inputs
+from torch_port_helpers import (CHAIN_MIXES, as_lists, chain_mix, geo_mismatches,
+                                placement_inputs, policy_inputs)
 
 pytestmark = pytest.mark.gpu
 
@@ -154,6 +155,38 @@ def test_vclock_chain_kernel_matches_plain(cuda, b, c):
         assert torch.equal(g, w)
 
 
+# (B, C, P) at the narrow and the wide width, and the designs each runs.
+CHAIN_WIDTHS = {"narrow": ((600, 64, 3), ("small", "segments", "levels")),
+                "narrow_p12": ((333, 40, 12), ("small", "segments", "levels")),
+                "narrow_p1": ((1, 16, 1), ("small", "segments", "levels")),
+                "wide": ((700, 2100, 3), ("levels",)),
+                "wide_p12": ((2100, 2100, 12), ("levels",))}
+
+
+@pytest.mark.parametrize("mix", CHAIN_MIXES)
+@pytest.mark.parametrize("width", list(CHAIN_WIDTHS))
+def test_vclock_chain_designs_match_plain(cuda, mix, width):
+    """Every design the shape allows, forced, and the automatic choice,
+    bit for bit against the plain walk; one counted launch per call."""
+    from repro_torch.kernels import vclock_chain as vch
+
+    (b, c, p), designs = CHAIN_WIDTHS[width]
+    rng = np.random.default_rng(b + c + p)
+    b = min(b, c) if mix == "reads_once" else b
+    cl, rp, w = chain_mix(mix, rng, b, c, p)
+    args = (_t(cl, cuda), _t(rp, cuda), _t(w, cuda),
+            _t(rng.integers(0, 30, (c, c), dtype=np.int32), cuda),
+            _t(rng.integers(0, 30, (p, c), dtype=np.int32), cuda))
+    want = vch.vclock_chain_ref(*args)
+    for design in (None,) + designs:
+        n0 = vch.launches
+        got = vch.vclock_chain_cuda(*args, design=design)
+        torch.cuda.synchronize()
+        assert vch.launches == n0 + 1
+        for g, wnt in zip(got, want):
+            assert torch.equal(g, wnt), design
+
+
 @pytest.mark.parametrize("level", EVAL_LEVELS, ids=lambda lv: lv.name)
 def test_golden_protocol_case_on_the_card(cuda, level):
     golden = json.loads(GOLDEN.read_text())[f"protocol/{level.name}"]
@@ -200,6 +233,35 @@ def test_histogram_kernel_matches_plain(cuda, m, b, n_bins):
     want = hg.histogram_ref(vals, mask, params, n_bins=n_bins)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("m,b", [(2, 128), (2, 4096), (3, 4097), (1, 65536), (2, 1)])
+@pytest.mark.parametrize("mask_kind", ["int32", "bool", "none"])
+def test_histogram_designs_match_plain(cuda, m, b, mask_kind):
+    """One CTA per row at any B, per-row and cached params, int32, bool
+    and no mask, writing and accumulating: bit for bit against the plain
+    version, one counted launch per call."""
+    rng = np.random.default_rng(m * b)
+    v = rng.integers(-50, 1200, (m, b)).astype(np.float32)
+    v[:, ::9] = 1e9
+    v[:, 1::9] = -1e9
+    v[:, 2::9] = np.nan
+    v[:, 3::9] = 1024.0
+    mk = rng.integers(0, 2, (m, b), dtype=np.int32)
+    mk[-1] = 0
+    vals = _t(v, cuda)
+    mask = {"int32": _t(mk, cuda), "bool": _t(mk > 0, cuda), "none": None}[mask_kind]
+    for params in (hg.metric_params([0.0] * m, [1024.0] * m, 64, device=cuda),
+                   hg.row_params(0.0, 1024.0, 64, m, cuda)):
+        want = hg.histogram_ref(vals, mask, params, n_bins=64)
+        n0 = hg.launches
+        got = hg.histogram_cuda(vals, mask, params, n_bins=64)
+        run = torch.full((m, 64), 5, dtype=torch.int32, device=cuda)
+        hg.histogram_cuda(vals, mask, params, n_bins=64, out=run)
+        torch.cuda.synchronize()
+        assert hg.launches == n0 + 2
+        assert torch.equal(got, want)
+        assert torch.equal(run, want + 5)
 
 
 FAULT_CASES = {

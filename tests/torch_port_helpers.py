@@ -168,6 +168,38 @@ def policy_inputs(rng, s: int, device, *, levels=None):
 ADAPTIVE_COST_RTOL = 1e-6
 
 
+# The clock-chain mixes: (client, replica, is_write) int32 arrays of B ops
+# over C clients and P replicas.  "reads_once" needs B <= C.
+CHAIN_MIXES = ("one_client", "one_replica_writes", "reads_once", "reads_repeat",
+               "random", "workload_a")
+
+
+def chain_mix(name: str, rng, b: int, c: int, p: int):
+    """One clock-chain mix: all ops from one client; all writes to one
+    replica; reads only, each client once; reads only with repeats;
+    random; and the flat path's WORKLOAD_A shape (uniform clients, home
+    replica ``client % P`` moved for 30% of ops, half updates)."""
+    i32 = lambda x: np.asarray(x, np.int32)  # noqa: E731
+    if name == "one_client":
+        return (i32(np.full(b, rng.integers(0, c))), i32(rng.integers(0, p, b)),
+                i32(rng.integers(0, 2, b)))
+    if name == "one_replica_writes":
+        return i32(rng.integers(0, c, b)), i32(np.zeros(b)), i32(np.ones(b))
+    if name == "reads_once":
+        return i32(rng.permutation(c)[:b]), i32(rng.integers(0, p, b)), i32(np.zeros(b))
+    if name == "reads_repeat":
+        return i32(rng.integers(0, c, b)), i32(rng.integers(0, p, b)), i32(np.zeros(b))
+    if name == "random":
+        return (i32(rng.integers(0, c, b)), i32(rng.integers(0, p, b)),
+                i32(rng.integers(0, 2, b)))
+    if name == "workload_a":
+        cl = rng.integers(0, c, b)
+        move = rng.random(b) < 0.30
+        home = (cl % p + np.where(move, rng.integers(1, 3, b), 0)) % p
+        return i32(cl), i32(home), i32(rng.random(b) < 0.5)
+    raise ValueError(f"unknown chain mix {name!r}")
+
+
 def adaptive_mismatches(want: dict, got: dict) -> list[str]:
     """Fields of a ``run_protocol_adaptive`` result that differ from the
     reference's: ``adaptive.cost`` within ``ADAPTIVE_COST_RTOL``, the
