@@ -24,7 +24,17 @@ non-zero exit code):
                 (the flat WORKLOAD_A batch, the serving read batch) with
                 each schedule's serial depth, and walk against segments
                 at B = 128..1024; ``histogram`` one CTA and clusters per
-                row, int32, bool and no masks;
+                row, int32, bool and no masks; ``vclock_audit``'s designs
+                (compact, dense, auto) forced on every audit mix, timed at
+                (2048, 16) and at (16384, 64) on the random and the
+                one-resource mix with the base share and both bounds (the
+                dense count and the floor, at the INT32 rate);
+                ``digest_compare`` on two sides and on gathered pairs;
+     digest   — B.4 per gossip verdict set at (3 x 8) and 65,536 verdicts:
+                the whole ``ops.digest_compare_pairs`` call, its kernel, and
+                ``ops.digest_compare`` on the gathered rows, the path it
+                replaced (the only rows of a parent checkout), with their
+                device operations;
   4. golden   — the seven ``protocol/*``, eight fault and seven ``geo/*``
                 cases of ``tests/data/golden_wrappers.json`` on the card
                 (geo: the latency fields within rtol 1e-5, the rest
@@ -83,7 +93,10 @@ non-zero exit code):
                 see ``ADAPTIVE_SCALE_CUTS``), the controller over a
                 1,000,000-session fleet, and serving at 16,384 sessions
                 and through 16 router shards of 4,096, each equal to the
-                same run with the plain versions on the card;
+                same run with the plain versions on the card; B.2 on the
+                flat run's own DUOT (every design, the bounds), on the same
+                entries sorted by resource (a probe of grouped tiles), and
+                the split of ``store.audit`` between the kernel and the rest;
  12. profile  — ``torch.profiler`` over X_STCC and CAUSAL
                 ``run_protocol``, an X_STCC fault run, an X_STCC geo run,
                 an adaptive run and the serving schedule: device time by
@@ -111,7 +124,7 @@ import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
-PHASES = ("device", "build", "kernels", "golden", "main", "faulty", "geo",
+PHASES = ("device", "build", "kernels", "digest", "golden", "main", "faulty", "geo",
           "adaptive", "serving", "model", "scale", "profile")
 
 # H100 SXM peaks (NVIDIA data sheet, as tabulated in the repo's
@@ -149,14 +162,14 @@ N_CANDIDATES = 124
 # The adaptive phase's size: the reference's bench_policy.py runs.
 ADAPTIVE_OPS = 6400
 # The adaptive scale run: the paper's 64 threads and 5,000,000 rows.
-ADAPTIVE_SCALE = dict(n_clients=64, n_resources=5_000_000, n_ops=65_536)
+ADAPTIVE_SCALE = dict(n_clients=64, n_resources=5_000_000, n_ops=32_768)
 ADAPTIVE_SCALE_CUTS = (
-    "cuts of scale: 65,536 ops of the paper's 8,000,000 (32 epochs of 2048, "
+    "cuts of scale: 32,768 ops of the paper's 8,000,000 (32 epochs of 1024, "
     "the default epoch rule's own result). CAUSAL and ONE merge every 8 and "
     "16 ops, so each op costs their telemetry passes a launch-bound round at "
-    "R = 5,000,000; 131,072 ops were estimated at ~252 s from the flat scale "
-    "run's 10.2 ms per round, above the ~200 s this run may take. Clients "
-    "and rows are not cut"
+    "R = 5,000,000. 65,536 ops took 85.7-96.7 s of telemetry on H100 hosts "
+    "and the whole script then 937.7-1134.0 s of its 1200 s limit, so the "
+    "ops were halved. Clients and rows are not cut"
 )
 # The controller at fleet width: sessions, epochs, and the CPU check's
 # stride over the sessions.
@@ -201,6 +214,15 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def timed(label: str, fn, *args):
+    """``fn(*args)``, its wall time logged as ``[time] label``: where the
+    script's time limit goes."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(f"[time] {label}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
@@ -230,34 +252,46 @@ def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
 
 
 PROFILED_CALLS = 10      # calls of one profiling session
-PROFILE_TRIES = 3        # sessions tried before a count is "not measured"
+PROFILE_TRIES = 8        # sessions tried before a count is "not measured"
 
 
 def _device_rows(fn, key: str | None):
     """``torch.profiler``'s device rows (kernels, copies, fills) of
     ``PROFILED_CALLS`` calls of ``fn``, those whose name holds ``key`` if
-    given.  The profiler now and then records nothing, or not every
-    call, in a session: a session whose device operations are not a
-    whole multiple of the calls is tried again, up to ``PROFILE_TRIES``
-    times; ``[]`` if none was whole."""
+    given.  Each session traces a warm-up cycle of as many calls first
+    and counts only the cycle after it: without one, the profiler was
+    seen to drop the first call's kernel of a session, every time, once
+    a process had run long enough.  A session whose device operations
+    are not a whole multiple of the calls is tried again, up to
+    ``PROFILE_TRIES`` times; ``[]`` if none was whole."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
     for _ in range(PROFILE_TRIES):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(PROFILED_CALLS):
-                fn()
-            torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for _ in range(2):
+                for _ in range(PROFILED_CALLS):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
         rows = [e for e in prof.key_averages()
                 if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+                and not e.key.startswith("ProfilerStep")
                 and (key is None or key in e.key)]
         n = sum(e.count for e in rows)
         if n and n % PROFILED_CALLS == 0:
             return rows
+        _UNWHOLE.append([(e.key[:80], e.count) for e in rows])
     return []
+
+
+# The device rows of the last sessions that were not whole (for the
+# failure message).
+_UNWHOLE: list = []
 
 
 def cuda_kernels_per_call(fn, key: str | None = None) -> int | None:
@@ -281,7 +315,8 @@ def require_one_kernel(name: str, kernels: int | None) -> None:
     """Fail unless the profiler saw exactly one CUDA kernel per call."""
     if kernels is None:
         fail(f"{name}: CUDA kernels per call not measured (the profiler recorded "
-             f"no whole session in {PROFILE_TRIES} tries)")
+             f"no whole session in {PROFILE_TRIES} tries; their device rows: "
+             f"{_UNWHOLE[-PROFILE_TRIES:]})")
     if kernels != 1:
         fail(f"{name} ran {kernels} CUDA kernels per call, want 1")
 
@@ -303,7 +338,10 @@ def require_equal(name: str, got, want) -> None:
     import torch
 
     for k, (x, y) in enumerate(zip(got, want)):
-        if x.shape != y.shape or not torch.equal(x.cpu(), y.cpu()):
+        # On the card when both are there: a 16,384-wide audit is 1 GiB.
+        same = x.device == y.device
+        if x.shape != y.shape or not torch.equal(x if same else x.cpu(),
+                                                 y if same else y.cpu()):
             fail(f"{name}: output {k} differs from the plain version "
                  f"(max abs err {max_abs_err([x], [y])})")
 
@@ -392,16 +430,105 @@ def _ingest_inputs(rng, b, n_res, *, cadence, pending, device):
     return kw
 
 
-def _audit_inputs(rng, m, n, device):
+def _audit_inputs(rng, m, n, device, *, mix: str = "random", n_resources: int = 6):
+    """Audit inputs: the timed random mix (6 resources, 90 % valid), or one
+    of ``tests/torch_port_helpers.AUDIT_MIXES`` (``"one_resource"``: the
+    dense mix)."""
     import torch
 
-    t = lambda x: torch.as_tensor(x, dtype=torch.int32, device=device)  # noqa: E731
-    return dict(
-        vc=t(rng.integers(0, 25, (m, n))), client=t(rng.integers(0, n, m)),
-        kind=t(rng.integers(0, 2, m)), resource=t(rng.integers(0, 6, m)),
-        version=t(rng.integers(0, 40, m)), seq=t(rng.permutation(m)),
-        valid=torch.as_tensor(rng.random(m) < 0.9, device=device),
-    )
+    from torch_port_helpers import audit_mix
+
+    arrays = audit_mix(mix, rng, m, n, n_resources=n_resources)
+    return {k: torch.as_tensor(x, device=device) for k, x in zip(
+        ("vc", "client", "kind", "resource", "version", "seq", "valid"), arrays)}
+
+
+def audit_base_pairs(kw) -> int:
+    """Pairs whose code needs the clock compare: both valid, one resource,
+    ``seq_i < seq_j`` (counted on the card in row chunks)."""
+    valid, res, seq = kw["valid"], kw["resource"], kw["seq"]
+    total = 0
+    for i0 in range(0, valid.shape[0], 2048):
+        sl = slice(i0, i0 + 2048)
+        total += int((valid[sl, None] & valid[None, :] & (res[sl, None] == res[None, :])
+                      & (seq[sl, None] < seq[None, :])).sum())
+    return total
+
+
+def audit_bounds(m: int, n: int, base: int, fits16: bool) -> dict:
+    """B.2's bounds at the INT32 rate, each the larger of its operations
+    and the bytes (clocks and six columns read once, the (M, M) int32
+    codes written once).  ``floor``: the function's own work, the
+    ``base`` pairs only (every other pair's code is 0 by the meta alone),
+    each at one add-max per clock component (per two components where
+    every value fits int16, ``fits16``: the kernel's ``__viaddmax_s16x2``)
+    plus 20 for the row-sum compare and the code; ``reference``: the
+    base pairs at the reference's 3N + 20; ``dense``: every pair at
+    3N + 20; ``fma``: the dense count at the f32 FMA rate, the bound
+    first reported for this kernel."""
+    n_bytes = m * n * 4 + m * (5 * 4 + 1) + m * m * 4
+    t_bytes = n_bytes / PEAK_BYTES_S
+
+    def at_int32(n_ops):
+        t_ops = n_ops / PEAK_INT32_OPS_S
+        return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+    per_pair = ((n + 1) // 2 if fits16 else n) + 20
+    return {"floor": at_int32(base * per_pair), "reference": at_int32(base * (3 * n + 20)),
+            "dense": at_int32(m * m * (3 * n + 20)),
+            "fma": bound_ms(n_bytes, m * m * (3 * n + 20))}
+
+
+def time_audit(kw, delta: int, iters: int, label: str) -> dict:
+    """B.2 on one input set: every design against the plain version, bit
+    for bit, and timed (CUDA events; for M <= 4096, where the call is the
+    host's launch cost, the median of five means); the plain version's
+    time; the base share and both bounds; for M <= 4096 the CUDA kernels
+    of one ``ops.vclock_audit`` call and its device time (profiler)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import vclock_audit as va
+
+    m, n = kw["vc"].shape
+    want = va.vclock_audit_ref(**kw, delta=delta)
+    small = m <= 4096
+    design_ms = {}
+    for design in va.DESIGNS:
+        got = va.vclock_audit_cuda(**kw, delta=delta, design=design)
+        require_equal(f"vclock_audit {label} design={design}", [got], [want])
+        del got
+        call = lambda: va.vclock_audit_cuda(**kw, delta=delta, design=design)  # noqa: E731
+        # Small calls are the host's launch cost: medians of five.
+        design_ms[design] = (host_bound_ms(call, iters)[0] if small
+                             else cuda_time_ms(call, iters))
+    del want
+    torch.cuda.empty_cache()
+    plain = cuda_time_ms(lambda: va.vclock_audit_ref(**kw, delta=delta),
+                         max(1, iters // 10), warmup=1)
+    base = audit_base_pairs(kw)
+    vc = kw["vc"]
+    fits16 = n % 4 == 0 and int(vc.min()) >= 0 and int(vc.max()) <= 32767
+    bounds = audit_bounds(m, n, base, fits16)
+    call = lambda: ops.vclock_audit(**kw, delta=delta)  # noqa: E731
+    kernels = cuda_kernels_per_call(call) if small else None
+    dev_ms = device_ms_per_call(call) if small else None
+    torch.cuda.empty_cache()
+    log(f"[audit] {label} (M={m}, N={n}, delta={delta}): base share {base / (m * m):.6f} "
+        f"({base} pairs); auto {design_ms['auto']:.6f} ms, dense {design_ms['dense']:.6f}, "
+        f"compact {design_ms['compact']:.6f}; plain {plain:.6f} ms; floor "
+        f"{bounds['floor'][0]:.6f} ms ({bounds['floor'][1]}; clocks fit int16: "
+        f"{fits16}), base pairs at 3N + 20 {bounds['reference'][0]:.6f} ms "
+        f"({bounds['reference'][1]}), dense bound "
+        f"{bounds['dense'][0]:.6f} ms ({bounds['dense'][1]}) at the INT32 rate, "
+        f"{bounds['fma'][0]:.6f} ms at the f32 FMA rate; CUDA kernels per call "
+        f"{kernels}, device {dev_ms} ms per call")
+    return {"ms": design_ms["auto"], "design_ms": design_ms, "plain_ms": plain,
+            "bound": bounds["floor"], "bound_dense": bounds["dense"],
+            "bound_reference": bounds["reference"], "bound_fma": bounds["fma"],
+            "base_share": base / (m * m),
+            "cuda_kernels_per_call": kernels, "device_ms": dev_ms, "err": 0,
+            "shape": f"M={m}, N={n}, {label}"}
 
 
 def _chain_inputs(rng, b, c, device, *, p: int = 3, mix: str = "random"):
@@ -505,21 +632,22 @@ def time_session_floor(shape, device, iters: int) -> dict:
             "err": err, "shape": f"P={p}, C={c}, R={r}, B={b}"}
 
 
-def _digest_rows(rng, m, device):
-    """Packed digest pairs: extreme components so the differences
-    overflow, a quarter of the rows equal, a few invalid."""
+def _digest_table(rng, p, k, m, device):
+    """A (P, K, 4) digest table (extreme components, so the differences
+    overflow; replica 1 equal to replica 0) and (M, 2) int64 pairs on the
+    card, every third a self pair."""
     import numpy as np
     import torch
 
-    from repro_torch.kernels import digest_compare as dc
-
     extremes = np.asarray([2**31 - 1, -(2**31), 0, 1, -1, 7], np.int64)
-    packed = rng.choice(extremes, (m, dc.DIG_COLS))
-    packed[:, :8] += rng.integers(-3, 4, (m, 8))
-    packed = ((packed + 2**31) % 2**32 - 2**31).astype(np.int32)
-    packed[::4, 4:8] = packed[::4, 0:4]
-    packed[:, dc.VALID] = rng.random(m) < 0.9
-    return torch.as_tensor(packed, device=device)
+    tab = rng.choice(extremes, (p, k, 4)) + rng.integers(-3, 4, (p, k, 4))
+    tab = ((tab + 2**31) % 2**32 - 2**31).astype(np.int32)
+    if p > 1:
+        tab[1] = tab[0]
+    pairs = rng.integers(0, p, (m, 2))
+    pairs[::3, 1] = pairs[::3, 0]
+    return (torch.as_tensor(tab, device=device),
+            torch.as_tensor(pairs, dtype=torch.int64, device=device))
 
 
 def _hist_inputs(rng, m, b, n_bins, device):
@@ -634,36 +762,44 @@ def phase_kernels() -> dict:
         log(f"[kernels] op_ingest B={b}, Qp={packed.pend.shape[0]}: one CTA {row[0]:.6f} ms, "
             f"tiles {row[1]:.6f} ms (SMALL_MAX = {oi.SMALL_MAX})")
 
-    # vclock_audit: the main path's (2048, 16), a wider clock, a ragged M.
-    for m, n in ((2048, 16), (4096, 64), (1000, 16)):
-        kw = _audit_inputs(rng, m, n, dev)
-        for delta in (0, 8, 96):
-            got = ops.vclock_audit(**kw, delta=delta, impl="cuda")
-            want = ops.vclock_audit(**kw, delta=delta, impl="torch")
-            torch.cuda.synchronize()
-            require_equal(f"vclock_audit M={m} N={n} delta={delta}",
-                          [got], [want])
-    log("[kernels] vclock_audit: equal at (M,N) in (2048,16),(4096,64),"
-        "(1000,16) x delta in 0,8,96")
+    # vclock_audit: the main path's (2048, 16), a wider clock, ragged M, an
+    # odd clock width and one wider than a staged chunk; every mix, every
+    # design.
+    from torch_port_helpers import AUDIT_MIXES
 
-    def time_audit(m, n, delta, iters):
-        kw = _audit_inputs(np.random.default_rng(m), m, n, dev)
-        meta = va.pack_meta(kw["client"], kw["kind"], kw["resource"],
-                            kw["version"], kw["seq"], kw["valid"])
-        got = va.vclock_audit_cuda(kw["vc"], meta, delta=delta)
-        want = ops.vclock_audit(**kw, delta=delta, impl="torch")
-        require_equal(f"vclock_audit timing M={m}", [got], [want])
-        ms = cuda_time_ms(lambda: va.vclock_audit_cuda(kw["vc"], meta, delta=delta),
-                          iters)
-        plain = cuda_time_ms(
-            lambda: ops.vclock_audit(**kw, delta=delta, impl="torch"),
-            max(1, iters // 10), warmup=1)
-        bnd = bound_ms(m * n * 4 + m * 8 * 4 + m * m * 4, m * m * (3 * n + 20))
-        return {"ms": ms, "plain_ms": plain, "bound": bnd,
-                "err": max_abs_err([got], [want]), "shape": f"M={m}, N={n}"}
+    n_checked = 0
+    for m, n in ((2048, 16), (4096, 64), (1000, 16), (300, 3), (500, 100)):
+        for mix in AUDIT_MIXES:
+            kw = _audit_inputs(rng, m, n, dev, mix=mix)
+            for delta in (0, 8, 96):
+                want = ops.vclock_audit(**kw, delta=delta, impl="torch")
+                for design in va.DESIGNS:
+                    got = ops.vclock_audit(**kw, delta=delta, impl="cuda", design=design)
+                    torch.cuda.synchronize()
+                    require_equal(f"vclock_audit {mix} M={m} N={n} delta={delta} "
+                                  f"design={design}", [got], [want])
+                    n_checked += 1
+    log(f"[kernels] vclock_audit: {n_checked} cases equal ((M,N) in (2048,16),(4096,64),"
+        f"(1000,16),(300,3),(500,100) x mixes {', '.join(AUDIT_MIXES)} x delta in "
+        f"0,8,96 x designs {', '.join(va.DESIGNS)})")
 
-    timings["vclock_audit"] = time_audit(2048, 16, 8, 50)
-    timings["vclock_audit@16384"] = time_audit(16384, 64, 8, 5)
+    timings["vclock_audit"] = time_audit(
+        _audit_inputs(np.random.default_rng(2048), 2048, 16, dev), 8, 50, "random")
+    require_one_kernel("vclock_audit at (2048, 16)",
+                       timings["vclock_audit"]["cuda_kernels_per_call"])
+    for mix, label in (("random", "random"), ("one_resource", "dense")):
+        timings[f"vclock_audit@16384/{label}"] = time_audit(
+            _audit_inputs(np.random.default_rng(16384), 16384, 64, dev, mix=mix), 8, 5,
+            label)
+    # Between the two: where the designs cross (the auto threshold); and
+    # no base pair at all (every tile skips the compare: what the kernel
+    # costs without it).
+    for r in (2, 3):
+        time_audit(_audit_inputs(np.random.default_rng(16384), 16384, 64, dev,
+                                 n_resources=r), 8, 5, f"{r} resources")
+    time_audit(_audit_inputs(np.random.default_rng(16384), 16384, 64, dev,
+                             mix="distinct_resources"), 8, 5, "distinct resources")
+    torch.cuda.empty_cache()
 
     # vclock_chain: every design the shape allows, forced, and the
     # automatic one, on every adversarial mix, narrow and wide.
@@ -728,29 +864,26 @@ def phase_kernels() -> dict:
                 f"ms (device {row[0]['device_ms']} ms), segments {row[1]['ms']:.6f} ms "
                 f"(device {row[1]['device_ms']} ms) (SMALL_MAX = {vch.SMALL_MAX})")
 
-    # digest_compare: the fault path's 3 pairs x 8 ranges, and wider
-    # fleets; every case mixes overflowing, equal and invalid rows.
+    # digest_compare: two sides' rows (ops.digest_compare on the card) at
+    # the fault path's 3 pairs x 8 ranges and wider, and the gathered
+    # pairs (what gossip_round runs) at M x K = 1, 24, 255, 257, 65,536;
+    # overflowing and equal rows, self pairs.
     for m in (24, 1024, 65536, 1, 257):
-        packed = _digest_rows(rng, m, dev)
-        require_equal(f"digest_compare M={m}", [dc.digest_compare_cuda(packed)],
-                      [dc.digest_compare_ref(packed)])
+        dig, _ = _digest_table(rng, 3, m, 1, dev)
+        side_a, side_b = dig[0], dig[2].clone()
+        side_b[::4] = side_a[::4]                          # equal rows
+        require_equal(f"digest_compare M={m}", ops.digest_compare(side_a, side_b),
+                      ops.digest_compare(side_a.cpu(), side_b.cpu(), impl="torch"))
+    for p, k, m in ((2, 1, 1), (3, 8, 3), (5, 17, 15), (4, 1, 257), (64, 1024, 64)):
+        dig, pairs = _digest_table(np.random.default_rng(m * k), p, k, m, dev)
+        a, b = pairs[:, 0], pairs[:, 1]
+        require_equal(f"digest_compare_pairs M={m} K={k}",
+                      dc.digest_compare_pairs_cuda(dig, a, b, pairs.tolist()),
+                      dc.digest_compare_pairs_ref(dig, a, b))
     torch.cuda.synchronize()
-    log("[kernels] digest_compare: equal at M in 24,1024,65536,1,257 "
-        "(overflowing, equal and invalid rows)")
-
-    def time_digest(m, iters):
-        packed = _digest_rows(np.random.default_rng(m), m, dev)
-        got = dc.digest_compare_cuda(packed)
-        want = dc.digest_compare_ref(packed)
-        require_equal(f"digest_compare timing M={m}", [got], [want])
-        ms = cuda_time_ms(lambda: dc.digest_compare_cuda(packed), iters)
-        plain = cuda_time_ms(lambda: dc.digest_compare_ref(packed), iters)
-        bnd = bound_ms(m * dc.DIG_COLS * 4 + m * dc.OUT_COLS * 4, m * 24)
-        return {"ms": ms, "plain_ms": plain, "bound": bnd,
-                "err": max_abs_err([got], [want]), "shape": f"M={m} rows"}
-
-    timings["digest_compare"] = time_digest(24, 200)
-    timings["digest_compare@65536"] = time_digest(65536, 50)
+    log("[kernels] digest_compare: two sides' rows equal at M in 24,1024,65536,1,257; "
+        "gathered pairs equal at M x K in 1, 24, 255, 257, 65536 (overflowing and "
+        "equal rows, self pairs)")
 
     # histogram: the fault path's (2, B) op rows and (1, 3) hint depths,
     # wide rows to (3, 65536); empty rows, saturated edges, NaN, masks.
@@ -959,6 +1092,76 @@ def phase_kernels() -> dict:
         log(f"[kernels] time {key} ({t['shape']}): kernel {t['ms']:.6f} ms, "
             f"plain {t['plain_ms']:.6f} ms, bound {t['bound'][0]:.6f} ms "
             f"({t['bound'][1]}), max_abs_err {t['err']}{extra}")
+    return timings
+
+
+# B.4's timed shapes (P, K, M): the fault path's 3 replicas x 8 ranges x 3
+# pairs (24 verdicts), and 64 replicas x 1024 ranges x 64 pairs (65,536).
+DIGEST_SHAPES = ((3, 8, 3), (64, 1024, 64))
+
+
+def phase_digest() -> dict:
+    """B.4 per gossip verdict set: the whole call as ``gossip_round`` makes
+    it (``ops.digest_compare_pairs``; before it, ``ops.digest_compare`` on
+    the gathered rows, timed here too, so that run in a parent checkout
+    this phase times that path), the kernel alone, the plain version, the
+    device operations of each call and the bound.  Calls are the host's
+    launch cost: medians of five CUDA-event means."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import digest_compare as dc
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda")
+    gathered = hasattr(ops, "digest_compare_pairs")
+    timings = {}
+    for p, k, m in DIGEST_SHAPES:
+        dig, pairs = _digest_table(np.random.default_rng(m * k), p, k, m, dev)
+        a, b = pairs[:, 0], pairs[:, 1]
+        host = pairs.tolist()
+        iters = 200 if m * k <= 1024 else 50
+        gather_path = lambda: ops.digest_compare(dig[a], dig[b])  # noqa: E731
+        gather_ms, _ = host_bound_ms(gather_path, iters)
+        gather_ops = cuda_kernels_per_call(gather_path)
+        row = (f"[digest] (P, K, M) = ({p}, {k}, {m}), {m * k} verdicts: "
+               f"ops.digest_compare(dig[a], dig[b]) {gather_ms:.6f} ms ({gather_ops} "
+               f"device operations per call)")
+        if not gathered:
+            log(row)
+            continue
+        call = lambda: ops.digest_compare_pairs(dig, a, b, host_pairs=host)  # noqa: E731
+        got, want = call(), dc.digest_compare_pairs_ref(dig, a, b)
+        require_equal(f"digest_compare_pairs timing M={m} K={k}", got, want)
+        require_equal(f"digest_compare_pairs vs the gathered path M={m} K={k}", got,
+                      gather_path())
+        ms, runs = host_bound_ms(call, iters)
+        kernel_ms, _ = host_bound_ms(
+            lambda: dc.digest_compare_pairs_cuda(dig, a, b, host), iters)
+        # The flags' allocation alone: what a buffer held by the caller
+        # would save of the call.
+        alloc_ms, _ = host_bound_ms(
+            lambda: torch.empty((3, m, k), dtype=torch.bool, device=dev), iters)
+        kernels = cuda_kernels_per_call(call)
+        require_one_kernel(f"ops.digest_compare_pairs at M x K = {m * k}", kernels)
+        dev_ms = device_ms_per_call(call)
+        plain = cuda_time_ms(lambda: dc.digest_compare_pairs_ref(dig, a, b), iters)
+        # Two int4 digests and (amortised) two indices read, three flags
+        # written per verdict; ~24 integer operations.
+        bnd = bound_ms(m * k * 32 + m * 16 + 3 * m * k, m * k * 24)
+        log(f"{row}; ops.digest_compare_pairs {ms:.6f} ms (median of "
+            + " / ".join(f"{r:.6f}" for r in runs)
+            + f"), its kernel alone {kernel_ms:.6f} ms, the flags' allocation alone "
+            f"{alloc_ms:.6f} ms, device {dev_ms} ms; CUDA "
+            f"kernels per call {kernels}; plain {plain:.6f} ms; bound {bnd[0]:.6f} ms "
+            f"({bnd[1]})")
+        key = "digest_compare" if m * k == 24 else f"digest_compare@{m * k}"
+        timings[key] = {"ms": kernel_ms, "whole_call_ms": ms, "runs": runs,
+                        "gather_path_ms": gather_ms, "gather_path_ops": gather_ops,
+                        "alloc_ms": alloc_ms, "device_ms": dev_ms,
+                        "cuda_kernels_per_call": kernels, "plain_ms": plain,
+                        "bound": bnd, "err": max_abs_err(got, want),
+                        "shape": f"P={p}, K={k}, M={m} pairs"}
     return timings
 
 
@@ -1808,7 +2011,7 @@ def phase_model() -> tuple[dict, dict]:
 # -- phase 11 -----------------------------------------------------------------
 
 
-def phase_scale() -> None:
+def phase_scale() -> dict:
     import torch
 
     from repro_torch.core.consistency import ConsistencyLevel
@@ -1847,7 +2050,8 @@ def phase_scale() -> None:
         f"n_reads {out['n_reads']}; dropped_writes {out['dropped_writes']}; "
         f"max_memory_allocated {peak} B; launches {launches}")
     del out
-    scale_admit(prep)
+    timed("scale admit", scale_admit, prep)
+    timings = timed("scale audit", scale_audit, prep)
     del prep
     torch.cuda.empty_cache()
 
@@ -1892,13 +2096,59 @@ def phase_scale() -> None:
         f"{peak} B; launches {launches}")
     del out
     torch.cuda.empty_cache()
-    scale_planner()
-    scale_geo()
+    timed("scale planner", scale_planner)
+    timed("scale geo", scale_geo)
     torch.cuda.empty_cache()
-    scale_adaptive()
-    scale_fleet_controller()
+    timed("scale adaptive", scale_adaptive)
+    timed("scale controller", scale_fleet_controller)
     torch.cuda.empty_cache()
-    scale_serving()
+    timed("scale serving", scale_serving)
+    return timings
+
+
+def scale_audit(prep: dict) -> dict:
+    """B.2 on the flat scale run's own DUOT (its first 16,384 ops, 64
+    clients), every design against the plain version and timed; then the
+    split of ``store.audit`` between the kernel and the rest
+    (``core/audit._assemble_result``'s dense passes over the codes)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import vclock_audit as va
+
+    store, st = prep["store"], prep["out"]["st"]
+    duot, delta = st.duot, store.delta or 0
+    kw = dict(vc=duot.vc, client=duot.client, kind=duot.kind, resource=duot.resource,
+              version=duot.version, seq=duot.seq, valid=duot.valid)
+    t = time_audit(kw, delta, 5, "the flat scale run's DUOT")
+    kernel = cuda_time_ms(lambda: ops.audit_duot(duot, delta=delta), 5)
+    # A probe of tiles grouped by resource: the same entries sorted by
+    # (resource, seq), so the hot key's base pairs fill whole tiles and
+    # the other tiles hold almost none.  The codes are the DUOT's,
+    # permuted (checked); the kernel alone is timed, the permutation not.
+    order = torch.argsort(duot.seq, stable=True)
+    order = order[torch.argsort(duot.resource[order], stable=True)]
+    grouped = {k: v[order].contiguous() for k, v in kw.items()}
+    want = ops.audit_duot(duot, delta=delta)[order][:, order]
+    grouped_ms = {}
+    for design in va.DESIGNS:
+        require_equal(f"vclock_audit on the DUOT sorted by resource, design={design}",
+                      [va.vclock_audit_cuda(**grouped, delta=delta, design=design)],
+                      [want])
+        grouped_ms[design] = cuda_time_ms(
+            lambda: va.vclock_audit_cuda(**grouped, delta=delta, design=design), 5)
+    del want, grouped
+    log(f"[scale] probe: the DUOT sorted by (resource, seq): auto "
+        f"{grouped_ms['auto']:.6f} ms, dense {grouped_ms['dense']:.6f}, compact "
+        f"{grouped_ms['compact']:.6f} (unsorted: auto {t['ms']:.6f}); codes equal "
+        f"to the DUOT's, permuted")
+    whole = cuda_time_ms(lambda: store.audit(st, delta=delta), 3, warmup=1)
+    log(f"[scale] store.audit at M = {duot.capacity}: {whole:.6f} ms, of which the "
+        f"kernel {kernel:.6f} ms and the code decode + _assemble_result "
+        f"{whole - kernel:.6f} ms (CUDA events)")
+    torch.cuda.empty_cache()
+    return {"vclock_audit@16384/scale_duot": dict(t, store_audit_ms=whole,
+                                                  grouped_probe_ms=grouped_ms)}
 
 
 def scale_admit(prep: dict) -> None:
@@ -2407,24 +2657,25 @@ def main() -> None:
     sys.path.insert(0, str(ROOT / "tests"))
 
     t_start = time.perf_counter()
+
+    def run(phase: str, fn, default=None):
+        return timed(phase, fn) if phase in phases else default
+
     dev = phase_device()
-    if "build" in phases:
-        phase_build()
-    timings = phase_kernels() if "kernels" in phases else {}
-    if "golden" in phases:
-        phase_golden()
-    launches = {"main": phase_main() if "main" in phases else {},
-                "faulty": phase_faulty() if "faulty" in phases else {},
-                "geo": phase_geo() if "geo" in phases else {},
-                "adaptive": phase_adaptive() if "adaptive" in phases else {},
-                "serving": phase_serving() if "serving" in phases else {}}
+    run("build", phase_build)
+    timings = run("kernels", phase_kernels, {})
+    timings.update(run("digest", phase_digest, {}))
+    run("golden", phase_golden)
+    launches = {"main": run("main", phase_main, {}),
+                "faulty": run("faulty", phase_faulty, {}),
+                "geo": run("geo", phase_geo, {}),
+                "adaptive": run("adaptive", phase_adaptive, {}),
+                "serving": run("serving", phase_serving, {})}
     if "model" in phases:
-        model_timings, launches["model"] = phase_model()
+        model_timings, launches["model"] = run("model", phase_model)
         timings.update(model_timings)
-    if "scale" in phases:
-        phase_scale()
-    if "profile" in phases:
-        phase_profile()
+    timings.update(run("scale", phase_scale, {}))
+    run("profile", phase_profile)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     if phases != list(PHASES):
         return
@@ -2460,6 +2711,28 @@ def main() -> None:
             kernels[-1]["write_ms"] = t["write_ms"]
         if t.get("device_ms") is not None:
             kernels[-1]["device_ms_per_call"] = t["device_ms"]
+        if "whole_call_ms" in t:
+            # B.4: ms is the kernel alone; this the whole call gossip_round
+            # makes, and the path it replaced on the same inputs.
+            kernels[-1]["whole_call_ms"] = t["whole_call_ms"]
+            kernels[-1]["gather_path_ms"] = t["gather_path_ms"]
+        if "design_ms" in t:
+            # B.2: bound_ms is the floor (base pairs only, one add-max per
+            # component); the reference's 3N + 20 count, over the base pairs
+            # and over every pair, beside it, all at the INT32 rate.
+            kernels[-1]["design_ms"] = t["design_ms"]
+            kernels[-1]["bound_ms_reference_count"] = t["bound_reference"][0]
+            kernels[-1]["bound_ms_dense_int32"] = t["bound_dense"][0]
+            kernels[-1]["base_share"] = t["base_share"]
+            for key in ("vclock_audit@16384/random", "vclock_audit@16384/dense",
+                        "vclock_audit@16384/scale_duot"):
+                u = timings[key]
+                kernels[-1][key.split("@")[1]] = {
+                    "design_ms": u["design_ms"], "plain_ms": u["plain_ms"],
+                    "bound_ms": u["bound"][0], "bound_by": u["bound"][1],
+                    "bound_ms_reference_count": u["bound_reference"][0],
+                    "bound_ms_dense_int32": u["bound_dense"][0],
+                    "base_share": u["base_share"]}
     log(dev["smi"])    # the card's name and power limit again, beside the numbers
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

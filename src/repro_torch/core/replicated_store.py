@@ -556,7 +556,7 @@ class ReplicatedStore:
 
         Each pair ``(a, b)`` diffs per-range digests
         (:func:`repro_torch.gossip.digest.range_digests`) through
-        ``kernels.ops.digest_compare`` and repairs the differing ranges
+        ``kernels.ops.digest_compare_pairs`` and repairs the differing ranges
         with a Δ=0 merge restricted to live writes in those ranges and
         to the ``a``–``b`` edge.  Pairs that are down, disconnected or
         self-loops are invalid and repair nothing.  Clock-neutral.  The
@@ -571,16 +571,24 @@ class ReplicatedStore:
         dev = cl.pend_live.device
         p = self.n_replicas
         r = self.n_resources
-        pairs = torch.as_tensor(pairs, device=dev).to(torch.long)
+        # The pairs on the host (the loop below walks them; the digest
+        # compare checks them against P there) and on the device.
+        if isinstance(pairs, torch.Tensor):
+            host_pairs = pairs.tolist()
+            pairs = pairs.to(device=dev, dtype=torch.long)
+        else:
+            pairs_np = np.asarray(pairs, dtype=np.int64)
+            host_pairs = pairs_np.tolist()
+            pairs = torch.from_numpy(pairs_np).to(dev)
         u = torch.as_tensor(up, device=dev).to(torch.bool)
         ln = torch.as_tensor(link, device=dev).to(torch.bool)
         a_idx, b_idx = pairs[:, 0], pairs[:, 1]
         valid = u[a_idx] & u[b_idx] & ln[a_idx, b_idx] & (a_idx != b_idx)
         dig = digest_lib.range_digests(cl.replica_version, n_ranges)
-        differ, _, _ = kernel_ops.digest_compare(
-            dig[a_idx], dig[b_idx], impl=impl
-        )                                                   # (M, K)
-        stale = differ & valid[:, None]
+        flags = kernel_ops.digest_compare_pairs(
+            dig, a_idx, b_idx, host_pairs=host_pairs, impl=impl
+        )                                                   # (3, M, K)
+        stale = flags[0] & valid[:, None]
         rid = digest_lib.range_of_resource(r, n_ranges, dev).long()
 
         def gap(c):
@@ -592,7 +600,7 @@ class ReplicatedStore:
         eye = torch.eye(p, dtype=torch.bool, device=dev)
         rows = torch.arange(p, device=dev)
         growth = []
-        for m, (a, b) in enumerate(pairs.tolist()):
+        for m, (a, b) in enumerate(host_pairs):
             res_rid = rid[torch.clamp(cl.pend_resource, 0, r - 1).long()]
             in_stale = stale[m][res_rid] & valid[m]                  # (Q,)
             ia, ib = rows == a, rows == b

@@ -2,11 +2,11 @@
 //
 // Replaces: repro/kernels/digest_compare.py :: digest_compare_pallas
 // (the Pallas kernel over (block, 16) tiles of packed digest pairs).
-// Each row is one (pair, range): columns 0-3 side A's SUM, MAX, CHK,
-// CNT, columns 4-7 side B's, column 8 VALID, the rest padding.  Per row:
+// A verdict compares side A's and side B's (SUM, MAX, CHK, CNT) digest
+// of one range:
 //
 //   d_*      = a_* - b_*                       (wrapping int32)
-//   differ   = valid && any d_* != 0
+//   differ   = any d_* != 0
 //   tie      = d_max == 0 && d_sum == 0
 //   a_behind = differ && (d_max < 0 || (d_max == 0 && d_sum < 0) || tie)
 //   b_behind = differ && (d_max > 0 || (d_max == 0 && d_sum > 0) || tie)
@@ -16,13 +16,18 @@
 // (a - b) < 0 as a < b, which gives another verdict; the differences
 // are therefore taken in unsigned arithmetic and cast back to int.
 //
-// Bound on the H100: 64 bytes read and 16 written per row, a few dozen
-// integer operations: memory-bound at any size, and at the engine's
-// 3 pairs x 8 ranges = 24 rows the launch is all there is.  Design: one
-// thread per row, the row loaded as 16-byte vectors (the padding
-// quarter holds nothing the verdict reads and is skipped) and the
-// verdict stored as one int4, so a warp reads and writes contiguous
-// 16-byte lanes; the ragged last block is masked.
+// The kernel reads the (P, K) table of int4 digests and the two (M,)
+// int64 replica index vectors itself (one thread per (pair, range), each
+// digest one 16-byte load) and writes the three (M, K) flags as bytes
+// into one (3, M, K) bool output.  One launch per verdict set: no
+// gathered copies, no packed rows, no flag casts.  An index outside
+// [0, P) gives all-false flags and reads nothing (the wrapper refuses
+// such pairs on the host first).
+//
+// Bound on the H100: 32 bytes read and 3 written per verdict and a few
+// dozen integer operations, memory-bound at any size; at the fault
+// path's 3 pairs x 8 ranges the launch is all there is, so the design
+// is about launching once.
 
 #include <cuda_runtime.h>
 
@@ -34,37 +39,55 @@ __device__ __forceinline__ int wrap_sub(int a, int b) {
   return static_cast<int>(static_cast<unsigned>(a) - static_cast<unsigned>(b));
 }
 
-__global__ void digest_compare_kernel(const int4* __restrict__ packed, int m,
-                                      int4* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= m) return;
-  const int4 a = packed[4 * (size_t)i + 0];   // A_SUM, A_MAX, A_CHK, A_CNT
-  const int4 b = packed[4 * (size_t)i + 1];   // B_SUM, B_MAX, B_CHK, B_CNT
-  const int4 c = packed[4 * (size_t)i + 2];   // VALID, padding
+// (differ, a_behind, b_behind) of digests a and b.
+__device__ __forceinline__ void verdict(int4 a, int4 b, bool& differ, bool& a_behind,
+                                        bool& b_behind) {
   const int d_sum = wrap_sub(a.x, b.x);
   const int d_max = wrap_sub(a.y, b.y);
   const int d_chk = wrap_sub(a.z, b.z);
   const int d_cnt = wrap_sub(a.w, b.w);
-  const bool differ =
-      c.x > 0 && (d_sum != 0 || d_max != 0 || d_chk != 0 || d_cnt != 0);
+  differ = d_sum != 0 || d_max != 0 || d_chk != 0 || d_cnt != 0;
   const bool tie = d_max == 0 && d_sum == 0;
-  const bool a_behind =
-      differ && (d_max < 0 || (d_max == 0 && d_sum < 0) || tie);
-  const bool b_behind =
-      differ && (d_max > 0 || (d_max == 0 && d_sum > 0) || tie);
-  out[i] = make_int4(differ, a_behind, b_behind, 0);
+  a_behind = differ && (d_max < 0 || (d_max == 0 && d_sum < 0) || tie);
+  b_behind = differ && (d_max > 0 || (d_max == 0 && d_sum > 0) || tie);
+}
+
+__global__ void digest_pairs_kernel(const int4* __restrict__ dig, int p, int k,
+                                    const long long* __restrict__ ia,
+                                    const long long* __restrict__ ib,
+                                    long long stride, long long mk,
+                                    bool* __restrict__ out) {
+  const long long t = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (t >= mk) return;
+  const long long pair = t / k;
+  const int r = (int)(t - pair * k);
+  const long long a = ia[pair * stride], b = ib[pair * stride];
+  bool differ = false, a_behind = false, b_behind = false;
+  if (a >= 0 && a < p && b >= 0 && b < p)
+    verdict(__ldg(dig + a * k + r), __ldg(dig + b * k + r), differ, a_behind,
+            b_behind);
+  out[t] = differ;
+  out[mk + t] = a_behind;
+  out[2 * mk + t] = b_behind;
 }
 
 }  // namespace
 
-// packed: (m, 16) int32, 16-byte aligned; out: (m, 4) int32.
-extern "C" int digest_compare_launch(const int* packed, int m, int* out,
-                                     void* stream) {
-  if (m < 0) return (int)cudaErrorInvalidValue;
-  if (m == 0) return (int)cudaSuccess;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int blocks = (m + THREADS - 1) / THREADS;
-  digest_compare_kernel<<<blocks, THREADS, 0, s>>>(
-      reinterpret_cast<const int4*>(packed), m, reinterpret_cast<int4*>(out));
+// dig: (p, k) int4 digests, 16-byte aligned; ia / ib: m int64 replica
+// indices, element i at [i * stride]; out: (3, m, k) bool.  pk = p | k << 32,
+// ms = m | stride << 32.
+extern "C" int digest_pairs_launch(const int* dig, const long long* ia,
+                                   const long long* ib, bool* out, void* stream,
+                                   long long pk, long long ms) {
+  const int p = (int)(pk & 0xffffffff), k = (int)(pk >> 32);
+  const int m = (int)(ms & 0xffffffff);
+  const long long stride = ms >> 32;
+  if (m < 0 || k < 0 || p < 0) return (int)cudaErrorInvalidValue;
+  const long long mk = (long long)m * k;
+  if (mk == 0) return (int)cudaSuccess;
+  const long long blocks = (mk + THREADS - 1) / THREADS;
+  digest_pairs_kernel<<<(unsigned)blocks, THREADS, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const int4*>(dig), p, k, ia, ib, stride, mk, out);
   return (int)cudaGetLastError();
 }

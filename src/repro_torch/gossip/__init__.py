@@ -1,7 +1,7 @@
 """Continuous gossip anti-entropy + hinted handoff (port of
 ``repro.gossip``): range digests (:mod:`.digest`) and the host-side
 cadence and peer schedules (:mod:`.scheduler`).  The digest diff is
-``repro_torch.kernels.ops.digest_compare``; the repair merges and hint
+``repro_torch.kernels.ops.digest_compare_pairs``; the repair merges and hint
 queues live on ``repro_torch.core.replicated_store.ReplicatedStore``."""
 
 from repro_torch.gossip.digest import (

@@ -2,15 +2,19 @@
 
 Port of ``repro.kernels.digest_compare``: two replicas' per-range
 digests (SUM, MAX, CHK, CNT) are diffed row by row into ``DIFFER``,
-``A_BEHIND`` and ``B_BEHIND`` flags.  Inputs keep the reference's
-packed layout (:func:`pack_digests`, one ``(DIG_COLS,)`` int32 row per
-(pair, range), with a VALID column); outputs are ``(M, OUT_COLS)``
-int32.
+``A_BEHIND`` and ``B_BEHIND`` flags.  The kernel works on the gathered
+form, what ``gossip_round`` runs: a ``(P, K, 4)`` int32 digest table and
+two ``(M,)`` replica index vectors give three ``(M, K)`` bool flags,
+stacked as one ``(3, M, K)`` tensor.  :func:`digest_compare_pairs_cuda`
+launches ONE kernel (``csrc/digest_compare.cu``, one thread per (pair,
+range)) that reads the table and the indices itself and writes the
+flags: no gathers, no packing, no casts.
 
-  * :func:`digest_compare_ref` — the plain version, a whole-array
-    re-derivation of the reference's ``compare_tile``;
-  * :func:`digest_compare_cuda` — the hand-written kernel
-    (``csrc/digest_compare.cu``): one thread per row.
+The plain version keeps the reference's packed layout
+(:func:`pack_digests`, one ``(DIG_COLS,)`` int32 row per (pair, range),
+with a VALID column): :func:`digest_compare_ref` is a whole-array
+re-derivation of the reference's ``compare_tile`` over such rows, and
+:func:`digest_compare_pairs_ref` runs it on the gathered rows.
 
 The component differences wrap like int32: the plain version subtracts
 in int64 and wraps explicitly, the kernel subtracts in ``unsigned``.
@@ -34,8 +38,6 @@ DIG_COLS = 16
 # Output layout (int32 0/1 flags).
 DIFFER, A_BEHIND, B_BEHIND = 0, 1, 2
 OUT_COLS = 4
-
-THREADS = 256        # rows per block (as in the .cu)
 
 launches = 0
 
@@ -73,33 +75,79 @@ def digest_compare_ref(packed: torch.Tensor) -> torch.Tensor:
     ).to(torch.int32)
 
 
-def _lib():
-    fn = build.load("digest_compare").digest_compare_launch
-    if fn.argtypes is None:
+def check_pairs(host_pairs, p: int) -> None:
+    """Raise ``ValueError`` unless every ``(a, b)`` of ``host_pairs`` (a
+    host sequence) indexes one of ``p`` replicas."""
+    for a, b in host_pairs:
+        if not (0 <= a < p and 0 <= b < p):
+            raise ValueError(f"digest pair ({a}, {b}) is outside the {p} replicas")
+
+
+def digest_compare_pairs_ref(dig: torch.Tensor, a_idx: torch.Tensor,
+                             b_idx: torch.Tensor) -> torch.Tensor:
+    """Plain version of the gathered form: the ``(3, M, K)`` bool flags
+    (``DIFFER``, ``A_BEHIND``, ``B_BEHIND`` along axis 0) of ``dig[a_idx]``
+    against ``dig[b_idx]``, through the packed rows."""
+    m, k = a_idx.shape[0], dig.shape[1]
+    out = digest_compare_ref(pack_digests(dig[a_idx].reshape(-1, 4),
+                                          dig[b_idx].reshape(-1, 4)))
+    return out[:, :OUT_COLS - 1].T.to(torch.bool).reshape(3, m, k)
+
+
+_PAIRS_FN = None
+
+
+def _pairs_lib():
+    global _PAIRS_FN
+    if _PAIRS_FN is None:
+        fn = build.load("digest_compare").digest_pairs_launch
         vp = ctypes.c_void_p
-        fn.argtypes = [vp, ctypes.c_int, vp, vp]
+        fn.argtypes = [vp, vp, vp, vp, vp, ctypes.c_longlong, ctypes.c_longlong]
         fn.restype = ctypes.c_int
-    return fn
+        _PAIRS_FN = fn
+    return _PAIRS_FN
 
 
-def digest_compare_cuda(packed: torch.Tensor) -> torch.Tensor:
-    """Launch ``csrc/digest_compare.cu`` on a CUDA ``(M, DIG_COLS)``
-    int32 tensor; returns the ``(M, OUT_COLS)`` verdicts."""
+def digest_compare_pairs_cuda(dig: torch.Tensor, a_idx: torch.Tensor,
+                              b_idx: torch.Tensor, host_pairs=None) -> torch.Tensor:
+    """Launch the gathered kernel: ``dig`` a contiguous CUDA ``(P, K, 4)``
+    int32 table, ``a_idx`` / ``b_idx`` CUDA ``(M,)`` int64 replica
+    indices (views with one common stride, e.g. the two columns of an
+    ``(M, 2)`` pair tensor, are read in place).  ``host_pairs``, the same
+    ``(a, b)`` pairs on the host, are checked against P there; without
+    them the indices are copied to the host for the check.  Returns the
+    ``(3, M, K)`` bool flags (``DIFFER``, ``A_BEHIND``, ``B_BEHIND`` along
+    axis 0)."""
     global launches
-    if not packed.is_cuda:
-        raise ValueError("digest_compare_cuda needs a CUDA tensor")
-    if packed.dtype != torch.int32 or packed.dim() != 2 or packed.shape[1] != DIG_COLS:
-        raise ValueError(f"packed must be (M, {DIG_COLS}) int32, got "
-                         f"{tuple(packed.shape)} {packed.dtype}")
-    packed = packed.contiguous()
-    m = packed.shape[0]
-    out = torch.empty((m, OUT_COLS), dtype=torch.int32, device=packed.device)
-    if m == 0:
-        return out
-    # Rows are read and written as int4 vectors.
-    if packed.data_ptr() % 16 or out.data_ptr() % 16:
-        raise ValueError("digest_compare_cuda needs 16-byte aligned tensors")
-    err = _lib()(packed.data_ptr(), m, out.data_ptr(), build.stream_ptr(packed))
-    build.check(err, "digest_compare")
-    launches += 1
+    if not (dig.is_cuda and a_idx.is_cuda and b_idx.is_cuda):
+        raise ValueError("digest_compare_pairs_cuda needs CUDA tensors")
+    shape = dig.shape
+    # Each digest is read as one int4.
+    if (dig.dtype is not torch.int32 or len(shape) != 3 or shape[2] != 4
+            or not dig.is_contiguous() or dig.data_ptr() & 15):
+        raise ValueError(f"dig must be a contiguous, 16-byte aligned (P, K, 4) int32 "
+                         f"tensor, got {tuple(shape)} {dig.dtype}")
+    if a_idx.dim() != 1 or a_idx.shape != b_idx.shape:
+        raise ValueError(f"a_idx and b_idx must be (M,) alike, got "
+                         f"{tuple(a_idx.shape)} and {tuple(b_idx.shape)}")
+    if a_idx.dtype is not torch.int64 or b_idx.dtype is not torch.int64:
+        a_idx, b_idx = a_idx.long(), b_idx.long()
+    stride = a_idx.stride(0)
+    if b_idx.stride(0) != stride:
+        a_idx, b_idx = a_idx.contiguous(), b_idx.contiguous()
+        stride = 1
+    p, k = shape[0], shape[1]
+    m = a_idx.shape[0]
+    if host_pairs is None:
+        host_pairs = torch.stack([a_idx, b_idx], dim=1).tolist()
+    check_pairs(host_pairs, p)
+    out = torch.empty((3, m, k), dtype=torch.bool, device=dig.device)
+    if m * k:
+        err = (_PAIRS_FN or _pairs_lib())(
+            dig.data_ptr(), a_idx.data_ptr(), b_idx.data_ptr(), out.data_ptr(),
+            build.stream_ptr(dig), p | k << 32, m | stride << 32)
+        if err:
+            build.check(err, "digest_compare")
+        launches += 1
     return out
+

@@ -77,38 +77,26 @@ def op_ingest(
 
 def vclock_audit(
     vc, client, kind, resource, version, seq, valid, *, delta: int = 0,
-    impl: str | None = "auto",
+    impl: str | None = "auto", design: str = "auto",
 ) -> torch.Tensor:
-    """(M, M) audit codes ``phase | viol << 8 | timed << 9``."""
+    """(M, M) audit codes ``phase | viol << 8 | timed << 9``; ``design``
+    picks the kernel's compare (``vclock_audit.DESIGNS``)."""
     impl = resolve_impl(impl, vc)
     if impl == "torch":
         return _va.vclock_audit_ref(
             vc, client, kind, resource, version, seq, valid, delta=delta
         )
-    meta = _va.pack_meta(client, kind, resource, version, seq, valid)
-    return _va.vclock_audit_cuda(vc.to(torch.int32).contiguous(), meta, delta=delta)
+    return _va.vclock_audit_cuda(vc, client, kind, resource, version, seq, valid,
+                                 delta=delta, design=design)
 
 
-def audit_duot(duot, *, delta: int = 0, impl: str | None = "auto",
-               block: int = _va.BLOCK) -> torch.Tensor:
-    """Audit codes of a ``core.duot.Duot``; the log is padded to a
-    ``block`` multiple with invalid entries, as the reference does."""
-    m = duot.capacity
-    pad = (-m) % block
-
-    def p(x, fill=0):
-        if pad == 0:
-            return x
-        ext = torch.full((pad,) + tuple(x.shape[1:]), fill, dtype=x.dtype,
-                         device=x.device)
-        return torch.cat([x, ext])
-
-    codes = vclock_audit(
-        p(duot.vc), p(duot.client, -1), p(duot.kind), p(duot.resource, -1),
-        p(duot.version), p(duot.seq), p(duot.valid, False), delta=delta,
-        impl=impl,
-    )
-    return codes if pad == 0 else codes[:m, :m]
+def audit_duot(duot, *, delta: int = 0, impl: str | None = "auto") -> torch.Tensor:
+    """Audit codes of a ``core.duot.Duot``.  The reference pads the log
+    to its block with invalid entries; the codes of the real entries do
+    not depend on that, so neither route pads (the kernel masks its
+    ragged edge)."""
+    return vclock_audit(duot.vc, duot.client, duot.kind, duot.resource,
+                        duot.version, duot.seq, duot.valid, delta=delta, impl=impl)
 
 
 def vclock_chain(client, replica, is_write, session_vc, replica_vc, *,
@@ -125,17 +113,38 @@ def vclock_chain(client, replica, is_write, session_vc, replica_vc, *,
 def digest_compare(a, b, *, impl: str | None = "auto"):
     """Diff two sides' range digests ``(..., 4)`` -> ``(differ, a_behind,
     b_behind)`` bool masks over the leading axes — the contract of
-    ``repro.kernels.ref.digest_compare_ref``, bit for bit.  Both the
-    kernel and the plain version read the reference's packed rows."""
+    ``repro.kernels.ref.digest_compare_ref``, bit for bit.  The plain
+    version reads the reference's packed rows; on the card the two sides
+    are one ``(2, n, 4)`` table for the gathered kernel."""
     impl = resolve_impl(impl, a)
     lead = tuple(a.shape[:-1])
-    packed = _dc.pack_digests(a.reshape(-1, a.shape[-1]), b.reshape(-1, b.shape[-1]))
+    a, b = a.reshape(-1, a.shape[-1]), b.reshape(-1, b.shape[-1])
     if impl == "torch":
-        out = _dc.digest_compare_ref(packed)
-    else:
-        out = _dc.digest_compare_cuda(packed)
-    return tuple(out[:, col].to(torch.bool).reshape(lead)
-                 for col in (_dc.DIFFER, _dc.A_BEHIND, _dc.B_BEHIND))
+        out = _dc.digest_compare_ref(_dc.pack_digests(a, b))
+        return tuple(out[:, col].to(torch.bool).reshape(lead)
+                     for col in (_dc.DIFFER, _dc.A_BEHIND, _dc.B_BEHIND))
+    side = torch.arange(2, device=a.device)
+    flags = _dc.digest_compare_pairs_cuda(
+        torch.stack([a, b]).to(torch.int32), side[:1], side[1:], [(0, 1)])
+    return tuple(f.reshape(lead) for f in flags)
+
+
+def digest_compare_pairs(dig, a_idx, b_idx, *, host_pairs=None,
+                         impl: str | None = "auto") -> torch.Tensor:
+    """Diff the range digests of replica pairs: ``dig`` (P, K, 4) int32,
+    ``a_idx`` / ``b_idx`` (M,) int64 -> the (3, M, K) bool flags ``differ,
+    a_behind, b_behind = flags`` — ``digest_compare(dig[a_idx],
+    dig[b_idx])`` stacked, with the gathers done by the kernel.
+    ``host_pairs`` (the same pairs on the host) are checked against P
+    without a device sync; an index outside the table raises
+    ``ValueError`` on either route."""
+    impl = resolve_impl(impl, dig)
+    if impl == "cuda":
+        return _dc.digest_compare_pairs_cuda(dig, a_idx, b_idx, host_pairs)
+    if host_pairs is None:
+        host_pairs = torch.stack([a_idx, b_idx], dim=1).tolist()
+    _dc.check_pairs(host_pairs, dig.shape[0])
+    return _dc.digest_compare_pairs_ref(dig, a_idx, b_idx)
 
 
 def histogram(values, *, lo, hi, n_bins: int, mask=None, out=None,

@@ -18,7 +18,7 @@ from repro_torch.core import audit as taudit
 from repro_torch.kernels import ops
 from repro_torch.kernels import vclock_audit as va
 
-from torch_port_helpers import CPU, as_np, jax_to_numpy
+from torch_port_helpers import AUDIT_MIXES as MIXES, CPU, as_np, audit_mix, jax_to_numpy
 
 torch.set_num_threads(1)
 
@@ -61,13 +61,83 @@ def test_plain_codes_match_reference_and_pallas(seed, delta):
     np.testing.assert_array_equal(want, as_np(chunked))
 
 
-def test_pack_meta_layout():
-    tt = _port_duot(_random_duot(3, m=40, n=4))
-    meta = va.pack_meta(tt.client, tt.kind, tt.resource, tt.version, tt.seq, tt.valid)
-    assert meta.shape == (40, va.META_COLS) and meta.dtype == torch.int32
-    np.testing.assert_array_equal(as_np(meta[:, va.SEQ]), as_np(tt.seq))
-    np.testing.assert_array_equal(as_np(meta[:, va.VALID]), as_np(tt.valid).astype(np.int32))
-    assert not meta[:, 6:].any()
+def _mix(name, m, n=8, seed=0):
+    return audit_mix(name, np.random.default_rng(seed), m, n)
+
+
+def _base(vc, client, kind, resource, version, seq, valid):
+    return (valid[:, None] & valid[None, :] & (resource[:, None] == resource[None, :])
+            & (seq[:, None] < seq[None, :]))
+
+
+def _jduot(arrays):
+    """A JAX DUOT holding the mix's entries."""
+    vc, client, kind, resource, version, seq, valid = arrays
+    m, n = vc.shape
+    return jduot.make(m, n)._replace(
+        vc=jnp.asarray(vc), client=jnp.asarray(client), kind=jnp.asarray(kind),
+        resource=jnp.asarray(resource), version=jnp.asarray(version),
+        seq=jnp.asarray(seq), valid=jnp.asarray(valid))
+
+
+@pytest.mark.parametrize("mix", MIXES)
+@pytest.mark.parametrize("m", [200, 333])
+@pytest.mark.parametrize("delta", [0, 8, 96])
+def test_reference_code_is_zero_off_base(mix, m, delta):
+    """The premise of the kernel's skip: the reference's code is 0 wherever
+    ``base`` (both valid, same resource, seq_i < seq_j) is false, so only
+    base pairs need the clock compare."""
+    arrays = _mix(mix, m, seed=m)
+    codes = np.asarray(j_ref(*map(jnp.asarray, arrays), delta=delta))
+    base = _base(*arrays)
+    assert not codes[~base].any()
+    if mix in ("distinct_resources", "all_invalid"):
+        assert not base.any()
+    if mix == "equal_clocks":            # base pairs, all concurrent
+        assert base.any() and (codes[base] & 0xFF == 6).all()
+
+
+@pytest.mark.parametrize("mix", MIXES)
+@pytest.mark.parametrize("m", [200, 333])
+@pytest.mark.parametrize("delta", [-5, 0, 8, 96])
+def test_compacted_twin_matches_reference_and_pallas(mix, m, delta):
+    arrays = _mix(mix, m, seed=m + delta)
+    want = np.asarray(j_ref(*map(jnp.asarray, arrays), delta=delta))
+    t = [torch.from_numpy(x) for x in arrays]
+    np.testing.assert_array_equal(va.vclock_audit_compacted(*t, delta=delta).numpy(), want)
+    np.testing.assert_array_equal(va.vclock_audit_ref(*t, delta=delta).numpy(), want)
+    if delta == 8:
+        pallas = np.asarray(jops.audit_duot(_jduot(arrays), delta=delta, interpret=True))
+        np.testing.assert_array_equal(pallas, want)
+
+
+@pytest.mark.parametrize("seed", [0, 5])
+@pytest.mark.parametrize("delta", [0, 8])
+def test_audit_duot_unpadded_equals_padded(seed, delta):
+    """``ops.audit_duot`` no longer pads the log; padding it to a 32-row
+    multiple with invalid entries (the earlier route) gives the same codes
+    for the real entries."""
+    tt = _port_duot(_random_duot(seed, m=203, n=6))
+    got = ops.audit_duot(tt, delta=delta)
+    assert got.shape == (203, 203)
+    pad = (-203) % 32
+
+    def p(x, fill=0):
+        return torch.cat([x, torch.full((pad,) + tuple(x.shape[1:]), fill, dtype=x.dtype)])
+
+    padded = ops.vclock_audit(p(tt.vc), p(tt.client, -1), p(tt.kind), p(tt.resource, -1),
+                              p(tt.version), p(tt.seq), p(tt.valid, False), delta=delta)
+    np.testing.assert_array_equal(as_np(got), as_np(padded[:203, :203]))
+
+
+def test_vclock_audit_cuda_refuses_cpu_tensors_and_unknown_designs():
+    t = [torch.from_numpy(x) for x in _mix("random", 16)]
+    with pytest.raises(ValueError):
+        va.vclock_audit_cuda(*t)
+    with pytest.raises(ValueError):
+        ops.vclock_audit(*t, impl="cuda")
+    with pytest.raises(ValueError):
+        va.vclock_audit_cuda(*t, design="tiles")
 
 
 def _assert_audit_equal(want, got):

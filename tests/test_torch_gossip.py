@@ -135,7 +135,76 @@ def test_digest_compare_cuda_refuses_cpu_tensors():
         ops.digest_compare(torch.zeros((2, 4), dtype=torch.int32),
                            torch.zeros((2, 4), dtype=torch.int32), impl="cuda")
     with pytest.raises(ValueError):
-        tdc.digest_compare_cuda(torch.zeros((2, 16), dtype=torch.int32))
+        tdc.digest_compare_pairs_cuda(torch.zeros((2, 1, 4), dtype=torch.int32),
+                                      torch.tensor([0]), torch.tensor([1]), [(0, 1)])
+
+
+def _digest_table(rng, kind, p, k):
+    """A (P, K, 4) digest table whose rows 0 and 1 hold the pair kinds of
+    :func:`_digest_pair`; the rest random, replica 2 equal to replica 0."""
+    a, b = _digest_pair(rng, kind, k)
+    tab = rng.integers(-(2 ** 31), I32_MAX, (p, k, 4), dtype=np.int64).astype(np.int32)
+    tab[0], tab[1] = a, b
+    if p > 2:
+        tab[2] = tab[0]
+    return tab
+
+
+@pytest.mark.parametrize("kind", ["empty", "equal", "fully_stale", "overflowing", "mixed"])
+@pytest.mark.parametrize("n_ranges", [1, 8, 64])
+def test_digest_compare_pairs_plain_matches_reference(kind, n_ranges):
+    """The gathered form's plain version equals the reference's compare of
+    the gathered rows, for every ordered pair, self pairs included."""
+    rng = np.random.default_rng(n_ranges * 11 + len(kind))
+    tab = _digest_table(rng, kind, 4, n_ranges)
+    pairs = np.asarray([[a, b] for a in range(4) for b in range(4)], np.int64)
+    jt = jnp.asarray(tab)
+    want = jops.digest_compare(jt[pairs[:, 0]], jt[pairs[:, 1]], impl="tiled", block=8)
+    oracle = jref.digest_compare_ref(jt[pairs[:, 0]], jt[pairs[:, 1]])
+    tp = torch.from_numpy(pairs)
+    got = ops.digest_compare_pairs(torch.from_numpy(tab), tp[:, 0], tp[:, 1],
+                                   host_pairs=pairs.tolist())
+    for w, o, g in zip(want, oracle, got):
+        assert g.shape == (16, n_ranges) and g.dtype == torch.bool
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+        np.testing.assert_array_equal(g.numpy(), np.asarray(o))
+    # Self pairs and the equal replicas 0 and 2 never differ.
+    same = (pairs[:, 0] == pairs[:, 1]) | ((pairs.min(1) == 0) & (pairs.max(1) == 2))
+    assert not got[0].numpy()[same].any()
+    # Without host pairs the indices are checked from the device tensors.
+    for g, w in zip(ops.digest_compare_pairs(torch.from_numpy(tab), tp[:, 0], tp[:, 1]),
+                    got):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_digest_compare_pairs_on_gossip_round_inputs(seed):
+    """gossip_round's own digest table and pairs: the gathered plain version
+    equals the reference's compare of dig[a] and dig[b]."""
+    jst, tst = _both(seed)
+    pairs = np.asarray([[0, 1], [1, 2], [2, 0]], np.int64)
+    jdg = jdig.range_digests(jst.cluster.replica_version, N_RANGES)
+    want = jops.digest_compare(jdg[pairs[:, 0]], jdg[pairs[:, 1]])
+    tdg = tdig.range_digests(tst.cluster.replica_version, N_RANGES)
+    tp = torch.from_numpy(pairs)
+    got = ops.digest_compare_pairs(tdg, tp[:, 0], tp[:, 1], host_pairs=pairs.tolist())
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert got[0].any()              # the outage left stale ranges
+
+
+def test_digest_compare_pairs_refuses_cpu_tensors_and_outside_pairs():
+    dig = torch.zeros((3, 8, 4), dtype=torch.int32)
+    a, b = torch.tensor([0, 1]), torch.tensor([1, 2])
+    with pytest.raises(ValueError):
+        tdc.digest_compare_pairs_cuda(dig, a, b, [[0, 1], [1, 2]])
+    with pytest.raises(ValueError):
+        ops.digest_compare_pairs(dig, a, b, impl="cuda")
+    for bad in ([[0, 1], [1, 3]], [[-1, 1], [1, 2]]):
+        with pytest.raises(ValueError):
+            ops.digest_compare_pairs(dig, a, b, host_pairs=bad)
+    with pytest.raises(ValueError):
+        ops.digest_compare_pairs(dig, a, torch.tensor([1, 3]))
 
 
 # -- schedules ----------------------------------------------------------------

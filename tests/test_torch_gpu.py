@@ -31,8 +31,8 @@ from repro_torch.policy.sla import SLA_RELAXED, SLA_STRICT
 from repro_torch.storage import simulator
 from repro_torch.storage.ycsb import PHASED_RW, PHASED_RWR, WORKLOAD_A
 
-from torch_port_helpers import (CHAIN_MIXES, as_lists, chain_mix, geo_mismatches,
-                                placement_inputs, policy_inputs)
+from torch_port_helpers import (AUDIT_MIXES, CHAIN_MIXES, as_lists, audit_mix, chain_mix,
+                                geo_mismatches, placement_inputs, policy_inputs)
 
 pytestmark = pytest.mark.gpu
 
@@ -138,6 +138,29 @@ def test_vclock_audit_kernel_matches_plain(cuda, m, n, delta):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("mix", AUDIT_MIXES + ("six_resources",))
+@pytest.mark.parametrize("m,n", [(100, 16), (2048, 16), (333, 64), (4096, 64), (300, 3),
+                                 (500, 100)])
+def test_vclock_audit_designs_match_plain(cuda, mix, m, n):
+    """Every design, forced, and the per-tile choice, bit for bit against
+    the plain version; one counted launch per call.  (300, 3) has an odd
+    clock width, (500, 100) one wider than a staged chunk."""
+    from repro_torch.kernels import vclock_audit as va
+
+    rng = np.random.default_rng(m + n)
+    arrays = (audit_mix("random", rng, m, n, n_resources=6) if mix == "six_resources"
+              else audit_mix(mix, rng, m, n))
+    args = [_t(x, cuda) for x in arrays]
+    for delta in (0, 8, 96):
+        want = va.vclock_audit_ref(*args, delta=delta)
+        for design in va.DESIGNS:
+            n0 = va.launches
+            got = va.vclock_audit_cuda(*args, delta=delta, design=design)
+            torch.cuda.synchronize()
+            assert va.launches == n0 + 1
+            assert torch.equal(got, want), (design, delta)
+
+
 @pytest.mark.parametrize("b,c", [(1, 4), (128, 16), (3000, 64), (300, 500), (64, 2100)])
 def test_vclock_chain_kernel_matches_plain(cuda, b, c):
     rng = np.random.default_rng(b)
@@ -207,16 +230,92 @@ def test_entry_points_default_to_the_card(cuda):
 
 @pytest.mark.parametrize("m", [1, 24, 255, 257, 65536])
 def test_digest_compare_kernel_matches_plain(cuda, m):
+    """``ops.digest_compare`` on the card (the two sides as one table for
+    the gathered kernel) against its plain version: overflowing
+    components, a quarter of the rows equal."""
     rng = np.random.default_rng(m)
     extremes = np.asarray([2**31 - 1, -(2**31), 0, 1, -1], np.int64)
-    packed = rng.choice(extremes, (m, dc.DIG_COLS)).astype(np.int32)
-    packed[:, dc.VALID] = rng.integers(0, 2, m)
-    packed[::4, 4:8] = packed[::4, 0:4]               # equal rows
-    packed = _t(packed, cuda)
-    got = dc.digest_compare_cuda(packed)
-    want = dc.digest_compare_ref(packed)
+    a = rng.choice(extremes, (m, 4)).astype(np.int32)
+    b = rng.choice(extremes, (m, 4)).astype(np.int32)
+    b[::4] = a[::4]                                   # equal rows
+    n0 = dc.launches
+    got = ops.digest_compare(_t(a, cuda), _t(b, cuda))
+    want = ops.digest_compare(torch.from_numpy(a), torch.from_numpy(b), impl="torch")
     torch.cuda.synchronize()
-    assert torch.equal(got, want)
+    assert dc.launches == n0 + 1
+    for g, w in zip(got, want):
+        assert g.shape == (m,) and torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("m,k", [(1, 1), (3, 8), (15, 17), (257, 1), (64, 1024)])
+def test_digest_compare_pairs_kernel_matches_plain(cuda, m, k):
+    """The gathered kernel at M * K = 1, 24, 255, 257 and 65,536, indices
+    read in place from the columns of an (M, 2) pair tensor; overflowing
+    components, equal replicas and self pairs."""
+    rng = np.random.default_rng(m * k)
+    p = 5
+    extremes = np.asarray([2**31 - 1, -(2**31), 0, 1, -1, 7], np.int64)
+    tab = rng.choice(extremes, (p, k, 4)) + rng.integers(-3, 4, (p, k, 4))
+    tab = ((tab + 2**31) % 2**32 - 2**31).astype(np.int32)
+    tab[1] = tab[0]
+    pairs = rng.integers(0, p, (m, 2))
+    pairs[::3, 1] = pairs[::3, 0]
+    dig, tp = _t(tab, cuda), _t(pairs, cuda).long()
+    want = dc.digest_compare_pairs_ref(dig, tp[:, 0], tp[:, 1])
+    n0 = dc.launches
+    got = dc.digest_compare_pairs_cuda(dig, tp[:, 0], tp[:, 1], pairs.tolist())
+    via_ops = ops.digest_compare_pairs(dig, tp[:, 0], tp[:, 1])
+    torch.cuda.synchronize()
+    assert dc.launches == n0 + 2
+    assert got.shape == (3, m, k) and got.dtype == torch.bool
+    assert torch.equal(got, want) and torch.equal(via_ops, want)
+    with pytest.raises(ValueError):
+        dc.digest_compare_pairs_cuda(dig, tp[:, 0], tp[:, 1] + p)
+
+
+@pytest.mark.parametrize("healed", [False, True])
+def test_gossip_round_on_the_card_equals_cpu(cuda, healed):
+    """A store after three rounds with replica 1 down, then one digest
+    exchange: the card's state and every telemetry field equal the CPU's."""
+    from repro_torch.core.replicated_store import ReplicatedStore
+
+    states, tels = [], []
+    for dev in (cuda, "cpu"):
+        store = ReplicatedStore(3, 6, 12, level=ConsistencyLevel.X_STCC, pending_cap=48,
+                                duot_cap=64, hint_cap=5, device=dev)
+        st = store.init()
+        rng = np.random.default_rng(7)
+        outage = np.asarray([True, False, True])
+        link = np.ones((3, 3), bool)
+        for rd in range(3):
+            ops_ = {k: rng.integers(0, n, 12).astype(np.int32)
+                    for k, n in (("client", 6), ("replica", 3), ("resource", 12),
+                                 ("kind", 2))}
+            ops_["replica"][ops_["replica"] == 1] = 2
+            st, _ = store.apply_batch(st, **ops_, op_step0=rd * 12)
+            st, _ = store.merge(st, up=torch.as_tensor(outage, device=dev),
+                                link=torch.as_tensor(link, device=dev))
+        up = np.ones(3, bool) if healed else outage
+        st, tel = store.gossip_round(st, pairs=np.asarray([[0, 1], [1, 2], [2, 0]]),
+                                     up=up, link=link, n_ranges=4)
+        states.append(st)
+        tels.append(tel)
+    for k in ("valid", "ranges", "growth", "gap_repaired"):
+        assert torch.equal(tels[0][k].cpu(), tels[1][k]), k
+    for f, x in zip(states[0]._fields, states[0]):
+        y = states[1][states[0]._fields.index(f)]
+        for a, b in zip(_leaves(x), _leaves(y)):
+            assert torch.equal(a.cpu(), b), f
+    if healed:
+        assert int(tels[0]["growth"].sum()) > 0
+
+
+def _leaves(x):
+    if x is None:
+        return []
+    if isinstance(x, torch.Tensor):
+        return [x]
+    return [t for y in x for t in _leaves(y)]
 
 
 @pytest.mark.parametrize("m,b", [(2, 128), (1, 3), (3, 5000)])

@@ -200,6 +200,41 @@ def chain_mix(name: str, rng, b: int, c: int, p: int):
     raise ValueError(f"unknown chain mix {name!r}")
 
 
+# The audit mixes: one resource (most pairs need the clock compare),
+# every entry its own resource (no pair does), no valid entry, one clock
+# for every entry (no happens-before either way), random resources, and
+# random resources with a few clocks above int16 in their upper half of
+# components (the kernel's int16-pair staging must fall back there).
+AUDIT_MIXES = ("one_resource", "distinct_resources", "all_invalid", "equal_clocks",
+               "random", "large_clocks")
+
+
+def audit_mix(name: str, rng, m: int, n: int, *, n_resources: int = 5):
+    """numpy audit inputs ``(vc, client, kind, resource, version, seq,
+    valid)`` of M entries over N clients: clocks in [0, 25), 90 % valid,
+    distinct seqs, ``n_resources`` resources for ``"random"``."""
+    vc = rng.integers(0, 25, (m, n)).astype(np.int32)
+    client = rng.integers(0, n, m).astype(np.int32)
+    kind = rng.integers(0, 2, m).astype(np.int32)
+    resource = rng.integers(0, n_resources, m).astype(np.int32)
+    version = rng.integers(0, 40, m).astype(np.int32)
+    seq = rng.permutation(m).astype(np.int32)
+    valid = rng.random(m) < 0.9
+    if name == "one_resource":
+        resource[:] = 0
+    elif name == "distinct_resources":
+        resource = np.arange(m, dtype=np.int32)
+    elif name == "all_invalid":
+        valid[:] = False
+    elif name == "equal_clocks":
+        vc[:] = vc[0]
+    elif name == "large_clocks":
+        vc[rng.random(m) < 0.05, n // 2:] += 40_000
+    elif name != "random":
+        raise ValueError(f"unknown audit mix {name!r}")
+    return vc, client, kind, resource, version, seq, valid
+
+
 def adaptive_mismatches(want: dict, got: dict) -> list[str]:
     """Fields of a ``run_protocol_adaptive`` result that differ from the
     reference's: ``adaptive.cost`` within ``ADAPTIVE_COST_RTOL``, the
