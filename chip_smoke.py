@@ -30,6 +30,16 @@ non-zero exit code):
                 one-resource mix with the base share and both bounds (the
                 dense count and the floor, at the INT32 rate);
                 ``digest_compare`` on two sides and on gathered pairs;
+                B.6's ``policy_select`` (the controller's selection from
+                its rings, one launch) in both modes at S = 1 .. 1,000,003,
+                W in 1, 8, L in 2, 6, the read fraction a value and per
+                session, epsilon 0, 1, 0.05, tie and NaN rows, and
+                ``AdaptiveController.select`` timed whole at S = 64 and at
+                the fleet beside the parent's path (device operations,
+                device time, one CUDA kernel); B.7's ``session_check``
+                (the routers' admission, one launch) at the six
+                session-floor shapes, and a router's whole admission timed
+                at 64 and 16,384 sessions beside the parent's path;
      digest   — B.4 per gossip verdict set at (3 x 8) and 65,536 verdicts:
                 the whole ``ops.digest_compare_pairs`` call, its kernel, and
                 ``ops.digest_compare`` on the gathered rows, the path it
@@ -58,7 +68,9 @@ non-zero exit code):
                 SLA_RELAXED and SLA_STRICT over the six levels at 6400
                 ops, each equal to the same call on the CPU, and one
                 ``CadenceController.run_scan`` card vs CPU; launch counts
-                (one ``policy_score`` per epoch, no audit);
+                (one ``policy_score`` per epoch, no audit); device
+                operations per controller epoch, with the parent's
+                selection beside them;
   9. serving  — ``ServingEngine`` on the paper's 12-replica fleet with 64
                 sessions, X_STCC by default and an ``AdaptiveController``,
                 through a seeded schedule (rolling publish, outages, a
@@ -70,7 +82,8 @@ non-zero exit code):
                 sessions) likewise; launch counts (one ``session_floor``
                 per guarded ``route_batch``, one ``op_ingest`` and one
                 ``vclock_chain`` per store read, one ``policy_score`` per
-                epoch, no audit);
+                epoch, no audit); device operations per ``route_batch``,
+                with the parent's admission beside them;
  10. model    — B.8 ``flash_attention`` (an FFMA kernel in f32, a wgmma
                 kernel in bf16) against its plain version at the
                 reference's FA_CASES and at gemma-2b's and qwen2-7b's full
@@ -300,6 +313,17 @@ def cuda_kernels_per_call(fn, key: str | None = None) -> int | None:
     not measured, the profiler recorded no whole session)."""
     rows = _device_rows(fn, key)
     return sum(e.count for e in rows) // PROFILED_CALLS if rows else None
+
+
+def device_ops_per_call(fn, key: str) -> tuple[int | None, int | None]:
+    """From one profiling session: the device operations (kernels, copies,
+    fills) one call of ``fn`` runs, and those whose name holds ``key``
+    (``None``: not measured)."""
+    rows = _device_rows(fn, None)
+    if not rows:
+        return None, None
+    return (sum(e.count for e in rows) // PROFILED_CALLS,
+            sum(e.count for e in rows if key in e.key) // PROFILED_CALLS)
 
 
 def device_ms_per_call(fn) -> float | None:
@@ -632,6 +656,143 @@ def time_session_floor(shape, device, iters: int) -> dict:
             "err": err, "shape": f"P={p}, C={c}, R={r}, B={b}"}
 
 
+def parent_select(ctl, state, explore_u, arm, read_frac):
+    """The parent's ``AdaptiveController.select`` on the card: the window
+    sums and rates, the packed session parameters, the reference-layout
+    scorer kernel, ``argmax`` and the exploration ``where`` (~39 device
+    operations)."""
+    import torch
+
+    from repro_torch.kernels import policy_score as ps
+    from repro_torch.policy import sla
+
+    stale, viol, count = ctl.aggregate(state)
+    sess = sla.session_params(ctl.target_sla, ctl.n_sessions, read_frac=read_frac,
+                              device=ctl.device)
+    util, _ = ps.policy_score_cuda(sess, ctl.table, stale, viol, count)
+    greedy = torch.argmax(util, dim=1).to(torch.int32)
+    return torch.where(explore_u < ctl.epsilon(state), arm, greedy)
+
+
+def time_select(s: int, iters: int) -> dict:
+    """B.6 per controller selection at S sessions (W = 8, L = 6, per-session
+    read fractions): the whole ``AdaptiveController.select``, the kernel
+    alone, the parent's path (``parent_select``) and the plain version, the
+    device operations of each call, device time and the byte bound.  Calls
+    that the host's launch cost sets are medians of five CUDA-event
+    means."""
+    import numpy as np
+
+    from repro_torch.kernels import policy_score as ps
+    from repro_torch.policy.controller import AdaptiveController
+    from repro_torch.policy.sla import SLA_RELAXED, sla_bounds
+    from torch_port_helpers import select_inputs
+
+    ctl = AdaptiveController(s, SLA_RELAXED, device="cuda")
+    bounds = sla_bounds(ctl.target_sla)
+    inp = select_inputs(np.random.default_rng(s), s, ctl.window, ctl.device)
+    state = ctl.init()._replace(stale_win=inp["stale_win"], viol_win=inp["viol_win"],
+                                reads_win=inp["reads_win"], ptr=9, epoch=3)
+    rings = (state.stale_win, state.viol_win, state.reads_win)
+    u, arm, rf = inp["explore_u"], inp["arm"], inp["read_frac"]
+    eps = ctl.epsilon(state)
+    call = lambda: ctl.select(state, u, arm, read_frac=rf)  # noqa: E731
+    parent = lambda: parent_select(ctl, state, u, arm, rf)  # noqa: E731
+    draws = dict(read_frac=rf, explore_u=u, arm=arm, epsilon=eps)
+    got, want = call(), ps.policy_select_ref(*rings, ctl.table, bounds, **draws)
+    require_equal(f"select S={s}", [got], [want])
+    require_equal(f"select S={s} against the parent's path", [got], [parent()])
+    ms, runs = host_bound_ms(call, iters)
+    kernel_ms, _ = host_bound_ms(
+        lambda: ps.policy_select_cuda(*rings, ctl.table, bounds, **draws), iters)
+    parent_ms, parent_runs = host_bound_ms(parent, iters)
+    plain = cuda_time_ms(lambda: ps.policy_select_ref(*rings, ctl.table, bounds, **draws),
+                         max(1, iters // 10))
+    kernels = cuda_kernels_per_call(call)
+    require_one_kernel(f"AdaptiveController.select at S={s}", kernels)
+    parent_ops = cuda_kernels_per_call(parent)
+    dev_ms = device_ms_per_call(call)
+    w, _, n_levels = state.stale_win.shape
+    # The rings read once; per session the draws, the read fraction and the
+    # choice; ~20 operations per cell and 3 adds per slot.
+    bnd = bound_ms(3 * w * s * n_levels * 4 + 16 * s, s * n_levels * (20 + 3 * w))
+    log(f"[kernels] select S={s}, W={w}, L={n_levels}: AdaptiveController.select "
+        f"{ms:.6f} ms (median of " + " / ".join(f"{r:.6f}" for r in runs)
+        + f"), its kernel alone {kernel_ms:.6f} ms, device {dev_ms} ms; CUDA kernels "
+        f"per call {kernels}; the parent's path {parent_ms:.6f} ms (median of "
+        + " / ".join(f"{r:.6f}" for r in parent_runs) + f"; {parent_ops} device "
+        f"operations per call); plain {plain:.6f} ms; bound {bnd[0]:.6f} ms ({bnd[1]})")
+    return {"ms": kernel_ms, "whole_call_ms": ms, "runs": runs, "parent_path_ms": parent_ms,
+            "parent_path_ops": parent_ops, "device_ms": dev_ms,
+            "cuda_kernels_per_call": kernels, "plain_ms": plain, "bound": bnd,
+            "err": max_abs_err([got], [want]), "shape": f"S={s}, W={w}, L={n_levels}"}
+
+
+def parent_admission(store, state, index):
+    """The parent's router admission on the card, from the host (2, B)
+    index: two index copies and casts, a zero resource, ``admit_batch``
+    (the (C, R) floor copy, the kernel), a cast and a stack; the routers
+    then copy ``[admissible, floor]`` to the host."""
+    import torch
+
+    dev = state.cluster.read_floor.device
+    sid_t = torch.as_tensor(index[0].astype("int64"), device=dev).to(torch.int32)
+    pref_t = torch.as_tensor(index[1].astype("int64"), device=dev).to(torch.int32)
+    _, _, adm, floor = store.admit_batch(state, client=sid_t, replica=pref_t,
+                                         resource=torch.zeros_like(sid_t))
+    return torch.stack([adm.to(torch.int32), floor])
+
+
+def time_admission(shape, iters: int) -> dict:
+    """B.7 per router admission at (P, C, R, B): the whole check as
+    ``route_batch`` makes it (the host index in, the kernel, ``[admissible,
+    floor]`` back to the host), the kernel alone, the parent's path
+    (``parent_admission``) and the plain version, with their device
+    operations and the bound."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.replicated_store import ReplicatedStore
+    from repro_torch.kernels import session_floor as sf
+
+    p, c, r, b = shape
+    rv, rf, wf, cl, pl, _, _ = _admit_inputs(shape, "cuda", seed=b)
+    store = ReplicatedStore(p, c, r, device="cuda")
+    st = store.init()
+    st = st._replace(cluster=st.cluster._replace(replica_version=rv, read_floor=rf,
+                                                 write_floor=wf))
+    index = np.stack([cl.cpu().numpy(), pl.cpu().numpy()]).astype(np.int32)
+    index_t = torch.as_tensor(index, device="cuda")
+    call = lambda: store.session_check(st, index).cpu().numpy()  # noqa: E731
+    parent = lambda: parent_admission(store, st, index).cpu().numpy()  # noqa: E731
+    got, want = call(), sf.session_check_ref(rv, rf, wf, index_t).cpu().numpy()
+    if not (np.array_equal(got, want) and np.array_equal(got, parent())):
+        fail(f"session_check timing {shape}: differs from the plain version or the "
+             "parent's path")
+    ms, runs = host_bound_ms(call, iters)
+    kernel_ms, _ = host_bound_ms(lambda: sf.session_check_cuda(rv, rf, wf, index_t), iters)
+    parent_ms, parent_runs = host_bound_ms(parent, iters)
+    plain = cuda_time_ms(lambda: sf.session_check_ref(rv, rf, wf, index_t), iters)
+    dev_ops, kernels = device_ops_per_call(call, "session_check_kernel")
+    require_one_kernel(f"router admission at {shape}", kernels)
+    parent_ops = cuda_kernels_per_call(parent)
+    dev_ms = device_ms_per_call(call)
+    # Per op: 2 index words, 3 gathered words, 2 output words; ~8 integer
+    # operations.
+    bnd = bound_ms(b * 7 * 4, b * 8)
+    log(f"[kernels] router admission (P, C, R, B) = {shape}: the whole check "
+        f"{ms:.6f} ms (median of " + " / ".join(f"{x:.6f}" for x in runs)
+        + f"; {dev_ops} device operations per call, {kernels} CUDA kernel), its kernel "
+        f"alone {kernel_ms:.6f} ms, device {dev_ms} ms; the parent's path "
+        f"{parent_ms:.6f} ms (median of " + " / ".join(f"{x:.6f}" for x in parent_runs)
+        + f"; {parent_ops} device operations per call); plain {plain:.6f} ms; bound "
+        f"{bnd[0]:.6f} ms ({bnd[1]})")
+    return {"ms": kernel_ms, "whole_call_ms": ms, "runs": runs, "parent_path_ms": parent_ms,
+            "parent_path_ops": parent_ops, "device_ops": dev_ops, "device_ms": dev_ms,
+            "cuda_kernels_per_call": kernels, "plain_ms": plain, "bound": bnd, "err": 0,
+            "shape": f"P={p}, C={c}, R={r}, B={b}"}
+
+
 def _digest_table(rng, p, k, m, device):
     """A (P, K, 4) digest table (extreme components, so the differences
     overflow; replica 1 equal to replica 0) and (M, 2) int64 pairs on the
@@ -679,6 +840,56 @@ def _bits_equal(a, b) -> bool:
     if a.dtype == torch.float32:
         a, b = a.view(torch.int32), b.view(torch.int32)
     return bool(torch.equal(a, b))
+
+
+def check_select(dev) -> None:
+    """B.6's selection from the controller's three rings, both modes,
+    against its plain version: S in 1 .. the fleet, W in 1, 8 (the ring
+    pointer wrapped), six and two levels, the read fraction a value and
+    per session, every row valid and a mask, epsilon 0, 1 and 0.05; tie
+    rows (levels 0 and 1 equal) and NaN rows (the first NaN leads)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.consistency import ConsistencyLevel
+    from repro_torch.kernels import policy_score as ps
+    from repro_torch.policy.controller import AdaptiveController
+    from repro_torch.policy.sla import SLA_RELAXED, SLA_STRICT, sla_bounds
+    from torch_port_helpers import f32_same, select_inputs
+
+    two = (ConsistencyLevel.ONE, ConsistencyLevel.X_STCC)
+    n_checked = 0
+    eps_values = (0.0, 1.0, float(np.float32(0.05)))
+    for s in (1, 16, 64, 129, FLEET_SESSIONS + 3):
+        for w in (1, 8):
+            for levels in (None, two):
+                inp = select_inputs(np.random.default_rng(s + w), s, w, dev, levels=levels)
+                rings = [inp[k] for k in ("stale_win", "viol_win", "reads_win", "table")]
+                sla = SLA_STRICT if (s + w) % 2 else SLA_RELAXED
+                bounds = sla_bounds(AdaptiveController(1, sla, device=dev).target_sla)
+                for rf in (0.5, inp["read_frac"]):
+                    for valid in (None, inp["valid"]):
+                        kw = dict(read_frac=rf, valid=valid)
+                        for eps in eps_values:
+                            draws = dict(explore_u=inp["explore_u"], arm=inp["arm"],
+                                         epsilon=eps)
+                            got = ps.policy_select_cuda(*rings, bounds, **kw, **draws)
+                            want = ps.policy_select_ref(*rings, bounds, **kw, **draws)
+                            require_equal(f"policy_select S={s} W={w} L="
+                                          f"{rings[3].shape[1]} eps={eps}", [got], [want])
+                        got = ps.policy_select_cuda(*rings, bounds, **kw)
+                        want = ps.policy_select_ref(*rings, bounds, **kw)
+                        if not (f32_same(got[0], want[0]) and torch.equal(got[1], want[1])):
+                            fail(f"policy_select scores S={s} W={w}: differ from the "
+                                 "plain version")
+                        n_checked += len(eps_values) + 1
+                del inp, rings, got, want
+    torch.cuda.empty_cache()
+    log(f"[kernels] policy_select: {n_checked} cases equal (choices exactly, utilities "
+        f"bit for bit with any NaN equal to any NaN; S in 1,16,64,129,"
+        f"{FLEET_SESSIONS + 3} x W in 1,8 (ring pointer wrapped) x L in 6,2 x read "
+        "fraction a value and per session x all / partly valid x epsilon 0, 1, 0.05 "
+        "and the scores mode; tie and NaN rows)")
 
 
 def phase_kernels() -> dict:
@@ -1034,8 +1245,14 @@ def phase_kernels() -> dict:
         return {"ms": ms, "plain_ms": plain, "bound": bnd, "err": err,
                 "shape": f"S={s}, L={n_levels}"}
 
-    timings["policy_score"] = time_policy(64, 200)
-    timings[f"policy_score@{FLEET_SESSIONS + 3}"] = time_policy(FLEET_SESSIONS + 3, 50)
+    timings["policy_score/reference_layout"] = time_policy(64, 200)
+    timings[f"policy_score/reference_layout@{FLEET_SESSIONS + 3}"] = time_policy(
+        FLEET_SESSIONS + 3, 50)
+
+    check_select(dev)
+    timings["policy_score"] = time_select(64, 200)
+    timings[f"policy_score@{FLEET_SESSIONS + 3}"] = time_select(FLEET_SESSIONS + 3, 50)
+    torch.cuda.empty_cache()
 
     # vclock_chain at the serving scale's one component per session: the
     # random mix and the serving read batch (reads only, each session
@@ -1049,8 +1266,9 @@ def phase_kernels() -> dict:
     # (P, C, R, B) = (12, 64, 1, 64), the serving scale's 16,384 sessions
     # and the paper's store (64 clients x 5,000,000 rows); both enforce
     # settings, distinct and duplicate (c, r) pairs, all ops valid and a
-    # partly valid batch.
-    n_checked = 0
+    # partly valid batch; the routers' check alone (session_check) at the
+    # same shapes, all and partly valid, the resource 0 and given.
+    n_checked = n_check = 0
     for shape in ((2, 3, 4, 10), (4, 16, 8, 100), (8, 64, 1, 256), (12, 64, 1, 64),
                   SESSION_FLOOR_SERVING, SESSION_FLOOR_PAPER):
         for dup in (False, True):
@@ -1064,15 +1282,31 @@ def phase_kernels() -> dict:
                                   f"valid={valid is not None}", got, want)
                     n_checked += 1
                     del got, want
-            del args
+            index = torch.stack([args[3], args[4]])
+            for valid in (None, args[-1]):
+                for resource in (None, args[5]):
+                    got = sf.session_check_cuda(*args[:3], index, resource=resource,
+                                                valid=valid)
+                    want = sf.session_check_ref(*args[:3], index, resource=resource,
+                                                valid=valid)
+                    require_equal(f"session_check {shape} dup={dup} valid="
+                                  f"{valid is not None} resource={resource is not None}",
+                                  [got], [want])
+                    n_check += 1
+            del args, index
     torch.cuda.empty_cache()
     log(f"[kernels] session_floor: {n_checked} cases equal ((P,C,R,B) in (2,3,4,10),"
         f"(4,16,8,100),(8,64,1,256),(12,64,1,64),{SESSION_FLOOR_SERVING},"
         f"{SESSION_FLOOR_PAPER} x distinct/duplicate (c, r) x enforce x all/partly valid)")
-    timings["session_floor"] = time_session_floor((12, 64, 1, 64), dev, 200)
-    timings["session_floor@16384"] = time_session_floor(SESSION_FLOOR_SERVING, dev, 100)
-    timings[f"session_floor@{SCALE['n_resources']}"] = time_session_floor(
+    log(f"[kernels] session_check: {n_check} cases equal (the same shapes x "
+        "distinct/duplicate (c, r) x all/partly valid x resource 0 / given)")
+    timings["session_floor/admit"] = time_session_floor((12, 64, 1, 64), dev, 200)
+    timings["session_floor/admit@16384"] = time_session_floor(SESSION_FLOOR_SERVING,
+                                                              dev, 100)
+    timings[f"session_floor/admit@{SCALE['n_resources']}"] = time_session_floor(
         SESSION_FLOOR_PAPER, dev, 20)
+    timings["session_floor"] = time_admission((12, 64, 1, 64), 200)
+    timings["session_floor@16384"] = time_admission(SESSION_FLOOR_SERVING, 100)
     torch.cuda.empty_cache()
 
     for key, t in timings.items():
@@ -1089,6 +1323,10 @@ def phase_kernels() -> dict:
             extra += f", design {t['design']}, serial depth {t['depth']} steps"
         if "cuda_kernels_per_call" in t:
             extra += f", CUDA kernels per call {t['cuda_kernels_per_call']}"
+        if "parent_path_ms" in t:
+            extra += (f", whole call {t['whole_call_ms']:.6f} ms, the parent's path "
+                      f"{t['parent_path_ms']:.6f} ms ({t['parent_path_ops']} device "
+                      "operations)")
         log(f"[kernels] time {key} ({t['shape']}): kernel {t['ms']:.6f} ms, "
             f"plain {t['plain_ms']:.6f} ms, bound {t['bound'][0]:.6f} ms "
             f"({t['bound'][1]}), max_abs_err {t['err']}{extra}")
@@ -1559,7 +1797,49 @@ def phase_adaptive() -> dict:
             fail(f"CadenceController.run_scan: {f} card != cpu")
     log(f"[adaptive] CadenceController.run_scan (40 epochs, 5 arms): card == cpu; "
         f"arms {np.bincount(traces['cpu']['arm'].numpy(), minlength=5).tolist()}")
+    log_epoch_ops()
     return launches
+
+
+def log_epoch_ops() -> None:
+    """Device operations per controller epoch (profiler): ``run_scan`` at the
+    adaptive phase's 16 sessions over 4 and over 2 epochs, the difference
+    per epoch, once as it is and once with the parent's selection
+    (``parent_select``) in place of ``select``."""
+    import torch
+
+    from repro_torch.policy.controller import AdaptiveController, make_draws
+    from repro_torch.policy.sla import POLICY_LEVELS, SLA_RELAXED
+
+    s, n_levels = 16, len(POLICY_LEVELS)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    reads = torch.randint(0, 64, (4, s), generator=g, device="cuda").to(torch.float32)
+    tel = {"stale": (torch.rand((4, s, n_levels), generator=g, device="cuda")
+                     * reads[..., None]).floor(),
+           "viol": torch.zeros((4, s, n_levels), device="cuda"), "reads": reads,
+           "writes": reads.flip(0)}
+    draws = make_draws(1, (4, s), n_levels, device="cuda")
+    out = {}
+    for path in ("select", "parent"):
+        ctl = AdaptiveController(s, SLA_RELAXED, device="cuda")
+        if path == "parent":
+            ctl.select = lambda st, u, arm, read_frac=0.5, c=ctl: parent_select(
+                c, st, u, arm, read_frac)
+        counts = {}
+        for e in (2, 4):
+            part = {k: v[:e] for k, v in tel.items()}
+            run = lambda: ctl.run_scan(0, part, draws=tuple(d[:e] for d in draws))  # noqa: E731
+            counts[e] = device_ops_per_call(run, "policy_kernel")
+        if None in (x for pair in counts.values() for x in pair):
+            log(f"[adaptive] device operations per controller epoch ({path}): not "
+                "measured (the profiler recorded no whole session)")
+            continue
+        out[path] = [(counts[4][i] - counts[2][i]) / 2 for i in range(2)]
+    if len(out) == 2:
+        log(f"[adaptive] device operations per controller epoch (run_scan, S=16, L="
+            f"{n_levels}; profiler, 4 epochs less 2): {out['select'][0]:.2f}, of which "
+            f"{out['select'][1]:.2f} the scorer kernel; with the parent's selection "
+            f"{out['parent'][0]:.2f} ({out['parent'][1]:.2f})")
 
 
 # -- phase 9 ------------------------------------------------------------------
@@ -1700,7 +1980,37 @@ def phase_serving() -> dict:
     log(f"[serving] ShardedServingRouter {ROUTER}: card == cpu; age_stats "
         f"{rc['age_stats']}, reroutes {rc['reroutes']}, failovers {rc['failovers']}, "
         f"stale {rc['stale_serves']}/{rc['total_serves']}; launches {r_launches}")
+    log_route_ops()
     return launches
+
+
+def log_route_ops() -> None:
+    """Device operations per ``route_batch`` (profiler) of the serving
+    phase's engine (64 X_STCC sessions on the 12-replica fleet, every
+    replica live), and of its admission alone; then the same with the
+    parent's admission (``parent_admission``) in place of the store's
+    check."""
+    from repro_torch.core.consistency import ConsistencyLevel
+    from repro_torch.serve import ServeSession, ServingEngine
+
+    out = {}
+    for path in ("check", "parent"):
+        eng = ServingEngine(_NoModel(), ConsistencyLevel.X_STCC, max_replicas=12,
+                            max_sessions=SERVING["n_sessions"], device="cuda")
+        eng.set_topology(geo_topologies()["fleet12"])
+        for v in range(12):
+            eng.publish(None, 1 + v % 3)
+        if path == "parent":
+            store = eng._store
+            store.session_check = lambda st, index, **kw: parent_admission(store, st, index)
+        sessions = [ServeSession(i) for i in range(SERVING["n_sessions"])]
+        run = lambda: eng.route_batch(sessions)  # noqa: E731
+        key = "session_check_kernel" if path == "check" else "session_admit_kernel"
+        out[path] = device_ops_per_call(run, key)
+    log(f"[serving] device operations per route_batch ({SERVING['n_sessions']} "
+        f"sessions; profiler; None: not measured): {out['check'][0]}, with "
+        f"{out['check'][1]} session_check kernel; with the parent's admission "
+        f"{out['parent'][0]} ({out['parent'][1]} admit kernel)")
 
 
 # -- phase 10 -----------------------------------------------------------------
@@ -2712,10 +3022,23 @@ def main() -> None:
         if t.get("device_ms") is not None:
             kernels[-1]["device_ms_per_call"] = t["device_ms"]
         if "whole_call_ms" in t:
-            # B.4: ms is the kernel alone; this the whole call gossip_round
-            # makes, and the path it replaced on the same inputs.
+            # B.4, B.6, B.7: ms is the kernel alone; this the whole call the
+            # main path makes (gossip_round, AdaptiveController.select, a
+            # router's admission), and the path it replaced on the same
+            # inputs.
             kernels[-1]["whole_call_ms"] = t["whole_call_ms"]
-            kernels[-1]["gather_path_ms"] = t["gather_path_ms"]
+            for k in ("gather_path_ms", "parent_path_ms", "parent_path_ops",
+                      "device_ops"):
+                if k in t:
+                    kernels[-1][k] = t[k]
+        for key in (f"policy_score@{FLEET_SESSIONS + 3}", "session_floor@16384"):
+            if key.split("@")[0] == name:
+                u = timings[key]
+                kernels[-1][key.split("@")[1]] = {
+                    k: u[k] for k in ("ms", "whole_call_ms", "parent_path_ms",
+                                      "parent_path_ops", "device_ms", "plain_ms")}
+                kernels[-1][key.split("@")[1]].update(bound_ms=u["bound"][0],
+                                                       bound_by=u["bound"][1])
         if "design_ms" in t:
             # B.2: bound_ms is the floor (base pairs only, one add-max per
             # component); the reference's 3N + 20 count, over the base pairs

@@ -21,8 +21,10 @@
     :meth:`~ReplicatedStore.snapshot`, :meth:`~ReplicatedStore.wal_append`;
   * **serving**   — :meth:`~ReplicatedStore.install`,
     :meth:`~ReplicatedStore.read_batch` / :meth:`~ReplicatedStore.write_batch`,
-    :meth:`~ReplicatedStore.session_floor` and the batched admission
-    check :meth:`~ReplicatedStore.admit_batch` (``kernels.ops.session_admit``);
+    :meth:`~ReplicatedStore.session_floor`, the batched admission
+    check :meth:`~ReplicatedStore.admit_batch` (``kernels.ops.session_admit``)
+    and the routers' check alone, :meth:`~ReplicatedStore.session_check`
+    (``kernels.ops.session_check``);
   * **audit**     — :meth:`ReplicatedStore.audit`.
 """
 
@@ -778,7 +780,7 @@ class ReplicatedStore:
         """
         cl = state.cluster
         dev = cl.read_floor.device
-        c, p, r = (torch.as_tensor(x, device=dev).to(torch.int32)
+        c, p, r = (torch.as_tensor(x, dtype=torch.int32, device=dev)
                    for x in (client, replica, resource))
         served, adm, floor, new_rf = kernel_ops.session_admit(
             cl.replica_version, cl.read_floor, cl.write_floor, c, p, r,
@@ -786,6 +788,21 @@ class ReplicatedStore:
             impl=self.ingest if impl is None else impl,
         )
         return state._replace(cluster=cl._replace(read_floor=new_rf)), served, adm, floor
+
+    def session_check(self, state: StoreState, index, *, resource=None, out=None,
+                      impl: str | None = None) -> torch.Tensor:
+        """The routers' admission check: :meth:`admit_batch`'s admissible and
+        floor outputs without its floor update, which the routers discard
+        (their observe read commits the floors).  ``index`` is (2, B), the
+        client ids then the replicas (a host array is copied to the device
+        once); ``resource`` (B,) or None (every op at resource 0).  Returns
+        ``(2, B)`` int32 ``[admissible, floor]`` (written into ``out`` when
+        given), through ``kernels.ops.session_check``; no state changes."""
+        cl = state.cluster
+        idx = torch.as_tensor(index, dtype=torch.int32, device=cl.read_floor.device)
+        return kernel_ops.session_check(
+            cl.replica_version, cl.read_floor, cl.write_floor, idx, resource=resource,
+            out=out, impl=self.ingest if impl is None else impl)
 
     # -- audit ----------------------------------------------------------------
 

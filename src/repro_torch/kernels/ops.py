@@ -200,6 +200,24 @@ def policy_score(sess, table, stale, viol, count, *, impl: str | None = "auto"):
     return fn(sess, table, stale, viol, count)
 
 
+def policy_select(stale_win, viol_win, reads_win, table, bounds, *, read_frac=0.5,
+                  valid=None, explore_u=None, arm=None, epsilon=None,
+                  impl: str | None = "auto"):
+    """The controller's selection from its three (W, S, L) f32 count rings
+    (``AdaptiveController.select``, or ``scores`` without draws): the
+    windowed rates, the session parameters of ``bounds`` = ``(max_stale,
+    max_viol, max_lat, max_age)`` with ``read_frac`` (a value or (S,)) and
+    ``valid`` (None: every row), the ``policy_score`` contract, then with
+    ``explore_u`` (S,) f32, ``arm`` (S,) int32 and ``epsilon`` (an f32
+    value) each session's level, (S,) int32 — the reference's ``argmax``
+    and exploration arm, bit for bit; without them ``(utility, feasible)``,
+    each (S, L).  One kernel launch on the card."""
+    impl = resolve_impl(impl, stale_win)
+    fn = _ps.policy_select_ref if impl == "torch" else _ps.policy_select_cuda
+    return fn(stale_win, viol_win, reads_win, table, bounds, read_frac=read_frac,
+              valid=valid, explore_u=explore_u, arm=arm, epsilon=epsilon)
+
+
 def session_admit(replica_version, read_floor, write_floor, client, replica,
                   resource, *, enforce: bool = True, valid=None,
                   impl: str | None = "auto"):
@@ -212,6 +230,20 @@ def session_admit(replica_version, read_floor, write_floor, client, replica,
     fn = _sf.session_admit_ref if impl == "torch" else _sf.session_admit_cuda
     return fn(replica_version, read_floor, write_floor, client, replica, resource,
               enforce=enforce, valid=valid)
+
+
+def session_check(replica_version, read_floor, write_floor, index, *, resource=None,
+                  valid=None, out=None, impl: str | None = "auto") -> torch.Tensor:
+    """The admission check without the floor update -> ``(2, B)`` int32
+    ``[admissible, floor]``: ``session_admit``'s admissible and floor
+    outputs (floor 0 where ``valid`` is false).  ``index`` is (2, B) int32,
+    the client ids then the replicas; ``resource`` (B,) or None (every op
+    at resource 0).  With ``out`` ((2, B) int32) the result is written
+    there and ``out`` returned."""
+    impl = resolve_impl(impl, read_floor)
+    fn = _sf.session_check_ref if impl == "torch" else _sf.session_check_cuda
+    return fn(replica_version, read_floor, write_floor, index, resource=resource,
+              valid=valid, out=out)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,

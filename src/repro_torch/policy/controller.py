@@ -4,10 +4,12 @@
 The control loop, once per merge epoch:
 
   1. :meth:`AdaptiveController.select` scores every (session, level)
-     cell — sliding-window telemetry through the SLA scorer
-     (``repro_torch.policy.sla.score_levels``, the ``policy_score``
-     kernel on the card) — and picks each session's level: greedy
-     argmax-utility with an ε-decayed uniform exploration arm;
+     cell — sliding-window telemetry through the SLA scorer — and picks
+     each session's level: greedy argmax-utility with an ε-decayed
+     uniform exploration arm.  On the card the whole selection (window
+     sums, rates, scores, argmax, exploration) is one launch of the
+     ``policy_score`` kernel reading the telemetry rings in place
+     (``kernels.ops.policy_select``);
   2. the data plane runs the epoch's ops at the selected levels
      (``repro_torch.storage.simulator.run_protocol_adaptive``);
   3. :meth:`AdaptiveController.observe` folds the epoch's measured
@@ -33,11 +35,14 @@ from __future__ import annotations
 import dataclasses
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.consistency import ConsistencyLevel
 from repro_torch.core.cost_model import PAPER_PRICING, PricingScheme
 from repro_torch.device import resolve_device
+from repro_torch.kernels import ops as kernel_ops
+from repro_torch.kernels.policy_score import window_rates
 from repro_torch.obs.metrics import window_init, window_record, window_total
 from repro_torch.policy import sla as sla_lib
 from repro_torch.storage.cluster import PAPER_CLUSTER, ClusterConfig
@@ -63,11 +68,10 @@ def _as_f32(x, device) -> torch.Tensor:
 
 def _host_epsilon(eps0: float, eps_decay: float, epoch: int) -> float:
     """``eps0 · eps_decay ** epoch`` in f32 on the host, as the reference
-    computes it (bit-equal for the epochs tested)."""
-    f = torch.float32
-    e = torch.tensor(eps0, dtype=f) * torch.tensor(eps_decay, dtype=f) ** torch.tensor(
-        float(epoch), dtype=f)
-    return float(e)
+    computes it (bit-equal for the epochs tested), in numpy scalars: a
+    selection's one host computation besides its launch."""
+    f = np.float32
+    return float(f(eps0) * f(eps_decay) ** f(epoch))
 
 
 def _draws_for(draws, seed: int, shape: tuple[int, ...], n_arms: int, device):
@@ -137,6 +141,7 @@ class AdaptiveController:
             self.levels, cfg, pricing, merge_every=merge_every, delta=delta,
             device=self.device,
         )
+        self._bounds = sla_lib.sla_bounds(self.target_sla)
 
     # -- state ----------------------------------------------------------------
 
@@ -167,11 +172,7 @@ class AdaptiveController:
 
     def aggregate(self, state: ControllerState):
         """Windowed (stale_rate, viol_rate, sample_count), each (S, L)."""
-        reads = window_total(state.reads_win)
-        denom = torch.clamp(reads, min=1.0)
-        stale = window_total(state.stale_win) / denom
-        viol = window_total(state.viol_win) / denom
-        return stale, viol, reads
+        return window_rates(state.stale_win, state.viol_win, state.reads_win)
 
     # -- selection ------------------------------------------------------------
 
@@ -180,22 +181,24 @@ class AdaptiveController:
         return _host_epsilon(self.eps0, self.eps_decay, state.epoch)
 
     def scores(self, state: ControllerState, *, read_frac=0.5):
-        """(utility, feasible) of every (session, level) cell, (S, L)."""
-        stale, viol, count = self.aggregate(state)
-        sess = sla_lib.session_params(self.target_sla, self.n_sessions,
-                                      read_frac=read_frac, device=self.device)
-        return sla_lib.score_levels(sess, self.table, stale, viol, count,
-                                    impl=self.impl)
+        """(utility, feasible) of every (session, level) cell, (S, L): the
+        windowed rates (:meth:`aggregate`) and the target SLA's session
+        parameters through the SLA scorer, in one kernel launch on the
+        card (``kernels.ops.policy_select``)."""
+        return kernel_ops.policy_select(
+            state.stale_win, state.viol_win, state.reads_win, self.table,
+            self._bounds, read_frac=read_frac, impl=self.impl)
 
     def select(self, state: ControllerState, explore_u: torch.Tensor,
                arm: torch.Tensor, *, read_frac=0.5) -> torch.Tensor:
         """Each session's level index for the next epoch, (S,) int32:
-        ``arm`` where ``explore_u < ε``, the greedy argmax elsewhere (ties
-        to the first level, as ``jnp.argmax``)."""
-        utility, _ = self.scores(state, read_frac=read_frac)
-        greedy = torch.argmax(utility, dim=1).to(torch.int32)
-        explore = explore_u < self.epsilon(state)
-        return torch.where(explore, arm, greedy)
+        ``arm`` where ``explore_u < ε``, the greedy argmax of
+        :meth:`scores`' utility elsewhere (ties to the first level and a
+        NaN first, as ``jnp.argmax``), in one kernel launch on the card."""
+        return kernel_ops.policy_select(
+            state.stale_win, state.viol_win, state.reads_win, self.table,
+            self._bounds, read_frac=read_frac, explore_u=explore_u, arm=arm,
+            epsilon=self.epsilon(state), impl=self.impl)
 
     # -- convenience ----------------------------------------------------------
 

@@ -44,6 +44,7 @@ from repro_torch.kernels.policy_score import (  # noqa: F401
     SP_READ_FRAC,
     SP_VALID,
     STRUCTURAL_WEIGHT,
+    pack_sessions,
 )
 from repro_torch.storage.cluster import PAPER_CLUSTER, ClusterConfig
 
@@ -84,6 +85,13 @@ SLA_RELAXED = SLA(
 )
 
 
+def sla_bounds(sla: SLA) -> tuple[float, float, float, float]:
+    """The SLA's ``(max_stale, max_viol, max_lat, max_age)``, the bounds of
+    the session-parameter columns ``SP_MAX_*``."""
+    return (sla.max_stale_read_rate, sla.max_violation_rate,
+            sla.max_read_latency_ms, sla.max_staleness_ms)
+
+
 def session_params(
     sla: SLA,
     n_sessions: int,
@@ -96,16 +104,8 @@ def session_params(
 
     ``read_frac`` may be per session (the session's recent op mix); it
     feeds the read/write blend of the analytic cost."""
-    dev = resolve_device(device)
-    sp = torch.zeros((n_sessions, SP_COLS), dtype=torch.float32, device=dev)
-    sp[:, SP_READ_FRAC] = torch.as_tensor(read_frac, dtype=torch.float32, device=dev)
-    sp[:, SP_MAX_STALE] = sla.max_stale_read_rate
-    sp[:, SP_MAX_VIOL] = sla.max_violation_rate
-    sp[:, SP_MAX_LAT] = sla.max_read_latency_ms
-    sp[:, SP_MAX_AGE] = sla.max_staleness_ms
-    sp[:, SP_VALID] = 1.0 if valid is None else torch.as_tensor(
-        valid, device=dev).to(torch.float32)
-    return sp
+    return pack_sessions(n_sessions, sla_bounds(sla), read_frac=read_frac,
+                         valid=valid, device=resolve_device(device))
 
 
 def _instance_cost_per_work(cfg: ClusterConfig, pricing: PricingScheme) -> float:

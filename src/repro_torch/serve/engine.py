@@ -545,8 +545,8 @@ class ServingEngine:
         """Vectorized admission check for a batch of sessions.
 
         Routes every session to its preferred replica, runs the batched
-        session-floor admission check (``ReplicatedStore.admit_batch``,
-        the kernel on the card), reroutes inadmissible *guarded* sessions
+        session-floor admission check (``ReplicatedStore.session_check``,
+        one kernel on the card), reroutes inadmissible *guarded* sessions
         (unguarded ones take the stale serve, counted as their violation
         telemetry), fails sessions whose preferred replica is down over,
         and registers the serves in the store.  Returns ``(replica,
@@ -572,16 +572,13 @@ class ServingEngine:
         alive = up[preferred]
         best = _freshest_replica(self.replicas, up)
         if guarded.any():
-            # Admission against the store-tracked floors; the returned
-            # state is discarded on purpose: floors are committed by the
-            # observe read below, once rerouting has decided where each
-            # session reads.  Admission and floors reach the host together.
-            sid_t = self._i32(sid)
-            _, _, adm_t, floor_t = self._store.admit_batch(
-                self._st, client=sid_t, replica=self._i32(preferred),
-                resource=torch.zeros_like(sid_t),
-            )
-            adm, floor = torch.stack([adm_t.to(torch.int32), floor_t]).cpu().numpy()
+            # Admission against the store-tracked floors, without the
+            # floor update: floors are committed by the observe read
+            # below, once rerouting has decided where each session reads.
+            # One copy of the (2, B) index in, one of [admissible, floor]
+            # out.
+            adm, floor = self._store.session_check(
+                self._st, np.stack([sid, preferred]).astype(np.int32)).cpu().numpy()
             adm = adm.astype(bool)
             # Join with any externally set session floor (route() parity).
             ext = np.asarray([s.read_floor for s in sessions], np.int64)
@@ -800,7 +797,7 @@ class ShardedServingRouter:
     def route(self, session, preferred=None) -> tuple[np.ndarray, np.ndarray]:
         """Route one ``(S, B)`` batch of shard-local session ids.
 
-        Admission against each shard's floors (``admit_batch``, the
+        Admission against each shard's floors (``session_check``, the
         kernel on the card), reroute of inadmissible sessions to the
         freshest live replica, then the observe read that raises the
         floors.  Returns ``(replica, served)``, (S, B) int32 numpy arrays.
@@ -835,14 +832,15 @@ class ShardedServingRouter:
 
         guarded = self.level.is_session_guarded
         if guarded:
-            rows = []
+            # Each shard's admission check (no floor update: the observe
+            # read below commits the floors), one launch per shard, from
+            # one copy of the (shards, 2, B) index in and one copy out.
+            index = torch.as_tensor(np.stack([sid, preferred], axis=1).astype(np.int32),
+                                    device=self.device)
+            out = torch.empty(index.shape, dtype=torch.int32, device=self.device)
             for s in range(self.n_shards):
-                c = i32(sid[s])
-                _, _, adm, floor = self._store.admit_batch(
-                    self._st[s], client=c, replica=i32(preferred[s]),
-                    resource=torch.zeros_like(c))
-                rows += [adm.to(torch.int32), floor]
-            host = torch.stack(rows).cpu().numpy().reshape(self.n_shards, 2, -1)
+                self._store.session_check(self._st[s], index[s], out=out[s])
+            host = out.cpu().numpy()
             adm, floor = host[:, 0].astype(bool), host[:, 1]
             ok = adm & alive
             if np.any(~ok & (self._versions[best] < floor)):

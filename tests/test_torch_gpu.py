@@ -25,6 +25,7 @@ from repro_torch.kernels import histogram as hg
 from repro_torch.kernels import ops
 from repro_torch.kernels import placement_score as pls
 from repro_torch.kernels import policy_score as ps
+from repro_torch.kernels import session_floor as sf
 from repro_torch.obs.metrics import ObsConfig
 from repro_torch.policy.controller import AdaptiveController, CadenceController
 from repro_torch.policy.sla import SLA_RELAXED, SLA_STRICT
@@ -32,7 +33,8 @@ from repro_torch.storage import simulator
 from repro_torch.storage.ycsb import PHASED_RW, PHASED_RWR, WORKLOAD_A
 
 from torch_port_helpers import (AUDIT_MIXES, CHAIN_MIXES, as_lists, audit_mix, chain_mix,
-                                geo_mismatches, placement_inputs, policy_inputs)
+                                f32_same, geo_mismatches, placement_inputs,
+                                policy_inputs, select_inputs)
 
 pytestmark = pytest.mark.gpu
 
@@ -451,6 +453,45 @@ def test_policy_score_kernel_matches_plain(cuda, s, two_levels):
     assert torch.equal(got[1], want[1])
 
 
+@pytest.mark.parametrize("s", [1, 16, 64, 129, 1000, 65537])
+@pytest.mark.parametrize("w", [1, 8])
+@pytest.mark.parametrize("n_levels", [2, 6])
+def test_policy_select_kernel_matches_plain(cuda, s, w, n_levels):
+    levels = (ConsistencyLevel.ONE, ConsistencyLevel.X_STCC) if n_levels == 2 else None
+    inp = select_inputs(np.random.default_rng(s + w), s, w, cuda, levels=levels, wraps=2)
+    args = [inp[k] for k in ("stale_win", "viol_win", "reads_win", "table")]
+    bounds = (0.16, 0.016, 10.0, 50.0)
+    for rf in (0.5, inp["read_frac"]):
+        for valid in (None, inp["valid"]):
+            kw = dict(read_frac=rf, valid=valid)
+            for eps in (0.0, 1.0, float(np.float32(0.05))):
+                draws = dict(explore_u=inp["explore_u"], arm=inp["arm"], epsilon=eps)
+                got = ps.policy_select_cuda(*args, bounds, **kw, **draws)
+                want = ps.policy_select_ref(*args, bounds, **kw, **draws)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want)
+            got = ps.policy_select_cuda(*args, bounds, **kw)
+            want = ps.policy_select_ref(*args, bounds, **kw)
+            torch.cuda.synchronize()
+            assert f32_same(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_controller_select_is_one_launch(cuda):
+    inp = select_inputs(np.random.default_rng(3), 64, 8, cuda)
+    ctl = AdaptiveController(64, SLA_RELAXED, device=cuda)
+    state = ctl.init()._replace(stale_win=inp["stale_win"], viol_win=inp["viol_win"],
+                                reads_win=inp["reads_win"])
+    ops.reset_launch_counts()
+    got = ctl.select(state, inp["explore_u"], inp["arm"], read_frac=inp["read_frac"])
+    scores = ctl.scores(state, read_frac=1.0)
+    assert ops.launch_counts()["policy_score"] == 2
+    plain = AdaptiveController(64, SLA_RELAXED, impl="torch", device=cuda)
+    assert torch.equal(got, plain.select(state, inp["explore_u"], inp["arm"],
+                                         read_frac=inp["read_frac"]))
+    want = plain.scores(state, read_frac=1.0)
+    assert f32_same(scores[0], want[0]) and torch.equal(scores[1], want[1])
+
+
 @pytest.mark.parametrize("w", [PHASED_RW, PHASED_RWR], ids=lambda w: w.name)
 @pytest.mark.parametrize("sla", [SLA_RELAXED, SLA_STRICT], ids=lambda s: s.name)
 def test_adaptive_run_on_the_card_equals_cpu(cuda, w, sla):
@@ -509,6 +550,34 @@ def test_session_floor_kernel_matches_plain(cuda, shape, enforce, dup):
         for g, w in zip(got, want):
             assert torch.equal(g, w)
     assert torch.equal(rf, rf0)   # the input floors are untouched
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 4, 10), (4, 16, 8, 100), (8, 64, 1, 256),
+                                   (12, 64, 1, 64), (12, 16384, 1, 16384), (3, 7, 5, 1)],
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("dup", [False, True])
+def test_session_check_kernel_matches_plain(cuda, shape, dup):
+    p, c, r, b = shape
+    rng = np.random.default_rng(b + dup)
+    rv, rf, wf = (_t(rng.integers(-5, 40, s, dtype=np.int32), cuda)
+                  for s in ((p, r), (c, r), (c, r)))
+    cl, pl, res = (_t(rng.integers(0, n, b, dtype=np.int32), cuda) for n in (c, p, r))
+    if dup:
+        cl[1::2], res[1::2] = cl[0], res[0]
+    index = torch.stack([cl, pl])
+    valid = _t(rng.random(b) < 0.8, cuda)
+    for v in (None, valid):
+        for resource in (None, res):
+            got = sf.session_check_cuda(rv, rf, wf, index, resource=resource, valid=v)
+            want = sf.session_check_ref(rv, rf, wf, index, resource=resource, valid=v)
+            out = torch.full_like(got, -1)
+            assert ops.session_check(rv, rf, wf, index, resource=resource, valid=v,
+                                     out=out) is out
+            torch.cuda.synchronize()
+            assert torch.equal(got, want) and torch.equal(out, want)
+        admit = sf.session_admit_cuda(rv, rf, wf, cl, pl, res, valid=v)
+        assert torch.equal(sf.session_check_cuda(rv, rf, wf, index, resource=res, valid=v),
+                           torch.stack([admit[1].to(torch.int32), admit[2]]))
 
 
 @pytest.mark.parametrize("level", ["X_STCC", "ONE"])

@@ -1,10 +1,12 @@
 """Port's session admission and serving store == JAX's: the plain
 ``session_admit`` against ``ref.session_admit_ref`` and the interpreted
 Pallas kernel, exactly (duplicate (client, resource) pairs and invalid
-ops included), and the store's ``install`` / ``read_batch`` /
-``write_batch`` / ``session_floor`` / ``admit_batch`` against the
-reference store on random states (per-op ``enforce``, ``record=False``,
-no op index: the serving engine's branch of ``apply_batch``)."""
+ops included); the plain ``session_check`` (the routers' check alone)
+against their admissible and floor outputs; and the store's ``install``
+/ ``read_batch`` / ``write_batch`` / ``session_floor`` / ``admit_batch``
+/ ``session_check`` against the reference store on random states
+(per-op ``enforce``, ``record=False``, no op index: the serving
+engine's branch of ``apply_batch``)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -81,6 +83,38 @@ def test_plain_session_admit_valid_mask_and_negative_floors(enforce):
     assert (as_np(got[3]) != rf).any()
 
 
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("dup", [False, True], ids=["distinct", "dup"])
+@pytest.mark.parametrize("masked", [False, True], ids=["all_valid", "partly_valid"])
+def test_plain_session_check_matches_ref_and_pallas(shape, dup, masked):
+    """``[admissible, floor]`` of the reference's admission (and of its
+    Pallas kernel where every op is valid), negative floors included; the
+    resource defaults to 0 and ``out`` receives the result."""
+    rng = np.random.default_rng(shape[3] + 2 * dup + masked)
+    rv, rf, wf, cl, pl, res = _admit_inputs(rng, shape, dup)
+    rf = rf - 20
+    valid = rng.random(shape[3]) < 0.6 if masked else None
+    jargs = [jnp.asarray(a) for a in (rv, rf, wf, cl, pl, res)]
+    jvalid = None if valid is None else jnp.asarray(valid)
+    wants = [jref.session_admit_ref(*jargs, valid=jvalid)]
+    if valid is None:
+        wants.append(jops.session_admit(*jargs, interpret=True))
+    tables = [torch.as_tensor(a) for a in (rv, rf, wf)]
+    index = torch.as_tensor(np.stack([cl, pl]))
+    tvalid = None if valid is None else torch.as_tensor(valid)
+    got = ops.session_check(*tables, index, resource=torch.as_tensor(res), valid=tvalid)
+    assert got.dtype == torch.int32 and got.shape == (2, shape[3])
+    for want in wants:
+        np.testing.assert_array_equal(
+            got.numpy(), np.stack([np.asarray(want[1]), np.asarray(want[2])]))
+    # Resource 0 by default; the result written into a caller's buffer.
+    want0 = jref.session_admit_ref(*jargs[:5], jnp.zeros_like(jargs[5]), valid=jvalid)
+    out = torch.full((2, shape[3]), -7, dtype=torch.int32)
+    assert tsf.session_check_ref(*tables, index, valid=tvalid, out=out) is out
+    np.testing.assert_array_equal(
+        out.numpy(), np.stack([np.asarray(want0[1]), np.asarray(want0[2])]))
+
+
 def test_session_admit_dispatch_on_the_cpu():
     args = [torch.as_tensor(a) for a in _admit_inputs(np.random.default_rng(1),
                                                       SHAPES[0])]
@@ -94,6 +128,14 @@ def test_session_admit_dispatch_on_the_cpu():
         ops.session_admit(*args, impl="cuda")
     with pytest.raises(ValueError, match="CUDA"):
         tsf.session_admit_cuda(*args)
+    index = torch.stack(args[3:5])
+    assert torch.equal(ops.session_check(*args[:3], index, resource=args[5]),
+                       torch.stack([a[1].to(torch.int32), a[2]]))
+    assert ops.launch_counts()["session_floor"] == 0
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.session_check(*args[:3], index, impl="cuda")
+    with pytest.raises(ValueError, match="CUDA"):
+        tsf.session_check_cuda(*args[:3], index)
 
 
 # -- the store's serving methods ------------------------------------------------
@@ -198,6 +240,31 @@ def test_install_session_floor_and_admit_batch_match_reference(level, seed):
         np.testing.assert_array_equal(
             np.asarray(jstore.session_floor(jst, jnp.asarray(c), jnp.asarray(r))),
             as_np(got[3]))
+
+
+@pytest.mark.parametrize("level", LEVELS, ids=lambda lv: lv.name)
+@pytest.mark.parametrize("seed", [0, 1])
+def test_store_session_check_matches_admit_batch(level, seed):
+    """The routers' check equals ``admit_batch``'s admissible and floor
+    outputs (the port's, and the reference's admissible and session
+    floors), from a host (2, B) index, and leaves the state as it was."""
+    jstore, jst, tstore, tst, rng = _random_stores(level, seed)
+    c = rng.integers(0, 6, 24).astype(np.int32)
+    p = rng.integers(0, 3, 24).astype(np.int32)
+    r = rng.integers(0, 4, 24).astype(np.int32)
+    c[5:9], r[5:9] = c[0], r[0]
+    for resource, res in ((r, r), (None, np.zeros_like(r))):
+        got = tstore.session_check(tst, np.stack([c, p]), resource=resource)
+        _, _, adm, floor = tstore.admit_batch(tst, client=c, replica=p, resource=res)
+        np.testing.assert_array_equal(
+            got.numpy(), np.stack([as_np(adm).astype(np.int32), as_np(floor)]))
+        jargs = {k: jnp.asarray(v) for k, v in (("client", c), ("replica", p),
+                                                ("resource", res))}
+        want = jstore.admit_batch(jst, **jargs, use_kernel=False)
+        np.testing.assert_array_equal(got[0].numpy().astype(bool), np.asarray(want[2]))
+        np.testing.assert_array_equal(got[1].numpy(), np.asarray(
+            jstore.session_floor(jst, jargs["client"], jargs["resource"])))
+    assert_tree_equal(jst, tst, "check leaves the state")
 
 
 def test_store_write_read_merge_roundtrip():

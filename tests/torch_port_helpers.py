@@ -162,6 +162,56 @@ def policy_inputs(rng, s: int, device, *, levels=None):
                  for x in (sess, table.numpy(), stale, viol, reads.astype(np.float32)))
 
 
+def f32_same(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Same shape and the same bits (f32 compared as int32), except that a
+    NaN equals any NaN: a NaN's payload is the backend's own (x86 makes a
+    negative quiet NaN, XLA a positive one)."""
+    nan = torch.isnan(b)
+    return bool(a.shape == b.shape and torch.equal(torch.isnan(a), nan) and torch.equal(
+        a.view(torch.int32)[~nan], b.view(torch.int32)[~nan]))
+
+
+def select_inputs(rng, s: int, w: int, device, *, levels=None, wraps: int = 1) -> dict:
+    """The controller's selection inputs at S sessions over a W-slot
+    window, as ``ops.policy_select`` takes them: the three (W, S, L) f32
+    count rings filled by ``W + wraps`` epochs recorded at the ring
+    pointer (which wraps), a quarter of the cells unobserved each epoch;
+    the level table with column 1 a copy of column 0, and every 5th row's
+    counts at level 1 a copy of level 0's (a tie); every 7th row's stale
+    counts NaN at levels 1 and L - 1 (the first NaN leads); per-session
+    read fractions with exact 0 and 1; a mask with every 17th row
+    invalid; and the draws ``explore_u`` (f32) and ``arm`` (int32)."""
+    from repro_torch.obs.metrics import window_init, window_record
+    from repro_torch.policy import sla
+
+    table = sla.level_table(levels or sla.POLICY_LEVELS, device="cpu")
+    table[:, 1] = table[:, 0]
+    n_levels = table.shape[1]
+    rings = [window_init(w, (s, n_levels)) for _ in range(3)]
+    i32 = np.int32
+    for t in range(w + wraps):
+        reads = rng.integers(0, 200, (s, n_levels), dtype=i32)
+        reads[rng.random((s, n_levels), dtype=np.float32) < 0.25] = 0
+        stale = rng.integers(0, 201, (s, n_levels), dtype=i32) * reads // 200
+        viol = rng.integers(0, 21, (s, n_levels), dtype=i32) * reads // 200
+        for x in (reads, stale, viol):
+            x[::5, 1] = x[::5, 0]
+        reads[::7, 1] = reads[::7, n_levels - 1] = 7
+        stale = stale.astype(np.float32)
+        stale[::7, 1] = stale[::7, n_levels - 1] = np.nan
+        for win, x in zip(rings, (stale, viol, reads)):
+            window_record(win, t, torch.from_numpy(x.astype(np.float32)))
+    rf = rng.random(s).astype(np.float32)
+    rf[::7] = 0.0
+    rf[3::7] = 1.0
+    valid = np.ones(s, np.float32)
+    valid[::17] = 0.0
+    out = dict(stale_win=rings[0], viol_win=rings[1], reads_win=rings[2], table=table,
+               read_frac=rf, valid=valid, explore_u=rng.random(s).astype(np.float32),
+               arm=rng.integers(0, n_levels, s).astype(np.int32))
+    return {k: torch.as_tensor(v).to(device) for k, v in out.items()}
+
+
 # The adaptive path's one stated tolerance: the reference sums the (E, S)
 # per-epoch f32 costs in f32, in an order XLA picks; the port sums the
 # same (bit-equal) costs in f64.
