@@ -45,10 +45,10 @@ non-zero exit code):
                 ``ops.digest_compare`` on the gathered rows, the path it
                 replaced (the only rows of a parent checkout), with their
                 device operations;
-  4. golden   — the seven ``protocol/*``, eight fault and seven ``geo/*``
-                cases of ``tests/data/golden_wrappers.json`` on the card
-                (geo: the latency fields within rtol 1e-5, the rest
-                exact);
+  4. golden   — the seven ``protocol/*``, eight fault, seven ``geo/*``,
+                six ``sharded/*`` cases and ``faulty/X_STCC/sharded`` of
+                ``tests/data/golden_wrappers.json`` on the card (geo: the
+                latency fields within rtol 1e-5, the rest exact);
   5. main     — ``evaluate_level`` for WORKLOAD_A/B × six levels at the
                 defaults on the card, each equal to the same call on the
                 CPU in every field; kernel launch counts of this phase;
@@ -57,6 +57,15 @@ non-zero exit code):
                 gossip + hinted handoff, WAL/snapshot durability and the
                 obs plane, each equal to the same call on the CPU; kernel
                 launch counts of this phase;
+     sharded  — ``run_protocol_sharded`` for the six levels (WORKLOAD_A,
+                6000 ops, 2 tenant shards, with the audit), each equal to
+                the same call on the CPU, and its launch counts; the scalar
+                engine ``run_protocol_scalar`` at its defaults (6000 ops,
+                one op at a time, the sequential merge) for the six levels,
+                each equal to the CPU run, its staleness and violation rates
+                beside the batched engine's; the ODG (``odg.build`` and
+                ``severity_from_odg``) of the X_STCC run's DUOT (M = 2048),
+                equal to the CPU;
   7. geo      — ``run_protocol_geo`` for the six levels at the defaults
                 on the paper's topology and on a hot-region client skew,
                 X_STCC with nearest-peer gossip + WAL/snapshots + obs on
@@ -110,11 +119,16 @@ non-zero exit code):
                 flat run's own DUOT (every design, the bounds), on the same
                 entries sorted by resource (a probe of grouped tiles), and
                 the split of ``store.audit`` between the kernel and the rest;
+                the same deployment split into 4 tenant shards (16
+                clients, 1,250,000 rows and 2,000,000 ops each), each
+                shard's counts equal to the unsharded run of that shard;
  12. profile  — ``torch.profiler`` over X_STCC and CAUSAL
                 ``run_protocol``, an X_STCC fault run, an X_STCC geo run,
                 an adaptive run and the serving schedule: device time by
-                kernel and the card's busy share of the unprofiled wall
-                time;
+                kernel, the card's busy share of the unprofiled wall time,
+                and each profiled run's own seconds (cut: the adaptive run
+                profiles 1600 ops of its 6400-op default,
+                ``PROFILE_ADAPTIVE_OPS``);
  13. report   — one JSON line ``{"kernels": [...]}``, then the last line
                 ``{"ok": true, "device": {...}}``.
 
@@ -137,8 +151,8 @@ import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
-PHASES = ("device", "build", "kernels", "digest", "golden", "main", "faulty", "geo",
-          "adaptive", "serving", "model", "scale", "profile")
+PHASES = ("device", "build", "kernels", "digest", "golden", "main", "faulty", "sharded",
+          "geo", "adaptive", "serving", "model", "scale", "profile")
 
 # H100 SXM peaks (NVIDIA data sheet, as tabulated in the repo's
 # measurement notes): HBM bandwidth, and the 32-bit non-tensor-core rate
@@ -171,6 +185,12 @@ ADMIT_BATCHES = 8
 # enumerate_candidates(3), every split of 1..12 replicas with at most 4
 # per region.
 N_CANDIDATES = 124
+
+# The sharded scale run: the same deployment as 4 tenant shards of 16
+# clients, 1,250,000 rows and 2,000,000 ops each (no cut of scale).
+SHARDED_SCALE_SHARDS = 4
+# The sharded phase: the golden cases' 2 shards at the defaults' 6000 ops.
+SHARDED_SHARDS = 2
 
 # The adaptive phase's size: the reference's bench_policy.py runs.
 ADAPTIVE_OPS = 6400
@@ -1462,6 +1482,16 @@ def phase_golden() -> None:
             f"mean_latency_ms {got['mean_latency_ms']} vs golden "
             f"{golden[name]['mean_latency_ms']})")
 
+    sharded = {f"sharded/{lv.name}": (sim.run_protocol_sharded, lv, dict(n_shards=2))
+               for lv in EVAL_LEVELS}
+    sharded["faulty/X_STCC/sharded"] = (sim.run_protocol_faulty, x, dict(
+        **outage, n_shards=2, audit=False))
+    for name, (fn, lv, kw) in sharded.items():
+        got = fn(lv, WORKLOAD_A, n_ops=600, device="cuda", **kw)
+        if json.loads(json.dumps(got)) != golden[name]:
+            fail(f"golden {name}: {got} != {golden[name]}")
+        log(f"[golden] {name}: equal {json.dumps(got, sort_keys=True)}")
+
 
 # -- phase 5 ------------------------------------------------------------------
 
@@ -1559,6 +1589,97 @@ def phase_faulty() -> dict:
 # The kernels the fault path must launch (all but the planner's).
 FAULT_KERNELS = ("op_ingest", "vclock_audit", "vclock_chain", "digest_compare",
                  "histogram")
+
+
+# -- phase 6b -----------------------------------------------------------------
+
+
+# The kernels the sharded path must launch: each shard's rounds (B.1, the
+# chain) and each shard's audit (B.2).
+SHARDED_KERNELS = ("op_ingest", "vclock_chain", "vclock_audit")
+
+
+def phase_sharded() -> dict:
+    import torch
+
+    from repro_torch.core import audit as audit_lib
+    from repro_torch.core import duot as duot_lib
+    from repro_torch.core import odg
+    from repro_torch.core.consistency import EVAL_LEVELS, ConsistencyLevel
+    from repro_torch.engine.config import EngineConfig
+    from repro_torch.engine.replay import EpochEngine
+    from repro_torch.kernels import ops
+    from repro_torch.storage import simulator as sim
+    from repro_torch.storage.ycsb import WORKLOAD_A
+
+    kw = dict(n_shards=SHARDED_SHARDS, audit=True)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    on_card = [sim.run_protocol_sharded(lv, WORKLOAD_A, device="cuda", **kw)
+               for lv in EVAL_LEVELS]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    log(f"[sharded] run_protocol_sharded x{len(EVAL_LEVELS)} on the card (6000 ops, "
+        f"{SHARDED_SHARDS} shards, audit): {wall:.3f} s; launches {launches}")
+    missing = [k for k in SHARDED_KERNELS if launches[k] == 0]
+    if missing:
+        fail(f"sharded path never launched kernels {missing}")
+    for lv, got in zip(EVAL_LEVELS, on_card):
+        want = sim.run_protocol_sharded(lv, WORKLOAD_A, device="cpu", **kw)
+        if got != want:
+            fail(f"sharded {lv.name}: card != cpu: {_diff_keys(got, want)[:8]}")
+        for k in ("staleness_rate", "violation_rate", "severity"):
+            if not (math.isfinite(got[k]) and 0.0 <= got[k] <= 1.0):
+                fail(f"sharded {lv.name}: {k} = {got[k]} is not a rate")
+        log(f"[sharded] {lv.name}: equal to the CPU; staleness {got['staleness_rate']}, "
+            f"violation {got['violation_rate']}, severity {got['severity']}, n_reads "
+            f"{got['n_reads']}, per_shard {got['per_shard']}")
+
+    # The scalar engine, one op at a time, beside the batched engine.
+    for lv in EVAL_LEVELS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = sim.run_protocol_scalar(lv, WORKLOAD_A, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = sim.run_protocol_scalar(lv, WORKLOAD_A, device="cpu")
+        cpu_wall = time.perf_counter() - t0
+        if got != want:
+            fail(f"scalar {lv.name}: card {got} != cpu {want}")
+        batched = sim.run_protocol(lv, WORKLOAD_A, device="cuda")
+        log(f"[sharded] scalar {lv.name} (6000 ops): {wall:.3f} s on the card, "
+            f"{cpu_wall:.3f} s on the CPU, equal; staleness {got['staleness_rate']} "
+            f"(batched {batched['staleness_rate']}), violation {got['violation_rate']} "
+            f"(batched {batched['violation_rate']}), severity {got['severity']} "
+            f"(batched {batched['severity']}), n_reads {got['n_reads']}")
+
+    # The ODG of the X_STCC run's DUOT.
+    prep = EpochEngine(EngineConfig(ConsistencyLevel.X_STCC), device="cuda").replay(
+        WORKLOAD_A)
+    duot, delta = prep["out"]["st"].duot, prep["store"].delta
+
+    def graph(table):
+        g = odg.build(table)
+        return g, odg.severity_from_odg(g, audit_lib.audit(table, delta=delta).violation)
+
+    g_card, sev_card = graph(duot)
+    g_cpu, sev_cpu = graph(duot_lib.Duot(*(t.cpu() for t in duot)))
+    for name in g_cpu._fields:
+        if not torch.equal(getattr(g_card, name).cpu(), getattr(g_cpu, name)):
+            fail(f"odg.build: {name} edges differ between the card and the CPU")
+    if sev_card.cpu().numpy().tobytes() != sev_cpu.numpy().tobytes():
+        fail(f"severity_from_odg: card {float(sev_card)} != cpu {float(sev_cpu)}")
+    build_ms = cuda_time_ms(lambda: odg.build(duot), 5)
+    sev_ms = cuda_time_ms(lambda: odg.severity_from_odg(g_card, g_card.timed), 5)
+    counts = {k: int(v) for k, v in odg.edge_counts(g_card).items()}
+    log(f"[sharded] odg at M = {duot.capacity}: build {build_ms:.6f} ms, "
+        f"severity_from_odg {sev_ms:.6f} ms (CUDA events); edges {counts}; "
+        f"severity {float(sev_card)} (audit severity "
+        f"{float(audit_lib.audit(duot, delta=delta).severity)}); equal to the CPU")
+    return launches
 
 
 # -- phase 7 ------------------------------------------------------------------
@@ -2413,7 +2534,65 @@ def phase_scale() -> dict:
     timed("scale controller", scale_fleet_controller)
     torch.cuda.empty_cache()
     timed("scale serving", scale_serving)
+    torch.cuda.empty_cache()
+    timed("scale sharded", scale_sharded)
     return timings
+
+
+def scale_sharded() -> None:
+    """The paper's deployment as ``SHARDED_SCALE_SHARDS`` tenant shards,
+    and each shard's counts against the unsharded run of that shard
+    (seed ``s``): the reference's own per-shard identity."""
+    import torch
+
+    from repro_torch.core.consistency import ConsistencyLevel
+    from repro_torch.engine import results as engine_results
+    from repro_torch.engine.config import EngineConfig
+    from repro_torch.engine.replay import EpochEngine
+    from repro_torch.kernels import ops
+    from repro_torch.storage.ycsb import WORKLOAD_A
+
+    n = SHARDED_SCALE_SHARDS
+    config = EngineConfig(ConsistencyLevel.X_STCC, **SCALE, n_shards=n, audit=False)
+    log(f"[scale] sharded: X_STCC WORKLOAD_A {SCALE}, {n} shards of "
+        f"{config.shard_clients} clients, {config.shard_resources} rows, "
+        f"{config.shard_ops} ops; no cut of scale")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    prep = EpochEngine(config, device="cuda").replay(WORKLOAD_A)
+    out = engine_results.assemble(config, prep, WORKLOAD_A)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    del prep
+    for k in ("staleness_rate", "violation_rate"):
+        if not (math.isfinite(out[k]) and 0.0 <= out[k] <= 1.0):
+            fail(f"sharded scale run: {k} = {out[k]} is not a rate")
+    if out["n_reads"] <= 0 or launches["op_ingest"] == 0 or launches["vclock_chain"] == 0:
+        fail(f"sharded scale run: n_reads {out['n_reads']}, launches {launches}")
+    log(f"[scale] sharded wall {wall:.3f} s; {SCALE['n_ops'] / wall:.1f} ops/s; "
+        f"staleness {out['staleness_rate']}; violation {out['violation_rate']}; "
+        f"n_reads {out['n_reads']}; dropped_writes {out['dropped_writes']}; per_shard "
+        f"{out['per_shard']}; max_memory_allocated {peak} B; launches {launches}")
+    torch.cuda.empty_cache()
+    for s in range(n):
+        one = EngineConfig(ConsistencyLevel.X_STCC, n_clients=config.shard_clients,
+                           n_resources=config.shard_resources, n_ops=config.shard_ops,
+                           batch_size=SCALE["batch_size"], duot_cap=SCALE["duot_cap"],
+                           seed=s, audit=False)
+        t0 = time.perf_counter()
+        single = EpochEngine(one, device="cuda").replay(WORKLOAD_A)["out"]
+        counts = {k: int(single[k]) for k in ("stale", "viol", "reads")}
+        t_one = time.perf_counter() - t0
+        shard = {k: out["per_shard"][k][s] for k in counts}
+        if shard != counts:
+            fail(f"sharded scale run: shard {s} {shard} != its unsharded run {counts}")
+        log(f"[scale] shard {s}: {shard} equal to its unsharded run ({t_one:.3f} s)")
+        del single
+        torch.cuda.empty_cache()
 
 
 def scale_audit(prep: dict) -> dict:
@@ -2471,9 +2650,10 @@ def scale_admit(prep: dict) -> None:
     from repro_torch.kernels import ops
 
     store, st = prep["store"], prep["out"]["st"]
-    batches = [{"client": prep["batched"]["client"][t],
-                "replica": prep["batched"]["home"][t],
-                "resource": prep["batched"]["resource"][t]}
+    batched = prep["batched"][0]
+    batches = [{"client": batched["client"][t],
+                "replica": batched["home"][t],
+                "resource": batched["resource"][t]}
                for t in range(ADMIT_BATCHES)]
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     walls = {}
@@ -2839,6 +3019,14 @@ def scale_fleet_controller() -> None:
 # -- phase 12 -----------------------------------------------------------------
 
 
+# The profiled adaptive run's stream: a quarter of its 6400-op default
+# (cuts of scale: the profile phase only). At the default the run made
+# 402,318 device operations in 8.66 s unprofiled, the most of the
+# profiled runs, in a phase of 346.1 s on an H100; the cut makes room
+# for the sharded paths, and each profiled run now logs its own seconds.
+PROFILE_ADAPTIVE_OPS = 1600
+
+
 def log_profile(tag: str, label: str, run, wall: float, rounds: int = 0) -> None:
     """Profile one call of ``run`` and log its device time by kernel, the
     card's busy share of ``wall`` (the unprofiled wall time) and the
@@ -2895,12 +3083,14 @@ def phase_profile() -> None:
         ("X_STCC run_protocol_geo(n_ops=6000, PAPER_TOPOLOGY)",
          lambda: sim.run_protocol_geo(ConsistencyLevel.X_STCC, WORKLOAD_A,
                                       device="cuda"), 0),
-        ("run_protocol_adaptive(PHASED_RW, SLA_RELAXED, defaults)",
-         lambda: sim.run_protocol_adaptive(PHASED_RW, SLA_RELAXED, device="cuda"), 0),
+        (f"run_protocol_adaptive(PHASED_RW, SLA_RELAXED, n_ops={PROFILE_ADAPTIVE_OPS})",
+         lambda: sim.run_protocol_adaptive(PHASED_RW, SLA_RELAXED,
+                                           n_ops=PROFILE_ADAPTIVE_OPS, device="cuda"), 0),
         (f"ServingEngine schedule {SERVING} on the 12-replica fleet",
          lambda: run_serving("cuda", **SERVING), 0),
     )
     for label, run, rounds in runs:
+        t_start = time.perf_counter()
         run()  # warm
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2908,6 +3098,8 @@ def phase_profile() -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         log_profile("profile", label, run, wall, rounds)
+        log(f"[time] profile {label}: {time.perf_counter() - t_start:.1f} s "
+            "(warm-up, unprofiled and profiled runs)")
 
 
 # -- main ---------------------------------------------------------------------
@@ -2978,6 +3170,7 @@ def main() -> None:
     run("golden", phase_golden)
     launches = {"main": run("main", phase_main, {}),
                 "faulty": run("faulty", phase_faulty, {}),
+                "sharded": run("sharded", phase_sharded, {}),
                 "geo": run("geo", phase_geo, {}),
                 "adaptive": run("adaptive", phase_adaptive, {}),
                 "serving": run("serving", phase_serving, {})}
@@ -2995,6 +3188,9 @@ def main() -> None:
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[LAUNCH_PHASE[name]][name],
+            # The sharded phase's launches: B.1 and the chain once per shard
+            # per round, B.2 once per shard's audit.
+            "sharded_launches": launches["sharded"][name],
             "max_abs_err": t["err"], "match": t.get("match", t["err"] == 0),
             "shape": t["shape"], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound"][0], "bound_by": t["bound"][1],

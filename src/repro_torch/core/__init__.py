@@ -6,15 +6,17 @@ Modules:
                  partitions, closure, heal detection).
   duot         — Distributed User Operations Table (bounded op log).
   audit        — eq. 1a–1d pair classification + violation detection.
+  odg          — Operations Dependency Graph (Timed/Causal/Data edges).
   consistency  — ConsistencyLevel.
   xstcc        — the protocol engine (sessions + timed-causal merge),
                  one op at a time and batched.
   replicated_store — the ReplicatedStore facade consumed by the
                  storage and serve layers.
+  staleness    — Appendix A stale-read model (analytic + Monte-Carlo).
   cost_model   — Appendix B monetary cost model (Table 2 pricing).
 
-Not ported yet, so not exported: ``odg``, ``staleness``,
-``ConsistencyPolicy``, ``PAPER_LEVELS`` and ``policy_for``.
+Not ported yet, so not exported: ``ConsistencyPolicy``, ``PAPER_LEVELS``
+and ``policy_for``.
 """
 
 from repro_torch.core import (
@@ -22,7 +24,9 @@ from repro_torch.core import (
     availability,
     cost_model,
     duot,
+    odg,
     replicated_store,
+    staleness,
     vector_clock,
     xstcc,
 )
@@ -36,7 +40,9 @@ __all__ = [
     "FaultSchedule",
     "cost_model",
     "duot",
+    "odg",
     "replicated_store",
+    "staleness",
     "vector_clock",
     "xstcc",
     "ReplicatedStore",

@@ -33,6 +33,16 @@ PHASE_A4_WFR = 4
 PHASE_B1_TCC = 5
 PHASE_B2_CONCURRENT = 6
 
+PHASE_NAMES = {
+    PHASE_NONE: "none",
+    PHASE_A1_MR: "a1:monotonic-read",
+    PHASE_A2_MW: "a2:monotonic-write",
+    PHASE_A3_RYW: "a3:read-your-write",
+    PHASE_A4_WFR: "a4:write-follows-read",
+    PHASE_B1_TCC: "b1:timed-causal",
+    PHASE_B2_CONCURRENT: "b2:concurrent",
+}
+
 # ODG edge-kind weights for severity (paper §3.4.1: Timed, Causal, Data).
 WEIGHT_TIMED = 1
 WEIGHT_CAUSAL = 2

@@ -113,3 +113,57 @@ def record(table: Duot, ops: dict[str, torch.Tensor]) -> Duot:
         size=torch.tensor(size + n, dtype=torch.int32, device=dev),
         next_seq=table.next_seq + b,
     )
+
+
+def gc(table: Duot, frontier: torch.Tensor) -> Duot:
+    """Garbage collection (paper §3.4.1).
+
+    Drops the entries whose clock the global stability frontier (the
+    component-wise minimum of the replicas' applied clocks) covers:
+    every server has observed them, so they can take part in no
+    violation.  The kept entries move to the front in their order (a
+    stable index select); the rest of the table takes the fill values of
+    :func:`make` (-1 for client, resource and replica, 0 elsewhere).
+    """
+    cap = table.capacity
+    dev = table.client.device
+    covered = table.valid & torch.all(table.vc <= frontier, dim=-1)
+    keep = table.valid & ~covered
+    n_keep = keep.sum(dtype=torch.int32)
+    order = torch.argsort((~keep).to(torch.int8), stable=True)
+    live = torch.arange(cap, device=dev) < n_keep
+
+    def compact(arr, fill):
+        out = arr[order]
+        mask = live if arr.ndim == 1 else live[:, None]
+        return torch.where(mask, out, torch.full_like(out, fill))
+
+    return Duot(
+        client=compact(table.client, -1),
+        kind=compact(table.kind, 0),
+        resource=compact(table.resource, -1),
+        version=compact(table.version, 0),
+        replica=compact(table.replica, -1),
+        seq=compact(table.seq, 0),
+        vc=compact(table.vc, 0),
+        valid=live,
+        size=n_keep,
+        next_seq=table.next_seq,
+    )
+
+
+def live_mask(table: Duot) -> torch.Tensor:
+    return table.valid
+
+
+def as_dict(table: Duot) -> dict[str, torch.Tensor]:
+    return {
+        "client": table.client,
+        "kind": table.kind,
+        "resource": table.resource,
+        "version": table.version,
+        "replica": table.replica,
+        "seq": table.seq,
+        "vc": table.vc,
+        "valid": table.valid,
+    }

@@ -25,7 +25,11 @@
     check :meth:`~ReplicatedStore.admit_batch` (``kernels.ops.session_admit``)
     and the routers' check alone, :meth:`~ReplicatedStore.session_check`
     (``kernels.ops.session_check``);
-  * **audit**     — :meth:`ReplicatedStore.audit`.
+  * **audit / GC** — :meth:`ReplicatedStore.audit`,
+    :meth:`~ReplicatedStore.gc` and
+    :meth:`~ReplicatedStore.stability_frontier`;
+  * **sharding**  — :class:`ShardedStore`: S disjoint stores, their
+    states stacked along a leading ``(S, …)`` axis.
 """
 
 from __future__ import annotations
@@ -269,13 +273,20 @@ class ReplicatedStore:
     # -- state ----------------------------------------------------------------
 
     def init(self) -> StoreState:
-        return StoreState(
-            cluster=xstcc.make_cluster(
+        return self.wrap(
+            xstcc.make_cluster(
                 self.n_replicas, self.n_clients, self.n_resources,
                 pending_cap=self.pending_cap, device=self.device,
             ),
-            duot=duot_lib.make(self.duot_cap, self.n_clients, device=self.device),
-            pend_apply=torch.zeros((self.pending_cap,), dtype=torch.int32,
+            duot_lib.make(self.duot_cap, self.n_clients, device=self.device),
+        )
+
+    def wrap(self, cluster: xstcc.ClusterState, duot: duot_lib.Duot) -> StoreState:
+        """Adopt an existing (cluster, duot) pair as store state."""
+        return StoreState(
+            cluster=cluster,
+            duot=duot,
+            pend_apply=torch.zeros((cluster.pend_live.shape[0],), dtype=torch.int32,
                                    device=self.device),
             hints=(make_hints(self.n_replicas, self.hint_cap, self.device)
                    if self.hint_cap > 0 else None),
@@ -809,3 +820,118 @@ class ReplicatedStore:
     def audit(self, state: StoreState, *, delta: int | None = None) -> audit_lib.AuditResult:
         d = self.delta if delta is None else delta
         return audit_lib.audit(state.duot, delta=d, impl=self.ingest)
+
+    def gc(self, state: StoreState) -> StoreState:
+        """Drop the DUOT entries the global stability frontier covers."""
+        frontier = xstcc.stability_frontier(state.cluster)
+        return state._replace(duot=duot_lib.gc(state.duot, frontier))
+
+    def stability_frontier(self, state: StoreState) -> torch.Tensor:
+        return xstcc.stability_frontier(state.cluster)
+
+
+def stack_tree(trees: list):
+    """Stack same-shaped state trees (NamedTuples, dicts, tensors, host
+    numbers, ``None``) along a new leading axis: tensors with
+    ``torch.stack``, host numbers into a numpy array."""
+    t0 = trees[0]
+    if t0 is None:
+        return None
+    if isinstance(t0, torch.Tensor):
+        return torch.stack(trees)
+    if isinstance(t0, dict):
+        return {k: stack_tree([t[k] for t in trees]) for k in t0}
+    if isinstance(t0, tuple):
+        parts = [stack_tree([t[i] for t in trees]) for i in range(len(t0))]
+        return type(t0)(*parts) if hasattr(t0, "_fields") else tuple(parts)
+    return np.asarray(trees)
+
+
+def index_tree(tree, i: int):
+    """Shard ``i`` of a :func:`stack_tree` result."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: index_tree(v, i) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        parts = [index_tree(v, i) for v in tree]
+        return type(tree)(*parts) if hasattr(tree, "_fields") else tuple(parts)
+    return tree[i]
+
+
+class ShardedStore:
+    """Disjoint-shard scale-out: S independent replica fleets, one axis.
+
+    Multi-tenant ingestion partitions sessions and resources into S
+    disjoint shards (tenant groups); each shard is a full
+    :class:`ReplicatedStore` of its own (clients and resources numbered
+    shard-locally) whose :class:`StoreState` is stacked along a leading
+    ``(S, …)`` axis, as the reference's ``vmap`` stacks it.  The shards
+    share no state, so each batch op runs shard after shard on the one
+    device and stacks the results: the same answer as the reference's
+    mapped axis.  Sharded metrics are exactly the sum of the per-shard
+    unsharded runs.
+    """
+
+    def __init__(self, store: ReplicatedStore, n_shards: int):
+        self.store = store
+        self.n_shards = n_shards
+
+    def _each(self, state: StoreState, fn):
+        return stack_tree([fn(index_tree(state, s)) for s in range(self.n_shards)])
+
+    def init(self) -> StoreState:
+        """Stacked fresh state, one store per shard."""
+        return stack_tree([self.store.init() for _ in range(self.n_shards)])
+
+    def apply_batch(self, state: StoreState, *, client, replica, resource, kind,
+                    op_step0=None, apply_index=None, record: bool = True,
+                    enforce=None) -> tuple[StoreState, xstcc.BatchResult]:
+        """One ``(B,)`` batch per shard (``(S, B)`` arrays of shard-local
+        ids; ``op_step0`` ``(S,)``); returns the stacked state and
+        results."""
+        dev = self.store.device
+        c, p, r, k = (torch.as_tensor(x, device=dev).to(torch.int32)
+                      for x in (client, replica, resource, kind))
+        outs = [self.store.apply_batch(
+            index_tree(state, s), client=c[s], replica=p[s], resource=r[s], kind=k[s],
+            op_step0=None if op_step0 is None else int(op_step0[s]),
+            apply_index=None if apply_index is None else apply_index[s],
+            record=record, enforce=enforce,
+        ) for s in range(self.n_shards)]
+        return stack_tree([o[0] for o in outs]), stack_tree([o[1] for o in outs])
+
+    def read_batch(self, state: StoreState, *, client, replica, resource,
+                   record: bool = True, enforce=None) -> tuple[StoreState, xstcc.BatchResult]:
+        c = torch.as_tensor(client, device=self.store.device).to(torch.int32)
+        return self.apply_batch(
+            state, client=c, replica=replica, resource=resource,
+            kind=torch.full(c.shape, xstcc.READ, dtype=torch.int32, device=c.device),
+            record=record, enforce=enforce,
+        )
+
+    def write_batch(self, state: StoreState, *, client, replica, resource,
+                    record: bool = True) -> tuple[StoreState, xstcc.BatchResult]:
+        c = torch.as_tensor(client, device=self.store.device).to(torch.int32)
+        return self.apply_batch(
+            state, client=c, replica=replica, resource=resource,
+            kind=torch.full(c.shape, xstcc.WRITE, dtype=torch.int32, device=c.device),
+            record=record,
+        )
+
+    def merge(self, state: StoreState, *, delta: int | None = None, up=None,
+              link=None) -> tuple[StoreState, torch.Tensor]:
+        """Merge every shard (one availability mask shared by all)."""
+        return self._each(state, lambda st: self.store.merge(
+            st, delta=delta, up=up, link=link))
+
+    def anti_entropy(self, state: StoreState, *, up, link) -> tuple[StoreState, torch.Tensor]:
+        """Heal-time reconciliation on every shard; events summed."""
+        st, ev = self._each(state, lambda st: self.store.anti_entropy(
+            st, up=up, link=link))
+        return st, ev.sum(dtype=torch.int32)
+
+    def install(self, state: StoreState, *, replica, resource, version) -> StoreState:
+        """Install a snapshot on every shard (server-side publish)."""
+        return self._each(state, lambda st: self.store.install(
+            st, replica=replica, resource=resource, version=version))

@@ -10,6 +10,11 @@ from __future__ import annotations
 import torch
 
 
+def zeros(n_clients: int, device: str | torch.device = "cuda") -> torch.Tensor:
+    """Initial clock: no operation has been performed (paper §3.2)."""
+    return torch.zeros((n_clients,), dtype=torch.int32, device=device)
+
+
 def tick(vc: torch.Tensor, client: int) -> torch.Tensor:
     """Advance ``client``'s component by one (a local event)."""
     out = vc.clone()
@@ -32,6 +37,16 @@ def leq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.all(a <= b, dim=-1)
 
 
+def dominates(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Strict happens-before ``a -> b``: a <= b and a != b (paper §3.3)."""
+    return leq(a, b) & torch.any(a < b, dim=-1)
+
+
+def concurrent(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a || b``: neither dominates."""
+    return ~dominates(a, b) & ~dominates(b, a)
+
+
 def happens_before_matrix(vcs: torch.Tensor) -> torch.Tensor:
     """Dense pairwise happens-before over ``(m, n)`` clocks -> ``(m, m)``.
 
@@ -49,3 +64,21 @@ def happens_before_matrix(vcs: torch.Tensor) -> torch.Tensor:
         torch.maximum(maxd, diff, out=maxd)
         torch.minimum(mind, diff, out=mind)
     return (maxd <= 0) & (mind < 0)
+
+
+def concurrency_matrix(vcs: torch.Tensor) -> torch.Tensor:
+    """Pairwise concurrency (off-diagonal; the diagonal is False)."""
+    hb = happens_before_matrix(vcs)
+    m = vcs.shape[0]
+    eye = torch.eye(m, dtype=torch.bool, device=vcs.device)
+    return ~(hb | hb.T) & ~eye
+
+
+def total_order_key(vcs: torch.Tensor, clients: torch.Tensor) -> torch.Tensor:
+    """Deterministic linear extension of the causal order: concurrent
+    clocks tie-break by (clock sum, client id), int32 arithmetic as in
+    the reference (component sums strictly increase along
+    happens-before edges)."""
+    sums = torch.sum(vcs, dim=-1, dtype=torch.int32)
+    n_clients = vcs.shape[-1]
+    return sums * (n_clients + 1) + clients.to(torch.int32)

@@ -1,6 +1,5 @@
 """X-STCC protocol engine — paper §3.4 (port of ``repro.core.xstcc``,
-the geo merge included; the one-at-a-time sequential merge is not
-ported yet).
+the geo merge and the one-slot-at-a-time sequential merge included).
 
 A functional state machine over ``(clients × replicas × resources)``:
 
@@ -20,6 +19,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import vector_clock as vclock
@@ -347,6 +347,29 @@ def apply_op_batch(
     )
 
 
+def client_write_batch(state: ClusterState, *, client, replica,
+                       resource) -> BatchResult:
+    """Commit a batch of writes — sequential-equivalent (see
+    :func:`apply_op_batch`)."""
+    c = _i32(client, state.replica_version.device)
+    return apply_op_batch(
+        state, client=c, replica=replica, resource=resource,
+        kind=torch.full(c.shape, WRITE, dtype=torch.int32, device=c.device),
+    )
+
+
+def client_read_batch(state: ClusterState, *, client, replica, resource,
+                      enforce_sessions=True) -> BatchResult:
+    """Serve a batch of reads — sequential-equivalent (see
+    :func:`apply_op_batch`)."""
+    c = _i32(client, state.replica_version.device)
+    return apply_op_batch(
+        state, client=c, replica=replica, resource=resource,
+        kind=torch.full(c.shape, READ, dtype=torch.int32, device=c.device),
+        enforce_sessions=enforce_sessions,
+    )
+
+
 def server_merge(
     state: ClusterState,
     *,
@@ -533,3 +556,88 @@ def server_merge_geo(
     traffic += torch.diag(intra.to(torch.int64))
     return new, n_applied, traffic.to(torch.int32)
 
+
+
+def merge_sequential_(state: ClusterState, delta: int, *,
+                      count: bool = True) -> torch.Tensor | None:
+    """:func:`server_merge_sequential` on ``state``'s own tensors, in place.
+
+    One host read per merge (the pending ring's live, time, client,
+    resource, version and clock columns, and the logical clock) fixes
+    the order: the reference's stable ``argsort`` of the
+    :func:`~repro_torch.core.vector_clock.total_order_key`, ``INT32_MAX``
+    for slots that are not due, taken here in numpy int32.  Slots that
+    are not live are no-ops, so the loop visits the live ones only.  A
+    Δ-overdue slot is applied unconditionally; any other live slot —
+    due or not — when its dependencies (its clock less its own tick) are
+    below every replica's clock, a device-side gate that sees the
+    replica clocks the earlier slots of the same pass raised.  Returns
+    the number of slots applied (``None`` with ``count=False``).
+    """
+    Q, P = state.pend_applied.shape
+    C = state.replica_vc.shape[1]
+    dev = state.pend_live.device
+    if Q == 0:
+        state.clock.add_(1)
+        return torch.zeros((), dtype=torch.int32, device=dev) if count else None
+    host = torch.cat([
+        state.pend_live.to(torch.int32)[:, None], state.pend_time[:, None],
+        state.pend_client[:, None], state.pend_resource[:, None],
+        state.pend_version[:, None], state.clock.expand(Q)[:, None],
+        state.pend_vc,
+    ], dim=1).cpu().numpy()
+    live = host[:, 0] != 0
+    client, resource, version = host[:, 2], host[:, 3], host[:, 4]
+    age = host[:, 5] - host[:, 1]                 # int32, wrapping
+    due = live & (age >= 0)
+    overdue = live & (age >= np.int32(delta))
+    key = host[:, 6:].sum(axis=1, dtype=np.int32) * np.int32(C + 1) + client
+    key = np.where(due, key, np.int32(INT32_MAX))
+    order = np.argsort(key, kind="stable")
+
+    rv, rvc, applied = state.replica_version, state.replica_vc, state.pend_applied
+    n_host = 0
+    n_dev = torch.zeros((), dtype=torch.int32, device=dev) if count else None
+    dep = None
+    for qi in order[live[order]].tolist():
+        r = int(resource[qi])
+        if overdue[qi]:
+            rv[:, r].clamp_(min=int(version[qi]))
+            rvc.clamp_(min=state.pend_vc[qi])
+            applied[qi] = True
+            n_host += 1
+            continue
+        if dep is None:
+            own = torch.arange(C, device=dev)[None, :] == state.pend_client[:, None]
+            dep = state.pend_vc - own.to(torch.int32)
+        ok = (dep[qi] <= rvc).all()
+        rv[:, r].clamp_(min=state.pend_version[qi] * ok)
+        rvc.clamp_(min=state.pend_vc[qi] * ok)
+        applied[qi].logical_or_(ok)
+        if count:
+            n_dev += ok
+    state.pend_live.logical_and_(~applied.all(dim=1))
+    state.clock.add_(1)
+    return n_dev + n_host if count else None
+
+
+def server_merge_sequential(state: ClusterState, *, delta: int,
+                            level=None) -> tuple[ClusterState, torch.Tensor]:
+    """Pre-batching merge: one pending slot at a time.
+
+    The reference engine's propagation pass, kept as the baseline of
+    :func:`server_merge`: slots are applied one at a time in the
+    deterministic causal-extension order, so a write whose dependencies
+    are satisfied by a later-sorted slot of the same pass waits one
+    more merge than under the fixpoint; otherwise the two agree.
+    Returns (state, n_applied); the input state is left untouched.
+    """
+    del level
+    work = ClusterState(*(t.clone() for t in state))
+    n = merge_sequential_(work, int(delta))
+    return work, n
+
+
+def stability_frontier(state: ClusterState) -> torch.Tensor:
+    """Component-wise min of the replica clocks — the DUOT GC frontier."""
+    return torch.amin(state.replica_vc, dim=0)

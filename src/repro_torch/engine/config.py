@@ -4,9 +4,10 @@ One frozen dataclass holds every piece of a replay: level and cadence,
 batching, the region ``topology`` (two-tier merge, RTT latency, per-pair
 egress bill), the fault schedule (``faults``, anchored per merge round
 or, with ``schedule_unit``, per op-index window), ``gossip``,
-``durability``, ``obs`` and the ``lean`` fidelity switch.  Pieces the
-port does not run yet raise ``NotImplementedError``: ``n_shards > 1``,
-schedules with crash events, and a topology composed with faults.
+``durability``, ``n_shards`` disjoint tenant shards, ``obs`` and the
+``lean`` fidelity switch.  Pieces the port does not run yet raise
+``NotImplementedError``: schedules with crash events, and a topology
+composed with faults.
 """
 
 from __future__ import annotations
@@ -36,6 +37,13 @@ class EngineConfig:
     (``"auto"`` / ``"cuda"`` / ``"torch"``); ``audit`` is a
     result-assembly knob.  Equality and hashing compare the fault masks
     by their bytes, as the reference does.
+
+    ``n_shards`` splits clients, resources and ops into disjoint tenant
+    shards, each replayed on its own stream (seed ``seed + s``) under the
+    one fault schedule.  ``use_devices`` is accepted for the reference's
+    signature and changes nothing: the reference spreads shards over a
+    device mesh when the host has enough devices, and the port runs them
+    on its one card.
     """
 
     level: ConsistencyLevel
@@ -57,16 +65,24 @@ class EngineConfig:
     schedule_unit: int | None = None
     gossip: GossipConfig | None = None
     durability: DurabilityConfig | None = None
+    use_devices: bool = True
     obs: ObsConfig | None = None
 
     def __post_init__(self) -> None:
         if self.n_shards < 1:
             raise ValueError(f"n_shards must be >= 1, got {self.n_shards}")
+        if self.n_shards > 1 and (
+            self.n_clients % self.n_shards
+            or self.n_resources % self.n_shards
+            or self.n_ops % self.n_shards
+        ):
+            raise ValueError(
+                f"n_clients={self.n_clients}, n_resources="
+                f"{self.n_resources}, and n_ops={self.n_ops} must all be "
+                f"divisible by n_shards={self.n_shards}"
+            )
         if self.topology is not None and self.n_shards > 1:
             raise ValueError("topology does not compose with n_shards > 1")
-        if self.n_shards > 1:
-            raise _not_ported("EngineConfig.n_shards > 1",
-                              "repro_torch runs one shard")
         if self.faults is not None:
             if self.faults.n_replicas != 3:
                 raise ValueError(
@@ -105,7 +121,7 @@ class EngineConfig:
             self.merge_every, self.delta, self.duot_cap, self.batch_size,
             self.seed, self.audit, self.ingest, self.lean, self.topology,
             self.n_shards, faults_key, self.schedule_unit, self.gossip,
-            self.durability, self.pending_cap, self.obs,
+            self.durability, self.pending_cap, self.use_devices, self.obs,
         )
 
     def __eq__(self, other: object) -> bool:
@@ -122,6 +138,18 @@ class EngineConfig:
     def n_replicas(self) -> int:
         return 3 if self.topology is None else self.topology.n_replicas
 
+    @property
+    def shard_clients(self) -> int:
+        return self.n_clients // self.n_shards
+
+    @property
+    def shard_resources(self) -> int:
+        return self.n_resources // self.n_shards
+
+    @property
+    def shard_ops(self) -> int:
+        return self.n_ops // self.n_shards
+
     def resolved_pending_cap(self, w_read_fraction: float) -> int:
         """The pending-ring bound this replay runs with.
 
@@ -133,12 +161,12 @@ class EngineConfig:
         from repro_torch.engine.stream import cadence_plan
 
         sub, _, _, _ = cadence_plan(
-            self.level, self.n_ops, self.batch_size, self.merge_every,
+            self.level, self.shard_ops, self.batch_size, self.merge_every,
             self.delta,
         )
         if self.pending_cap is not None:
             return self.pending_cap
         if self.faults is not None:
-            n_writes = int(round((1.0 - w_read_fraction) * self.n_ops))
+            n_writes = int(round((1.0 - w_read_fraction) * self.shard_ops))
             return max(256, 2 * sub, n_writes + 1)
         return max(128, 2 * sub)

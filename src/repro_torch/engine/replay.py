@@ -11,8 +11,10 @@ masks (``up``, ``conn``, ``faulty``, ``heal``, ``gossip``, ``snap``,
 ``pairs``) stay on the host, so a ``lax.cond`` becomes an ``if`` with no
 device sync; the stream and what a merge or kernel consumes go to the
 device once.  Per round the host reads the DUOT size and one flag per
-merge-fixpoint pass.  Crash events, bootstrap, sharding and a topology
-composed with faults are not ported yet (``EngineConfig`` rejects them).
+merge-fixpoint pass.  Disjoint tenant shards (``n_shards > 1``) run one
+after another inside each round, each with its own carry.  Crash events,
+bootstrap and a topology composed with faults are not ported yet
+(``EngineConfig`` rejects them).
 
 One deliberate difference on the geo path: the reference sums each op's
 f32 RTT into a per-region f32 vector every round, in an order XLA picks.
@@ -30,7 +32,7 @@ import torch
 
 from repro_torch.core import availability as avail_lib
 from repro_torch.core import duot as duot_lib
-from repro_torch.core.replicated_store import ReplicatedStore
+from repro_torch.core.replicated_store import ReplicatedStore, stack_tree
 from repro_torch.device import resolve_device
 from repro_torch.engine import stream as stream_lib
 from repro_torch.engine.config import EngineConfig
@@ -89,13 +91,14 @@ class EpochEngine:
     def plan(self) -> tuple[int, int, int, bool]:
         c = self.config
         return stream_lib.cadence_plan(
-            c.level, c.n_ops, c.batch_size, c.merge_every, c.delta
+            c.level, c.shard_ops, c.batch_size, c.merge_every, c.delta
         )
 
     def store(self, w) -> ReplicatedStore:
+        """One shard's store (the whole fleet when ``n_shards == 1``)."""
         c = self.config
         return ReplicatedStore(
-            c.n_replicas, c.n_clients, c.n_resources, level=c.level,
+            c.n_replicas, c.shard_clients, c.shard_resources, level=c.level,
             merge_every=c.merge_every, delta=c.delta,
             pending_cap=c.resolved_pending_cap(w.read_fraction),
             duot_cap=c.duot_cap, ingest=c.ingest,
@@ -139,13 +142,17 @@ class EpochEngine:
         return schedule, masks, tail_masks
 
     def prepare(self, w) -> dict[str, Any]:
-        """Host-side inputs of one replay: stream, plan, schedule, masks."""
+        """Host-side inputs of one replay: streams, plan, schedule, masks.
+
+        Each shard ``s`` gets its own stream (seed ``seed + s``) of
+        ``shard_ops`` ops over ``shard_clients`` clients and
+        ``shard_resources`` resources; the masks are shared by every
+        shard.  ``streams``, ``batched`` and ``tails`` hold one entry per
+        shard, as the reference's do.
+        """
         c = self.config
         sub, rem, n_rounds, emulate = self.plan()
         store = self.store(w)
-        stream = stream_lib.op_stream(
-            w, c.n_ops, c.n_clients, c.n_resources, c.seed, store.n_replicas
-        )
         schedule = masks = tail_masks = None
         if self.faults_on:
             schedule, masks, tail_masks = self._fault_masks(n_rounds, rem, sub)
@@ -159,6 +166,39 @@ class EpochEngine:
             masks = {"gossip": g_active[:n_rounds], "pairs": g_pairs[:n_rounds]}
             tail_masks = {"gossip": g_active[n_epochs_total - 1],
                           "pairs": g_pairs[n_epochs_total - 1]}
+
+        def dev(d):
+            return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
+                    for k, v in d.items()}
+
+        streams, batched_shards, tails = [], [], []
+        for s in range(c.n_shards):
+            stream = stream_lib.op_stream(
+                w, c.shard_ops, c.shard_clients, c.shard_resources, c.seed + s,
+                store.n_replicas,
+            )
+            batched, tail = self._shard_inputs(
+                store, stream, masks, tail_masks, sub, rem, n_rounds, emulate)
+            streams.append(stream)
+            batched_shards.append(dev(batched))
+            tails.append(dev(tail))
+        prep = {
+            "store": store, "streams": streams, "batched": batched_shards,
+            "tails": tails, "sub": sub, "rem": rem, "n_rounds": n_rounds,
+            "emulate": emulate, "schedule": schedule, "masks": masks,
+            "tail_masks": tail_masks,
+        }
+        if self.faults_on:
+            # What the merges and kernels consume, on the device once.
+            prep["dev_masks"] = dev({"up": masks["up"], "conn": masks["conn"]})
+            prep["dev_tail_masks"] = dev({"up": tail_masks["up"],
+                                          "conn": tail_masks["conn"]})
+        return prep
+
+    def _shard_inputs(self, store, stream, masks, tail_masks, sub: int, rem: int,
+                      n_rounds: int, emulate: bool) -> tuple[dict, dict]:
+        """One shard's ``(n_rounds, sub)`` round inputs and its tail."""
+        c = self.config
         if self.faults_on and emulate:
             # The fault path builds its apply schedule by hand:
             # synchronous levels defer to the masked merge under faults,
@@ -173,37 +213,18 @@ class EpochEngine:
                     stream["client"], stream["home"], stream["kind"]
                 )
             else:
-                apply_idx = np.zeros(c.n_ops, np.int32)
+                apply_idx = np.zeros(c.shard_ops, np.int32)
             faulty_full = np.concatenate([
                 masks["faulty"],
                 np.asarray([tail_masks["faulty"]]) if rem else np.zeros(0, bool),
             ])
             apply_idx = stream_lib.clamp_apply_idx(
-                apply_idx, faulty_full, sub, c.n_ops
+                apply_idx, faulty_full, sub, c.shard_ops
             )
             batched["apply_idx"] = apply_idx[: n_rounds * sub].reshape(n_rounds, sub)
             tail["apply_idx"] = apply_idx[-max(rem, 1):]
-        else:
-            batched, tail = stream_lib.batch_inputs(
-                stream, store, sub, n_rounds, rem, emulate
-            )
-
-        def dev(d):
-            return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
-                    for k, v in d.items()}
-
-        prep = {
-            "store": store, "batched": dev(batched),
-            "tail": dev(tail), "sub": sub, "rem": rem, "n_rounds": n_rounds,
-            "emulate": emulate, "schedule": schedule, "masks": masks,
-            "tail_masks": tail_masks, "stream": stream,
-        }
-        if self.faults_on:
-            # What the merges and kernels consume, on the device once.
-            prep["dev_masks"] = dev({"up": masks["up"], "conn": masks["conn"]})
-            prep["dev_tail_masks"] = dev({"up": tail_masks["up"],
-                                          "conn": tail_masks["conn"]})
-        return prep
+            return batched, tail
+        return stream_lib.batch_inputs(stream, store, sub, n_rounds, rem, emulate)
 
     def _init_carry(self, store: ReplicatedStore) -> dict:
         dev = self.device
@@ -469,17 +490,25 @@ class EpochEngine:
     def replay(self, w) -> dict[str, Any]:
         """Run the whole workload; returns the :meth:`prepare` dict with
         ``out`` (the final carry) and ``per_round`` (the gossip and obs
-        series of the full rounds, or ``None``)."""
+        series of the full rounds, or ``None``).
+
+        With ``n_shards > 1`` each shard keeps its own carry and every
+        round passes each shard's batch through the round step, shard
+        after shard: the shards share nothing, so this is the
+        reference's mapped shard axis.  The carries are stacked once at
+        the end, along a leading shard axis (``out``), and the per-round
+        series become ``(S, T)`` arrays.
+        """
         prep = self.prepare(w)
         store = prep["store"]
         sub, rem, n_rounds = prep["sub"], prep["rem"], prep["n_rounds"]
+        n_shards = self.config.n_shards
         if self.o_on:
             # Host bounds: the histogram params are computed once.
             self.ob_lo, self.ob_hi, self.n_op_metrics = obs_lib.batch_bounds(self.specs)
             self.depth_hi = float(self.config.obs.depth_hi)
-        carry = self._init_carry(store)
-        ys = {"gossip": [], "obs": [], "tel": []}
-        batched = prep["batched"]
+        carries = [self._init_carry(store) for _ in range(n_shards)]
+        ys = [{"gossip": [], "obs": [], "tel": []} for _ in range(n_shards)]
         masks = prep["masks"]
 
         def round_masks(t: int | None) -> dict | None:
@@ -498,24 +527,41 @@ class EpochEngine:
             return m
 
         for t in range(n_rounds):
-            ops = {k: v[t] for k, v in batched.items()}
-            carry = self.round_step(store, carry, ops, round_masks(t), t * sub,
-                                    sub, prep["emulate"], ys)
+            m = round_masks(t)
+            for s, batched in enumerate(prep["batched"]):
+                ops = {k: v[t] for k, v in batched.items()}
+                carries[s] = self.round_step(store, carries[s], ops, m, t * sub,
+                                             sub, prep["emulate"], ys[s])
         if rem:
-            carry = self.round_step(store, carry, prep["tail"], round_masks(None),
-                                    n_rounds * sub, rem, prep["emulate"], None)
+            m = round_masks(None)
+            for s, tail in enumerate(prep["tails"]):
+                carries[s] = self.round_step(store, carries[s], tail, m,
+                                             n_rounds * sub, rem, prep["emulate"], None)
+
+        def series(key: str, width: int) -> list[np.ndarray]:
+            return [torch.stack(y[key]).cpu().numpy() if y[key]
+                    else np.zeros((0, width), np.int64) for y in ys]
+
+        def by_column(arrs: list[np.ndarray]) -> tuple:
+            cols = [tuple(a[:, i] for i in range(a.shape[1])) for a in arrs]
+            if n_shards == 1:
+                return cols[0]
+            return tuple(np.stack(x) for x in zip(*cols))
+
         per_round = {}
         if self.gx_on:
-            g = (torch.stack(ys["gossip"]).cpu().numpy() if ys["gossip"]
-                 else np.zeros((0, 3), np.int64))
-            per_round["gossip"] = (g[:, 0], g[:, 1], g[:, 2])
+            per_round["gossip"] = by_column(series("gossip", 3))
         if self.o_on:
-            o = (torch.stack(ys["obs"]).cpu().numpy() if ys["obs"]
-                 else np.zeros((0, 2), np.int64))
-            per_round["obs"] = (o[:, 0], o[:, 1])
-        prep["out"] = carry
+            per_round["obs"] = by_column(series("obs", 2))
+        prep["out"] = carries[0] if n_shards == 1 else stack_tree(carries)
         prep["per_round"] = per_round or None
         return prep
+
+    def run(self, w) -> dict[str, Any]:
+        """Replay + result assembly (see :mod:`repro_torch.engine.results`)."""
+        from repro_torch.engine import results
+
+        return results.assemble(self.config, self.replay(w), w)
 
 
 def session_telemetry_runner(

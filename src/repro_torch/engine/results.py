@@ -1,6 +1,6 @@
 """Result assembly for the epoch engine (port of
-``repro.engine.results``: the flat, geo and fault-path dictionaries, the
-``"obs"`` block and its cost attribution).
+``repro.engine.results``: the flat, sharded, geo and fault-path
+dictionaries, the ``"obs"`` block and its cost attribution).
 
 Each ``assemble_*`` turns one :meth:`EpochEngine.replay` output into the
 reference's dictionary — same keys, same float arithmetic, same order of
@@ -17,8 +17,10 @@ from __future__ import annotations
 from typing import Any
 
 import numpy as np
+import torch
 
 from repro_torch.core import cost_model
+from repro_torch.core.replicated_store import index_tree
 from repro_torch.engine.config import EngineConfig
 from repro_torch.gossip import DIGEST_BYTES
 from repro_torch.obs import metrics as obs_lib
@@ -26,9 +28,20 @@ from repro_torch.storage.cluster import PAPER_CLUSTER, ClusterConfig
 from repro_torch.storage.ycsb import Workload
 
 
+def _total(x) -> int:
+    """A count summed over the shard axis (a tensor, array or int)."""
+    return int(x.sum()) if isinstance(x, (torch.Tensor, np.ndarray)) else int(x)
+
+
 def _severity(config: EngineConfig, store, st) -> float:
+    """The DUOT audit's severity; with shards, the mean of the shards'
+    severities (f64, as ``np.mean`` takes it)."""
     if not config.audit:
         return 0.0
+    if config.n_shards > 1:
+        sev = [float(store.audit(index_tree(st, s), delta=store.delta or 0).severity)
+               for s in range(config.n_shards)]
+        return float(np.mean(sev))
     return float(store.audit(st, delta=store.delta or 0).severity)
 
 
@@ -43,6 +56,25 @@ def assemble_flat(config: EngineConfig, prep: dict) -> dict[str, float]:
         "severity": _severity(config, prep["store"], st),
         "n_reads": n_reads,
         "dropped_writes": int(st.cluster.pend_dropped),
+    }
+
+
+def assemble_sharded(config: EngineConfig, prep: dict) -> dict[str, Any]:
+    """The multi-tenant dictionary: rates over the summed counts, and
+    each shard's stale, violation and read counts."""
+    out = prep["out"]
+    st = out["st"]
+    n_reads_total = _total(out["reads"])
+    return {
+        "staleness_rate": float(_total(out["stale"])) / max(1, n_reads_total),
+        "violation_rate": float(_total(out["viol"])) / max(1, n_reads_total),
+        "severity": _severity(config, prep["store"], st),
+        "n_reads": n_reads_total,
+        "dropped_writes": _total(st.cluster.pend_dropped),
+        "n_shards": config.n_shards,
+        "per_shard": {
+            k: out[k].reshape(-1).tolist() for k in ("stale", "viol", "reads")
+        },
     }
 
 
@@ -149,7 +181,7 @@ def assemble_geo(
         n_epochs_total = prep["n_rounds"] + (1 if prep["rem"] else 0)
         se = recovery.snapshot_every
         n_snaps = n_epochs_total // se if se > 0 else 0
-        n_writes = int((prep["stream"]["kind"] == 1).sum())
+        n_writes = int((prep["streams"][0]["kind"] == 1).sum())
         wal_records_pp = n_writes if recovery.wal else 0
         per_snap = (
             min(config.n_resources, -(-n_writes // n_snaps)) if n_snaps else 0
@@ -227,35 +259,45 @@ def assemble_faulty(
     schedule = prep["schedule"]
     gossip = config.gossip
     recovery = config.durability
+    n_shards = config.n_shards
+    sharded = n_shards > 1
     d_on = recovery is not None and recovery.enabled
     rx_on = d_on      # crash events are not ported
     n_ops = config.n_ops
-    s_resources = config.n_resources
+    s_resources = config.shard_resources
     rem = prep["rem"]
 
     st = out["st"]
     n_stale, n_viol, n_reads = (
-        int(out["stale"]), int(out["viol"]), int(out["reads"])
+        _total(out["stale"]), _total(out["viol"]), _total(out["reads"])
     )
-    ae_ev, prop_ev, n_fail = int(out["ae"]), int(out["prop"]), int(out["fail"])
-    dropped = int(st.cluster.pend_dropped)
+    ae_ev, prop_ev, n_fail = (
+        _total(out["ae"]), _total(out["prop"]), _total(out["fail"])
+    )
+    dropped = _total(st.cluster.pend_dropped)
     gx = rx = per_round = None
     if gossip is not None:
         gd = out["gx"]
         h_deliv_vec = gd.get("h_deliv")
-        h_deliv_vec = (np.zeros((3,), np.int64) if h_deliv_vec is None
-                       else h_deliv_vec.cpu().numpy())
+        if h_deliv_vec is None:
+            h_deliv_vec = np.zeros((3,), np.int64)
+        else:
+            h_deliv_vec = h_deliv_vec.cpu().numpy()
+            if sharded:
+                h_deliv_vec = h_deliv_vec.sum(axis=0)
         gx = (
-            int(gd["deliv"]), int(gd["ranges"]), int(gd["pairs"]),
-            int(gd["gap"]),
-            int(gd["h_enq"]) if "h_enq" in gd else 0,
-            int(gd["h_drop"]) if "h_drop" in gd else 0,
+            _total(gd["deliv"]), _total(gd["ranges"]), _total(gd["pairs"]),
+            _total(gd["gap"]),
+            _total(gd["h_enq"]) if "h_enq" in gd else 0,
+            _total(gd["h_drop"]) if "h_drop" in gd else 0,
             h_deliv_vec,
         )
         per_round = prep["per_round"]["gossip"]
+        if sharded:
+            per_round = tuple(x.sum(axis=0) for x in per_round)
     if rx_on:
         rxd = out["rx"]
-        rx = tuple(int(rxd[k]) for k in (
+        rx = tuple(_total(rxd[k]) for k in (
             "crashes", "wal_replayed", "rows_lost", "snap_read",
             "boot_cells", "boot_pend", "boot_events",
         ))
@@ -283,8 +325,8 @@ def assemble_faulty(
     if rx_on:
         (crash_n, wal_rep, rows_lost, snap_read,
          boot_cells, boot_pend, boot_events) = rx
-        snap_rows = int(st.dura.snap_rows) if d_on else 0
-        wal_total = int(st.dura.wal_total) if d_on else 0
+        snap_rows = _total(st.dura.snap_rows) if d_on else 0
+        wal_total = _total(st.dura.wal_total) if d_on else 0
         bk = max(1, min(
             recovery.bootstrap_ranges if recovery is not None else 8,
             s_resources,
@@ -334,7 +376,9 @@ def assemble_faulty(
         # The durable-media side of eq. 8: snapshot copies hosted for
         # the run plus every marker/journal/restore I/O event.
         cost["durability_storage"] = cost_model.cost_storage(
-            hosted_gb=(3 * s_resources * row / 1e9) if d_on else 0.0,
+            hosted_gb=(
+                (3 * s_resources * row / 1e9) * n_shards if d_on else 0.0
+            ),
             months=runtime_s / (30 * 24 * 3600.0),
             io_requests=float(
                 snap_rows + wal_total + wal_rep + snap_read
@@ -360,7 +404,7 @@ def assemble_faulty(
         "n_epochs": schedule.n_epochs,
         "faulty_epochs": int(schedule.faulty().sum()),
         "heal_epochs": int(schedule.heals().sum()),
-        "n_shards": config.n_shards,
+        "n_shards": n_shards,
         "cost": cost,
     }
     if gossip is not None:
@@ -405,8 +449,12 @@ def _obs_block(config: EngineConfig, prep: dict) -> dict[str, Any]:
     is dropped, as the reference's scan drops it)."""
     obs = config.obs
     out = prep["out"]
+    sharded = config.n_shards > 1
     hist = out["obs"]["hist"].cpu().numpy()
-    counters = {k: int(v) for k, v in out["obs"]["counters"].items()}
+    if sharded:
+        # Integer counts: the per-shard sum is exact.
+        hist = hist.sum(axis=0)
+    counters = {k: _total(v) for k, v in out["obs"]["counters"].items()}
     h_on = (
         config.gossip is not None and config.gossip.handoff
         and config.faults is not None
@@ -417,6 +465,8 @@ def _obs_block(config: EngineConfig, prep: dict) -> dict[str, Any]:
     pr = prep.get("per_round")
     if pr is not None and "obs" in pr:
         es, ev = (np.asarray(x) for x in pr["obs"])
+        if sharded:
+            es, ev = es.sum(axis=0), ev.sum(axis=0)
         viol_rounds = np.flatnonzero(ev)
         block["per_round"] = {"stale": es.tolist(), "viol": ev.tolist()}
         block["first_violation_epoch"] = (
@@ -456,6 +506,8 @@ def assemble(
         result = assemble_faulty(config, prep, w, cfg, pricing)
     elif config.topology is not None:
         result = assemble_geo(config, prep, w, cfg, pricing)
+    elif config.n_shards > 1:
+        result = assemble_sharded(config, prep)
     else:
         result = assemble_flat(config, prep)
     if config.obs is not None and config.obs.enabled:

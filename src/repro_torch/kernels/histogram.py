@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.fp import fma_f32
 
 # Per-row bin params layout: (M, 2) f32.
 LO, INV_W = 0, 1
@@ -174,6 +175,40 @@ def histogram_cuda(vals: torch.Tensor, mask: torch.Tensor | None, params: torch.
         build.check(err, "histogram")
     launches += 1
     return out
+
+
+def pack_observations(vals: torch.Tensor, mask: torch.Tensor | None, *,
+                      block: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Pad the observation axis to a ``block`` multiple with inert
+    (mask 0) columns; returns ``(vals, mask)`` as f32 / int32 (the
+    reference's layout for its tiled kernel; the port's kernel takes any
+    row length)."""
+    m, b = vals.shape
+    vals = torch.as_tensor(vals).to(torch.float32)
+    mask = (torch.ones((m, b), dtype=torch.int32, device=vals.device) if mask is None
+            else torch.as_tensor(mask, device=vals.device).to(torch.int32))
+    pad = (-b) % block
+    if pad:
+        vals = torch.nn.functional.pad(vals, (0, pad))
+        mask = torch.nn.functional.pad(mask, (0, pad))
+    return vals, mask
+
+
+def hist_edges(lo: float, hi: float, n_bins: int,
+               device: str | torch.device = "cpu") -> torch.Tensor:
+    """The ``n_bins + 1`` f32 bin edges of one metric row, ``lo`` to
+    ``hi``.  The reference's compiled ``linspace`` reassociates its
+    ``lo·(1 − t) + hi·t``: ``t = i · f32(1 / n_bins)``, the second term
+    ``i · (hi · f32(1 / n_bins))`` fused into the add.  That order is
+    taken here; where XLA's code generator contracts differently an
+    inner edge can differ from the reference's by one f32 ulp.  The last
+    edge is ``hi`` itself."""
+    f32 = dict(dtype=torch.float32, device=device)
+    lo_t, hi_t = torch.tensor(lo, **f32), torch.tensor(hi, **f32)
+    inv = torch.tensor(1.0, **f32) / torch.tensor(float(n_bins), **f32)
+    i = torch.arange(n_bins, **f32)
+    inner = fma_f32(i, (hi_t * inv).expand(n_bins), lo_t * (1 - i * inv))
+    return torch.cat([inner, hi_t[None]])
 
 
 def hist_percentile(hist: torch.Tensor, lo, width, q: float) -> torch.Tensor:

@@ -99,6 +99,20 @@ def audit_duot(duot, *, delta: int = 0, impl: str | None = "auto") -> torch.Tens
                         duot.version, duot.seq, duot.valid, delta=delta, impl=impl)
 
 
+def audit_summary(codes: torch.Tensor) -> dict[str, torch.Tensor]:
+    """Counts from the packed code matrix: pairs audited, violations
+    (rule and timed bound), and violations by phase a1 .. b1."""
+    phase = codes & 0xFF
+    viol = (codes >> 8) & 1
+    timed = (codes >> 9) & 1
+    return {
+        "n_audited": (phase > 0).sum(dtype=torch.int32),
+        "n_violations": viol.sum(dtype=torch.int32) + timed.sum(dtype=torch.int32),
+        "by_phase": torch.stack([((phase == c) & (viol > 0)).sum(dtype=torch.int32)
+                                 for c in range(1, 6)]),
+    }
+
+
 def vclock_chain(client, replica, is_write, session_vc, replica_vc, *,
                  impl: str | None = "auto"):
     """Serial clock chain of one batch -> ``(session_vc, replica_vc, vcs)``."""

@@ -16,10 +16,14 @@ Three coupled models produce every figure of the paper:
 (two-tier merge, RTT-matrix latency, per-pair egress bill);
 :func:`run_protocol_faulty` replays it under replica outages and
 partitions, with gossip anti-entropy, hinted handoff and WAL/snapshot
-durability.  :func:`run_protocol_adaptive` re-selects each session's
-level every merge epoch through the adaptive control plane
+durability; :func:`run_protocol_sharded` splits it into disjoint tenant
+shards.  :func:`run_protocol_adaptive` re-selects each session's level
+every merge epoch through the adaptive control plane
 (``repro_torch.policy``).  Every replay is a thin
 :class:`repro_torch.engine.config.EngineConfig` over the one epoch engine.
+Only the scalar engine (:func:`run_protocol_scalar`, one op at a time)
+keeps its own loop: it is the semantic baseline the batched engine is
+held against.
 """
 
 from __future__ import annotations
@@ -30,13 +34,16 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.core import audit as audit_lib
 from repro_torch.core import availability as avail_lib
-from repro_torch.core import cost_model
+from repro_torch.core import cost_model, xstcc
+from repro_torch.core import duot as duot_lib
 from repro_torch.core.consistency import ConsistencyLevel
 from repro_torch.core.replicated_store import DurabilityConfig, merge_cadence
 from repro_torch.engine import results as engine_results
 from repro_torch.engine import stream as engine_stream
 from repro_torch.engine.config import EngineConfig
+from repro_torch.device import resolve_device
 from repro_torch.engine.replay import EpochEngine, session_telemetry_runner
 from repro_torch.gossip.scheduler import GossipConfig
 from repro_torch.obs.metrics import ObsConfig
@@ -269,8 +276,10 @@ def run_protocol_faulty(
     scheduled digest exchange (and, with ``hint_cap > 0``, hinted
     handoff); ``recovery`` adds WAL/snapshot journaling, billed in
     eq. 8 with a ``"recovery"`` block.  ``obs`` adds the ``"obs"``
-    block.  Crash events and ``n_shards > 1`` are not ported yet and
-    raise.  Runs on ``device`` (``"cuda"`` unless the
+    block.  ``n_shards > 1`` stacks disjoint tenant shards under the one
+    schedule (the :func:`run_protocol_sharded` scheme, counts summed).
+    Crash events are not ported yet and raise.  Runs on ``device``
+    (``"cuda"`` unless the
     caller asks for the CPU).
     """
     if n_clients % n_shards or n_resources % n_shards or n_ops % n_shards:
@@ -299,6 +308,231 @@ def run_protocol_faulty(
     )
     engine = EpochEngine(config, device=device)
     return engine_results.assemble(config, engine.replay(w), w, cfg, pricing)
+
+
+def run_protocol_sharded(
+    level: ConsistencyLevel,
+    w: Workload,
+    *,
+    n_shards: int = 2,
+    n_ops: int = 6000,
+    n_clients: int = 16,
+    n_resources: int = 24,
+    merge_every: int = 8,
+    delta: int = 24,
+    duot_cap: int = 2048,
+    seed: int = 0,
+    batch_size: int = 128,
+    audit: bool = False,
+    ingest: str = "auto",
+    use_devices: bool = True,
+    obs: ObsConfig | None = None,
+    device: str | torch.device = "cuda",
+) -> dict[str, Any]:
+    """Multi-tenant scale-out: disjoint shards of the workload.
+
+    Partitions the cluster into ``n_shards`` tenant groups, each with
+    ``n_clients / n_shards`` sessions, ``n_resources / n_shards`` key
+    buckets and its own ``n_ops / n_shards``-op YCSB stream (seeded
+    ``seed + shard``).  The shards share no replicas, sessions or
+    resources, so the merged telemetry is exactly the sum of the
+    per-shard unsharded runs; ``per_shard`` lists each shard's counts and
+    ``severity`` (with ``audit``) is the mean of the shards'.  The shards
+    run one after another inside each round on ``device``;
+    ``use_devices`` is accepted and changes nothing (one card).
+    """
+    if n_clients % n_shards or n_resources % n_shards or n_ops % n_shards:
+        raise ValueError(
+            f"n_clients={n_clients}, n_resources={n_resources}, and "
+            f"n_ops={n_ops} must all be divisible by n_shards={n_shards}"
+        )
+    config = EngineConfig(
+        level, n_ops=n_ops, n_clients=n_clients, n_resources=n_resources,
+        merge_every=merge_every, delta=delta, duot_cap=duot_cap,
+        seed=seed, batch_size=batch_size, audit=audit, ingest=ingest,
+        n_shards=n_shards, use_devices=use_devices, obs=obs,
+    )
+    engine = EpochEngine(config, device=device)
+    return engine_results.assemble(config, engine.replay(w), w)
+
+
+def run_protocol_scalar(
+    level: ConsistencyLevel,
+    w: Workload,
+    *,
+    n_ops: int = 6000,
+    n_clients: int = 16,
+    n_resources: int = 24,
+    merge_every: int = 8,
+    delta: int = 24,
+    duot_cap: int = 2048,
+    seed: int = 0,
+    audit: bool = True,
+    device: str | torch.device = "cuda",
+) -> dict[str, float]:
+    """The scalar engine: one op at a time, the sequential merge.
+
+    Scalar op ingestion and the one-slot-at-a-time
+    :func:`~repro_torch.core.xstcc.server_merge_sequential` pass, the
+    semantic and speed baseline the batched engine is held against.
+    Runs on ``device`` (``"cuda"`` unless the caller asks for the CPU);
+    the audit behind ``severity`` is the one of :func:`run_protocol`.
+    """
+    dev = resolve_device(device)
+    stream = engine_stream.op_stream(w, n_ops, n_clients, n_resources, seed)
+    _, d = merge_cadence(level, merge_every, delta)
+    run = _scalar_runner(level, n_clients, n_resources, merge_every, delta,
+                         duot_cap, dev)
+    _, duot, n_stale, n_viol, n_reads = run(
+        stream["client"], stream["kind"], stream["resource"], stream["home"])
+    severity = 0.0
+    if audit:
+        severity = float(audit_lib.audit(duot, delta=d if d else 0).severity)
+    n_reads_f = max(1, int(n_reads))
+    return {
+        "staleness_rate": float(int(n_stale)) / n_reads_f,
+        "violation_rate": float(int(n_viol)) / n_reads_f,
+        "severity": severity,
+        "n_reads": int(n_reads),
+    }
+
+
+_PEND = ("pend_client", "pend_resource", "pend_version", "pend_vc", "pend_coord",
+         "pend_time", "pend_live", "pend_applied")
+
+
+def _scalar_runner(
+    level: ConsistencyLevel,
+    n_clients: int,
+    n_resources: int,
+    merge_every: int,
+    delta: int,
+    duot_cap: int,
+    device: str | torch.device = "cuda",
+):
+    """``run(client, kind, resource, home)`` over host op columns:
+    returns ``(state, duot, n_stale, n_viol, n_reads)``, the reference
+    scan's final carry (3 replicas, a 256-slot pending ring).
+
+    The reference steps one ``lax.cond`` per op inside a ``lax.scan``.
+    Here the op columns are on the host, so the branch on the op's kind,
+    the op's client, resource and home, the logical clock (one tick per
+    op and per merge) and the DUOT row (the log never wraps) are all
+    known there and cost the device nothing.  The state lives on the
+    device and is updated in place: a write is ``client_write`` (merge
+    and tick the session clock, the next version, the coordinator's copy
+    and clock, the floors, the first free pending slot — an ``argmin``
+    over the live flags plus one spare row, cleared after every write,
+    so a full ring lands in the spare row and is counted as dropped); a
+    read is
+    ``client_read`` (served = max(replica, floors) under session
+    enforcement, the read floor, the session clock).  Served versions
+    and the frontier each read saw go to per-op buffers, so the stale
+    and violation counts are two reductions at the end and no op needs a
+    host read.  Every ``sync_every``-th op ends with
+    :func:`~repro_torch.core.xstcc.merge_sequential_`, one host read each.
+    """
+    sync_every, d = merge_cadence(level, merge_every, delta)
+    enforce = level is ConsistencyLevel.X_STCC
+    dev = resolve_device(device)
+    P, C, R, Q = 3, n_clients, n_resources, 256
+
+    def run(client, kind, resource, home):
+        client, kind, resource, home = (np.asarray(x, np.int32)
+                                        for x in (client, kind, resource, home))
+        n = client.shape[0]
+        idx = np.arange(n, dtype=np.int32)
+        clock_at = idx + idx // sync_every     # one tick per op and per merge
+        i32 = dict(dtype=torch.int32, device=dev)
+        col = {k: torch.from_numpy(v).to(dev) for k, v in (
+            ("client", client), ("resource", resource), ("home", home),
+            ("time", clock_at))}
+        col["applied"] = (torch.arange(P, device=dev)[None, :]
+                          == col["home"].long()[:, None])
+        true = torch.ones((), dtype=torch.bool, device=dev)
+
+        ext = xstcc.make_cluster(P, C, R, pending_cap=Q + 1, device=dev)
+        st = ext._replace(**{k: getattr(ext, k)[:Q] for k in _PEND})
+        live_u8 = ext.pend_live.view(torch.uint8)
+        rv, rvc, svc_all = st.replica_version, st.replica_vc, st.session_vc
+        rf, wf, gv = st.read_floor, st.write_floor, st.global_version
+        version = torch.zeros((n,), **i32)     # created (W) or served (R)
+        floor = torch.zeros((n,), **i32)       # read floor seen (R)
+        frontier = torch.zeros((n,), **i32)    # global version seen (R)
+        is_w = kind == duot_lib.WRITE
+        slots = torch.zeros((int(is_w.sum()),), dtype=torch.int64, device=dev)
+        m = min(n, duot_cap)
+        duot_vc = torch.zeros((duot_cap, C), **i32)
+        w_i = 0
+        for i in range(n):
+            c, r, h = int(client[i]), int(resource[i]), int(home[i])
+            svc = svc_all[c]
+            ver = version[i]
+            if is_w[i]:
+                torch.maximum(svc, rvc[h], out=svc)
+                svc[c].add_(1)
+                torch.add(gv[r], 1, out=ver)
+                rv[h, r].clamp_(min=ver)
+                rvc[h].clamp_(min=svc)
+                wf[c, r].clamp_(min=ver)
+                rf[c, r].clamp_(min=ver)
+                gv[r].copy_(ver)
+                q = torch.argmin(live_u8).view(1)
+                slots[w_i].copy_(q[0])
+                w_i += 1
+                for name, val in (("pend_client", col["client"][i]),
+                                  ("pend_resource", col["resource"][i]),
+                                  ("pend_version", ver), ("pend_vc", svc),
+                                  ("pend_coord", col["home"][i]),
+                                  ("pend_time", col["time"][i]), ("pend_live", true),
+                                  ("pend_applied", col["applied"][i])):
+                    getattr(ext, name).index_put_((q,), val)
+                ext.pend_live[Q] = False
+            else:
+                torch.maximum(rf[c, r], wf[c, r], out=floor[i])
+                if enforce:
+                    torch.maximum(rv[h, r], floor[i], out=ver)
+                else:
+                    ver.copy_(rv[h, r])
+                frontier[i].copy_(gv[r])
+                torch.maximum(svc, rvc[h], out=svc)
+                svc[c].add_(1)
+                rf[c, r].clamp_(min=ver)
+            if i < m:
+                duot_vc[i].copy_(svc)
+            if i % sync_every == sync_every - 1:
+                st.clock.fill_(int(clock_at[i]) + 1)
+                xstcc.merge_sequential_(st, d, count=False)
+        st.clock.fill_(n + n // sync_every)
+
+        reads = torch.from_numpy(~is_w).to(dev)
+        n_stale = ((version < frontier) & reads).sum(dtype=torch.int32)
+        n_viol = (torch.zeros((), dtype=torch.int32, device=dev) if enforce
+                  else ((version < floor) & reads).sum(dtype=torch.int32))
+        dropped = torch.clamp((slots == Q).sum(), max=xstcc.INT32_MAX)
+        state = st._replace(pend_dropped=dropped.to(torch.int32))
+
+        def logged(a, fill):
+            out = torch.full((duot_cap,), fill, **i32)
+            out[:m] = torch.from_numpy(a[:m]).to(dev)
+            return out
+
+        valid = torch.zeros((duot_cap,), dtype=torch.bool, device=dev)
+        valid[:m] = True
+        seq = torch.zeros((duot_cap,), **i32)
+        seq[:m] = torch.arange(m, **i32)
+        log_version = torch.zeros((duot_cap,), **i32)
+        log_version[:m] = version[:m]
+        duot = duot_lib.Duot(
+            client=logged(client, -1), kind=logged(kind, 0),
+            resource=logged(resource, -1), version=log_version,
+            replica=logged(home, -1), seq=seq, vc=duot_vc, valid=valid,
+            size=torch.tensor(m, **i32), next_seq=torch.tensor(n, **i32),
+        )
+        n_reads = torch.tensor(int((~is_w).sum()), **i32)
+        return state, duot, n_stale, n_viol, n_reads
+
+    return run
 
 
 # ---------------------------------------------------------------------------

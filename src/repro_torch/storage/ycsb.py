@@ -100,6 +100,14 @@ PHASED_RWR = PhasedWorkload(
 )
 
 
+def rates(w: Workload, throughput_ops_s: float) -> tuple[float, float]:
+    """(lambda_r, lambda_w) per-key-cluster arrival rates at a given
+    system throughput (the staleness model's inputs)."""
+    lr = w.read_fraction * throughput_ops_s
+    lw = (1.0 - w.read_fraction) * throughput_ops_s
+    return lr, lw
+
+
 def generate_phased(
     pw: PhasedWorkload, *, n_ops: int | None = None,
     n_keys: int | None = None, seed: int = 0,

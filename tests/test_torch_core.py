@@ -168,12 +168,12 @@ _GEO_FAULTS = dict(topology=PAPER_TOPOLOGY, faults=tav.all_up(5, 3))
     pytest.param(dict(faults=tav.replica_crash(5, 3, 0, 1), durability=DurabilityConfig()),
                  id="durability-value3"),
     pytest.param(dict(_GEO_FAULTS, obs=ObsConfig()), id="obs-value4"),
-    pytest.param(dict(n_shards=2), id="n_shards-2"),
+    pytest.param(dict(n_shards=2, faults=tav.replica_crash(5, 3, 1, 2)), id="n_shards-2"),
 ])
 def test_engine_config_rejects_unported_pieces(pieces):
-    """Crash schedules, a topology composed with faults (with its
-    nearest-peer gossip and geo obs rows) and sharding are not ported
-    yet."""
+    """Crash schedules (sharded ones too) and a topology composed with
+    faults (with its nearest-peer gossip and geo obs rows) are not ported
+    yet; sharding itself is (``test_torch_sharded.py``)."""
     with pytest.raises(NotImplementedError, match="not ported yet"):
         EngineConfig(TL.X_STCC, **pieces)
 

@@ -338,7 +338,8 @@ def test_deferred_pieces_raise():
         tsim.run_protocol_faulty(TL.X_STCC, WORKLOAD_A, n_ops=600, schedule=crash,
                                  device=CPU)
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        tsim.run_protocol_faulty(TL.X_STCC, WORKLOAD_A, n_ops=600, n_shards=2, device=CPU)
+        tsim.run_protocol_faulty(TL.X_STCC, WORKLOAD_A, n_ops=600, n_shards=2,
+                                 schedule=crash, device=CPU)
     with pytest.raises(NotImplementedError, match="not ported yet"):
         EngineConfig(TL.X_STCC, topology=PAPER_TOPOLOGY, faults=tav.all_up(5, 3))
     # Nearest-peer gossip needs a topology, in the port as in the reference.

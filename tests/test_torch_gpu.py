@@ -397,6 +397,37 @@ def test_fault_path_launches_every_kernel(cuda):
                             "flash_attention")), counts
 
 
+SHARDED_CASES = {
+    **{f"sharded/{lv.name}": (simulator.run_protocol_sharded, lv, dict(n_shards=2))
+       for lv in EVAL_LEVELS},
+    "faulty/X_STCC/sharded": (simulator.run_protocol_faulty, ConsistencyLevel.X_STCC, dict(
+        n_shards=2, schedule=av.replica_outage(5, 3, 1, 1, 3), schedule_unit=128,
+        audit=False)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SHARDED_CASES))
+def test_golden_sharded_case_on_the_card(cuda, case):
+    fn, level, kw = SHARDED_CASES[case]
+    golden = json.loads(GOLDEN.read_text())[case]
+    ops.reset_launch_counts()
+    got = fn(level, WORKLOAD_A, n_ops=600, device=cuda, **kw)
+    assert as_lists(got) == golden
+    counts = ops.launch_counts()
+    # Each shard ingests its own batch every round through the kernels.
+    assert counts["op_ingest"] > 0 and counts["op_ingest"] % 2 == 0
+    assert counts["vclock_chain"] == counts["op_ingest"]
+
+
+def test_scalar_engine_on_the_card_equals_cpu(cuda):
+    for level in (ConsistencyLevel.X_STCC, ConsistencyLevel.ONE, ConsistencyLevel.ALL):
+        ops.reset_launch_counts()
+        got = simulator.run_protocol_scalar(level, WORKLOAD_A, n_ops=600, device=cuda)
+        assert ops.launch_counts()["vclock_audit"] == 1
+        assert got == simulator.run_protocol_scalar(level, WORKLOAD_A, n_ops=600,
+                                                    device="cpu")
+
+
 @pytest.mark.parametrize("r", [1, 24, 257, 65537])
 @pytest.mark.parametrize("max_lat", [10.0, float("inf")])
 def test_placement_score_kernel_matches_plain(cuda, r, max_lat):

@@ -62,8 +62,8 @@ def no_card():
 
 
 def test_every_new_module_is_covered():
-    """The fault-path, geo, adaptive and serving slices' modules are among
-    those imported above."""
+    """The fault-path, geo, adaptive, serving, model and sharded/scalar
+    slices' modules are among those imported above."""
     mods = set(_port_modules())
     for name in ("core.availability", "gossip", "gossip.digest", "gossip.scheduler",
                  "kernels.digest_compare", "kernels.histogram", "obs", "obs.metrics",
@@ -74,16 +74,16 @@ def test_every_new_module_is_covered():
                  "configs.registry", "configs.shapes", "configs.gemma_2b",
                  "models", "models.common", "models.mlp", "models.attention",
                  "models.transformer", "models.model_zoo", "kernels.flash_attention",
-                 "launch", "launch.serve"):
+                 "launch", "launch.serve", "core.odg", "core.staleness"):
         assert f"repro_torch.{name}" in mods, name
 
 
 # What each package's __init__ leaves out: names whose module is not
 # ported yet, and the reference's JAX-only programs.
 NOT_EXPORTED = {
-    "core": {"odg", "staleness", "ConsistencyPolicy", "PAPER_LEVELS", "policy_for"},
+    "core": {"ConsistencyPolicy", "PAPER_LEVELS", "policy_for"},
     "engine": {"jit_entries", "unified_runner"},
-    "storage": {"run_protocol_scalar"},
+    "storage": set(),
     "kernels": {"ref"},
     "obs": set(),
     "configs": set(),
@@ -126,10 +126,12 @@ def test_documented_imports_work():
                                    "cadence_controller", "level_table",
                                    "serving_engine", "sharded_serving_router",
                                    "admit_batch", "model_init", "init_cache",
-                                   "make_batch", "params_from_numpy", "serve_launcher"])
+                                   "make_batch", "params_from_numpy", "serve_launcher",
+                                   "run_protocol_sharded", "run_protocol_scalar",
+                                   "sharded_store"])
 def test_entry_points_refuse_cpu_fallback(no_card, entry):
     from repro_torch.core.consistency import ConsistencyLevel
-    from repro_torch.core.replicated_store import ReplicatedStore
+    from repro_torch.core.replicated_store import ReplicatedStore, ShardedStore
     from repro_torch.engine.config import EngineConfig
     from repro_torch.engine.replay import EpochEngine
     from repro_torch.geo import placement
@@ -175,6 +177,11 @@ def test_entry_points_refuse_cpu_fallback(no_card, entry):
         "make_batch": lambda: configs.make_batch(gemma, configs.TRAIN_4K),
         "params_from_numpy": lambda: convert.params_from_numpy({"w": np.ones(2)}),
         "serve_launcher": lambda: serve_launcher.main(["--arch", "gemma-2b", "--reduced"]),
+        "run_protocol_sharded": lambda: simulator.run_protocol_sharded(
+            ConsistencyLevel.X_STCC, WORKLOAD_A, n_ops=50),
+        "run_protocol_scalar": lambda: simulator.run_protocol_scalar(
+            ConsistencyLevel.X_STCC, WORKLOAD_A, n_ops=50),
+        "sharded_store": lambda: ShardedStore(ReplicatedStore(3, 4, 4), 2),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
