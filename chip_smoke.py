@@ -66,6 +66,16 @@ non-zero exit code):
                 beside the batched engine's; the ODG (``odg.build`` and
                 ``severity_from_odg``) of the X_STCC run's DUOT (M = 2048),
                 equal to the CPU;
+     recovery — crash recovery and geo + faults: ``run_protocol_faulty``
+                for the six levels with the faulty phase's setting where
+                replica 1's outage opens with a crash event (WAL +
+                snapshots), and X_STCC with snapshots only and with no
+                durability; the six levels on the paper's topology
+                composed with the same schedule; the chaos suite (seeds
+                0-3, each against its crash-stripped twin); each equal to
+                the CPU; ``StoreRecovery`` on the X_STCC run's final state;
+                a direct ``store.bootstrap`` with its B.4 launches counted
+                and held against the plain version; launch counts;
   7. geo      — ``run_protocol_geo`` for the six levels at the defaults
                 on the paper's topology and on a hot-region client skew,
                 X_STCC with nearest-peer gossip + WAL/snapshots + obs on
@@ -108,7 +118,8 @@ non-zero exit code):
  11. scale    — one X_STCC replay at the paper's deployment (64 client
                 threads, 5,000,000 rows, 8,000,000 ops, B = 4096) and
                 ``admit_batch`` on its final state, the same deployment
-                through the fault path, the placement planner over its
+                through the fault path (4,000,000 ops, ``SCALE_CUTS``),
+                the placement planner over its
                 5,000,000 rows x 124 candidates, the geo replay on the
                 paper's 12-replica fleet (4 per DC), the adaptive run
                 over the same 64 clients and 5,000,000 rows (ops cut,
@@ -122,13 +133,17 @@ non-zero exit code):
                 the same deployment split into 4 tenant shards (16
                 clients, 1,250,000 rows and 2,000,000 ops each), each
                 shard's counts equal to the unsharded run of that shard;
+                the deployment through the crash path (replica 1 crashes
+                and rejoins; ops cut, ``CRASH_SCALE_CUTS``), its
+                invariants checked and its fleet, after a quiescent tail,
+                equal to the crash-stripped twin's;
  12. profile  — ``torch.profiler`` over X_STCC and CAUSAL
                 ``run_protocol``, an X_STCC fault run, an X_STCC geo run,
                 an adaptive run and the serving schedule: device time by
                 kernel, the card's busy share of the unprofiled wall time,
-                and each profiled run's own seconds (cut: the adaptive run
-                profiles 1600 ops of its 6400-op default,
-                ``PROFILE_ADAPTIVE_OPS``);
+                and each profiled run's own seconds (cuts: the adaptive
+                run profiles 1600 ops of its 6400-op default,
+                ``PROFILE_ADAPTIVE_OPS``, and CAUSAL 1000 ops);
  13. report   — one JSON line ``{"kernels": [...]}``, then the last line
                 ``{"ok": true, "device": {...}}``.
 
@@ -152,7 +167,7 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
 PHASES = ("device", "build", "kernels", "digest", "golden", "main", "faulty", "sharded",
-          "geo", "adaptive", "serving", "model", "scale", "profile")
+          "recovery", "geo", "adaptive", "serving", "model", "scale", "profile")
 
 # H100 SXM peaks (NVIDIA data sheet, as tabulated in the repo's
 # measurement notes): HBM bandwidth, and the 32-bit non-tensor-core rate
@@ -169,14 +184,24 @@ PEAK_INT32_OPS_S = 64 * 132 * 1.98e9
 SCALE = dict(n_clients=64, n_resources=5_000_000, batch_size=4096,
              n_ops=8_000_000, duot_cap=16384)
 SCALE_CUTS = (
-    "cuts of scale: none (the paper's 64 threads, 5,000,000 rows, "
-    "8,000,000 ops, in the flat and the fault run alike); the DUOT audit "
+    "cuts of scale: none for the flat run (the paper's 64 threads, "
+    "5,000,000 rows, 8,000,000 ops); the fault run replays 4,000,000 ops "
+    "(FAULT_SCALE_OPS: 8,000,000 took 93.1-106.3 s on H100 hosts, and the "
+    "script 1131.0 s of its 1200 s limit on the slowest); the DUOT audit "
     "covers the first 16,384 ops (duot_cap), as the engine never wraps or "
     "collects the log"
 )
-# The fault run's op count (halved, and the cut listed above, only if the
-# script would not fit its time limit; rows and clients are never cut).
-FAULT_SCALE_OPS = 8_000_000
+# The fault run's op count, halved (listed above) so that the script fits
+# its time limit on a slow host; rows and clients are never cut.
+FAULT_SCALE_OPS = 4_000_000
+# The crash run at the same deployment, and its crash-stripped twin.
+CRASH_SCALE_OPS = 1_000_000
+CRASH_SCALE_CUTS = (
+    "cuts of scale: 1,000,000 ops of the paper's 8,000,000 for the crash run "
+    "and its twin (two replays of the fault path: 8,000,000 ops took 93.1-106.3 "
+    "s on H100 hosts, and 2,000,000 ops 21.3 s each, which took the script to "
+    "950 s of its 1200 s limit); clients and rows are not cut"
+)
 # admit_batch on the flat scale run's final state: this many of its
 # 4096-op batches, kernel against plain.
 ADMIT_BATCHES = 8
@@ -195,14 +220,16 @@ SHARDED_SHARDS = 2
 # The adaptive phase's size: the reference's bench_policy.py runs.
 ADAPTIVE_OPS = 6400
 # The adaptive scale run: the paper's 64 threads and 5,000,000 rows.
-ADAPTIVE_SCALE = dict(n_clients=64, n_resources=5_000_000, n_ops=32_768)
+ADAPTIVE_SCALE = dict(n_clients=64, n_resources=5_000_000, n_ops=16_384)
 ADAPTIVE_SCALE_CUTS = (
-    "cuts of scale: 32,768 ops of the paper's 8,000,000 (32 epochs of 1024, "
+    "cuts of scale: 16,384 ops of the paper's 8,000,000 (32 epochs of 512, "
     "the default epoch rule's own result). CAUSAL and ONE merge every 8 and "
     "16 ops, so each op costs their telemetry passes a launch-bound round at "
     "R = 5,000,000. 65,536 ops took 85.7-96.7 s of telemetry on H100 hosts "
     "and the whole script then 937.7-1134.0 s of its 1200 s limit, so the "
-    "ops were halved. Clients and rows are not cut"
+    "ops were halved; 32,768 ops took 46.7-64.0 s of the scale phase and the "
+    "script 1131.0 s on a slow host, so they were halved again. Clients and "
+    "rows are not cut"
 )
 # The controller at fleet width: sessions, epochs, and the CPU check's
 # stride over the sessions.
@@ -285,6 +312,16 @@ def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
 
 
 PROFILED_CALLS = 10      # calls of one profiling session
+
+
+def profiled_activities() -> list:
+    """What the profiler records: the device's activity only.  Every count
+    and time read here is a device row; recording the host's ops as well
+    took the adaptive run's profile (133,000 device operations) from 42.0
+    to 114.7 s on an H100 host, with the same device rows."""
+    from torch.profiler import ProfilerActivity
+
+    return [ProfilerActivity.CUDA]
 PROFILE_TRIES = 8        # sessions tried before a count is "not measured"
 
 
@@ -299,12 +336,12 @@ def _device_rows(fn, key: str | None):
     ``PROFILE_TRIES`` times; ``[]`` if none was whole."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, schedule
+    from torch.profiler import profile, schedule
 
     fn()
     torch.cuda.synchronize()
     for _ in range(PROFILE_TRIES):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+        with profile(activities=profiled_activities(),
                      schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
             for _ in range(2):
                 for _ in range(PROFILED_CALLS):
@@ -1682,6 +1719,183 @@ def phase_sharded() -> dict:
     return launches
 
 
+# -- phase 6c -----------------------------------------------------------------
+
+
+# The kernels the recovery path must launch: B.4 in bootstrap and gossip,
+# B.1 and the chain every round, B.2 in each run's audit, B.3 in the obs
+# plane.
+RECOVERY_KERNELS = ("op_ingest", "vclock_audit", "vclock_chain", "digest_compare",
+                    "histogram")
+CHAOS_SEEDS = range(4)
+
+
+def crash_kwargs(n_ops: int, unit: int) -> dict:
+    """``fault_kwargs`` with replica 1's outage opened by a crash event: it
+    loses its volatile state at schedule epoch T/5 and rebuilds (WAL
+    replay, then peer bootstrap) when it comes back at 3T/5."""
+    from repro_torch.core import availability as av
+
+    kw = fault_kwargs(n_ops, unit)
+    t = kw["schedule"].n_epochs
+    kw["schedule"] = av.replica_crash(t, 3, 1, t // 5, 3 * t // 5 - t // 5)
+    return kw
+
+
+def _tree_to(tree, device):
+    """A state tree (NamedTuples of tensors) moved to ``device``."""
+    if tree is None:
+        return None
+    if isinstance(tree, tuple):
+        return type(tree)(*(_tree_to(v, device) for v in tree))
+    return tree.to(device)
+
+
+def _recovery_line(r: dict) -> str:
+    return ", ".join(f"{k} {r[k]}" for k in (
+        "crashes", "rejoins", "rows_lost", "wal_replayed", "snapshot_cells_read",
+        "bootstrap_cells", "bootstrap_pending", "recovery_gb"))
+
+
+def phase_recovery() -> dict:
+    """Crash runs (six levels, WAL + snapshots; X_STCC with snapshots only
+    and with no durability), geo + faults (six levels on the paper's
+    topology under the same schedule), the chaos suite, ``StoreRecovery``
+    and a direct ``store.bootstrap``, each on the card against the CPU."""
+    import numpy as np
+    import torch
+
+    from repro_torch.chaos import run_chaos_suite
+    from repro_torch.chaos.harness import _quiesce
+    from repro_torch.core.consistency import EVAL_LEVELS, ConsistencyLevel
+    from repro_torch.core.replicated_store import DurabilityConfig
+    from repro_torch.engine.config import EngineConfig
+    from repro_torch.engine.replay import EpochEngine
+    from repro_torch.geo.topology import PAPER_TOPOLOGY
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import StoreRecovery
+    from repro_torch.storage import simulator as sim
+    from repro_torch.storage.ycsb import WORKLOAD_A
+
+    x = ConsistencyLevel.X_STCC
+    kw = crash_kwargs(6000, 128)
+    sched = kw["schedule"]
+    runs = [(lv.name, lv, kw) for lv in EVAL_LEVELS] + [
+        (f"X_STCC/{name}", x, dict(kw, recovery=rec))
+        for name, rec in (("snapshots", DurabilityConfig(snapshot_every=2)),
+                          ("no_durability", None))]
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    on_card = [sim.run_protocol_faulty(lv, WORKLOAD_A, device="cuda", _return_state=True,
+                                       **k) for _, lv, k in runs]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    log(f"[recovery] run_protocol_faulty x{len(runs)} on the card (replica 1 crashes at "
+        f"schedule epoch {sched.n_epochs // 5} of {sched.n_epochs}, rejoins at "
+        f"{3 * sched.n_epochs // 5}): {wall:.3f} s; launches {launches}")
+    missing = [k for k in RECOVERY_KERNELS if launches[k] == 0]
+    if missing:
+        fail(f"recovery path never launched kernels {missing}")
+    states = {}
+    for (name, lv, k), got in zip(runs, on_card):
+        states[name] = (got.pop("_store"), got.pop("_state"))
+        want = sim.run_protocol_faulty(lv, WORKLOAD_A, device="cpu", **k)
+        if got != want:
+            fail(f"crash run {name}: card != cpu: {_diff_keys(got, want)[:8]}")
+        for key in ("staleness_rate", "violation_rate", "severity"):
+            if not (math.isfinite(got[key]) and 0.0 <= got[key] <= 1.0):
+                fail(f"crash run {name}: {key} = {got[key]} is not a rate")
+        if got["crash_epochs"] == [] or got["recovery"]["rejoins"] != 1:
+            fail(f"crash run {name}: crash_epochs {got['crash_epochs']}, recovery "
+                 f"{got['recovery']}")
+        log(f"[recovery] {name}: equal to the CPU; staleness {got['staleness_rate']}, "
+            f"violation {got['violation_rate']}, crash_epochs {got['crash_epochs']}, "
+            f"{_recovery_line(got['recovery'])}, total cost {got['cost']['total']}")
+
+    # Geo + faults: the paper's topology composed with the same schedule.
+    geo_kw = dict(faults=sched, schedule_unit=kw["schedule_unit"], gossip=kw["gossip"],
+                  durability=kw["recovery"], obs=kw["obs"], topology=PAPER_TOPOLOGY)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    geo_card = [EpochEngine(EngineConfig(lv, **geo_kw), device="cuda").run(WORKLOAD_A)
+                for lv in EVAL_LEVELS]
+    torch.cuda.synchronize()
+    geo_wall = time.perf_counter() - t0
+    log(f"[recovery] geo + faults x{len(EVAL_LEVELS)} on the card: {geo_wall:.3f} s")
+    for lv, got in zip(EVAL_LEVELS, geo_card):
+        want = EpochEngine(EngineConfig(lv, **geo_kw), device="cpu").run(WORKLOAD_A)
+        if got != want:
+            fail(f"geo + faults {lv.name}: card != cpu: {_diff_keys(got, want)[:8]}")
+        g = got["geo"]
+        log(f"[recovery] geo + faults {lv.name}: equal to the CPU; staleness "
+            f"{got['staleness_rate']}, traffic_events {g['traffic_events']}, "
+            f"network_geo {g['network_geo']}, mean_latency_ms {g['mean_latency_ms']}, "
+            f"{_recovery_line(got['recovery'])}")
+
+    # The chaos suite: nemesis schedules, invariants, twin convergence.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    suite = run_chaos_suite(seeds=CHAOS_SEEDS, device="cuda")
+    torch.cuda.synchronize()
+    chaos_wall = time.perf_counter() - t0
+    cpu_suite = run_chaos_suite(seeds=CHAOS_SEEDS, device="cpu")
+    if not suite["ok"] or suite != cpu_suite:
+        fail(f"chaos suite: ok {suite['ok']}, equal to the CPU {suite == cpu_suite}: "
+             f"{[r for r in suite['runs'] if not r['ok']]}")
+    log(f"[recovery] chaos suite x{suite['n_seeds']} on the card: {chaos_wall:.3f} s; "
+        f"ok, equal to the CPU; crashes {suite['n_crashes']}, cadences "
+        f"{[r['gossip_cadence'] for r in suite['runs']]}")
+
+    # StoreRecovery on the X_STCC run's final state after a quiescent tail
+    # (WAL: nothing lost; the bootstrap source holds the whole frontier).
+    store, state = states["X_STCC"]
+    state = _quiesce(store, state)
+    down = np.asarray([False, True, False])
+    full = dict(up=np.ones(3, bool), link=np.ones((3, 3), bool))
+    st_card, out_card = StoreRecovery(store).recover(state, down, **full)
+    # The store's methods follow the state's device.
+    st_cpu, out_cpu = StoreRecovery(store).recover(_tree_to(state, "cpu"), down, **full)
+    if out_card != out_cpu or out_card.partial or _store_diff(st_card, st_cpu):
+        fail(f"StoreRecovery: card {out_card} != cpu {out_cpu}")
+    log(f"[recovery] StoreRecovery on the X_STCC run's quiesced final state: {out_card}; "
+        f"equal to the CPU")
+
+    # Bootstrap's B.4: the amnesiac store's state, replica 1 crashed again.
+    store, state = states["X_STCC/no_durability"]
+    state, _ = store.crash(state, down)
+    boot = dict(targets=down, n_ranges=8, **full)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    st_k, tel_k = store.bootstrap(state, **boot)
+    boot_launches = ops.launch_counts()["digest_compare"]
+    if boot_launches == 0:
+        fail("bootstrap never launched digest_compare")
+    st_p, tel_p = store.bootstrap(state, impl="torch", **boot)
+    boot_ms, _ = host_bound_ms(lambda: store.bootstrap(state, **boot), 10)
+    plain_ms, _ = host_bound_ms(lambda: store.bootstrap(state, impl="torch", **boot), 10)
+    diff = _store_diff(st_k, st_p)
+    tel_diff = [k for k in tel_k if not torch.equal(tel_k[k], tel_p[k])]
+    from repro_torch.gossip import digest as digest_lib
+    from repro_torch.kernels import digest_compare as dc
+
+    dig = digest_lib.range_digests(state.cluster.replica_version, 8)
+    a, b = (torch.tensor([i], device="cuda") for i in (1, 2))
+    flags = ops.digest_compare_pairs(dig, a, b, host_pairs=[(1, 2)])
+    plain = dc.digest_compare_pairs_ref(dig, a, b)
+    if diff or tel_diff or not torch.equal(flags, plain):
+        fail(f"bootstrap: kernel != plain: state {diff[:4]}, telemetry {tel_diff}, "
+             f"flags equal {torch.equal(flags, plain)}")
+    log(f"[recovery] bootstrap (replica 1 from replica {int(tel_k['source'][1])}): "
+        f"{boot_ms:.6f} ms whole call (plain verdicts {plain_ms:.6f} ms; CUDA events, "
+        f"median of 5 x 10 calls); digest_compare launches {boot_launches}; cells "
+        f"{int(tel_k['cells'].sum())}, pending {int(tel_k['pend'].sum())}, ranges "
+        f"{int(tel_k['ranges'].sum())}; state, telemetry and verdicts equal to the "
+        f"plain version")
+    return launches
+
+
 # -- phase 7 ------------------------------------------------------------------
 
 
@@ -2536,7 +2750,74 @@ def phase_scale() -> dict:
     timed("scale serving", scale_serving)
     torch.cuda.empty_cache()
     timed("scale sharded", scale_sharded)
+    torch.cuda.empty_cache()
+    timed("scale crash", scale_crash)
     return timings
+
+
+def scale_crash() -> None:
+    """The paper's deployment through the crash path: replica 1 crashes
+    and rejoins (WAL + snapshots, gossip, obs); ``check_invariants`` on the
+    result; the crash-stripped twin; and, after a quiescent anti-entropy
+    tail, the rebuilt fleet equal to the twin's bit for bit."""
+    import numpy as np
+    import torch
+
+    from repro_torch.chaos import check_invariants
+    from repro_torch.chaos.harness import _fleet_signature, _quiesce
+    from repro_torch.core.consistency import ConsistencyLevel
+    from repro_torch.kernels import ops
+    from repro_torch.storage import simulator as sim
+    from repro_torch.storage.ycsb import WORKLOAD_A
+
+    x = ConsistencyLevel.X_STCC
+    crash = dict(SCALE, n_ops=CRASH_SCALE_OPS)
+    kw = crash_kwargs(crash["n_ops"], crash["batch_size"])
+    t = kw["schedule"].n_epochs
+    log(f"[scale] crash run: X_STCC WORKLOAD_A {crash}, schedule_unit "
+        f"{kw['schedule_unit']}, replica 1 crashes at schedule epoch {t // 5} of {t} "
+        f"and rejoins at {3 * t // 5}, {kw['gossip']}, {kw['recovery']}, {kw['obs']}")
+    log(f"[scale] {CRASH_SCALE_CUTS}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = sim.run_protocol_faulty(x, WORKLOAD_A, device="cuda", _return_state=True,
+                                  **crash, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    breaches = check_invariants(out, x, crashed=True)
+    if breaches:
+        fail(f"scale crash run: invariants {breaches}")
+    if out["n_reads"] <= 0 or out["dropped_writes"] != 0:
+        fail(f"scale crash run: n_reads {out['n_reads']}, dropped_writes "
+             f"{out['dropped_writes']}")
+    missing = [k for k in RECOVERY_KERNELS if launches[k] == 0]
+    if missing:
+        fail(f"scale crash run never launched kernels {missing}")
+    log(f"[scale] crash run wall {wall:.3f} s; {crash['n_ops'] / wall:.1f} ops/s; "
+        f"staleness {out['staleness_rate']}; violation {out['violation_rate']}; "
+        f"severity {out['severity']}; n_reads {out['n_reads']}; crash_epochs "
+        f"{out['crash_epochs']}; {_recovery_line(out['recovery'])}; invariants hold; "
+        f"max_memory_allocated {peak} B; launches {launches}")
+    sig = _fleet_signature(_quiesce(out.pop("_store"), out.pop("_state")))
+    del out
+    torch.cuda.empty_cache()
+    twin_kw = dict(kw, schedule=kw["schedule"].strip_crashes(), obs=None)
+    t0 = time.perf_counter()
+    twin = sim.run_protocol_faulty(x, WORKLOAD_A, device="cuda", _return_state=True,
+                                   **crash, **twin_kw)
+    torch.cuda.synchronize()
+    twin_wall = time.perf_counter() - t0
+    twin_sig = _fleet_signature(_quiesce(twin.pop("_store"), twin.pop("_state")))
+    diverged = [k for k in sig if not np.array_equal(sig[k], twin_sig[k])]
+    if diverged:
+        fail(f"scale crash run: the rebuilt fleet differs from its twin in {diverged}")
+    log(f"[scale] crash-stripped twin wall {twin_wall:.3f} s; after the quiescent "
+        f"tail the rebuilt fleet equals the twin's (replica_version, replica_vc, "
+        f"global_version)")
 
 
 def scale_sharded() -> None:
@@ -3034,9 +3315,9 @@ def log_profile(tag: str, label: str, run, wall: float, rounds: int = 0) -> None
     ``rounds`` is given."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=profiled_activities()) as prof:
         run()
         torch.cuda.synchronize()
     # Device-side rows only (kernels, copies, fills): the host-op rows
@@ -3068,15 +3349,15 @@ def phase_profile() -> None:
     from repro_torch.storage import simulator as sim
     from repro_torch.storage.ycsb import PHASED_RW, WORKLOAD_A
 
-    # CAUSAL's rounds are all alike; 2000 ops (250 rounds) keep the
-    # profiler's own overhead small.
+    # CAUSAL's rounds are all alike; 1000 ops (125 rounds) keep the
+    # profiler's own overhead small (2000 ops took 49.3 s of the phase).
     fault_kw = fault_kwargs(6000, 128)
     # (label, run, rounds): the fault run's 6000 ops in 128-op rounds.
     runs = (
         ("X_STCC run_protocol(n_ops=6000)", lambda: sim.run_protocol(
             ConsistencyLevel.X_STCC, WORKLOAD_A, n_ops=6000, device="cuda"), 0),
-        ("CAUSAL run_protocol(n_ops=2000)", lambda: sim.run_protocol(
-            ConsistencyLevel.CAUSAL, WORKLOAD_A, n_ops=2000, device="cuda"), 0),
+        ("CAUSAL run_protocol(n_ops=1000)", lambda: sim.run_protocol(
+            ConsistencyLevel.CAUSAL, WORKLOAD_A, n_ops=1000, device="cuda"), 0),
         ("X_STCC run_protocol_faulty(n_ops=6000, outage+gossip+hints+wal+obs)",
          lambda: sim.run_protocol_faulty(ConsistencyLevel.X_STCC, WORKLOAD_A,
                                          device="cuda", **fault_kw), -(-6000 // 128)),
@@ -3171,6 +3452,7 @@ def main() -> None:
     launches = {"main": run("main", phase_main, {}),
                 "faulty": run("faulty", phase_faulty, {}),
                 "sharded": run("sharded", phase_sharded, {}),
+                "recovery": run("recovery", phase_recovery, {}),
                 "geo": run("geo", phase_geo, {}),
                 "adaptive": run("adaptive", phase_adaptive, {}),
                 "serving": run("serving", phase_serving, {})}
@@ -3191,6 +3473,8 @@ def main() -> None:
             # The sharded phase's launches: B.1 and the chain once per shard
             # per round, B.2 once per shard's audit.
             "sharded_launches": launches["sharded"][name],
+            # The recovery phase's crash runs: B.4 in bootstrap and gossip.
+            "recovery_launches": launches["recovery"][name],
             "max_abs_err": t["err"], "match": t.get("match", t["err"] == 0),
             "shape": t["shape"], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound"][0], "bound_by": t["bound"][1],

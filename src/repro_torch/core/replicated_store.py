@@ -1,5 +1,5 @@
 """ReplicatedStore — the replicated-state facade (port of
-``repro.core.replicated_store``; crash and bootstrap are not ported yet).
+``repro.core.replicated_store``).
 
   * **state**     — :class:`StoreState` bundles the protocol cluster, the
     DUOT op log and the pending ring's emulated apply points;
@@ -17,8 +17,10 @@
     (digest diff + range-restricted repair merges),
     :meth:`~ReplicatedStore.enqueue_hints` /
     :meth:`~ReplicatedStore.drain_hints` over :class:`HintState`;
-  * **durability** — :class:`DurabilityConfig`, :class:`DuraState`,
-    :meth:`~ReplicatedStore.snapshot`, :meth:`~ReplicatedStore.wal_append`;
+  * **durability / crash recovery** — :class:`DurabilityConfig`,
+    :class:`DuraState`, :meth:`~ReplicatedStore.snapshot`,
+    :meth:`~ReplicatedStore.wal_append`, :meth:`~ReplicatedStore.crash`
+    and the peer :meth:`~ReplicatedStore.bootstrap`;
   * **serving**   — :meth:`~ReplicatedStore.install`,
     :meth:`~ReplicatedStore.read_batch` / :meth:`~ReplicatedStore.write_batch`,
     :meth:`~ReplicatedStore.session_floor`, the batched admission
@@ -131,8 +133,12 @@ class DurabilityConfig:
 
     ``snapshot_every`` merge epochs between snapshot markers (0 = no
     snapshots); ``wal`` additionally journals every applied delta
-    between markers.  ``bootstrap_ranges`` and ``impl`` serve the crash
-    path's peer bootstrap, which is not ported yet.
+    between markers, so a crashed replica restores its exact pre-crash
+    applied state instead of the state as of the last marker.
+    ``bootstrap_ranges`` is the digest granularity of the peer bootstrap;
+    ``impl`` picks the ``digest_compare`` route (``None`` = auto), as
+    ``GossipConfig.impl`` does.  Disabled, a crash is amnesiac and the
+    replica rebuilds from its peers alone.
     """
 
     snapshot_every: int = 4
@@ -196,6 +202,13 @@ def make_hints(n_replicas: int, hint_cap: int,
         count=torch.zeros((n_replicas,), **i32),
         dropped=torch.zeros((), **i32),
     )
+
+
+def _host_bool(x) -> np.ndarray:
+    """A bool mask on the host (a device tensor is read once)."""
+    if isinstance(x, torch.Tensor):
+        x = x.cpu().numpy()
+    return np.asarray(x, dtype=bool)
 
 
 def _put_rows_drop(target: torch.Tensor, row: torch.Tensor, col: torch.Tensor,
@@ -747,6 +760,127 @@ class ReplicatedStore:
             wal_total=du.wal_total + rec.sum(dtype=torch.int32),
         )
         return state._replace(dura=dura)
+
+    def crash(self, state: StoreState, crashed) -> tuple[StoreState, dict[str, torch.Tensor]]:
+        """Destroy the volatile state of the ``crashed`` (P,) bool replicas.
+
+        What survives depends on the store's :class:`DurabilityConfig`:
+        with the WAL, snapshot load + replay restore the exact pre-crash
+        applied state and only the I/O is billed; with snapshots only,
+        the crashed rows roll back to the marker and their pending-ring
+        applied bits survive only for writes the marker covered; with
+        durability off, the rows and their applied bits are lost.  The
+        commit log (pending ring, ``global_version``, floors) is never
+        lost.  Returns ``(state, info)`` with () int32 ``wal_replayed``,
+        ``snap_read`` and ``rows_lost``.
+        """
+        cl, du, cfg = state.cluster, state.dura, self.durability
+        dev = cl.replica_version.device
+        crashed = torch.as_tensor(crashed, device=dev).to(torch.bool)
+        zero = torch.zeros((), dtype=torch.int32, device=dev)
+        if cfg is not None and cfg.wal:
+            snap_read = (crashed[:, None] & (du.snap_version > 0)).sum(dtype=torch.int32)
+            replayed = torch.where(crashed, du.wal_len, 0).sum(dtype=torch.int32)
+            return state, {"wal_replayed": replayed, "snap_read": snap_read,
+                           "rows_lost": zero}
+        if cfg is not None:
+            base_v, base_c = du.snap_version, du.snap_vc
+            snap_read = (crashed[:, None] & (base_v > 0)).sum(dtype=torch.int32)
+        else:
+            base_v = torch.zeros_like(cl.replica_version)
+            base_c = torch.zeros_like(cl.replica_vc)
+            snap_read = zero
+        new_rv = torch.where(crashed[:, None], base_v, cl.replica_version)
+        new_vc = torch.where(crashed[:, None], base_c, cl.replica_vc)
+        rows_lost = (cl.replica_version > new_rv).sum(dtype=torch.int32)
+        res = torch.clamp(cl.pend_resource, 0, self.n_resources - 1).long()
+        covered = cl.pend_version[:, None] <= base_v[:, res].T          # (Q, P)
+        touch = crashed[None, :] & cl.pend_live[:, None]
+        applied = torch.where(touch, cl.pend_applied & covered, cl.pend_applied)
+        new = state._replace(cluster=cl._replace(
+            replica_version=new_rv, replica_vc=new_vc, pend_applied=applied))
+        if du is not None:
+            new = new._replace(dura=du._replace(
+                wal_len=torch.where(crashed, 0, du.wal_len)))
+        return new, {"wal_replayed": zero, "snap_read": snap_read,
+                     "rows_lost": rows_lost}
+
+    def bootstrap(
+        self,
+        state: StoreState,
+        *,
+        targets,     # (P,) bool — replicas rebuilding this epoch
+        up,          # (P,) bool
+        link,        # (P, P) bool — closed connectivity
+        n_ranges: int,
+        impl: str | None = None,
+    ) -> tuple[StoreState, dict[str, torch.Tensor]]:
+        """Rebuild each target replica from its nearest live holder.
+
+        For target ``d`` (itself up) the source is the first live, linked,
+        non-rebuilding peer in ring order after ``d``; the two diff
+        per-range digests (:func:`repro_torch.gossip.digest.range_digests`)
+        and every differing range is pulled: the target's version cells
+        in it max-join the source's, its applied clock max-joins the
+        source's, and live pending writes in it applied at the source are
+        marked applied at the target, after which fully applied slots
+        retire.  Clock-neutral and idempotent.
+
+        The reference scans the P replicas, one (1, K) compare each.  A
+        source is never a target, so its row never changes, and a
+        target's row changes only at its own step: every verdict can be
+        taken on the digests as they stand.  So the sources are chosen on
+        the host (from host masks, or one read of device ones), all
+        verdicts come from one ``kernels.ops.digest_compare_pairs`` call,
+        and the pulls follow in ring order.  Returns ``(state,
+        telemetry)`` with (P,) ``valid`` (a source was reachable),
+        ``source`` (-1 without one), ``cells`` (version cells raised),
+        ``pend`` (pending copies delivered) and ``ranges`` (stale ranges
+        pulled).
+        """
+        cl = state.cluster
+        dev = cl.replica_version.device
+        p, r = self.n_replicas, self.n_resources
+        t_all, u, ln = (_host_bool(x) for x in (targets, up, link))
+        sources = []
+        for d in range(p):
+            offs = [(d + 1 + i) % p for i in range(p - 1)]
+            cand = [o for o in offs if u[o] and ln[d, o] and not t_all[o]]
+            sources.append(cand[0] if (t_all[d] and u[d] and cand) else -1)
+        pairs = [(d, s) for d, s in enumerate(sources) if s >= 0]
+        i32 = dict(dtype=torch.int32, device=dev)
+        cells = torch.zeros((p,), **i32)
+        pend = torch.zeros((p,), **i32)
+        ranges = torch.zeros((p,), **i32)
+        rv, vc, applied = cl.replica_version, cl.replica_vc, cl.pend_applied
+        if pairs:
+            idx = torch.tensor(pairs, dtype=torch.int64, device=dev)
+            dig = digest_lib.range_digests(rv, n_ranges)
+            stale = kernel_ops.digest_compare_pairs(
+                dig, idx[:, 0], idx[:, 1], host_pairs=pairs, impl=impl)[0]  # (M, K)
+            rid = digest_lib.range_of_resource(r, n_ranges, dev).long()
+            slot_rid = rid[torch.clamp(cl.pend_resource, 0, r - 1).long()]
+            # The state's tensors may be shared (a snapshot holds the
+            # version rows): the pulls write into copies.
+            rv, vc, applied = rv.clone(), vc.clone(), applied.clone()
+            for m, (d, s) in enumerate(pairs):
+                pull = torch.maximum(rv[d], torch.where(stale[m][rid], rv[s], 0))
+                cells[d] = (pull > rv[d]).sum(dtype=torch.int32)
+                rv[d] = pull
+                vc[d] = torch.maximum(vc[d], vc[s])
+                relay = cl.pend_live & stale[m][slot_rid] & applied[:, s]
+                pend[d] = (relay & ~applied[:, d]).sum(dtype=torch.int32)
+                applied[:, d] |= relay
+                ranges[d] = stale[m].sum(dtype=torch.int32)
+        live = cl.pend_live & ~applied.all(dim=1)
+        cluster = cl._replace(replica_version=rv, replica_vc=vc, pend_applied=applied,
+                              pend_live=live)
+        telemetry = {
+            "valid": torch.tensor([s >= 0 for s in sources], dtype=torch.bool, device=dev),
+            "source": torch.tensor(sources, **i32),
+            "cells": cells, "pend": pend, "ranges": ranges,
+        }
+        return state._replace(cluster=cluster), telemetry
 
     # -- serving: snapshot installs and session floors ------------------------
 

@@ -2,7 +2,8 @@
 every replay entry point, ``EpochEngine(EngineConfig(...)).run(workload)``.
 
 ``jit_entries`` and ``unified_runner`` hold the reference's compiled XLA
-programs and have no counterpart here.
+programs and have no counterpart here; ``obs.trace.traced_run`` records a
+replay's kernel launches in place of its ``jit_entries``.
 """
 
 from repro_torch.engine.config import EngineConfig

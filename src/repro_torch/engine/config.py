@@ -5,9 +5,8 @@ batching, the region ``topology`` (two-tier merge, RTT latency, per-pair
 egress bill), the fault schedule (``faults``, anchored per merge round
 or, with ``schedule_unit``, per op-index window), ``gossip``,
 ``durability``, ``n_shards`` disjoint tenant shards, ``obs`` and the
-``lean`` fidelity switch.  Pieces the port does not run yet raise
-``NotImplementedError``: schedules with crash events, and a topology
-composed with faults.
+``lean`` fidelity switch.  A fault schedule may carry crash events, and
+composes with a topology that places the paper's 3 replicas.
 """
 
 from __future__ import annotations
@@ -20,10 +19,6 @@ from repro_torch.core.consistency import ConsistencyLevel
 from repro_torch.core.replicated_store import DurabilityConfig
 from repro_torch.gossip.scheduler import GossipConfig
 from repro_torch.obs.metrics import ObsConfig
-
-
-def _not_ported(what: str, why: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet: {why}")
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -81,20 +76,21 @@ class EngineConfig:
                 f"{self.n_resources}, and n_ops={self.n_ops} must all be "
                 f"divisible by n_shards={self.n_shards}"
             )
+        if self.faults is not None and self.faults.n_replicas != 3:
+            raise ValueError(
+                f"schedule covers {self.faults.n_replicas} replicas; the "
+                "paper cluster has 3 DCs"
+            )
         if self.topology is not None and self.n_shards > 1:
             raise ValueError("topology does not compose with n_shards > 1")
-        if self.faults is not None:
-            if self.faults.n_replicas != 3:
-                raise ValueError(
-                    f"schedule covers {self.faults.n_replicas} replicas; the "
-                    "paper cluster has 3 DCs"
-                )
-            if self.faults.has_crashes:
-                raise _not_ported("a fault schedule with crash events",
-                                  "crash and bootstrap are deferred")
-            if self.topology is not None:
-                raise _not_ported("a topology composed with faults",
-                                  "geo + faults is deferred")
+        if (
+            self.topology is not None and self.faults is not None
+            and self.topology.n_replicas != 3
+        ):
+            raise ValueError(
+                "fault schedules cover the paper's 3 DCs; a composed "
+                "topology must place exactly 3 replicas"
+            )
         if self.ingest not in ("auto", "cuda", "torch"):
             raise ValueError(
                 f"ingest must be 'auto', 'cuda' or 'torch', got {self.ingest!r}"

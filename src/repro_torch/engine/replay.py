@@ -1,20 +1,20 @@
 """The epoch engine's replay (port of ``repro.engine.replay``).
 
-One round step — heal-time hint drain and anti-entropy, failover, op
-ingest, hint enqueue, the boundary merge (masked under faults, two-tier
-over a region topology), the gossip exchange, WAL/snapshot journaling,
-counters, the per-region telemetry and the obs histograms — runs once
-per merge round.  The reference scans it under
-one ``jit`` with every feature a statically gated section; here the
-round loop is Python and every section is a plain ``if``.  The per-round
-masks (``up``, ``conn``, ``faulty``, ``heal``, ``gossip``, ``snap``,
-``pairs``) stay on the host, so a ``lax.cond`` becomes an ``if`` with no
-device sync; the stream and what a merge or kernel consumes go to the
-device once.  Per round the host reads the DUOT size and one flag per
+One round step — crash and rejoin (state loss, durable restore, peer
+bootstrap), heal-time hint drain and anti-entropy, failover, op ingest,
+hint enqueue, the boundary merge (masked under faults, two-tier over a
+region topology, both together), the gossip exchange, WAL/snapshot
+journaling, counters, the per-region telemetry and the obs histograms —
+runs once per merge round.  The reference scans it under one ``jit``
+with every feature a statically gated section; here the round loop is
+Python and every section is a plain ``if``.  The per-round masks
+(``up``, ``conn``, ``faulty``, ``heal``, ``crash``, ``rejoin``,
+``gossip``, ``snap``, ``pairs``) stay on the host, so a ``lax.cond``
+becomes an ``if`` with no device sync; the stream and what a merge or
+kernel consumes go to the device once.  Per round the host reads the DUOT size and one flag per
 merge-fixpoint pass.  Disjoint tenant shards (``n_shards > 1``) run one
-after another inside each round, each with its own carry.  Crash events,
-bootstrap and a topology composed with faults are not ported yet
-(``EngineConfig`` rejects them).
+after another inside each round, each with its own carry, under the
+one fault schedule.
 
 One deliberate difference on the geo path: the reference sums each op's
 f32 RTT into a per-region f32 vector every round, in an order XLA picks.
@@ -69,6 +69,11 @@ class EpochEngine:
                      and self.faults_on)
         self.w_on = self.d_on and c.durability.wal
         self.s_on = self.d_on and c.durability.snapshot_every > 0
+        # Crash events: state loss at the crash epoch, restore and peer
+        # bootstrap at the rejoin epoch; the recovery counters run
+        # whenever they or the durability layer do.
+        self.crashes = self.faults_on and c.faults.has_crashes
+        self.rx_on = self.d_on or self.crashes
         self.gx_on = g is not None and self.faults_on
         self.geo_on = c.topology is not None
         # Geo gossip attributes its exchanges to region pairs (all-up).
@@ -110,14 +115,19 @@ class EpochEngine:
     def _anchored_schedule(self, n_rounds: int, rem: int, sub: int):
         """The fault schedule re-anchored onto this level's rounds: with
         ``schedule_unit``, round ``t`` takes the masks of schedule epoch
-        ``t·sub // schedule_unit``."""
+        ``t·sub // schedule_unit``.  Crash events fire once: only the first
+        round mapped to a schedule epoch inherits its crash flags."""
         c = self.config
         schedule = c.faults
         if c.schedule_unit:
             starts = np.arange(n_rounds + (1 if rem else 0)) * sub
             idx = np.minimum(starts // c.schedule_unit, schedule.n_epochs - 1)
-            # Crash-free schedules only (EngineConfig rejects crashes).
-            schedule = avail_lib.FaultSchedule(schedule.up[idx], schedule.link[idx])
+            first = np.ones(idx.shape, bool)
+            first[1:] = idx[1:] != idx[:-1]
+            schedule = avail_lib.FaultSchedule(
+                schedule.up[idx], schedule.link[idx],
+                crash=schedule.crashes()[idx] & first[:, None],
+            )
         return schedule
 
     def _fault_masks(self, n_rounds: int, rem: int, sub: int):
@@ -125,7 +135,7 @@ class EpochEngine:
         c = self.config
         schedule = self._anchored_schedule(n_rounds, rem, sub)
         schedule, masks, tail_masks = stream_lib.fault_epoch_inputs(
-            schedule, n_rounds, rem
+            schedule, n_rounds, rem, self.crashes
         )
         n_epochs_total = n_rounds + (1 if rem else 0)
         if c.gossip is not None:
@@ -253,10 +263,8 @@ class EpochEngine:
                     h_deliv=torch.zeros((store.n_replicas,), dtype=torch.int64,
                                         device=dev),
                 )
-        if self.d_on:
-            # Crash events are not ported, so every recovery counter but
-            # the durability layer's own stays 0.
-            carry["rx"] = {k: 0 for k in (
+        if self.rx_on:
+            carry["rx"] = {k: z for k in (
                 "crashes", "wal_replayed", "rows_lost", "snap_read",
                 "boot_cells", "boot_pend", "boot_events",
             )}
@@ -282,9 +290,30 @@ class EpochEngine:
         zero = torch.zeros((), dtype=torch.int64, device=dev)
         if self.faults_on:
             up, conn = m["up_t"], m["conn_t"]
+        if self.crashes:
+            carry["rx"] = rx = dict(carry["rx"])
+            if m["crash"].any():
+                # Crash epoch: the replica's volatile state dies before
+                # anything else happens; the durability layer survives.
+                st, info = store.crash(st, m["crash"])
+                rx["crashes"] = rx["crashes"] + int(m["crash"].sum())
+                for k in ("wal_replayed", "rows_lost", "snap_read"):
+                    rx[k] = rx[k] + info[k]
+            if m["rejoin"].any():
+                # Rejoin epoch: pull the stale ranges from the nearest live
+                # holder before the replica serves anything.
+                dura = c.durability
+                st, tel = store.bootstrap(
+                    st, targets=m["rejoin"], up=m["up"], link=m["conn"],
+                    n_ranges=dura.bootstrap_ranges if dura is not None else 8,
+                    impl=dura.impl if dura is not None else None,
+                )
+                rx["boot_cells"] = rx["boot_cells"] + tel["cells"].sum()
+                rx["boot_pend"] = rx["boot_pend"] + tel["pend"].sum()
+                rx["boot_events"] = rx["boot_events"] + tel["valid"].sum()
         if self.w_on:
-            # Applied copies at the start of the epoch: the epoch's
-            # growth is what each replica journals.
+            # Applied copies at the start of the epoch (after recovery):
+            # the epoch's growth is what each replica journals.
             applied0 = st.cluster.pend_applied.sum(dim=0, dtype=torch.int32)
         hd = None
         if self.h_on and m["heal"]:
@@ -337,6 +366,14 @@ class EpochEngine:
         # -- boundary merge -----------------------------------------------
         if lean_merge:
             st, _ = store.merge(st, timed_only=True, boundary=step0 + width)
+        elif self.geo_on and self.faults_on:
+            # Two-tier merge along the live links: propagation is the
+            # growth of the applied bits, traffic the (G, G) deliveries.
+            before = st.cluster.pend_applied.sum(dtype=torch.int32)
+            st, _, tr = store.merge_geo(st, c.topology, up=up, link=conn)
+            carry["prop"] = carry["prop"] + (
+                st.cluster.pend_applied.sum(dtype=torch.int32) - before)
+            carry["traffic"] = carry["traffic"] + tr
         elif self.geo_on:
             st, _, tr = store.merge_geo(st, c.topology)
             carry["traffic"] = carry["traffic"] + tr
@@ -499,7 +536,11 @@ class EpochEngine:
         the end, along a leading shard axis (``out``), and the per-round
         series become ``(S, T)`` arrays.
         """
-        prep = self.prepare(w)
+        return self.execute(self.prepare(w))
+
+    def execute(self, prep: dict[str, Any]) -> dict[str, Any]:
+        """The round loop over :meth:`prepare`'s inputs: ``prep`` with
+        ``out`` and ``per_round`` added (see :meth:`replay`)."""
         store = prep["store"]
         sub, rem, n_rounds = prep["sub"], prep["rem"], prep["n_rounds"]
         n_shards = self.config.n_shards

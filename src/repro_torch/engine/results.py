@@ -1,6 +1,7 @@
 """Result assembly for the epoch engine (port of
 ``repro.engine.results``: the flat, sharded, geo and fault-path
-dictionaries, the ``"obs"`` block and its cost attribution).
+dictionaries, the fault path's ``"geo"`` block, the ``"obs"`` block and
+its cost attribution).
 
 Each ``assemble_*`` turns one :meth:`EpochEngine.replay` output into the
 reference's dictionary — same keys, same float arithmetic, same order of
@@ -78,16 +79,27 @@ def assemble_sharded(config: EngineConfig, prep: dict) -> dict[str, Any]:
     }
 
 
-def _region_latency(config: EngineConfig, out: dict):
+def _region_latency(config: EngineConfig, out: dict, sharded: bool = False):
     """(reads, stale, ops, latency sums) per client region, int64 and f64:
     the latency sum of region ``g`` is ``Σ_h count[g, h]·f64(rtt[g, h])``
-    over the serving regions ``h``."""
-    reg = out["reg"]
-    pairs = reg["pairs"].cpu().numpy().astype(np.int64)
+    over the serving regions ``h``.  ``sharded`` sums the shard axis."""
+    reg = {k: v.cpu().numpy().astype(np.int64) for k, v in out["reg"].items()}
+    if sharded:
+        reg = {k: v.sum(axis=0) for k, v in reg.items()}
+    pairs = reg["pairs"]
     rtt = config.topology.rtt().astype(np.float64)
     lat = (pairs * rtt).sum(axis=1)
-    return (reg["reads"].cpu().numpy(), reg["stale"].cpu().numpy(),
-            pairs.sum(axis=1), lat)
+    return reg["reads"], reg["stale"], pairs.sum(axis=1), lat
+
+
+def _per_region(reads, stale, ops, lat) -> dict[str, Any]:
+    return {
+        "reads": reads.tolist(),
+        "stale": stale.tolist(),
+        "ops": ops.tolist(),
+        "staleness_rate": (stale / np.maximum(1, reads)).tolist(),
+        "mean_latency_ms": (lat / np.maximum(1, ops)).tolist(),
+    }
 
 
 def assemble_geo(
@@ -225,13 +237,7 @@ def assemble_geo(
         "traffic_events": events.tolist(),
         "propagation_gb": prop_gb.tolist(),
         "mean_latency_ms": float(reg_lat.sum() / max(1, reg_ops.sum())),
-        "per_region": {
-            "reads": reg_reads.tolist(),
-            "stale": reg_stale.tolist(),
-            "ops": reg_ops.tolist(),
-            "staleness_rate": (reg_stale / np.maximum(1, reg_reads)).tolist(),
-            "mean_latency_ms": (reg_lat / np.maximum(1, reg_ops)).tolist(),
-        },
+        "per_region": _per_region(reg_reads, reg_stale, reg_ops, reg_lat),
         "cost": cost,
     }
     if gossip_info is not None:
@@ -241,17 +247,44 @@ def assemble_geo(
     return result
 
 
+def _geo_block(config: EngineConfig, out: dict, cfg: ClusterConfig,
+               sharded: bool) -> dict[str, Any]:
+    """Region attribution of a run on a topology composed with faults:
+    the (G, G) delivery matrix billed per pair (the topology's own egress
+    matrix), and the per-region staleness and latency."""
+    topology = config.topology
+    events = out["traffic"].cpu().numpy().astype(np.int64)
+    if sharded:
+        events = events.sum(axis=0)
+    prop_gb = events * cfg.row_bytes / 1e9
+    reg_reads, reg_stale, reg_ops, reg_lat = _region_latency(config, out, sharded)
+    return {
+        "n_regions": topology.n_regions,
+        "traffic_events": events.tolist(),
+        "propagation_gb": prop_gb.tolist(),
+        "network_geo": cost_model.cost_network_matrix(
+            traffic_gb=prop_gb, egress=topology.egress
+        ),
+        "mean_latency_ms": float(reg_lat.sum() / max(1, reg_ops.sum())),
+        "per_region": _per_region(reg_reads, reg_stale, reg_ops, reg_lat),
+    }
+
+
 def assemble_faulty(
     config: EngineConfig,
     prep: dict,
     w: Workload,
     cfg: ClusterConfig = PAPER_CLUSTER,
     pricing: cost_model.PricingScheme = cost_model.PAPER_PRICING,
+    _return_state: bool = False,
 ) -> dict[str, Any]:
     """The failure-path dictionary: protocol rates, failover and
     propagation counts, the eq. 8 bill with the measured anti-entropy,
-    gossip and durability traffic, and the ``"gossip"`` / ``"recovery"``
-    blocks when those subsystems ran."""
+    gossip, durability and recovery traffic, and the ``"gossip"``,
+    ``"recovery"`` (with ``crash_epochs``) and ``"geo"`` blocks when those
+    subsystems ran.  ``_return_state`` adds the final state and the store
+    under underscore keys (``_state``, ``_store``), which the
+    dict-equality gates never see."""
     from repro_torch.storage.simulator import throughput_model, traffic_gb
 
     out = prep["out"]
@@ -262,7 +295,7 @@ def assemble_faulty(
     n_shards = config.n_shards
     sharded = n_shards > 1
     d_on = recovery is not None and recovery.enabled
-    rx_on = d_on      # crash events are not ported
+    rx_on = d_on or config.faults.has_crashes
     n_ops = config.n_ops
     s_resources = config.shard_resources
     rem = prep["rem"]
@@ -319,7 +352,7 @@ def assemble_faulty(
         digest_gb = g_pair_n * 2 * k_eff * DIGEST_BYTES / 1e9
         repair_gb = (g_deliv + h_deliv) * row / 1e9
         gossip_gb = digest_gb + repair_gb
-    # -- durability (eq. 8's storage/network split) ----------------------
+    # -- durability + crash recovery (eq. 8's storage/network split) -----
     snapshot_gb = wal_gb = replay_gb = bootstrap_gb = 0.0
     recovery_info = None
     if rx_on:
@@ -439,6 +472,11 @@ def assemble_faulty(
             schedule.crashes().any(axis=1)
         ).tolist()
         result["recovery"] = recovery_info
+    if config.topology is not None:
+        result["geo"] = _geo_block(config, out, cfg, sharded)
+    if _return_state:
+        result["_state"] = st
+        result["_store"] = store
     return result
 
 
@@ -500,10 +538,11 @@ def assemble(
     w: Workload,
     cfg: ClusterConfig = PAPER_CLUSTER,
     pricing: cost_model.PricingScheme = cost_model.PAPER_PRICING,
+    _return_state: bool = False,
 ) -> dict[str, Any]:
     """Dispatch the replay output to its config's result shape."""
     if config.faults is not None:
-        result = assemble_faulty(config, prep, w, cfg, pricing)
+        result = assemble_faulty(config, prep, w, cfg, pricing, _return_state)
     elif config.topology is not None:
         result = assemble_geo(config, prep, w, cfg, pricing)
     elif config.n_shards > 1:

@@ -116,11 +116,12 @@ def batch_inputs(
 
 
 def fault_epoch_inputs(
-    schedule, n_rounds: int, rem: int,
+    schedule, n_rounds: int, rem: int, crashes: bool = False,
 ) -> tuple[object, dict[str, np.ndarray], dict[str, np.ndarray]]:
-    """(schedule, per-round mask arrays, tail mask arrays) of a crash-free
-    schedule sliced to the run's epochs: ``up``, the closed ``conn``,
-    ``faulty`` and ``heal``."""
+    """(schedule, per-round mask arrays, tail mask arrays) of a schedule
+    sliced to the run's epochs: ``up``, the closed ``conn``, ``faulty``
+    and ``heal``; ``crashes`` adds the crash-event and rejoin masks
+    (``crash``, ``rejoin``)."""
     n_epochs = n_rounds + (1 if rem else 0)
     schedule = schedule.slice(n_epochs)
     conn = schedule.closure()
@@ -139,6 +140,13 @@ def fault_epoch_inputs(
         "faulty": faulty[t],
         "heal": heals[t],
     }
+    if crashes:
+        crash = schedule.crashes()
+        rejoin = schedule.rejoins()
+        per_round["crash"] = crash[:n_rounds]
+        per_round["rejoin"] = rejoin[:n_rounds]
+        tail["crash"] = crash[t]
+        tail["rejoin"] = rejoin[t]
     return schedule, per_round, tail
 
 

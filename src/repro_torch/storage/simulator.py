@@ -257,6 +257,7 @@ def run_protocol_faulty(
     pricing: cost_model.PricingScheme = cost_model.PAPER_PRICING,
     obs: ObsConfig | None = None,
     device: str | torch.device = "cuda",
+    _return_state: bool = False,
 ) -> dict[str, Any]:
     """Run the protocol under replica outages and network partitions.
 
@@ -278,9 +279,17 @@ def run_protocol_faulty(
     eq. 8 with a ``"recovery"`` block.  ``obs`` adds the ``"obs"``
     block.  ``n_shards > 1`` stacks disjoint tenant shards under the one
     schedule (the :func:`run_protocol_sharded` scheme, counts summed).
-    Crash events are not ported yet and raise.  Runs on ``device``
-    (``"cuda"`` unless the
-    caller asks for the CPU).
+
+    A schedule with crash events
+    (:func:`repro_torch.core.availability.replica_crash`) destroys the
+    crashed replica's applied state at the crash epoch and rebuilds it at
+    its rejoin epoch: restore from ``recovery``'s durability layer, then a
+    peer bootstrap that pulls the stale digest ranges from the nearest
+    live holder.  The recovery I/O and traffic join the eq. 8 bill and
+    the result gains ``crash_epochs``.  ``_return_state`` adds the final
+    state and store under ``_state`` / ``_store`` (the chaos harness's
+    convergence check).  Runs on ``device`` (``"cuda"`` unless the caller
+    asks for the CPU).
     """
     if n_clients % n_shards or n_resources % n_shards or n_ops % n_shards:
         raise ValueError(
@@ -307,7 +316,8 @@ def run_protocol_faulty(
         obs=obs,
     )
     engine = EpochEngine(config, device=device)
-    return engine_results.assemble(config, engine.replay(w), w, cfg, pricing)
+    return engine_results.assemble(config, engine.replay(w), w, cfg, pricing,
+                                   _return_state)
 
 
 def run_protocol_sharded(

@@ -16,17 +16,12 @@ from repro.core import xstcc as jx
 from repro.core.consistency import ConsistencyLevel as JL
 from repro.storage.cluster import ClusterConfig as JCluster
 from repro_torch import convert
-from repro_torch.core import availability as tav
 from repro_torch.core import cost_model as tcost
 from repro_torch.core import duot as tduot
 from repro_torch.core import vector_clock as tvc
 from repro_torch.core import xstcc as tx
 from repro_torch.core.consistency import ConsistencyLevel as TL
-from repro_torch.core.replicated_store import DurabilityConfig
 from repro_torch.engine.config import EngineConfig
-from repro_torch.geo.topology import PAPER_TOPOLOGY
-from repro_torch.gossip.scheduler import GossipConfig
-from repro_torch.obs.metrics import ObsConfig
 from repro_torch.storage.cluster import ClusterConfig as TCluster
 
 from torch_port_helpers import CPU, as_np, assert_tree_equal, jax_to_numpy, jlevel
@@ -155,27 +150,6 @@ def test_convert_round_trips_reference_state():
 def test_make_cluster_matches():
     assert_tree_equal(jx.make_cluster(3, 4, 6, pending_cap=9),
                       tx.make_cluster(3, 4, 6, pending_cap=9, device=CPU))
-
-
-_GEO_FAULTS = dict(topology=PAPER_TOPOLOGY, faults=tav.all_up(5, 3))
-
-
-@pytest.mark.parametrize("pieces", [
-    pytest.param(_GEO_FAULTS, id="topology-value0"),
-    pytest.param(dict(faults=tav.replica_crash(5, 3, 1, 2)), id="faults-value1"),
-    pytest.param(dict(_GEO_FAULTS, gossip=GossipConfig(cadence=2, peer="nearest")),
-                 id="gossip-value2"),
-    pytest.param(dict(faults=tav.replica_crash(5, 3, 0, 1), durability=DurabilityConfig()),
-                 id="durability-value3"),
-    pytest.param(dict(_GEO_FAULTS, obs=ObsConfig()), id="obs-value4"),
-    pytest.param(dict(n_shards=2, faults=tav.replica_crash(5, 3, 1, 2)), id="n_shards-2"),
-])
-def test_engine_config_rejects_unported_pieces(pieces):
-    """Crash schedules (sharded ones too) and a topology composed with
-    faults (with its nearest-peer gossip and geo obs rows) are not ported
-    yet; sharding itself is (``test_torch_sharded.py``)."""
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        EngineConfig(TL.X_STCC, **pieces)
 
 
 def test_engine_config_validates_flat_fields():

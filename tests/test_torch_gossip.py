@@ -26,8 +26,6 @@ from repro_torch.core import availability as tav
 from repro_torch.core.consistency import ConsistencyLevel as TL
 from repro_torch.core.replicated_store import DurabilityConfig
 from repro_torch.core.replicated_store import ReplicatedStore as TStore
-from repro_torch.engine.config import EngineConfig
-from repro_torch.geo.topology import PAPER_TOPOLOGY
 from repro_torch.gossip import digest as tdig
 from repro_torch.gossip import scheduler as tsched
 from repro_torch.kernels import digest_compare as tdc
@@ -333,15 +331,6 @@ def test_snapshot_and_wal_append_match_reference(seed):
 
 
 def test_deferred_pieces_raise():
-    crash = tav.replica_crash(5, 3, 1, 1, 2)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tsim.run_protocol_faulty(TL.X_STCC, WORKLOAD_A, n_ops=600, schedule=crash,
-                                 device=CPU)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tsim.run_protocol_faulty(TL.X_STCC, WORKLOAD_A, n_ops=600, n_shards=2,
-                                 schedule=crash, device=CPU)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        EngineConfig(TL.X_STCC, topology=PAPER_TOPOLOGY, faults=tav.all_up(5, 3))
     # Nearest-peer gossip needs a topology, in the port as in the reference.
     with pytest.raises(ValueError, match="RegionTopology"):
         tsim.run_protocol_faulty(TL.X_STCC, WORKLOAD_A, n_ops=600, device=CPU,

@@ -428,6 +428,71 @@ def test_scalar_engine_on_the_card_equals_cpu(cuda):
                                                     device="cpu")
 
 
+CRASH = dict(schedule=av.replica_crash(8, 3, 1, 3, 2),
+             recovery=DurabilityConfig(snapshot_every=2, wal=True),
+             gossip=GossipConfig(cadence=2, hint_cap=8), obs=ObsConfig())
+
+
+def test_crash_run_on_the_card_equals_cpu(cuda):
+    kw = dict(CRASH, n_ops=1024, batch_size=128)
+    ops.reset_launch_counts()
+    got = simulator.run_protocol_faulty(ConsistencyLevel.X_STCC, WORKLOAD_A, device=cuda,
+                                        **kw)
+    counts = ops.launch_counts()
+    assert all(counts[k] > 0 for k in ("op_ingest", "vclock_chain", "vclock_audit",
+                                       "digest_compare", "histogram"))
+    assert got == simulator.run_protocol_faulty(ConsistencyLevel.X_STCC, WORKLOAD_A,
+                                                device="cpu", **kw)
+    assert got["recovery"]["crashes"] == got["recovery"]["rejoins"] == 1
+
+
+def test_bootstrap_launches_digest_compare_and_matches_plain(cuda):
+    from repro_torch.core.replicated_store import ReplicatedStore
+
+    store = ReplicatedStore(3, 8, 40, pending_cap=64, device=cuda)
+    st = store.init()
+    rng = np.random.default_rng(0)
+    for _ in range(3):
+        st, _ = store.write_batch(
+            st, client=_t(rng.integers(0, 8, 32, dtype=np.int32), cuda),
+            replica=_t(rng.integers(0, 3, 32, dtype=np.int32), cuda),
+            resource=_t(rng.integers(0, 40, 32, dtype=np.int32), cuda))
+        st, _ = store.merge(st)
+    down = np.asarray([False, True, False])
+    st, _ = store.crash(st, down)
+    kw = dict(targets=down, up=np.ones(3, bool), link=np.ones((3, 3), bool), n_ranges=8)
+    ops.reset_launch_counts()
+    got, tel = store.bootstrap(st, **kw)
+    assert ops.launch_counts()["digest_compare"] == 1
+    want, wtel = store.bootstrap(st, impl="torch", **kw)
+    for a, b in zip(got.cluster, want.cluster):
+        assert torch.equal(a, b)
+    for k in tel:
+        assert torch.equal(tel[k], wtel[k]), k
+    assert int(tel["cells"].sum()) > 0
+
+
+def test_geo_faults_run_on_the_card_equals_cpu(cuda):
+    from repro_torch.engine.config import EngineConfig
+    from repro_torch.engine.replay import EpochEngine
+
+    config = EngineConfig(ConsistencyLevel.TCC, n_ops=1024, topology=PAPER_TOPOLOGY,
+                          faults=CRASH["schedule"] & av.partition(8, 3, [[0], [1, 2]], 5, 7),
+                          gossip=CRASH["gossip"], durability=CRASH["recovery"],
+                          obs=CRASH["obs"])
+    got = EpochEngine(config, device=cuda).run(WORKLOAD_A)
+    assert got == EpochEngine(config, device="cpu").run(WORKLOAD_A)
+    assert got["geo"]["traffic_events"][0][1] > 0
+
+
+def test_chaos_seed_on_the_card_equals_cpu(cuda):
+    from repro_torch.chaos import run_chaos
+
+    got = run_chaos(0, device=cuda)
+    assert got["ok"] and got["crashes"] > 0
+    assert got == run_chaos(0, device="cpu")
+
+
 @pytest.mark.parametrize("r", [1, 24, 257, 65537])
 @pytest.mark.parametrize("max_lat", [10.0, float("inf")])
 def test_placement_score_kernel_matches_plain(cuda, r, max_lat):
