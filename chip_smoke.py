@@ -115,6 +115,21 @@ non-zero exit code):
                 a failover), its routing equal to the same schedule on the
                 CPU on a reduced gemma-2b; in f32, every served step's
                 logits within 1e-3 of the kernel ``forward``;
+ 10b. train   — the training path: ``tests/test_trainer_levels.py``'s setting
+                (reduced qwen2-7b, 2 layers, 2 pods, 16 steps, Δ = 4) for the
+                five paper levels and TCC, X_STCC with int8 and with top-k,
+                and QUORUM at 4 pods, each on the card and on the CPU from the
+                same weights and batches: the sync bookkeeping (counters,
+                clocks, DUOT) exactly equal, losses within rtol 1e-3, and B.1
+                / chain / B.2 launches as predicted (two, two and one per
+                causal merge); gemma-2b at its published widths (bf16, random
+                weights) for 6 steps on 2 pods under X_STCC with Δ = 2 and
+                int8 compression, batch 4 x 512: finite losses, local- and
+                sync-step seconds, tokens/s, peak memory, the sync metrics;
+                checkpoints (3 replicas, X_STCC) with a session-guarded
+                restore, ``RestartManager``, ``CheckpointRecovery``,
+                ``StoreRecovery`` of the pods' replica store against the CPU,
+                and ``rescale_train_state`` 2 -> 4 -> 2 keeping the mean;
  11. scale    — one X_STCC replay at the paper's deployment (64 client
                 threads, 5,000,000 rows, 8,000,000 ops, B = 4096) and
                 ``admit_batch`` on its final state, the same deployment
@@ -167,7 +182,7 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
 PHASES = ("device", "build", "kernels", "digest", "golden", "main", "faulty", "sharded",
-          "recovery", "geo", "adaptive", "serving", "model", "scale", "profile")
+          "recovery", "geo", "adaptive", "serving", "model", "train", "scale", "profile")
 
 # H100 SXM peaks (NVIDIA data sheet, as tabulated in the repo's
 # measurement notes): HBM bandwidth, and the 32-bit non-tensor-core rate
@@ -2653,6 +2668,246 @@ def phase_model() -> tuple[dict, dict]:
     return timings, launches
 
 
+# -- phase 10b ----------------------------------------------------------------
+
+
+# The full-width training run: gemma-2b at its published widths (random
+# weights, bf16, remat "full"), 2 pods, X_STCC with Δ = 2 and int8
+# compression, a global batch of 4 x 512 tokens (2 sequences per pod).
+TRAIN_FULL = dict(arch="gemma-2b", pods=2, delta=2, compress="int8", global_batch=4,
+                  seq=512, steps=6)
+TRAIN_FULL_CUTS = ("cuts of scale: none in width (gemma-2b's 18 layers, d_model 2048, "
+                   "8 heads of 256, MQA, d_ff 16384, vocab 256,000); 6 steps")
+TRAIN_KERNELS = ("op_ingest", "vclock_chain", "vclock_audit")
+
+
+def _train_counts(case, counts: dict) -> dict:
+    """The kernel launches of a training run, and the ones it should make."""
+    from torch_port_helpers import expected_train_launches
+
+    want = dict.fromkeys(counts, 0) | expected_train_launches(case)
+    return {k: (counts[k], want[k]) for k in counts if counts[k] or want[k]}
+
+
+def _train_step_parts(trainer, state) -> dict:
+    """Seconds of one pod's gradient, its AdamW update, a merge, and the
+    merge's protocol bookkeeping alone (each between synchronizations;
+    the state is updated as by a step)."""
+    import torch
+
+    from repro_torch.optim import adamw
+    from repro_torch.tree import leaves, tree_map
+
+    def timed_sync(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    batch = {k: v[0] for k, v in trainer.batch_for(state.step).items()}
+    pod = tree_map(lambda x: x[0], state.params)
+    wrt = tree_map(lambda x: x.detach().requires_grad_(), pod)
+
+    def grad():
+        with torch.enable_grad():
+            loss, _ = trainer.model.loss(wrt, batch)
+        return torch.autograd.grad(loss, leaves(wrt))
+
+    grads, t_grad = timed_sync(grad)
+    it = iter(grads)
+    gtree = tree_map(lambda _: next(it), wrt)
+    del wrt, grads
+    opt = adamw.AdamWState(tree_map(lambda x: x[0], state.opt.mu),
+                           tree_map(lambda x: x[0], state.opt.nu), state.opt.count)
+    _, t_adamw = timed_sync(lambda: adamw.apply(pod, gtree, opt, trainer.opt_cfg))
+    del gtree
+    engine = trainer.fns.engine
+    with torch.no_grad():
+        (_, sync), t_merge = timed_sync(lambda: engine.merge(state.params, state.sync))
+        _, t_book = timed_sync(lambda: engine._bookkeep(sync, engine.policy.level))
+    return {"grad": t_grad, "adamw": t_adamw, "merge": t_merge, "bookkeep": t_book}
+
+
+def phase_train() -> dict:
+    """The training path: (a) ``tests/test_trainer_levels.py``'s setting on
+    the card and on the CPU (same weights, same batches), bookkeeping equal
+    and losses within ``TRAIN_LOSS_RTOL``, launches as predicted; (b) the
+    full-width gemma-2b run; (c) checkpoints, restarts, crash recovery and
+    the elastic rescale on the card.  Returns (a)'s launches."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint import CheckpointStore, SessionToken
+    from repro_torch.configs import get_config
+    from repro_torch.core import ConsistencyLevel, policy_for
+    from repro_torch.data import DataConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models import abstract_params
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import (CheckpointRecovery, FailurePolicy, RestartManager,
+                                     StoreRecovery, rescale_train_state)
+    from repro_torch.train import Trainer, TrainerConfig
+    from repro_torch.tree import leaves
+    from repro_torch.tree import tree_map
+    from torch_port_helpers import (TRAIN_CASES, TRAIN_LOSS_RTOL, expected_train_launches,
+                                    history_mismatches, port_trainer, record_mismatches,
+                                    sync_record, train_case_id)
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    # (a) every level, card against CPU.
+    total = dict.fromkeys(ops.launch_counts(), 0)
+    for case in TRAIN_CASES:
+        name = train_case_id(case)
+        card, cpu = port_trainer(case, dev), port_trainer(case, "cpu")
+        params = cpu.model.init(0, device="cpu")
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        st_card = card.run(card.init_state(params))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        st_cpu = cpu.run(cpu.init_state(params))
+        bad = history_mismatches(cpu.history, card.history) + record_mismatches(
+            sync_record(st_cpu.sync), sync_record(st_card.sync))
+        if bad:
+            fail(f"train {name}: card != cpu: {bad[:8]}")
+        checked = _train_counts(case, counts)
+        if any(got != want for got, want in checked.values()):
+            fail(f"train {name}: launches (got, predicted) {checked}")
+        for k, v in counts.items():
+            total[k] += v
+        h = card.history[-1]
+        log(f"[train] {name}: {wall:.3f} s on the card, {len(card.history)} logged steps; "
+            f"loss {card.history[0]['loss']:.6f} -> {h['loss']:.6f} (cpu {cpu.history[-1]['loss']:.6f}, "
+            f"rtol {TRAIN_LOSS_RTOL}); merges {int(st_card.sync.merges)}, violations "
+            f"{h.get('violations')}, severity {h.get('severity')}, inter_pod_gb "
+            f"{h.get('inter_pod_gb')}; bookkeeping equal to the CPU; launches "
+            f"(got, predicted) {checked}")
+    t_a = time.perf_counter() - t_phase
+
+    # (b) gemma-2b at full width.
+    cfg = get_config(TRAIN_FULL["arch"])
+    full = Trainer(
+        cfg, DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_FULL["seq"],
+                        global_batch=TRAIN_FULL["global_batch"]),
+        AdamWConfig(lr=1e-4, warmup_steps=2, total_steps=TRAIN_FULL["steps"]),
+        policy_for("X_STCC", delta_steps=TRAIN_FULL["delta"],
+                   compress_inter_pod=TRAIN_FULL["compress"]),
+        TrainerConfig(n_steps=TRAIN_FULL["steps"], n_pods=TRAIN_FULL["pods"], log_every=1),
+        device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = full.init_state()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    state = full.run(state)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    hist = full.history
+    losses = [h["loss"] for h in hist]
+    if not all(math.isfinite(x) for x in losses) or sum(h["synced"] for h in hist) < 2:
+        fail(f"train full width: losses {losses}, synced {[h['synced'] for h in hist]}")
+    want = expected_train_launches(("X_STCC", TRAIN_FULL["pods"], TRAIN_FULL["steps"], {}),
+                                   delta=TRAIN_FULL["delta"])
+    if any(counts[k] != want[k] for k in want):
+        fail(f"train full width: launches {counts}, predicted {want}")
+    local = [h["sec"] for h in hist[1:] if not h["synced"]]
+    synced = [h["sec"] for h in hist[1:] if h["synced"]]
+    tokens = TRAIN_FULL["global_batch"] * TRAIN_FULL["seq"]
+    n_params = cfg.param_count()
+    log(f"[train] {cfg.name} at full width ({n_params} parameters, bf16, f32 moments, "
+        f"remat {cfg.remat}), {TRAIN_FULL['pods']} pods, X_STCC Δ = {TRAIN_FULL['delta']} "
+        f"{TRAIN_FULL['compress']}, batch {TRAIN_FULL['global_batch']} x {TRAIN_FULL['seq']}: "
+        f"init {init_s:.3f} s, {TRAIN_FULL['steps']} steps {run_s:.3f} s; step seconds "
+        f"{[round(h['sec'], 6) for h in hist]} (synced {[h['synced'] for h in hist]}); "
+        f"local step {sum(local) / len(local):.6f} s ({tokens * len(local) / sum(local):.1f} "
+        f"tokens/s), sync step {sum(synced) / len(synced):.6f} s "
+        f"({tokens * len(synced) / sum(synced):.1f} tokens/s), first step {hist[0]['sec']:.6f} s; "
+        f"losses {losses}; inter_pod_gb {hist[-1]['inter_pod_gb']}, violations "
+        f"{hist[-1]['violations']}, severity {hist[-1]['severity']}; launches "
+        f"{ {k: counts[k] for k in TRAIN_KERNELS} }; max_memory_allocated {peak} B "
+        f"({peak / 2**30:.2f} GiB); {TRAIN_FULL_CUTS}")
+    # Where a step's time goes: one more step taken apart (pod 0's
+    # forward + backward, its AdamW update, then the merge).
+    parts = _train_step_parts(full, state)
+    log(f"[train] {cfg.name} full width, one step taken apart (host clock around "
+        f"synchronized work): pod 0 forward + backward {parts['grad']:.6f} s, its AdamW "
+        f"update {parts['adamw']:.6f} s, the int8 merge with its bookkeeping "
+        f"{parts['merge']:.6f} s (of which _bookkeep {parts['bookkeep']:.6f} s)")
+    del state, full
+    torch.cuda.empty_cache()
+
+    # (c) checkpoints and recovery at the reduced size.
+    case = ("X_STCC", 2, 8, {})
+    tr, cpu = port_trainer(case, dev), port_trainer(case, "cpu")
+    with tempfile.TemporaryDirectory() as root:
+        store = CheckpointStore(root, n_replicas=3, level=ConsistencyLevel.X_STCC,
+                                device=dev)
+        tr.ckpt_store, tr.ckpt_session = store, SessionToken(client_id=0)
+        tr.tcfg.ckpt_every = 4
+        params = cpu.model.init(0, device="cpu")
+        state = tr.run(tr.init_state(params))
+        cpu_state = cpu.run(cpu.init_state(params))
+        # A lagging replica: the reader that saw the newest save is rerouted.
+        lagged = CheckpointStore(root, n_replicas=3, level=ConsistencyLevel.X_STCC,
+                                 propagation_lag_s=3600.0, device=dev)
+        version = lagged.save(tree_map(lambda x: x[0], state.params), 9, tr.ckpt_session)
+        template = abstract_params(tr.model)
+        reader = SessionToken(client_id=2, read_floor=version)
+        got, v_read, rerouted = lagged.restore(template, reader)
+        if v_read != version or not rerouted or not all(
+                torch.equal(a, b[0]) for a, b in zip(leaves(got), leaves(state.params))):
+            fail(f"train checkpoints: session-guarded restore gave v{v_read} "
+                 f"(saved v{version}), rerouted {rerouted}")
+        lagged.propagate(now=1e18)
+        mgr = RestartManager(store, FailurePolicy(max_restarts=2))
+        params_r, step = mgr.recover(template, SessionToken(client_id=1))
+        outcome = mgr.last_outcome
+        _, direct = CheckpointRecovery(store).recover(template, SessionToken(client_id=2))
+        if step != 9 or outcome.partial or direct != outcome or not all(
+                torch.equal(a, b[0]) for a, b in zip(leaves(params_r), leaves(state.params))):
+            fail(f"train checkpoints: RestartManager step {step}, outcome {outcome}, "
+                 f"CheckpointRecovery {direct}")
+        restored, r_step = tr.restore_checkpoint()
+    # The pods' replica store: replica 1 crashes and rebuilds from its peer.
+    full_mask = dict(up=np.ones(2, bool), link=np.ones((2, 2), bool))
+    down = np.array([False, True])
+    rec = []
+    for t, st in ((tr, state), (cpu, cpu_state)):
+        s = t.fns.engine._store
+        rec.append(StoreRecovery(s).recover(s.wrap(st.sync.cluster, st.sync.duot), down,
+                                            **full_mask))
+    (st_card, out_card), (st_cpu, out_cpu) = rec
+    if out_card != out_cpu or out_card.partial or _store_diff(st_card, st_cpu):
+        fail(f"train StoreRecovery: card {out_card} != cpu {out_cpu}")
+    # Elastic: 2 -> 4 -> 2 pods keeps the parameters' mean.
+    mean0 = [x.float().mean(0) for x in leaves(state.params)]
+    s4, e4 = rescale_train_state(state, tr.fns.engine, 4)
+    s2, e2 = rescale_train_state(s4, e4, 2)
+    err = max(float((x.float().mean(0) - m).abs().max())
+              for m, x in zip(mean0, leaves(s2.params)))
+    if not all(torch.allclose(x.float().mean(0), m, rtol=1e-6, atol=1e-7)
+               for m, x in zip(mean0, leaves(s2.params))) or e4.n_pods != 4:
+        fail(f"train elastic: the mean moved by {err}")
+    log(f"[train] checkpoints (3 replicas, X_STCC) on the card: session-guarded restore "
+        f"rerouted to v{v_read}; RestartManager step {step}, {outcome}; CheckpointRecovery "
+        f"equal; Trainer.restore_checkpoint step {r_step}; StoreRecovery {out_card} equal to "
+        f"the CPU; rescale 2 -> 4 -> 2 pods: the mean within {err} (rtol 1e-6); phase "
+        f"{time.perf_counter() - t_phase:.1f} s ((a) {t_a:.1f} s)")
+    return total
+
+
 # -- phase 11 -----------------------------------------------------------------
 
 
@@ -3459,6 +3714,7 @@ def main() -> None:
     if "model" in phases:
         model_timings, launches["model"] = run("model", phase_model)
         timings.update(model_timings)
+    launches["train"] = run("train", phase_train, {})
     timings.update(run("scale", phase_scale, {}))
     run("profile", phase_profile)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
@@ -3475,6 +3731,9 @@ def main() -> None:
             "sharded_launches": launches["sharded"][name],
             # The recovery phase's crash runs: B.4 in bootstrap and gossip.
             "recovery_launches": launches["recovery"][name],
+            # The train phase's nine reduced runs: B.1 and the chain twice per
+            # merge, B.2 once per causal merge.
+            "train_launches": launches["train"][name],
             "max_abs_err": t["err"], "match": t.get("match", t["err"] == 0),
             "shape": t["shape"], "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound"][0], "bound_by": t["bound"][1],

@@ -7,16 +7,13 @@ Modules:
   duot         — Distributed User Operations Table (bounded op log).
   audit        — eq. 1a–1d pair classification + violation detection.
   odg          — Operations Dependency Graph (Timed/Causal/Data edges).
-  consistency  — ConsistencyLevel.
+  consistency  — ConsistencyLevel / ConsistencyPolicy.
   xstcc        — the protocol engine (sessions + timed-causal merge),
                  one op at a time and batched.
   replicated_store — the ReplicatedStore facade consumed by the
                  storage and serve layers.
   staleness    — Appendix A stale-read model (analytic + Monte-Carlo).
   cost_model   — Appendix B monetary cost model (Table 2 pricing).
-
-Not ported yet, so not exported: ``ConsistencyPolicy``, ``PAPER_LEVELS``
-and ``policy_for``.
 """
 
 from repro_torch.core import (
@@ -31,7 +28,12 @@ from repro_torch.core import (
     xstcc,
 )
 from repro_torch.core.availability import FaultSchedule
-from repro_torch.core.consistency import ConsistencyLevel
+from repro_torch.core.consistency import (
+    PAPER_LEVELS,
+    ConsistencyLevel,
+    ConsistencyPolicy,
+    policy_for,
+)
 from repro_torch.core.replicated_store import ReplicatedStore, StoreState
 
 __all__ = [
@@ -48,4 +50,7 @@ __all__ = [
     "ReplicatedStore",
     "StoreState",
     "ConsistencyLevel",
+    "ConsistencyPolicy",
+    "PAPER_LEVELS",
+    "policy_for",
 ]

@@ -30,3 +30,13 @@ def fma_f32(x: torch.Tensor, y: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     toward = torch.where(err > 0, torch.inf, -torch.inf).to(torch.float64)
     s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
     return s.to(torch.float32)
+
+
+def div_f32(x: torch.Tensor, d: float) -> torch.Tensor:
+    """Correctly rounded ``x / d`` for a Python number ``d``, on any device.
+
+    On CUDA, PyTorch divides by a host scalar as a multiplication by its
+    reciprocal, which can differ from the quotient in the last bit; a
+    divisor on ``x``'s device keeps the true division the reference does.
+    """
+    return x / torch.full((), d, dtype=x.dtype, device=x.device)

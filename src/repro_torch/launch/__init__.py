@@ -1,3 +1,3 @@
-"""Command-line launchers (port of ``repro.launch``): ``serve``.  The
-reference's ``train``, ``dryrun``, ``roofline`` and ``mesh`` are not
-ported yet."""
+"""Command-line launchers (port of ``repro.launch``): ``serve`` and
+``train``.  The reference's ``dryrun``, ``roofline`` and ``mesh`` (TPU
+mesh code) are not ported yet."""

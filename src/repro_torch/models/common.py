@@ -65,24 +65,35 @@ def softcap(logits: Tensor, cap: float) -> Tensor:
 # ---- initializers -----------------------------------------------------------
 # The port's own draws: a torch.Generator gives other numbers than
 # jax.random from the same seed, so a test that compares the two models
-# converts the reference's parameters (``repro_torch.convert``).
+# converts the reference's parameters (``repro_torch.convert``).  With
+# ``gen=None`` each returns an empty meta tensor: shapes and dtypes only.
 
 
-def normal_init(gen: torch.Generator, shape, dtype, scale: float = 0.02) -> Tensor:
+def _meta(shape, dtype) -> Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def normal_init(gen: torch.Generator | None, shape, dtype, scale: float = 0.02) -> Tensor:
+    if gen is None:
+        return _meta(shape, dtype)
     return (scale * torch.randn(shape, generator=gen, device=gen.device,
                                 dtype=torch.float32)).to(dtype)
 
 
-def fan_in_init(gen: torch.Generator, shape, dtype) -> Tensor:
+def fan_in_init(gen: torch.Generator | None, shape, dtype) -> Tensor:
     """Truncated normal on ±2 with ``fan_in ** -0.5`` scale (fan_in is the
     next-to-last dim, so a layer-stacked leaf keeps its layer's scale)."""
+    if gen is None:
+        return _meta(shape, dtype)
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     t = torch.empty(shape, dtype=torch.float32, device=gen.device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return (t.mul_(fan_in ** -0.5)).to(dtype)
 
 
-def zeros_init(gen: torch.Generator, shape, dtype) -> Tensor:
+def zeros_init(gen: torch.Generator | None, shape, dtype) -> Tensor:
+    if gen is None:
+        return _meta(shape, dtype)
     return torch.zeros(shape, dtype=dtype, device=gen.device)
 
 

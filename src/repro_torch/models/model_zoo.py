@@ -4,7 +4,7 @@
 functional API, used by the serving engine and the launchers:
 
   init(seed_or_generator, device="cuda") -> params
-  loss(params, batch) -> (scalar, metrics)        [forward only]
+  loss(params, batch) -> (scalar, metrics)        [differentiable]
   forward(params, batch) -> (logits, aux)
   prefill(params, batch) -> (last_logits, cache)
   decode_step(params, cache, tokens) -> (logits, cache)
@@ -55,3 +55,10 @@ def build_model(cfg: ModelConfig) -> Model:
             cfg, batch_size, max_seq, device
         ),
     )
+
+
+def abstract_params(model: Model, seed: int = 0):
+    """The parameter tree as meta tensors: shapes and dtypes, no
+    allocation (the reference's ``jax.eval_shape`` of ``init``)."""
+    del seed  # shapes do not depend on the draws
+    return model.init(0, device="meta")

@@ -4,9 +4,13 @@
 Parameters keep the reference's layout: the layer leaves are stacked as
 ``params["dense_blocks"]`` with leading dims (G, 1) — G groups of one
 dense layer each.  The reference runs the layers under ``lax.scan``
-(``cfg.scan_layers``) with ``jax.checkpoint`` (``cfg.remat``); both are
-JAX compile knobs, which the port accepts and ignores: it runs a Python
-loop over the layers, eagerly, with the same values.
+(``cfg.scan_layers``, a JAX compile knob the port accepts and ignores:
+it runs a Python loop over the layers, eagerly, with the same values).
+``cfg.remat`` is honoured under autograd as the reference's
+``jax.checkpoint`` of each super-layer: ``"full"`` recomputes each
+layer in the backward pass (``torch.utils.checkpoint``, non-reentrant),
+``"selective"`` keeps the layer's matmuls without batch dims (the
+projections) and recomputes the rest, ``"none"`` keeps everything.
 
 MoE (``n_experts > 0``) and the VLM family raise ``NotImplementedError``
 until their slice is ported.
@@ -14,9 +18,11 @@ until their slice is ported.
 
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention, mlp
@@ -47,10 +53,13 @@ def group_structure(cfg) -> tuple[int, int, bool]:
 # ---- parameter construction -------------------------------------------------
 
 
-def _generator(seed_or_gen, device="cuda") -> torch.Generator:
+def _generator(seed_or_gen, device="cuda") -> torch.Generator | None:
     """A ``torch.Generator`` on ``device``: ``seed_or_gen`` itself (which
-    must live there) or a new one seeded with the int."""
+    must live there) or a new one seeded with the int; ``None`` on the
+    meta device, where the initializers only give shapes and dtypes."""
     dev = resolve_device(device)
+    if dev.type == "meta":
+        return None
     if isinstance(seed_or_gen, torch.Generator):
         if seed_or_gen.device.type != dev.type:
             raise ValueError(f"generator on {seed_or_gen.device}, params on {dev}")
@@ -61,10 +70,11 @@ def _generator(seed_or_gen, device="cuda") -> torch.Generator:
 def init_params(seed_or_gen, cfg, device="cuda") -> dict:
     """Random parameters from the port's own initializer (its draws differ
     from ``jax.random``'s; ``repro_torch.convert`` brings the reference's
-    parameters over instead)."""
+    parameters over instead).  ``device="meta"`` gives the shapes and
+    dtypes without allocating (``model_zoo.abstract_params``)."""
     _check_ported(cfg)
     gen = _generator(seed_or_gen, device)
-    dev = gen.device
+    dev = gen.device if gen is not None else torch.device("meta")
     dtype = dtype_of(cfg)
     n_groups, dense_per, _ = group_structure(cfg)
     d = cfg.d_model
@@ -108,10 +118,36 @@ def _dense_block(x, blk, cfg, positions):
     return x + mlp.mlp(h, blk["mlp"], cfg.mlp_kind)
 
 
+def _save_projections(ctx, op, *args, **kwargs):
+    """``"selective"`` remat: the reference's
+    ``checkpoint_dots_with_no_batch_dims`` — keep plain 2-D matmuls (the
+    projections), recompute the attention's batched products and the
+    elementwise work."""
+    if op is torch.ops.aten.mm.default:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, cfg):
+    """``fn`` under the config's rematerialization, when a backward pass
+    will follow (``torch.is_grad_enabled()``)."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    if cfg.remat == "selective":
+        context = functools.partial(ckpt.create_selective_checkpoint_contexts,
+                                    _save_projections)
+        return functools.partial(ckpt.checkpoint, fn, use_reentrant=False,
+                                 context_fn=context)
+    if cfg.remat != "full":
+        raise ValueError(f"unknown remat {cfg.remat!r}")
+    return functools.partial(ckpt.checkpoint, fn, use_reentrant=False)
+
+
 def backbone(params, cfg, x, positions):
     """Run all layers.  x: (B, S, D) -> (x, aux_loss)."""
+    block = _remat(_dense_block, cfg)
     for blk in _layers(params, cfg):
-        x = _dense_block(x, blk, cfg, positions)
+        x = block(x, blk, cfg, positions)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
@@ -153,7 +189,8 @@ def forward(params, cfg, batch) -> tuple[Tensor, Tensor]:
 
 
 def loss_fn(params, cfg, batch) -> tuple[Tensor, dict]:
-    """Forward loss (no backward in this slice)."""
+    """Mean token cross-entropy (+ 0.01 x aux); differentiable through
+    autograd, with the layers rematerialized per ``cfg.remat``."""
     logits, aux = forward(params, cfg, batch)
     ce = cross_entropy_loss(logits, batch["labels"])
     total = ce + 0.01 * aux

@@ -8,7 +8,9 @@
   :class:`StoreRecovery`;
 * **ML checkpoints** — a restarting trainer restores params from a
   replicated checkpoint store under session guarantees:
-  :class:`CheckpointRecovery`, duck-typed over the store's surface.
+  :class:`CheckpointRecovery`, over
+  :class:`repro_torch.checkpoint.CheckpointStore` (or anything with its
+  surface).
 
 Both produce a :class:`RecoveryOutcome` that says how complete the
 restore was.  A restore that lands behind the fleet's newest version is

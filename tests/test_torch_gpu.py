@@ -32,9 +32,11 @@ from repro_torch.policy.sla import SLA_RELAXED, SLA_STRICT
 from repro_torch.storage import simulator
 from repro_torch.storage.ycsb import PHASED_RW, PHASED_RWR, WORKLOAD_A
 
-from torch_port_helpers import (AUDIT_MIXES, CHAIN_MIXES, as_lists, audit_mix, chain_mix,
-                                f32_same, geo_mismatches, placement_inputs,
-                                policy_inputs, select_inputs)
+from torch_port_helpers import (AUDIT_MIXES, CHAIN_MIXES, TRAIN_CASES, as_lists, audit_mix,
+                                chain_mix, expected_train_launches, f32_same,
+                                geo_mismatches, history_mismatches, placement_inputs,
+                                policy_inputs, port_trainer, record_mismatches,
+                                select_inputs, sync_record, train_case_id)
 
 pytestmark = pytest.mark.gpu
 
@@ -908,3 +910,46 @@ def test_model_generate_on_the_card_equals_cpu(cuda):
         out.append((log, model_serving_counters(eng)))
     assert out[0] == out[1]
     assert out[0][1]["failovers"] == 1
+
+
+# ---- the training path -------------------------------------------------------------
+
+GPU_TRAIN_CASES = [c for c in TRAIN_CASES
+                   if train_case_id(c) in ("CAUSAL/2pods", "X_STCC/2pods/int8",
+                                           "X_STCC/2pods/topk", "QUORUM/4pods")]
+
+
+@pytest.mark.parametrize("case", GPU_TRAIN_CASES, ids=train_case_id)
+def test_training_on_the_card_equals_cpu(cuda, case):
+    """A reduced sync run from the same weights and batches: the
+    bookkeeping (counters, clocks, DUOT) equal to the CPU, the losses
+    within ``TRAIN_LOSS_RTOL``, and B.1 / chain / B.2 launched as
+    predicted (two, two and one per causal merge)."""
+    card, cpu = port_trainer(case, cuda), port_trainer(case, "cpu")
+    params = cpu.model.init(0, device="cpu")
+    ops.reset_launch_counts()
+    st_card = card.run(card.init_state(params))
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    st_cpu = cpu.run(cpu.init_state(params))
+    assert history_mismatches(cpu.history, card.history) == []
+    assert record_mismatches(sync_record(st_cpu.sync), sync_record(st_card.sync)) == []
+    want = expected_train_launches(case)
+    assert {k: counts[k] for k in want} == want
+    assert sum(counts.values()) == sum(want.values())
+
+
+def test_trainer_refuses_the_attention_kernel_on_the_card(cuda):
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.core import policy_for
+    from repro_torch.data import DataConfig
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import Trainer, TrainerConfig
+
+    cfg = dataclasses.replace(configs.reduced(configs.get_config("gemma-2b")),
+                              use_flash_kernel=True)
+    with pytest.raises(ValueError, match="no backward"):
+        Trainer(cfg, DataConfig(cfg.vocab_size, 16, 4), AdamWConfig(), policy_for("X_STCC"),
+                TrainerConfig(n_pods=2), device=cuda)

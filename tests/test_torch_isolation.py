@@ -62,8 +62,8 @@ def no_card():
 
 
 def test_every_new_module_is_covered():
-    """The fault-path, geo, adaptive, serving, model and sharded/scalar
-    slices' modules are among those imported above."""
+    """The fault-path, geo, adaptive, serving, model, sharded/scalar and
+    training slices' modules are among those imported above."""
     mods = set(_port_modules())
     for name in ("core.availability", "gossip", "gossip.digest", "gossip.scheduler",
                  "kernels.digest_compare", "kernels.histogram", "obs", "obs.metrics",
@@ -74,21 +74,32 @@ def test_every_new_module_is_covered():
                  "configs.registry", "configs.shapes", "configs.gemma_2b",
                  "models", "models.common", "models.mlp", "models.attention",
                  "models.transformer", "models.model_zoo", "kernels.flash_attention",
-                 "launch", "launch.serve", "core.odg", "core.staleness"):
+                 "launch", "launch.serve", "core.odg", "core.staleness",
+                 "sync", "sync.compression", "sync.engine", "optim", "optim.adamw",
+                 "data", "data.synthetic", "train", "train.train_step",
+                 "train.trainer", "checkpoint", "checkpoint.store", "runtime",
+                 "runtime.fault_tolerance", "runtime.elastic", "runtime.recovery",
+                 "launch.train", "tree"):
         assert f"repro_torch.{name}" in mods, name
 
 
 # What each package's __init__ leaves out: names whose module is not
 # ported yet, and the reference's JAX-only programs.
 NOT_EXPORTED = {
-    "core": {"ConsistencyPolicy", "PAPER_LEVELS", "policy_for"},
+    "core": set(),
     "engine": {"jit_entries", "unified_runner"},
     "storage": set(),
     "kernels": {"ref"},
     "obs": set(),
     "configs": set(),
     "serve": set(),
-    "models": {"abstract_params"},
+    "models": set(),
+    "sync": set(),
+    "optim": set(),
+    "data": set(),
+    "train": set(),
+    "checkpoint": set(),
+    "runtime": set(),
 }
 
 
@@ -128,9 +139,16 @@ def test_documented_imports_work():
                                    "admit_batch", "model_init", "init_cache",
                                    "make_batch", "params_from_numpy", "serve_launcher",
                                    "run_protocol_sharded", "run_protocol_scalar",
-                                   "sharded_store"])
-def test_entry_points_refuse_cpu_fallback(no_card, entry):
-    from repro_torch.core.consistency import ConsistencyLevel
+                                   "sharded_store", "trainer", "sync_engine",
+                                   "train_launcher", "checkpoint_store", "batch_at"])
+def test_entry_points_refuse_cpu_fallback(no_card, entry, tmp_path):
+    from repro_torch.checkpoint import CheckpointStore
+    from repro_torch.core.consistency import ConsistencyLevel, policy_for
+    from repro_torch.data import DataConfig, batch_at
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.sync import SyncEngine
+    from repro_torch.train import Trainer, TrainerConfig
     from repro_torch.core.replicated_store import ReplicatedStore, ShardedStore
     from repro_torch.engine.config import EngineConfig
     from repro_torch.engine.replay import EpochEngine
@@ -182,6 +200,12 @@ def test_entry_points_refuse_cpu_fallback(no_card, entry):
         "run_protocol_scalar": lambda: simulator.run_protocol_scalar(
             ConsistencyLevel.X_STCC, WORKLOAD_A, n_ops=50),
         "sharded_store": lambda: ShardedStore(ReplicatedStore(3, 4, 4), 2),
+        "trainer": lambda: Trainer(gemma, DataConfig(512, 16, 4), AdamWConfig(),
+                                   policy_for("X_STCC"), TrainerConfig(n_pods=2)),
+        "sync_engine": lambda: SyncEngine(policy_for("X_STCC"), 2),
+        "train_launcher": lambda: train_launcher.main(["--arch", "gemma-2b", "--reduced"]),
+        "checkpoint_store": lambda: CheckpointStore(str(tmp_path)),
+        "batch_at": lambda: batch_at(DataConfig(512, 16, 4), 0),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()

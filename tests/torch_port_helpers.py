@@ -518,3 +518,87 @@ def model_serving_counters(eng) -> dict:
     out = {k: getattr(eng, k) for k in MODEL_SERVING_COUNTERS}
     out["replicas"] = [r.version for r in eng.replicas]
     return out
+
+
+# The training path's cases: ``tests/test_trainer_levels.py``'s setting
+# (reduced qwen2-7b with 2 layers, 2 pods, 16 steps, Δ = 4, batch 8 x 32
+# tokens): (level, pods, steps, policy keywords).
+TRAIN_CASES = (
+    ("ONE", 2, 16, {}), ("QUORUM", 2, 16, {}), ("ALL", 2, 16, {}),
+    ("CAUSAL", 2, 16, {}), ("X_STCC", 2, 16, {}), ("TCC", 2, 16, {}),
+    ("X_STCC", 2, 16, {"compress_inter_pod": "int8"}),
+    ("X_STCC", 2, 16, {"compress_inter_pod": "topk"}),
+    ("QUORUM", 4, 8, {}),
+)
+# Losses of two runs that differ only in the order autograd or XLA sum in.
+TRAIN_LOSS_RTOL = 1e-3
+
+
+def train_case_id(case) -> str:
+    level, pods, _, kw = case
+    return "/".join([level, f"{pods}pods"] + [str(v) for v in kw.values()])
+
+
+def port_trainer(case, device):
+    """The port's ``Trainer`` for one of ``TRAIN_CASES``."""
+    from repro_torch import configs
+    from repro_torch.core import policy_for
+    from repro_torch.data import DataConfig
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import Trainer, TrainerConfig
+
+    level, pods, steps, kw = case
+    cfg = configs.reduced(configs.get_config("qwen2-7b"), n_layers=2)
+    return Trainer(cfg, DataConfig(vocab_size=cfg.vocab_size, seq_len=32, global_batch=8),
+                   AdamWConfig(lr=1e-3, warmup_steps=4, total_steps=32),
+                   policy_for(level, delta_steps=4, **kw),
+                   TrainerConfig(n_steps=steps, n_pods=pods, log_every=4),
+                   device=device)
+
+
+def sync_record(sync) -> dict:
+    """The bookkeeping of a port ``SyncState`` as numpy: the counters, the
+    clocks and the DUOT."""
+    return {"merges": as_np(sync.merges), "violations": as_np(sync.violations),
+            "severity": as_np(sync.severity), "inter_pod_gb": as_np(sync.inter_pod_gb),
+            "cluster": {f: as_np(getattr(sync.cluster, f)) for f in sync.cluster._fields},
+            "duot": {f: as_np(getattr(sync.duot, f)) for f in sync.duot._fields}}
+
+
+def record_mismatches(want: dict, got: dict, path: str = "") -> list[str]:
+    """Keys of two ``sync_record``s (or nested dicts of arrays) that differ."""
+    out = []
+    for k in want:
+        if isinstance(want[k], dict):
+            out += record_mismatches(want[k], got[k], f"{path}{k}/")
+        elif not np.array_equal(np.asarray(want[k]), np.asarray(got[k])):
+            out.append(path + k)
+    return out
+
+
+def history_mismatches(want: list[dict], got: list[dict]) -> list[str]:
+    """Where two training histories differ: the bookkeeping exactly, the
+    losses within ``TRAIN_LOSS_RTOL``."""
+    out = []
+    if [h["step"] for h in want] != [h["step"] for h in got]:
+        return ["steps"]
+    for w, g in zip(want, got):
+        for k in ("synced", "inter_pod_gb", "violations", "severity"):
+            if w.get(k) != g.get(k):
+                out.append(f"step {w['step']} {k}: {w.get(k)} != {g.get(k)}")
+        if abs(w["loss"] - g["loss"]) > TRAIN_LOSS_RTOL * abs(w["loss"]):
+            out.append(f"step {w['step']} loss: {w['loss']} != {g['loss']}")
+    return out
+
+
+def expected_train_launches(case, delta: int = 4) -> dict:
+    """Kernel launches of a training run (one of ``TRAIN_CASES``, or the
+    like with Δ = ``delta``): per merge, B.1 and the clock chain twice
+    (the write and the read batch), B.2 once for the causal levels; no
+    merge ever with one pod."""
+    level, pods, steps, kw = case
+    period = 1 if level in ("ALL", "TWO", "QUORUM", "CAUSAL") else delta
+    merges = steps // period if pods > 1 else 0
+    causal = level in ("CAUSAL", "TCC", "X_STCC")
+    return {"op_ingest": 2 * merges, "vclock_chain": 2 * merges,
+            "vclock_audit": merges if causal else 0}
