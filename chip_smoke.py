@@ -130,17 +130,36 @@ non-zero exit code):
                 restore, ``RestartManager``, ``CheckpointRecovery``,
                 ``StoreRecovery`` of the pods' replica store against the CPU,
                 and ``rescale_train_state`` 2 -> 4 -> 2 keeping the mean;
+ 10c. families — the MoE, VLM, hybrid, SSM and audio families
+                (``FAMILIES``): (a) olmoe-1b-7b, internvl2-2b, zamba2-1.2b,
+                rwkv6-3b and whisper-large-v3 at full width and depth in
+                bf16 (random weights, B = 1, S = 2048; whisper's decoder
+                448 over its 1500 frames), ``forward`` with B.8 and with the
+                plain attention: finite logits of the right shape, B.8's
+                launches one per causal self-attention layer (16 / 24 / 6 /
+                0 / 32), walls, init seconds, peak memory; B.8 at each new
+                shape against its plain version with its times; (b)
+                ``ServingEngine.generate`` on each, 2 replicas, a 128-token
+                prompt (after internvl2's 256-position image prefix), 8
+                tokens; (c) all six configurations, llama4-maverick
+                included, reduced in f32: ``forward``, prefill + decode and
+                the served tokens on the card against the CPU (logits atol
+                = rtol 1e-4, tokens exact); (d) each family with attention
+                at full width, 2 layers (zamba2: one group of 6), f32, S =
+                512 (whisper 448): B.8 against the plain attention within
+                atol = rtol 1e-3;
  11. scale    — one X_STCC replay at the paper's deployment (64 client
                 threads, 5,000,000 rows, 8,000,000 ops, B = 4096) and
                 ``admit_batch`` on its final state, the same deployment
-                through the fault path (4,000,000 ops, ``SCALE_CUTS``),
+                through the fault path (2,000,000 ops, ``SCALE_CUTS``),
                 the placement planner over its
                 5,000,000 rows x 124 candidates, the geo replay on the
-                paper's 12-replica fleet (4 per DC), the adaptive run
+                paper's 12-replica fleet (4 per DC; 4,000,000 ops), the adaptive run
                 over the same 64 clients and 5,000,000 rows (ops cut,
                 see ``ADAPTIVE_SCALE_CUTS``), the controller over a
                 1,000,000-session fleet, and serving at 16,384 sessions
-                and through 16 router shards of 4,096, each equal to the
+                and through 16 router shards of 4,096 (epochs cut,
+                ``SERVING_SCALE_CUTS``), each equal to the
                 same run with the plain versions on the card; B.2 on the
                 flat run's own DUOT (every design, the bounds), on the same
                 entries sorted by resource (a probe of grouped tiles), and
@@ -182,7 +201,8 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
 PHASES = ("device", "build", "kernels", "digest", "golden", "main", "faulty", "sharded",
-          "recovery", "geo", "adaptive", "serving", "model", "train", "scale", "profile")
+          "recovery", "geo", "adaptive", "serving", "model", "train", "families", "scale",
+          "profile")
 
 # H100 SXM peaks (NVIDIA data sheet, as tabulated in the repo's
 # measurement notes): HBM bandwidth, and the 32-bit non-tensor-core rate
@@ -200,15 +220,18 @@ SCALE = dict(n_clients=64, n_resources=5_000_000, batch_size=4096,
              n_ops=8_000_000, duot_cap=16384)
 SCALE_CUTS = (
     "cuts of scale: none for the flat run (the paper's 64 threads, "
-    "5,000,000 rows, 8,000,000 ops); the fault run replays 4,000,000 ops "
+    "5,000,000 rows, 8,000,000 ops); the fault run replays 2,000,000 ops "
     "(FAULT_SCALE_OPS: 8,000,000 took 93.1-106.3 s on H100 hosts, and the "
-    "script 1131.0 s of its 1200 s limit on the slowest); the DUOT audit "
-    "covers the first 16,384 ops (duot_cap), as the engine never wraps or "
-    "collects the log"
+    "script 1131.0 s of its 1200 s limit on the slowest; 4,000,000 took "
+    "44.0 s, halved again to make room for the families phase); the geo run "
+    "replays 4,000,000 ops (GEO_SCALE_OPS: 8,000,000 took 28.5-31.1 s); the "
+    "DUOT audit covers the first 16,384 ops (duot_cap), as the engine never "
+    "wraps or collects the log"
 )
-# The fault run's op count, halved (listed above) so that the script fits
-# its time limit on a slow host; rows and clients are never cut.
-FAULT_SCALE_OPS = 4_000_000
+# The fault and geo runs' op counts, cut (listed above) so that the script
+# fits its time limit on a slow host; rows and clients are never cut.
+FAULT_SCALE_OPS = 2_000_000
+GEO_SCALE_OPS = 4_000_000
 # The crash run at the same deployment, and its crash-stripped twin.
 CRASH_SCALE_OPS = 1_000_000
 CRASH_SCALE_CUTS = (
@@ -258,12 +281,14 @@ SERVING = dict(n_sessions=64, n_epochs=8, rounds=4)
 ROUTER = dict(n_shards=4, sessions_per_shard=16, n_epochs=8, rounds=4)
 # Serving at scale: 16,384 sessions (every one routed once per round),
 # and the router at 16 shards x 4,096 sessions.
-SERVING_SCALE = dict(n_sessions=16_384, n_epochs=8, rounds=4)
-ROUTER_SCALE = dict(n_shards=16, sessions_per_shard=4096, n_epochs=2, rounds=2)
+SERVING_SCALE = dict(n_sessions=16_384, n_epochs=4, rounds=4)
+ROUTER_SCALE = dict(n_shards=16, sessions_per_shard=4096, n_epochs=1, rounds=2)
 SERVING_SCALE_CUTS = (
-    "cuts of scale: none for the engine (16,384 sessions, 8 epochs x 4 "
-    "rounds); the router runs 2 epochs x 2 rounds, as its plain run walks "
-    "16 x 4,096 clock chains per round in Python"
+    "cuts of depth, not of width: the engine runs its 16,384 sessions for 4 "
+    "epochs x 4 rounds (8 epochs took 55.5 s with the plain run's 34.8 s, "
+    "halved to make room for the families phase); the router runs 1 epoch x "
+    "2 rounds (2 epochs' plain run took 16.3 s), as its plain run walks 16 x "
+    "4,096 clock chains per round in Python"
 )
 
 
@@ -2908,6 +2933,212 @@ def phase_train() -> dict:
     return total
 
 
+# -- phase 10c ----------------------------------------------------------------
+
+# The families phase: the MoE, VLM, hybrid, SSM and audio families at full
+# width and depth, bf16, random weights from the port's initializer, B = 1.
+FAMILIES = dict(archs=("olmoe-1b-7b", "internvl2-2b", "zamba2-1.2b", "rwkv6-3b",
+                       "whisper-large-v3"),
+                seq=2048, whisper_seq=448, prompt=128, tokens=8, replicas=2,
+                f32_layers=2, f32_seq=512)
+FAMILIES_CUTS = ("cuts of scale: none in width or depth for (a) and (b) (each "
+                 "configuration's published layers and widths, batch 1; whisper's "
+                 "decoder at its 448 positions over its 1500 frames); (d) runs 2 "
+                 "layers (zamba2: one group of 6, one shared site) in f32 at S = 512 "
+                 "(whisper 448); llama4-maverick (~400 B parameters, more than one "
+                 "H100 holds) runs only reduced, in (c)")
+# B.8 at each family's causal self-attention shape, bf16:
+# (b, h, hkv, s, hd, causal, window, dtype).
+FAMILY_FA_CASES = {
+    "olmoe-1b-7b": (1, 16, 16, 2048, 128, True, 0, "bfloat16"),
+    "internvl2-2b": (1, 16, 8, 2048, 128, True, 0, "bfloat16"),
+    "zamba2-1.2b": (1, 32, 32, 2048, 64, True, 0, "bfloat16"),
+    "whisper-large-v3": (1, 20, 20, 448, 64, True, 0, "bfloat16"),
+}
+
+
+def _family_full(arch: str, dev) -> int:
+    """(a) and (b) for one configuration at full width; returns B.8's
+    launches in its counted ``forward``."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.serve import ServeSession, ServingEngine
+    from torch_port_helpers import causal_attention_layers, family_inputs, torch_batch
+
+    cfg = get_config(arch)
+    s = FAMILIES["whisper_seq"] if cfg.is_encdec else FAMILIES["seq"]
+    want = causal_attention_layers(cfg)
+    flash = build_model(dataclasses.replace(cfg, use_flash_kernel=True))
+    plain = build_model(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = [flash.init(r, device=dev) for r in range(FAMILIES["replicas"])]
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batch = torch_batch(family_inputs(cfg, 1, s, 7), dev, dtype=torch.bfloat16)
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    with torch.inference_mode():
+        ops.reset_launch_counts()
+        (lg_flash, _), first_s = wall(lambda: flash.forward(params[0], batch))
+        counts = ops.launch_counts()
+        if counts["flash_attention"] != want or sum(counts.values()) != want:
+            fail(f"families {arch}: forward launched {counts}, want {want} flash_attention")
+        (lg_flash, _), flash_s = wall(lambda: flash.forward(params[0], batch))
+        plain.forward(params[0], batch)
+        (lg_plain, _), plain_s = wall(lambda: plain.forward(params[0], batch))
+        if lg_flash.shape != (1, s, cfg.vocab_size) or not torch.isfinite(lg_flash).all():
+            fail(f"families {arch}: bf16 logits {tuple(lg_flash.shape)} not finite or "
+                 "misshapen")
+        diff = float((lg_flash.float() - lg_plain.float()).abs().max())
+        scale = float(lg_plain.float().abs().max())
+        del lg_flash, lg_plain
+        log(f"[families] {arch}: {cfg.param_count()} parameters; forward bf16 B=1 S={s}: "
+            f"B.8 {flash_s:.4f} s (first {first_s:.4f}), plain attention {plain_s:.4f} s; "
+            f"max |logit diff| {diff} (max |logit| {scale}); init of "
+            f"{FAMILIES['replicas']} param sets {init_s:.3f} s; launches {counts}")
+
+        # (b) serving: 2 replicas, one request per replica's session.
+        eng = ServingEngine(flash, device=dev)
+        for r, p in enumerate(params):
+            eng.publish(p, version=r + 1)
+        prompt = FAMILIES["prompt"] + cfg.n_vis_tokens
+        max_seq = prompt + FAMILIES["tokens"]
+        reqs = []
+        for i in range(FAMILIES["replicas"]):
+            inp = family_inputs(cfg, 1, prompt, 200 + i)
+            del inp["labels"]
+            reqs.append({**torch_batch(inp, dev, dtype=torch.bfloat16), "max_seq": max_seq})
+        ops.reset_launch_counts()
+        outs, serve_s = wall(lambda: [eng.generate(ServeSession(i), req, FAMILIES["tokens"])
+                                      for i, req in enumerate(reqs)])
+        for toks, _ in outs:
+            if toks.shape != (1, FAMILIES["tokens"]) or not bool(
+                    ((toks >= 0) & (toks < cfg.vocab_size)).all()):
+                fail(f"families {arch} serving: bad tokens {toks.tolist()}")
+        n_tok = FAMILIES["replicas"] * FAMILIES["tokens"]
+        log(f"[families] {arch}: ServingEngine X_STCC, {FAMILIES['replicas']} replicas, "
+            f"{len(reqs)} requests x prompt {prompt} ({cfg.n_vis_tokens} image positions) "
+            f"+ {FAMILIES['tokens']} tokens: {serve_s:.3f} s ({n_tok / serve_s:.1f} "
+            f"tokens/s); replicas {[int(r) for _, r in outs]}; launches "
+            f"{ops.launch_counts()}; max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated()} B")
+    del params, eng, outs, batch, reqs
+    torch.cuda.empty_cache()
+    return want
+
+
+def phase_families() -> tuple[dict, dict]:
+    """B.8 at each family's attention shape; (a) + (b) for the five
+    configurations at full width (``_family_full``); (c) the six reduced
+    configurations on the card against the CPU; (d) B.8 against the plain
+    attention in f32 at full width.  Returns ``(timings, launches)``; the
+    launches are B.8's in (a)'s counted forwards, this slice's main path."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from torch_port_helpers import (FAMILY_ARCHS, FAMILY_TOL, causal_attention_layers,
+                                    family_inputs, family_mismatches, family_outputs,
+                                    family_serving, torch_batch, tree_to)
+
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    log(f"[families] {FAMILIES_CUTS}")
+
+    timings = {}
+    for arch, case in FAMILY_FA_CASES.items():
+        t = time_flash(case, dev)
+        timings[f"flash_attention@{arch}"] = t
+        log(f"[families] flash_attention {case} ({arch}): kernel {t['ms']:.6f} ms, plain "
+            f"{t['plain_ms']:.6f} ms, SDPA {t['library_ms']:.6f} ms, bound "
+            f"{t['bound'][0]:.6f} ms ({t['bound'][1]}; {t['bytes']} B, {t['flop']} FLOP), "
+            f"max_abs_err {t['err']}")
+    torch.cuda.empty_cache()
+
+    # (a) + (b): the counts are set to 0 before each counted forward and read
+    # after it; the phase's launches are their sum.
+    launches = dict.fromkeys(ops.launch_counts(), 0)
+    for arch in FAMILIES["archs"]:
+        t0 = time.perf_counter()
+        n = _family_full(arch, dev)
+        launches["flash_attention"] += n
+        if arch in FAMILY_FA_CASES:
+            timings[f"flash_attention@{arch}"]["launches"] = n
+        log(f"[time] families {arch}: {time.perf_counter() - t0:.1f} s")
+
+    # (c) the six configurations reduced, in f32: card against CPU.
+    t0 = time.perf_counter()
+    errs = {}
+    for arch in FAMILY_ARCHS:
+        cfg = reduced(get_config(arch))
+        card = build_model(dataclasses.replace(cfg, use_flash_kernel=True))
+        cpu = build_model(cfg)
+        params = [cpu.init(seed, device="cpu") for seed in (0, 1)]
+        with torch.inference_mode():
+            got = family_outputs(card, tree_to(params[0], dev), cfg, dev)
+            want = family_outputs(cpu, params[0], cfg, "cpu")
+            bad = family_mismatches(got, want)
+            served = family_serving(card, params, cfg, dev)
+            served_cpu = family_serving(cpu, params, cfg, "cpu")
+        if bad or served != served_cpu:
+            fail(f"families {arch} reduced: card != cpu: {bad}; served {served} vs "
+                 f"{served_cpu}")
+        errs[arch] = max(float((got[k] - want[k]).abs().max()) for k in want)
+    log(f"[families] (c) reduced f32, card == CPU (logits within atol = rtol {FAMILY_TOL}, "
+        f"served tokens and routing exact): max abs err {errs} "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # (d) B.8 against the plain attention in f32 at full width.
+    t0 = time.perf_counter()
+    for arch, case in FAMILY_FA_CASES.items():
+        base = get_config(arch)
+        over = dict(dtype="float32", n_layers=base.attn_every or FAMILIES["f32_layers"])
+        if base.is_encdec:
+            over["n_encoder_layers"] = FAMILIES["f32_layers"]
+        cfg = dataclasses.replace(base, **over)
+        s = FAMILIES["whisper_seq"] if cfg.is_encdec else FAMILIES["f32_seq"]
+        plain = build_model(cfg)
+        params = plain.init(0, device=dev)
+        batch = torch_batch(family_inputs(cfg, 1, s, 9), dev)
+        with torch.inference_mode():
+            ops.reset_launch_counts()
+            got, _ = build_model(dataclasses.replace(cfg, use_flash_kernel=True)).forward(
+                params, batch)
+            n = ops.launch_counts()["flash_attention"]
+            want, _ = plain.forward(params, batch)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if n != causal_attention_layers(cfg) or not torch.allclose(got, want, atol=1e-3,
+                                                                   rtol=1e-3):
+            fail(f"families {arch}: f32 forward S={s} B.8 vs plain attention: max abs err "
+                 f"{err}, launches {n}")
+        log(f"[families] (d) {arch} f32, {cfg.n_layers} layers, S={s}: logits within atol = "
+            f"rtol = 1e-3 of the plain attention (max abs err {err}); {n} launches")
+        del params, got, want
+        torch.cuda.empty_cache()
+    log(f"[families] (d) {time.perf_counter() - t0:.1f} s; phase "
+        f"{time.perf_counter() - t_phase:.1f} s; launches {launches}")
+    return timings, launches
+
+
 # -- phase 11 -----------------------------------------------------------------
 
 
@@ -3404,14 +3635,15 @@ def scale_geo() -> None:
     from repro_torch.storage.ycsb import WORKLOAD_A
 
     fleet = geo_topologies()["fleet12"]
-    log(f"[scale] geo run: X_STCC WORKLOAD_A {SCALE} on the 12-replica fleet "
-        f"{fleet.replica_region}")
+    geo = dict(SCALE, n_ops=GEO_SCALE_OPS)
+    log(f"[scale] geo run: X_STCC WORKLOAD_A {geo} on the 12-replica fleet "
+        f"{fleet.replica_region} (GEO_SCALE_OPS, see SCALE_CUTS)")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     out = sim.run_protocol_geo(ConsistencyLevel.X_STCC, WORKLOAD_A, topology=fleet,
-                               device="cuda", **SCALE)
+                               device="cuda", **geo)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = ops.launch_counts()
@@ -3425,7 +3657,7 @@ def scale_geo() -> None:
     if any(launches[k] == 0 for k in ("op_ingest", "vclock_chain", "vclock_audit")):
         fail(f"scale geo run never launched a kernel: {launches}")
     c = out["cost"]
-    log(f"[scale] geo run wall {wall:.3f} s; {SCALE['n_ops'] / wall:.1f} ops/s; "
+    log(f"[scale] geo run wall {wall:.3f} s; {geo['n_ops'] / wall:.1f} ops/s; "
         f"staleness {out['staleness_rate']}; violation {out['violation_rate']}; "
         f"severity {out['severity']}; n_reads {out['n_reads']}; traffic "
         f"{out['traffic_events']}; mean_latency_ms {out['mean_latency_ms']}; bill "
@@ -3715,6 +3947,9 @@ def main() -> None:
         model_timings, launches["model"] = run("model", phase_model)
         timings.update(model_timings)
     launches["train"] = run("train", phase_train, {})
+    if "families" in phases:
+        fam_timings, launches["families"] = run("families", phase_families)
+        timings.update(fam_timings)
     timings.update(run("scale", phase_scale, {}))
     run("profile", phase_profile)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
@@ -3741,6 +3976,18 @@ def main() -> None:
             # of the other functions.
             "library_ms": t.get("library_ms"),
         })
+        if name == "flash_attention" and "families" in launches:
+            # The families phase: B.8 in the counted full-width forwards, and
+            # the kernel at each family's attention shape.
+            kernels[-1]["families_launches"] = launches["families"][name]
+            kernels[-1]["families"] = {}
+            for arch in FAMILY_FA_CASES:
+                u = timings[f"flash_attention@{arch}"]
+                kernels[-1]["families"][arch] = {
+                    "shape": u["shape"], "launches": u["launches"], "ms": u["ms"],
+                    "plain_ms": u["plain_ms"], "library_ms": u["library_ms"],
+                    "bound_ms": u["bound"][0], "bound_by": u["bound"][1],
+                    "max_abs_err": u["err"]}
         if "addmm_ms" in t:
             kernels[-1]["addmm_cost_term_ms"] = t["addmm_ms"]
         if "scatter_ms" in t:

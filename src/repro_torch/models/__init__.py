@@ -1,5 +1,5 @@
-"""Model substrate on PyTorch (port of ``repro.models``): the dense
-decoder-only family."""
+"""Model substrate on PyTorch (port of ``repro.models``): the dense, MoE,
+VLM, hybrid, SSM and audio families."""
 
 from repro_torch.models.model_zoo import Model, abstract_params, build_model
 

@@ -37,6 +37,15 @@ def init_attention_params(gen: torch.Generator, cfg, dtype,
     return p
 
 
+def _project_q(x, p, cfg):
+    """x: (B, S, D) -> q (B,S,H,hd), no rotary embedding (cross attention)."""
+    b, s, _ = x.shape
+    q = x @ p["wq"]
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+    return q.reshape(b, s, cfg.n_heads, cfg.head_dim)
+
+
 def _project_qkv(x, p, cfg, positions):
     """x: (B, S, D) -> q (B,S,H,hd), k,v (B,S,Hkv,hd)."""
     b, s, _ = x.shape
@@ -102,6 +111,15 @@ def _masked_attention(q, k, v, cfg, qpos, kpos, causal):
     return torch.cat(outs, dim=1)
 
 
+def flash_block(s: int) -> int:
+    """The block the port passes to ``kernels.ops.flash_attention`` for a
+    length-``s`` sequence: the largest power of two up to 128 dividing
+    ``s``.  The kernels tile by their own blocks and take any length; the
+    block only meets the wrapper's divisibility rule (the reference's
+    default 128 refuses, e.g., whisper's 448 decoder positions)."""
+    return min(s & -s, 128)
+
+
 def full_attention(
     x: Tensor,
     p: dict,
@@ -109,22 +127,36 @@ def full_attention(
     positions: Tensor,
     *,
     causal: bool = True,
+    cross_kv: tuple[Tensor, Tensor] | None = None,
 ) -> Tensor:
     """Training / prefill attention over the whole sequence.
 
-    With ``cfg.use_flash_kernel``, causal and no logit softcap, attention
-    runs through ``kernels.ops.flash_attention`` (the hand-written kernel
-    on CUDA tensors).  The reference's encoder-decoder cross attention
-    (``cross_kv``) comes with the audio family, not ported yet.
+    ``cross_kv`` switches to encoder-decoder cross attention (k, v are
+    precomputed from the encoder; no causal mask, no rotary embedding).
+    With ``cfg.use_flash_kernel``, a causal self-attention with no logit
+    softcap runs through ``kernels.ops.flash_attention`` (the
+    hand-written kernel on CUDA tensors); everything else takes the plain
+    chunked attention, as in the reference.
     """
     b, s, _ = x.shape
-    q, k, v = _project_qkv(x, p, cfg, positions)
-    if cfg.use_flash_kernel and causal and cfg.attn_logit_softcap == 0.0:
-        from repro_torch.kernels import ops as kernel_ops
-
-        out = kernel_ops.flash_attention(q, k, v, causal=True, window=cfg.sliding_window)
+    if cross_kv is not None:
+        q = _project_q(x, p, cfg)
+        k, v = cross_kv
+        causal = False
     else:
-        out = _masked_attention(q, k, v, cfg, positions, positions, causal)
+        q, k, v = _project_qkv(x, p, cfg, positions)
+        if cfg.use_flash_kernel and causal and cfg.attn_logit_softcap == 0.0:
+            from repro_torch.kernels import ops as kernel_ops
+
+            blk = flash_block(s)
+            out = kernel_ops.flash_attention(q, k, v, causal=True,
+                                             window=cfg.sliding_window,
+                                             block_q=blk, block_k=blk)
+            return out.reshape(b, s, cfg.q_dim) @ p["wo"]
+    t = k.shape[1]
+    kpos = (positions[:, :t] if positions.shape[1] >= t
+            else torch.arange(t, dtype=torch.int32, device=x.device).expand(b, t))
+    out = _masked_attention(q, k, v, cfg, positions, kpos, causal)
     return out.reshape(b, s, cfg.q_dim) @ p["wo"]
 
 
@@ -150,19 +182,27 @@ def decode_attention(
     v_cache: Tensor,
     pos,
     *,
+    cross: bool = False,
     ring: bool = False,
 ) -> tuple[Tensor, Tensor, Tensor]:
     """One-token decode.  x: (B, 1, D); caches: (B, S, Hkv, hd);
     pos: () or (B,) current position (the new token's index).
 
-    ``ring=True`` treats the cache as a sliding-window ring buffer of
-    length ``k_cache.shape[1]``: the new entry lands at ``pos % len`` and
-    every populated slot is valid.  (The reference's ``cross=True``
-    comes with the audio family, not ported yet.)
+    ``cross=True`` attends to a fixed (encoder) cache: every slot is
+    valid and the caches come back as they are.  ``ring=True`` treats the
+    cache as a sliding-window ring buffer of length ``k_cache.shape[1]``
+    (the hybrid's long-context path): the new entry lands at
+    ``pos % len`` and every populated slot is valid.
 
     Returns (output (B,1,D), new_k_cache, new_v_cache); the input caches
     are left untouched, as in the reference."""
     b = x.shape[0]
+    zeros = torch.zeros((b,), dtype=torch.int32, device=x.device)
+    if cross:
+        q = _project_q(x, p, cfg)
+        valid_len = torch.full((b,), k_cache.shape[1], dtype=torch.int32, device=x.device)
+        out = _decode_xla(q, k_cache, v_cache, valid_len, zeros, cfg)
+        return out.reshape(b, 1, cfg.q_dim) @ p["wo"], k_cache, v_cache
     pos = torch.as_tensor(pos, device=x.device).to(torch.int32)
     posb = torch.atleast_1d(pos).expand(b)
     kv_len = k_cache.shape[1]
@@ -173,7 +213,6 @@ def decode_attention(
     new_v = v_cache.clone()
     new_k[rows, scatter] = k[:, 0]
     new_v[rows, scatter] = v[:, 0]
-    zeros = torch.zeros((b,), dtype=torch.int32, device=x.device)
     if ring:
         valid_len = torch.clamp(posb + 1, max=kv_len)
         window_lo = zeros

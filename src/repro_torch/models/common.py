@@ -1,9 +1,11 @@
-"""Shared model components: norms, RoPE, initializers, the loss (port of
-``repro.models.common``)."""
+"""Shared model components: norms, RoPE, sinusoidal positions,
+initializers, the loss (port of ``repro.models.common``)."""
 
 from __future__ import annotations
 
 import torch
+
+from repro_torch.device import resolve_device
 
 Tensor = torch.Tensor
 
@@ -55,6 +57,36 @@ def apply_rope(x: Tensor, positions: Tensor, theta: float) -> Tensor:
     return out.to(x.dtype)
 
 
+def sinusoid_timescales(d_model: int, device=None) -> Tensor:
+    """``10000 ** (2i / d_model)`` for every even dim ``2i``, f32.  The
+    power is taken in f64 and rounded once: XLA's f32 ``pow`` is correctly
+    rounded, torch's f32 ``pow`` is not, and one ulp here moves a
+    position-1500 angle by ~1e-4."""
+    dim = torch.arange(0, d_model, 2, dtype=torch.float32, device=device)
+    return torch.pow(10000.0, (dim / d_model).to(torch.float64)).to(torch.float32)
+
+
+def sinusoidal_positions(n_positions: int, d_model: int, device=None) -> Tensor:
+    """Whisper-style fixed sinusoidal embeddings (f32), (n_positions,
+    d_model): the sines of every even dim's angle, then the cosines."""
+    pos = torch.arange(n_positions, dtype=torch.float32, device=device)[:, None]
+    angle = pos / sinusoid_timescales(d_model, device)[None, :]
+    return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1)
+
+
+def arange_positions(b: int, s: int, device) -> Tensor:
+    """(B, S) int32 absolute positions 0 .. S-1."""
+    return torch.arange(s, dtype=torch.int32, device=device).expand(b, s)
+
+
+def layer(tree, *idx):
+    """One layer's parameters: every leaf of a stacked tree indexed by
+    ``idx`` (the reference's ``jax.tree.map(lambda a: a[i], ...)``)."""
+    if isinstance(tree, dict):
+        return {k: layer(v, *idx) for k, v in tree.items()}
+    return tree[idx]
+
+
 def softcap(logits: Tensor, cap: float) -> Tensor:
     """Gemma-style logit soft-capping; no-op when cap == 0."""
     if cap <= 0.0:
@@ -67,6 +99,30 @@ def softcap(logits: Tensor, cap: float) -> Tensor:
 # jax.random from the same seed, so a test that compares the two models
 # converts the reference's parameters (``repro_torch.convert``).  With
 # ``gen=None`` each returns an empty meta tensor: shapes and dtypes only.
+
+
+def init_generator(seed_or_gen, device="cuda") -> torch.Generator | None:
+    """A ``torch.Generator`` on ``device``: ``seed_or_gen`` itself (which
+    must live there) or a new one seeded with the int; ``None`` on the
+    meta device, where the initializers only give shapes and dtypes."""
+    dev = resolve_device(device)
+    if dev.type == "meta":
+        return None
+    if isinstance(seed_or_gen, torch.Generator):
+        if seed_or_gen.device.type != dev.type:
+            raise ValueError(f"generator on {seed_or_gen.device}, params on {dev}")
+        return seed_or_gen
+    return torch.Generator(device=dev).manual_seed(int(seed_or_gen))
+
+
+def init_device(gen: torch.Generator | None) -> torch.device:
+    """Where ``gen``'s parameters live (``meta`` without a generator)."""
+    return gen.device if gen is not None else torch.device("meta")
+
+
+def const_init(gen: torch.Generator | None, shape, value, dtype) -> Tensor:
+    """A constant leaf (norm weights and biases, fixed decays)."""
+    return torch.full(shape, value, dtype=dtype, device=init_device(gen))
 
 
 def _meta(shape, dtype) -> Tensor:

@@ -11,8 +11,9 @@ functional API, used by the serving engine and the launchers:
   init_cache(batch_size, max_seq, device="cuda") -> cache
 
 Parameters are a plain dict of tensors, so each serving replica holds
-its own and calls ``model.prefill(params, batch)``.  Only the dense
-family is ported; the others raise ``NotImplementedError``.
+its own and calls ``model.prefill(params, batch)``.  Every family of
+the reference is ported: dense, MoE and VLM (``transformer``), hybrid
+(``hybrid``), SSM (``ssm_model``) and audio (``encdec``).
 """
 
 from __future__ import annotations
@@ -20,8 +21,6 @@ from __future__ import annotations
 from typing import Any, Callable, NamedTuple
 
 from repro_torch.configs.base import ModelConfig
-
-_NOT_PORTED = ("moe", "vlm", "hybrid", "ssm", "audio")
 
 
 class Model(NamedTuple):
@@ -35,12 +34,16 @@ class Model(NamedTuple):
 
 
 def build_model(cfg: ModelConfig) -> Model:
-    if cfg.family in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet (dense only)")
-    if cfg.family != "dense":
+    if cfg.family in ("dense", "moe", "vlm"):
+        from repro_torch.models import transformer as m
+    elif cfg.family == "hybrid":
+        from repro_torch.models import hybrid as m
+    elif cfg.family == "ssm":
+        from repro_torch.models import ssm_model as m
+    elif cfg.family == "audio":
+        from repro_torch.models import encdec as m
+    else:
         raise ValueError(f"unknown family {cfg.family!r}")
-    from repro_torch.models import transformer as m
 
     return Model(
         cfg=cfg,

@@ -1,19 +1,28 @@
-"""Decoder-only transformer LM, dense family (port of
+"""Decoder-only transformer LM: the dense, MoE and VLM families (port of
 ``repro.models.transformer``).
 
-Parameters keep the reference's layout: the layer leaves are stacked as
-``params["dense_blocks"]`` with leading dims (G, 1) — G groups of one
-dense layer each.  The reference runs the layers under ``lax.scan``
-(``cfg.scan_layers``, a JAX compile knob the port accepts and ignores:
-it runs a Python loop over the layers, eagerly, with the same values).
-``cfg.remat`` is honoured under autograd as the reference's
-``jax.checkpoint`` of each super-layer: ``"full"`` recomputes each
-layer in the backward pass (``torch.utils.checkpoint``, non-reentrant),
-``"selective"`` keeps the layer's matmuls without batch dims (the
-projections) and recomputes the rest, ``"none"`` keeps everything.
+Parameters keep the reference's layout.  Layers come in G groups
+(super-layers): ``params["dense_blocks"]`` leaves have leading dims
+(G, dense_per), ``params["moe_blocks"]`` leaves (G,).  A dense model is
+G = n_layers groups of one dense layer; an MoE model with
+``moe_interleave`` i has groups of i - 1 dense layers and one MoE layer
+(llama4-maverick: 2, one of each; olmoe: 1, all MoE).  The KV cache
+stacks the layers group by group, in that order.
 
-MoE (``n_experts > 0``) and the VLM family raise ``NotImplementedError``
-until their slice is ported.
+The VLM family (internvl2) consumes a stubbed patch-embedding prefix:
+``batch["vis_embeds"]`` (B, n_vis, D) is projected by ``vis_proj`` and
+prepended to the token embeddings, and the sequence is cut back to S,
+so position p >= n_vis holds token p - n_vis (decode feeds tokens in
+that shifted order, as the reference's consistency test does).
+
+The reference runs the groups under ``lax.scan`` (``cfg.scan_layers``, a
+JAX compile knob the port accepts and ignores: it runs a Python loop
+over the layers, eagerly, with the same values).  ``cfg.remat`` is
+honoured under autograd as the reference's ``jax.checkpoint``:
+``"full"`` recomputes each layer in the backward pass
+(``torch.utils.checkpoint``, non-reentrant), ``"selective"`` keeps the
+layer's matmuls without batch dims (the projections) and recomputes the
+rest, ``"none"`` keeps everything.
 """
 
 from __future__ import annotations
@@ -25,10 +34,15 @@ import torch
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.device import resolve_device
-from repro_torch.models import attention, mlp
+from repro_torch.models import attention, mlp, moe
 from repro_torch.models.common import (
+    arange_positions,
+    const_init,
     cross_entropy_loss,
     dtype_of,
+    fan_in_init,
+    init_generator,
+    layer,
     normal_init,
     rms_norm,
 )
@@ -36,35 +50,36 @@ from repro_torch.models.common import (
 Tensor = torch.Tensor
 
 
-def _check_ported(cfg) -> None:
-    if cfg.n_experts > 0 or cfg.family == "vlm":
-        raise NotImplementedError(
-            f"{cfg.name}: the MoE and VLM families of the transformer are not "
-            "ported yet (dense only)")
-
-
 def group_structure(cfg) -> tuple[int, int, bool]:
-    """(n_groups, dense_per_group, has_moe); the port's dense family is
-    (n_layers, 1, False)."""
-    _check_ported(cfg)
-    return cfg.n_layers, 1, False
+    """(n_groups, dense_per_group, has_moe)."""
+    if cfg.n_experts == 0:
+        return cfg.n_layers, 1, False
+    g = cfg.moe_interleave
+    if cfg.n_layers % g:
+        raise ValueError(f"{cfg.n_layers} layers do not divide moe_interleave {g}")
+    return cfg.n_layers // g, g - 1, True
+
+
+def layers_per_group(cfg) -> int:
+    _, dense_per, has_moe = group_structure(cfg)
+    return dense_per + (1 if has_moe else 0)
 
 
 # ---- parameter construction -------------------------------------------------
 
 
-def _generator(seed_or_gen, device="cuda") -> torch.Generator | None:
-    """A ``torch.Generator`` on ``device``: ``seed_or_gen`` itself (which
-    must live there) or a new one seeded with the int; ``None`` on the
-    meta device, where the initializers only give shapes and dtypes."""
-    dev = resolve_device(device)
-    if dev.type == "meta":
-        return None
-    if isinstance(seed_or_gen, torch.Generator):
-        if seed_or_gen.device.type != dev.type:
-            raise ValueError(f"generator on {seed_or_gen.device}, params on {dev}")
-        return seed_or_gen
-    return torch.Generator(device=dev).manual_seed(int(seed_or_gen))
+def _layer_params(gen, cfg, dtype, stack, ffn: str) -> dict:
+    d = cfg.d_model
+    p = {
+        "attn_norm": const_init(gen, stack + (d,), 0.0, torch.float32),
+        "attn": attention.init_attention_params(gen, cfg, dtype, stack),
+        "mlp_norm": const_init(gen, stack + (d,), 0.0, torch.float32),
+    }
+    if ffn == "moe":
+        p["moe"] = moe.init_moe_params(gen, cfg, dtype, stack)
+    else:
+        p["mlp"] = mlp.init_mlp_params(gen, d, cfg.d_ff, dtype, cfg.mlp_kind, stack)
+    return p
 
 
 def init_params(seed_or_gen, cfg, device="cuda") -> dict:
@@ -72,40 +87,35 @@ def init_params(seed_or_gen, cfg, device="cuda") -> dict:
     from ``jax.random``'s; ``repro_torch.convert`` brings the reference's
     parameters over instead).  ``device="meta"`` gives the shapes and
     dtypes without allocating (``model_zoo.abstract_params``)."""
-    _check_ported(cfg)
-    gen = _generator(seed_or_gen, device)
-    dev = gen.device if gen is not None else torch.device("meta")
+    gen = init_generator(seed_or_gen, device)
     dtype = dtype_of(cfg)
-    n_groups, dense_per, _ = group_structure(cfg)
+    n_groups, dense_per, has_moe = group_structure(cfg)
     d = cfg.d_model
-    stack = (n_groups, dense_per)
 
     params: dict[str, Any] = {
         "embed": normal_init(gen, (cfg.vocab_size, d), dtype),
-        "final_norm": torch.zeros((d,), dtype=torch.float32, device=dev),
+        "final_norm": const_init(gen, (d,), 0.0, torch.float32),
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = normal_init(gen, (d, cfg.vocab_size), dtype)
-    params["dense_blocks"] = {
-        "attn_norm": torch.zeros(stack + (d,), dtype=torch.float32, device=dev),
-        "attn": attention.init_attention_params(gen, cfg, dtype, stack),
-        "mlp_norm": torch.zeros(stack + (d,), dtype=torch.float32, device=dev),
-        "mlp": mlp.init_mlp_params(gen, d, cfg.d_ff, dtype, cfg.mlp_kind, stack),
-    }
+    if cfg.n_vis_tokens:
+        params["vis_proj"] = fan_in_init(gen, (d, d), dtype)
+    if dense_per > 0:
+        params["dense_blocks"] = _layer_params(gen, cfg, dtype, (n_groups, dense_per),
+                                               "mlp")
+    if has_moe:
+        params["moe_blocks"] = _layer_params(gen, cfg, dtype, (n_groups,), "moe")
     return params
 
 
-def _index(tree, i: int, j: int):
-    if isinstance(tree, dict):
-        return {k: _index(v, i, j) for k, v in tree.items()}
-    return tree[i, j]
-
-
-def _layers(params, cfg):
-    """Each layer's parameter dict, in order."""
-    n_groups, dense_per, _ = group_structure(cfg)
-    blocks = params["dense_blocks"]
-    return [_index(blocks, g, i) for g in range(n_groups) for i in range(dense_per)]
+def _groups(params, cfg):
+    """Each group's ``(dense layers, moe layer or None)``, in order."""
+    n_groups, dense_per, has_moe = group_structure(cfg)
+    out = []
+    for g in range(n_groups):
+        dense = [layer(params["dense_blocks"], g, i) for i in range(dense_per)]
+        out.append((dense, layer(params["moe_blocks"], g) if has_moe else None))
+    return out
 
 
 # ---- blocks -----------------------------------------------------------------
@@ -116,6 +126,14 @@ def _dense_block(x, blk, cfg, positions):
     x = x + attention.full_attention(h, blk["attn"], cfg, positions)
     h = rms_norm(x, blk["mlp_norm"], cfg.norm_eps)
     return x + mlp.mlp(h, blk["mlp"], cfg.mlp_kind)
+
+
+def _moe_block(x, blk, cfg, positions):
+    h = rms_norm(x, blk["attn_norm"], cfg.norm_eps)
+    x = x + attention.full_attention(h, blk["attn"], cfg, positions)
+    h = rms_norm(x, blk["mlp_norm"], cfg.norm_eps)
+    y, aux = moe.moe(h, blk["moe"], cfg)
+    return x + y, aux
 
 
 def _save_projections(ctx, op, *args, **kwargs):
@@ -144,11 +162,17 @@ def _remat(fn, cfg):
 
 
 def backbone(params, cfg, x, positions):
-    """Run all layers.  x: (B, S, D) -> (x, aux_loss)."""
-    block = _remat(_dense_block, cfg)
-    for blk in _layers(params, cfg):
-        x = block(x, blk, cfg, positions)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    """Run all layers.  x: (B, S, D) -> (x, aux_loss summed over the MoE
+    layers)."""
+    dense_block, moe_block = _remat(_dense_block, cfg), _remat(_moe_block, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for dense, moe_blk in _groups(params, cfg):
+        for blk in dense:
+            x = dense_block(x, blk, cfg, positions)
+        if moe_blk is not None:
+            x, a = moe_block(x, moe_blk, cfg, positions)
+            aux = aux + a
+    return x, aux
 
 
 # ---- embedding / head -------------------------------------------------------
@@ -162,8 +186,13 @@ def _scale_embed(x, cfg):
 
 
 def embed_tokens(params, cfg, tokens, batch):
-    _check_ported(cfg)
-    return _scale_embed(params["embed"][tokens.long()], cfg)    # (B, S, D)
+    """(B, S, D) embeddings; with the VLM prefix, the projected
+    ``vis_embeds`` first and the tokens cut to keep S positions."""
+    x = params["embed"][tokens.long()]
+    if cfg.n_vis_tokens and "vis_embeds" in batch:
+        vis = batch["vis_embeds"].to(x.dtype) @ params["vis_proj"]
+        x = torch.cat([vis, x[:, : x.shape[1] - vis.shape[1]]], dim=1)
+    return _scale_embed(x, cfg)
 
 
 def lm_logits(params, cfg, x):
@@ -173,10 +202,6 @@ def lm_logits(params, cfg, x):
     return x @ params["lm_head"]
 
 
-def _positions(b: int, s: int, device) -> Tensor:
-    return torch.arange(s, dtype=torch.int32, device=device).expand(b, s)
-
-
 # ---- public entry points ----------------------------------------------------
 
 
@@ -184,7 +209,7 @@ def forward(params, cfg, batch) -> tuple[Tensor, Tensor]:
     tokens = batch["tokens"]
     b, s = tokens.shape
     x = embed_tokens(params, cfg, tokens, batch)
-    x, aux = backbone(params, cfg, x, _positions(b, s, tokens.device))
+    x, aux = backbone(params, cfg, x, arange_positions(b, s, tokens.device))
     return lm_logits(params, cfg, x), aux
 
 
@@ -210,20 +235,39 @@ def init_cache(cfg, batch_size: int, max_seq: int, device="cuda") -> dict:
     }
 
 
+def _serve_layer(x, blk, cfg, attend):
+    """One layer in serve mode; ``attend(h, attn_params)`` is the prefill
+    or decode attention returning ``(out, k, v)``."""
+    h = rms_norm(x, blk["attn_norm"], cfg.norm_eps)
+    att, k, v = attend(h, blk["attn"])
+    x = x + att
+    h = rms_norm(x, blk["mlp_norm"], cfg.norm_eps)
+    if "moe" in blk:
+        y, _ = moe.moe(h, blk["moe"], cfg)
+        return x + y, k, v
+    return x + mlp.mlp(h, blk["mlp"], cfg.mlp_kind), k, v
+
+
+def _serve_layers(params, cfg):
+    """Every layer's parameters in cache order (group by group)."""
+    return [blk for dense, moe_blk in _groups(params, cfg)
+            for blk in dense + ([moe_blk] if moe_blk is not None else [])]
+
+
 def prefill(params, cfg, batch) -> tuple[Tensor, dict]:
     """Full-sequence prefill; returns (last-position logits, filled cache
     padded to ``batch["max_seq"]``)."""
     tokens = batch["tokens"]
     b, s = tokens.shape
-    positions = _positions(b, s, tokens.device)
+    positions = arange_positions(b, s, tokens.device)
     x = embed_tokens(params, cfg, tokens, batch)
+
+    def attend(h, p):
+        return attention.prefill_attention_with_cache(h, p, cfg, positions)
+
     ks, vs = [], []
-    for blk in _layers(params, cfg):
-        h = rms_norm(x, blk["attn_norm"], cfg.norm_eps)
-        att, k, v = attention.prefill_attention_with_cache(h, blk["attn"], cfg, positions)
-        x = x + att
-        h = rms_norm(x, blk["mlp_norm"], cfg.norm_eps)
-        x = x + mlp.mlp(h, blk["mlp"], cfg.mlp_kind)
+    for blk in _serve_layers(params, cfg):
+        x, k, v = _serve_layer(x, blk, cfg, attend)
         ks.append(k)
         vs.append(v)
     max_seq = int(batch.get("max_seq", s))
@@ -245,13 +289,12 @@ def decode_step(params, cfg, cache, tokens) -> tuple[Tensor, dict]:
     pos = cache["pos"]
     x = _scale_embed(params["embed"][tokens.long()], cfg)
     nks, nvs = [], []
-    for li, blk in enumerate(_layers(params, cfg)):
-        h = rms_norm(x, blk["attn_norm"], cfg.norm_eps)
-        att, nk, nv = attention.decode_attention(
-            h, blk["attn"], cfg, cache["k"][li], cache["v"][li], pos)
-        x = x + att
-        h = rms_norm(x, blk["mlp_norm"], cfg.norm_eps)
-        x = x + mlp.mlp(h, blk["mlp"], cfg.mlp_kind)
+    for li, blk in enumerate(_serve_layers(params, cfg)):
+        def attend(h, p, li=li):
+            return attention.decode_attention(h, p, cfg, cache["k"][li], cache["v"][li],
+                                              pos)
+
+        x, nk, nv = _serve_layer(x, blk, cfg, attend)
         nks.append(nk)
         nvs.append(nv)
     cache = {"k": torch.stack(nks), "v": torch.stack(nvs), "pos": pos + 1}

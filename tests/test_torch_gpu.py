@@ -32,11 +32,14 @@ from repro_torch.policy.sla import SLA_RELAXED, SLA_STRICT
 from repro_torch.storage import simulator
 from repro_torch.storage.ycsb import PHASED_RW, PHASED_RWR, WORKLOAD_A
 
-from torch_port_helpers import (AUDIT_MIXES, CHAIN_MIXES, TRAIN_CASES, as_lists, audit_mix,
+from torch_port_helpers import (AUDIT_MIXES, CHAIN_MIXES, FAMILY_ARCHS, FAMILY_CHECK,
+                                TRAIN_CASES, as_lists, audit_mix, causal_attention_layers,
                                 chain_mix, expected_train_launches, f32_same,
-                                geo_mismatches, history_mismatches, placement_inputs,
-                                policy_inputs, port_trainer, record_mismatches,
-                                select_inputs, sync_record, train_case_id)
+                                family_inputs, family_mismatches, family_outputs,
+                                family_serving, geo_mismatches, history_mismatches,
+                                placement_inputs, policy_inputs, port_trainer,
+                                record_mismatches, select_inputs, sync_record,
+                                torch_batch, train_case_id, tree_to)
 
 pytestmark = pytest.mark.gpu
 
@@ -910,6 +913,39 @@ def test_model_generate_on_the_card_equals_cpu(cuda):
         out.append((log, model_serving_counters(eng)))
     assert out[0] == out[1]
     assert out[0][1]["failovers"] == 1
+
+
+# ---- the model families ------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_on_the_card_equals_cpu(cuda, arch):
+    """A reduced f32 model of each MoE, VLM, hybrid, SSM and audio
+    configuration: ``forward`` through B.8 (one launch per causal
+    self-attention layer), prefill + decode and the served tokens on the
+    card against the plain attention on the CPU (logits within
+    ``FAMILY_TOL``, TF32 off; tokens and routing exactly)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced(get_config(arch))
+    card = build_model(dataclasses.replace(cfg, use_flash_kernel=True))
+    cpu = build_model(cfg)
+    params = [cpu.init(seed, device="cpu") for seed in (0, 1)]
+    with torch.inference_mode():
+        ops.reset_launch_counts()
+        card.forward(tree_to(params[0], cuda),
+                     torch_batch(family_inputs(cfg, 2, FAMILY_CHECK["seq"], 0), cuda))
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["flash_attention"] == causal_attention_layers(cfg)
+        got = family_outputs(card, tree_to(params[0], cuda), cfg, cuda)
+        want = family_outputs(cpu, params[0], cfg, "cpu")
+        assert family_mismatches(got, want) == []
+        assert family_serving(card, params, cfg, cuda) == family_serving(
+            cpu, params, cfg, "cpu")
 
 
 # ---- the training path -------------------------------------------------------------

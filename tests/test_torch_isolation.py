@@ -62,8 +62,9 @@ def no_card():
 
 
 def test_every_new_module_is_covered():
-    """The fault-path, geo, adaptive, serving, model, sharded/scalar and
-    training slices' modules are among those imported above."""
+    """The fault-path, geo, adaptive, serving, model, sharded/scalar,
+    training and model-family slices' modules are among those imported
+    above."""
     mods = set(_port_modules())
     for name in ("core.availability", "gossip", "gossip.digest", "gossip.scheduler",
                  "kernels.digest_compare", "kernels.histogram", "obs", "obs.metrics",
@@ -79,7 +80,8 @@ def test_every_new_module_is_covered():
                  "data", "data.synthetic", "train", "train.train_step",
                  "train.trainer", "checkpoint", "checkpoint.store", "runtime",
                  "runtime.fault_tolerance", "runtime.elastic", "runtime.recovery",
-                 "launch.train", "tree"):
+                 "launch.train", "tree", "models.moe", "models.mamba2",
+                 "models.hybrid", "models.rwkv6", "models.ssm_model", "models.encdec"):
         assert f"repro_torch.{name}" in mods, name
 
 
@@ -140,7 +142,9 @@ def test_documented_imports_work():
                                    "make_batch", "params_from_numpy", "serve_launcher",
                                    "run_protocol_sharded", "run_protocol_scalar",
                                    "sharded_store", "trainer", "sync_engine",
-                                   "train_launcher", "checkpoint_store", "batch_at"])
+                                   "train_launcher", "checkpoint_store", "batch_at",
+                                   "moe_init", "hybrid_init", "ssm_init", "audio_init",
+                                   "family_cache", "family_serve_launcher"])
 def test_entry_points_refuse_cpu_fallback(no_card, entry, tmp_path):
     from repro_torch.checkpoint import CheckpointStore
     from repro_torch.core.consistency import ConsistencyLevel, policy_for
@@ -163,6 +167,10 @@ def test_entry_points_refuse_cpu_fallback(no_card, entry, tmp_path):
     from repro_torch.storage.ycsb import PHASED_RW, WORKLOAD_A
 
     gemma = configs.reduced(configs.get_config("gemma-2b"))
+
+    def family(arch):
+        return build_model(configs.reduced(configs.get_config(arch)))
+
     calls = {
         "run_protocol": lambda: simulator.run_protocol(
             ConsistencyLevel.X_STCC, WORKLOAD_A, n_ops=50),
@@ -206,6 +214,13 @@ def test_entry_points_refuse_cpu_fallback(no_card, entry, tmp_path):
         "train_launcher": lambda: train_launcher.main(["--arch", "gemma-2b", "--reduced"]),
         "checkpoint_store": lambda: CheckpointStore(str(tmp_path)),
         "batch_at": lambda: batch_at(DataConfig(512, 16, 4), 0),
+        "moe_init": lambda: family("olmoe-1b-7b").init(0),
+        "hybrid_init": lambda: family("zamba2-1.2b").init(0),
+        "ssm_init": lambda: family("rwkv6-3b").init(0),
+        "audio_init": lambda: family("whisper-large-v3").init(0),
+        "family_cache": lambda: family("zamba2-1.2b").init_cache(1, 8),
+        "family_serve_launcher": lambda: serve_launcher.main(
+            ["--arch", "whisper-large-v3", "--reduced"]),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()

@@ -520,6 +520,108 @@ def model_serving_counters(eng) -> dict:
     return out
 
 
+# The model families besides dense: the six configurations of the MoE,
+# VLM, hybrid, SSM and audio families.  (arch, number of causal
+# self-attention layers a forward runs, i.e. B.8's launches with
+# ``use_flash_kernel``): olmoe 16, internvl2 24, zamba2 one per shared
+# site, rwkv6 none, whisper's decoder 32; llama4-maverick 48.
+FAMILY_ARCHS = ("olmoe-1b-7b", "llama4-maverick-400b-a17b", "internvl2-2b",
+                "zamba2-1.2b", "rwkv6-3b", "whisper-large-v3")
+
+
+def causal_attention_layers(cfg) -> int:
+    """B.8 launches of one ``forward`` with ``use_flash_kernel``."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.attn_every if cfg.attn_every else 0
+    return cfg.n_layers
+
+
+def family_inputs(cfg, b: int, s: int, seed: int) -> dict:
+    """One batch as numpy arrays, drawn from ``seed``: tokens and labels
+    (B, S) int32, and the stub prefix of the VLM (``vis_embeds``) or the
+    audio frames (``frames``), f32 standard normal."""
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
+    out = {"tokens": toks, "labels": toks.copy()}
+    if cfg.n_vis_tokens:
+        out["vis_embeds"] = rng.standard_normal((b, cfg.n_vis_tokens, cfg.d_model),
+                                                dtype=np.float32)
+    if cfg.is_encdec:
+        out["frames"] = rng.standard_normal((b, cfg.n_frames, cfg.d_model),
+                                            dtype=np.float32)
+    return out
+
+
+def torch_batch(np_batch: dict, device, dtype=None) -> dict:
+    """``family_inputs``' batch on ``device``; float inputs cast to ``dtype``."""
+    out = {}
+    for k, v in np_batch.items():
+        t = torch.from_numpy(v).to(device)
+        out[k] = t.to(dtype) if dtype is not None and t.is_floating_point() else t
+    return out
+
+
+# The card-against-CPU check of each family at its reduced f32 config:
+# forward over ``seq`` tokens, prefill of the first ``prefill`` and
+# ``steps`` decode steps; the serving schedule with ``prompt``-token
+# prompts and ``tokens`` served tokens.  Lengths meet the chunk rules of
+# the hybrid (16) and the SSM (128) families.
+FAMILY_CHECK = dict(seq=32, prefill=16, steps=4, prompt=16, tokens=4)
+# Card against CPU, f32 with TF32 off: logits within atol = rtol 1e-4.
+FAMILY_TOL = 1e-4
+
+
+def tree_to(tree, device, dtype=None):
+    """A parameter tree on ``device``; float leaves cast to ``dtype``."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device, dtype) for k, v in tree.items()}
+    return tree.to(device=device, dtype=dtype if tree.is_floating_point() else None)
+
+
+def family_outputs(model, params, cfg, device, check=FAMILY_CHECK) -> dict:
+    """``forward``'s logits, and prefill's then each decode step's
+    last-position logits, on ``device``; returned on the CPU."""
+    batch = torch_batch(family_inputs(cfg, 2, check["seq"], 0), device)
+    k = check["prefill"]
+    out = {"forward": model.forward(params, batch)[0]}
+    pre = {n: (v[:, :k] if n in ("tokens", "labels") else v) for n, v in batch.items()}
+    lg, cache = model.prefill(params, {**pre, "max_seq": check["seq"]})
+    steps = [lg[:, -1]]
+    for t in range(k, k + check["steps"]):
+        lg, cache = model.decode_step(params, cache, batch["tokens"][:, t:t + 1])
+        steps.append(lg[:, -1])
+    out["serve"] = torch.stack(steps, dim=1)
+    return {n: v.float().cpu() for n, v in out.items()}
+
+
+def family_serving(model, params_ab, cfg, device, check=FAMILY_CHECK):
+    """The model-serving schedule on ``device`` with the family's own
+    inputs (the VLM's image prefix, the audio frames): ``(log, counters)``."""
+    from repro_torch.serve import ServeSession, ServingEngine
+
+    prompts = []
+    for i in range(MODEL_SERVING["n_requests"]):
+        p = family_inputs(cfg, 1, check["prompt"], 100 + i)
+        del p["labels"]
+        prompts.append(p)
+    eng = ServingEngine(model, device=device)
+    max_seq = check["prompt"] + check["tokens"]
+    log = model_serving_script(
+        eng, [tree_to(p, device) for p in params_ab],
+        lambda i: {**torch_batch(prompts[i], device), "max_seq": max_seq}, ServeSession,
+        n_tokens=check["tokens"], **MODEL_SERVING)
+    return log, model_serving_counters(eng)
+
+
+def family_mismatches(card: dict, cpu: dict, tol: float = FAMILY_TOL) -> list[str]:
+    """The outputs of ``family_outputs`` that differ beyond ``tol``."""
+    return [f"{n}: max abs err {float((card[n] - cpu[n]).abs().max())}"
+            for n in cpu if card[n].shape != cpu[n].shape
+            or not torch.allclose(card[n], cpu[n], atol=tol, rtol=tol)]
+
+
 # The training path's cases: ``tests/test_trainer_levels.py``'s setting
 # (reduced qwen2-7b with 2 layers, 2 pods, 16 steps, Δ = 4, batch 8 x 32
 # tokens): (level, pods, steps, policy keywords).
