@@ -122,10 +122,18 @@ non-zero exit code):
                 same weights and batches: the sync bookkeeping (counters,
                 clocks, DUOT) exactly equal, losses within rtol 1e-3, and B.1
                 / chain / B.2 launches as predicted (two, two and one per
-                causal merge); gemma-2b at its published widths (bf16, random
+                causal merge); the six MoE / VLM / hybrid / SSM / audio
+                configurations reduced (``FAMILY_TRAIN_CASE``: X_STCC, Δ = 2,
+                int8, 2 pods, 4 steps), card against CPU by the same rules;
+                gemma-2b at its published widths (bf16, random
                 weights) for 6 steps on 2 pods under X_STCC with Δ = 2 and
                 int8 compression, batch 4 x 512: finite losses, local- and
                 sync-step seconds, tokens/s, peak memory, the sync metrics;
+                olmoe-1b-7b, internvl2-2b, zamba2-1.2b, rwkv6-3b and
+                whisper-large-v3 at their published widths likewise for 4
+                steps (``FAMILY_TRAIN_FULL``; depth cut for olmoe and rwkv6,
+                ``FAMILY_TRAIN_CUTS``), with the predicted launches and a
+                bound on rwkv6's largest in-chunk decay;
                 checkpoints (3 replicas, X_STCC) with a session-guarded
                 restore, ``RestartManager``, ``CheckpointRecovery``,
                 ``StoreRecovery`` of the pods' replica store against the CPU,
@@ -165,7 +173,8 @@ non-zero exit code):
                 entries sorted by resource (a probe of grouped tiles), and
                 the split of ``store.audit`` between the kernel and the rest;
                 the same deployment split into 4 tenant shards (16
-                clients, 1,250,000 rows and 2,000,000 ops each), each
+                clients, 1,250,000 rows and 1,000,000 ops each, ops cut:
+                ``SHARDED_SCALE_OPS``), each
                 shard's counts equal to the unsharded run of that shard;
                 the deployment through the crash path (replica 1 crashes
                 and rejoins; ops cut, ``CRASH_SCALE_CUTS``), its
@@ -176,7 +185,7 @@ non-zero exit code):
                 an adaptive run and the serving schedule: device time by
                 kernel, the card's busy share of the unprofiled wall time,
                 and each profiled run's own seconds (cuts: the adaptive
-                run profiles 1600 ops of its 6400-op default,
+                run profiles 800 ops of its 6400-op default,
                 ``PROFILE_ADAPTIVE_OPS``, and CAUSAL 1000 ops);
  13. report   — one JSON line ``{"kernels": [...]}``, then the last line
                 ``{"ok": true, "device": {...}}``.
@@ -250,8 +259,12 @@ ADMIT_BATCHES = 8
 N_CANDIDATES = 124
 
 # The sharded scale run: the same deployment as 4 tenant shards of 16
-# clients, 1,250,000 rows and 2,000,000 ops each (no cut of scale).
+# clients and 1,250,000 rows, with 1,000,000 ops each (cuts of scale: 4,000,000
+# of the 8,000,000 ops; at 2,000,000 ops a shard, the run and the four
+# per-shard identity runs took 39.4 s of the scale phase on an H100, halved
+# to make room for the families' training in the train phase).
 SHARDED_SCALE_SHARDS = 4
+SHARDED_SCALE_OPS = 4_000_000
 # The sharded phase: the golden cases' 2 shards at the defaults' 6000 ops.
 SHARDED_SHARDS = 2
 
@@ -2704,6 +2717,26 @@ TRAIN_FULL = dict(arch="gemma-2b", pods=2, delta=2, compress="int8", global_batc
 TRAIN_FULL_CUTS = ("cuts of scale: none in width (gemma-2b's 18 layers, d_model 2048, "
                    "8 heads of 256, MQA, d_ff 16384, vocab 256,000); 6 steps")
 TRAIN_KERNELS = ("op_ingest", "vclock_chain", "vclock_audit")
+# The families' training at their published widths: bf16, random weights,
+# remat "full" where the arch has it (the transformer families), 2 pods,
+# X_STCC with Δ = 2 and int8 compression, 4 steps; a global batch of
+# 4 x 512 tokens (internvl2: 256 image positions, then 256 tokens;
+# whisper: 2 x 448 decoder tokens over 1500 frames).  Depth is cut where
+# two pods' training state leaves too little of the card for the rest.
+FAMILY_TRAIN_FULL = dict(archs=("olmoe-1b-7b", "internvl2-2b", "zamba2-1.2b", "rwkv6-3b",
+                                "whisper-large-v3"),
+                         pods=2, delta=2, compress="int8", steps=4, seq=512,
+                         global_batch=4, whisper_seq=448, whisper_batch=2,
+                         layers={"olmoe-1b-7b": 5, "rwkv6-3b": 24})
+FAMILY_TRAIN_CUTS = (
+    "cuts of scale: none in width; depth: olmoe-1b-7b 5 of its 16 layers and "
+    "rwkv6-3b 24 of its 32, where two pods' parameters, gradients and AdamW "
+    "moments (each line's 'state at full depth') leave too little of the card "
+    "for activations and the merge (at 4 and 20 layers they peaked at 49.7 and "
+    "53.1 GiB on an H100); internvl2-2b, zamba2-1.2b and "
+    "whisper-large-v3 at full depth; whisper at batch 2 x 448 (its encoder keeps "
+    "1500 frames of activations per sequence, unrematerialized as in the "
+    "reference); 4 steps")
 
 
 def _train_counts(case, counts: dict) -> dict:
@@ -2752,6 +2785,101 @@ def _train_step_parts(trainer, state) -> dict:
         (_, sync), t_merge = timed_sync(lambda: engine.merge(state.params, state.sync))
         _, t_book = timed_sync(lambda: engine._bookkeep(sync, engine.policy.level))
     return {"grad": t_grad, "adamw": t_adamw, "merge": t_merge, "bookkeep": t_book}
+
+
+def _rwkv6_cum_bound(params) -> float:
+    """An upper bound on the largest ``-cum`` of any 128-token chunk of
+    the WKV time-mix: ``-log w_t = exp(w0 + tanh(x A) B) <= exp(w0 +
+    sum_j |B_j|)`` per channel.  ``exp(-cum)`` overflows f32 above 88.7."""
+    import torch
+
+    from repro_torch.models.rwkv6 import CHUNK
+
+    rw = params["blocks"]["rwkv"]
+    rate = torch.exp(rw["decay_w0"].float() + rw["decay_b"].float().abs().sum(-2))
+    return float(CHUNK * rate.max())
+
+
+def _family_train_full(arch: str, dev) -> None:
+    """One family at its published widths in ``Trainer`` (see
+    ``FAMILY_TRAIN_FULL``): finite losses and grad norms, the predicted
+    launches; step seconds, tokens/s and peak memory logged."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import policy_for
+    from repro_torch.data import DataConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import train_state_bytes
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import Trainer, TrainerConfig
+    from repro_torch.tree import leaves, tree_map
+    from torch_port_helpers import expected_train_launches
+
+    f = FAMILY_TRAIN_FULL
+    cfg = get_config(arch)
+    full_layers, full_state = cfg.n_layers, train_state_bytes(cfg, f["pods"])
+    if arch in f["layers"]:
+        cfg = dataclasses.replace(cfg, n_layers=f["layers"][arch])
+    seq = f["whisper_seq"] if cfg.is_encdec else f["seq"]
+    gb = f["whisper_batch"] if cfg.is_encdec else f["global_batch"]
+    t_fam = time.perf_counter()
+    tr = Trainer(cfg, DataConfig(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=gb),
+                 AdamWConfig(lr=1e-4, warmup_steps=2, total_steps=f["steps"]),
+                 policy_for("X_STCC", delta_steps=f["delta"], compress_inter_pod=f["compress"]),
+                 TrainerConfig(n_steps=f["steps"], n_pods=f["pods"], log_every=1), device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = tr.init_state()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    state_peak = torch.cuda.max_memory_allocated()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    state = tr.run(state)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    hist = tr.history
+    want = expected_train_launches(("X_STCC", f["pods"], f["steps"], {}), delta=f["delta"])
+    extra = ""
+    if cfg.family == "ssm":
+        bound = max(_rwkv6_cum_bound(tree_map(lambda x, i=i: x[i], state.params))
+                    for i in range(f["pods"]))
+        extra = (f"; the largest -cum of a 128-token chunk is at most {bound:.6f} "
+                 "(exp(-cum) overflows f32 above 88.7)")
+    if not all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]) for h in hist):
+        fail(f"train {arch} at full width: losses {[h['loss'] for h in hist]}, grad norms "
+             f"{[h['grad_norm'] for h in hist]}{extra}")
+    if any(counts[k] != want[k] for k in want):
+        fail(f"train {arch} at full width: launches {counts}, predicted {want}")
+    local = [h["sec"] for h in hist[1:] if not h["synced"]]
+    synced = [h["sec"] for h in hist[1:] if h["synced"]]
+    tokens = gb * seq
+    n_params = sum(x[0].numel() for x in leaves(state.params))
+    remat = cfg.remat if cfg.family in ("dense", "moe", "vlm") else "none, as the reference"
+    log(f"[train] {arch} at published widths ({cfg.n_layers} of {full_layers} layers, "
+        f"{n_params} parameters, bf16, f32 moments, remat {remat}), {f['pods']} pods, "
+        f"X_STCC Δ = {f['delta']} {f['compress']}, batch {gb} x "
+        f"{seq}: state {train_state_bytes(cfg, f['pods']) / 2**30:.1f} GiB (at full depth "
+        f"{full_state / 2**30:.1f} GiB); init {init_s:.3f} s (allocated after init "
+        f"{state_peak} B), {f['steps']} steps "
+        f"{run_s:.3f} s; step seconds {[round(h['sec'], 6) for h in hist]} (synced "
+        f"{[h['synced'] for h in hist]}); local step {sum(local) / len(local):.6f} s "
+        f"({tokens * len(local) / sum(local):.1f} tokens/s), sync step "
+        f"{sum(synced) / len(synced):.6f} s ({tokens * len(synced) / sum(synced):.1f} "
+        f"tokens/s), first step {hist[0]['sec']:.6f} s; losses "
+        f"{[round(h['loss'], 6) for h in hist]}; grad norms "
+        f"{[round(h['grad_norm'], 6) for h in hist]}; inter_pod_gb "
+        f"{hist[-1]['inter_pod_gb']}, violations {hist[-1]['violations']}; launches "
+        f"{ {k: counts[k] for k in TRAIN_KERNELS} }; max_memory_allocated {peak} B "
+        f"({peak / 2**30:.2f} GiB){extra}")
+    del state, tr
+    torch.cuda.empty_cache()
+    log(f"[time] train {arch} at published widths: {time.perf_counter() - t_fam:.1f} s")
 
 
 def phase_train() -> dict:
@@ -2813,6 +2941,39 @@ def phase_train() -> dict:
             f"{h.get('violations')}, severity {h.get('severity')}, inter_pod_gb "
             f"{h.get('inter_pod_gb')}; bookkeeping equal to the CPU; launches "
             f"(got, predicted) {checked}")
+    # (a) the six family configurations reduced, card against CPU.
+    from torch_port_helpers import FAMILY_ARCHS, FAMILY_TRAIN, FAMILY_TRAIN_CASE, family_trainer
+
+    for arch in FAMILY_ARCHS:
+        card, cpu = family_trainer(arch, dev), family_trainer(arch, "cpu")
+        params = cpu.model.init(0, device="cpu")
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        st_card = card.run(card.init_state(params))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        st_cpu = cpu.run(cpu.init_state(params))
+        bad = history_mismatches(cpu.history, card.history) + record_mismatches(
+            sync_record(st_cpu.sync), sync_record(st_card.sync))
+        if bad or not all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+                          for h in card.history):
+            fail(f"train {arch} reduced: card != cpu or not finite: {bad[:8]}")
+        want = dict.fromkeys(counts, 0) | expected_train_launches(
+            FAMILY_TRAIN_CASE, delta=FAMILY_TRAIN["delta"])
+        checked = {k: (counts[k], want[k]) for k in counts if counts[k] or want[k]}
+        if any(got != w for got, w in checked.values()):
+            fail(f"train {arch} reduced: launches (got, predicted) {checked}")
+        for k, v in counts.items():
+            total[k] += v
+        err = max(abs(c["loss"] - w["loss"]) / abs(w["loss"])
+                  for c, w in zip(card.history, cpu.history))
+        log(f"[train] {arch} reduced, {train_case_id(FAMILY_TRAIN_CASE)} Δ = 2: {wall:.3f} s "
+            f"on the card; losses {[round(h['loss'], 6) for h in card.history]} (largest "
+            f"relative difference from the CPU {err:.3e}, rtol {TRAIN_LOSS_RTOL}); grad norms "
+            f"{[round(h['grad_norm'], 6) for h in card.history]}; bookkeeping equal to the "
+            f"CPU; launches (got, predicted) {checked}")
     t_a = time.perf_counter() - t_phase
 
     # (b) gemma-2b at full width.
@@ -2872,6 +3033,11 @@ def phase_train() -> dict:
         f"{parts['merge']:.6f} s (of which _bookkeep {parts['bookkeep']:.6f} s)")
     del state, full
     torch.cuda.empty_cache()
+    t_b = time.perf_counter()
+    log(f"[train] families at published widths: {FAMILY_TRAIN_CUTS}")
+    for arch in FAMILY_TRAIN_FULL["archs"]:
+        _family_train_full(arch, dev)
+    t_b = time.perf_counter() - t_b
 
     # (c) checkpoints and recovery at the reduced size.
     case = ("X_STCC", 2, 8, {})
@@ -2929,7 +3095,8 @@ def phase_train() -> dict:
         f"rerouted to v{v_read}; RestartManager step {step}, {outcome}; CheckpointRecovery "
         f"equal; Trainer.restore_checkpoint step {r_step}; StoreRecovery {out_card} equal to "
         f"the CPU; rescale 2 -> 4 -> 2 pods: the mean within {err} (rtol 1e-6); phase "
-        f"{time.perf_counter() - t_phase:.1f} s ((a) {t_a:.1f} s)")
+        f"{time.perf_counter() - t_phase:.1f} s ((a) {t_a:.1f} s, the families at "
+        f"published widths {t_b:.1f} s)")
     return total
 
 
@@ -3320,10 +3487,12 @@ def scale_sharded() -> None:
     from repro_torch.storage.ycsb import WORKLOAD_A
 
     n = SHARDED_SCALE_SHARDS
-    config = EngineConfig(ConsistencyLevel.X_STCC, **SCALE, n_shards=n, audit=False)
-    log(f"[scale] sharded: X_STCC WORKLOAD_A {SCALE}, {n} shards of "
+    scale = dict(SCALE, n_ops=SHARDED_SCALE_OPS)
+    config = EngineConfig(ConsistencyLevel.X_STCC, **scale, n_shards=n, audit=False)
+    log(f"[scale] sharded: X_STCC WORKLOAD_A {scale}, {n} shards of "
         f"{config.shard_clients} clients, {config.shard_resources} rows, "
-        f"{config.shard_ops} ops; no cut of scale")
+        f"{config.shard_ops} ops; ops cut to {SHARDED_SCALE_OPS} of {SCALE['n_ops']} "
+        "(SHARDED_SCALE_OPS)")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
@@ -3340,7 +3509,7 @@ def scale_sharded() -> None:
             fail(f"sharded scale run: {k} = {out[k]} is not a rate")
     if out["n_reads"] <= 0 or launches["op_ingest"] == 0 or launches["vclock_chain"] == 0:
         fail(f"sharded scale run: n_reads {out['n_reads']}, launches {launches}")
-    log(f"[scale] sharded wall {wall:.3f} s; {SCALE['n_ops'] / wall:.1f} ops/s; "
+    log(f"[scale] sharded wall {wall:.3f} s; {scale['n_ops'] / wall:.1f} ops/s; "
         f"staleness {out['staleness_rate']}; violation {out['violation_rate']}; "
         f"n_reads {out['n_reads']}; dropped_writes {out['dropped_writes']}; per_shard "
         f"{out['per_shard']}; max_memory_allocated {peak} B; launches {launches}")
@@ -3787,12 +3956,13 @@ def scale_fleet_controller() -> None:
 # -- phase 12 -----------------------------------------------------------------
 
 
-# The profiled adaptive run's stream: a quarter of its 6400-op default
+# The profiled adaptive run's stream: an eighth of its 6400-op default
 # (cuts of scale: the profile phase only). At the default the run made
 # 402,318 device operations in 8.66 s unprofiled, the most of the
-# profiled runs, in a phase of 346.1 s on an H100; the cut makes room
-# for the sharded paths, and each profiled run now logs its own seconds.
-PROFILE_ADAPTIVE_OPS = 1600
+# profiled runs, in a phase of 346.1 s on an H100; a quarter (1600 ops)
+# took 42.2 s of an 82.6-s phase, halved again to make room for the
+# families' training.  Each profiled run logs its own seconds.
+PROFILE_ADAPTIVE_OPS = 800
 
 
 def log_profile(tag: str, label: str, run, wall: float, rounds: int = 0) -> None:
@@ -3966,7 +4136,8 @@ def main() -> None:
             "sharded_launches": launches["sharded"][name],
             # The recovery phase's crash runs: B.4 in bootstrap and gossip.
             "recovery_launches": launches["recovery"][name],
-            # The train phase's nine reduced runs: B.1 and the chain twice per
+            # The train phase's fifteen reduced runs (nine levels, six
+            # families): B.1 and the chain twice per
             # merge, B.2 once per causal merge.
             "train_launches": launches["train"][name],
             "max_abs_err": t["err"], "match": t.get("match", t["err"] == 0),

@@ -8,16 +8,72 @@ then the step times and, on the card, the peak device memory.
         --pods 2 --policy X_STCC
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-7b \\
         --reduced --device cpu --steps 50 --policy X_STCC --pods 2
+    PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-1.2b \\
+        --pods 2 --policy X_STCC --delta 2 --compress int8 --seq 512 --batch 4
 
-On the card (the default device) it trains the full config at its
-published widths with random weights; the CPU takes only ``--reduced``
-configs, as the reference does.  ``--dry-run`` (the reference's TPU mesh
-compile) is not ported.
+On the card (the default device) it trains any of the ten archs at its
+published widths with random weights.  It refuses (exit 2, with the
+reason) a run whose pods' training state — parameters, gradients and
+AdamW's two moments, per pod — exceeds the card's memory (olmoe-1b-7b
+and llama4-maverick at full depth), a sequence that does not fit the
+VLM's image prefix or the hybrid and SSM chunk rules, and a batch the
+pods do not divide.  The CPU takes only ``--reduced`` configs, as the
+reference does.  ``--dry-run`` (the reference's TPU mesh compile) is not
+ported.
 """
 
 import argparse
 import sys
 import time
+
+
+def train_state_bytes(cfg, pods: int, state_dtype: str = "float32") -> int:
+    """Bytes of ``pods`` pods' training state, counted from
+    ``abstract_params``: each parameter, its gradient (the parameter's
+    dtype) and AdamW's two moments (``state_dtype``), once per pod."""
+    import torch
+
+    from repro_torch.models import abstract_params, build_model
+    from repro_torch.tree import leaves
+
+    moment = torch.empty((), dtype=getattr(torch, state_dtype)).element_size()
+    per_pod = sum(x.numel() * (2 * x.element_size() + 2 * moment)
+                  for x in leaves(abstract_params(build_model(cfg))))
+    return pods * per_pod
+
+
+def refusal(cfg, *, seq: int, batch: int, pods: int, memory: int | None,
+            state_dtype: str = "float32") -> str | None:
+    """Why the launcher cannot train ``cfg`` as asked, or ``None``.
+    ``memory`` is the card's in bytes (``None``: not checked)."""
+    from repro_torch.models.rwkv6 import CHUNK
+
+    if batch % max(pods, 1):
+        return f"a batch of {batch} does not split over {pods} pods"
+    if seq <= cfg.n_vis_tokens:
+        return (f"{cfg.name}: the sequence ({seq}) must be longer than the "
+                f"{cfg.n_vis_tokens}-token image prefix")
+    chunk = {"hybrid": cfg.ssm_chunk, "ssm": CHUNK}.get(cfg.family)
+    if chunk and seq > chunk and seq % chunk:
+        return (f"{cfg.name}: a {seq}-token sequence does not split into chunks "
+                f"of {chunk}; pass --seq <= {chunk} or a multiple of it")
+    if memory is not None:
+        need = train_state_bytes(cfg, pods, state_dtype)
+        if need > memory:
+            return (f"{cfg.name} ({cfg.n_layers} layers): the training state of "
+                    f"{pods} pods (parameters, gradients, AdamW moments) needs "
+                    f"{need / 2**30:.1f} GiB, more than the card's "
+                    f"{memory / 2**30:.1f} GiB; pass --reduced")
+    return None
+
+
+def device_memory(dev) -> int | None:
+    """The card's memory in bytes; ``None`` off the card."""
+    import torch
+
+    if dev.type != "cuda":
+        return None
+    return torch.cuda.get_device_properties(dev).total_memory
 
 
 def main(argv=None) -> int:
@@ -59,15 +115,18 @@ def main(argv=None) -> int:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
-    elif dev.type == "cpu":
-        print("full config on CPU is impractical; pass --reduced",
-              file=sys.stderr)
+    opt = AdamWConfig(lr=args.lr, warmup_steps=min(10, args.steps // 5 + 1),
+                      total_steps=args.steps)
+    why = refusal(cfg, seq=args.seq, batch=args.batch, pods=args.pods,
+                  memory=device_memory(dev), state_dtype=opt.state_dtype)
+    if why is None and dev.type == "cpu" and not args.reduced:
+        why = "full config on CPU is impractical; pass --reduced"
+    if why:
+        print(why, file=sys.stderr)
         return 2
 
     data = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
                       global_batch=args.batch)
-    opt = AdamWConfig(lr=args.lr, warmup_steps=min(10, args.steps // 5 + 1),
-                      total_steps=args.steps)
     policy = policy_for(args.policy, delta_steps=args.delta,
                         compress_inter_pod=args.compress)
     store = session = None

@@ -73,6 +73,16 @@ def _causal_conv(x: Tensor, w: Tensor, b: Tensor) -> Tensor:
     return F.silu(out + b)
 
 
+def masked_decay(rel: Tensor, keep: Tensor) -> Tensor:
+    """``exp(rel)`` where ``keep``, 0 elsewhere.  Above the diagonal
+    ``rel = cum_i - cum_j > 0`` and its ``exp`` overflows: the reference
+    (``where(tri, exp(rel), 0)``) masks the overflow in the forward, but its
+    backward multiplies the mask's zero by ``inf`` and every gradient turns
+    NaN.  Masking ``rel`` to ``-inf`` first gives the same values bit for
+    bit (``exp(-inf) = 0``) and a finite backward (ROADMAP C)."""
+    return torch.exp(torch.where(keep, rel, torch.full((), -torch.inf, device=rel.device)))
+
+
 def mamba2_forward(x: Tensor, p: dict, cfg, *, return_state: bool = False):
     """Full-sequence chunked SSD.  x: (B, L, D) -> (B, L, D).
 
@@ -112,8 +122,7 @@ def mamba2_forward(x: Tensor, p: dict, cfg, *, return_state: bool = False):
     # Intra-chunk: scores[i,j] = (C_i . B_j) * exp(cum_i - cum_j), j <= i.
     rel = cum[:, :, :, None, :] - cum[:, :, None, :, :]             # (B,G,Q,Q,H)
     tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
-    decay_ij = torch.where(tri[None, None, :, :, None], torch.exp(rel),
-                           torch.zeros((), device=x.device))
+    decay_ij = masked_decay(rel, tri[None, None, :, :, None])
     cb = torch.einsum("bgin,bgjn->bgij", cv, bv)                    # (B,G,Q,Q)
     # "bgij,bgijh,bgjhp->bgihp": (decay * cb), then the sum over j.
     y_intra = torch.einsum("bgijh,bgjhp->bgihp", decay_ij * cb[..., None], xb)

@@ -18,10 +18,10 @@ that shifted order, as the reference's consistency test does).
 The reference runs the groups under ``lax.scan`` (``cfg.scan_layers``, a
 JAX compile knob the port accepts and ignores: it runs a Python loop
 over the layers, eagerly, with the same values).  ``cfg.remat`` is
-honoured under autograd as the reference's ``jax.checkpoint``:
-``"full"`` recomputes each layer in the backward pass
+honoured under autograd as the reference's ``jax.checkpoint``, one group
+at a time: ``"full"`` recomputes each group in the backward pass
 (``torch.utils.checkpoint``, non-reentrant), ``"selective"`` keeps the
-layer's matmuls without batch dims (the projections) and recomputes the
+group's matmuls without batch dims (the projections) and recomputes the
 rest, ``"none"`` keeps everything.
 """
 
@@ -161,17 +161,25 @@ def _remat(fn, cfg):
     return functools.partial(ckpt.checkpoint, fn, use_reentrant=False)
 
 
+def _group(x, dense, moe_blk, cfg, positions):
+    """One group (the reference's super-layer): its dense layers, then its
+    MoE layer.  Returns ``(x, the group's aux loss)``."""
+    for blk in dense:
+        x = _dense_block(x, blk, cfg, positions)
+    if moe_blk is None:
+        return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return _moe_block(x, moe_blk, cfg, positions)
+
+
 def backbone(params, cfg, x, positions):
     """Run all layers.  x: (B, S, D) -> (x, aux_loss summed over the MoE
-    layers)."""
-    dense_block, moe_block = _remat(_dense_block, cfg), _remat(_moe_block, cfg)
+    layers).  Each group is rematerialized as one unit, as the reference
+    rematerializes its super-layer."""
+    group = _remat(_group, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for dense, moe_blk in _groups(params, cfg):
-        for blk in dense:
-            x = dense_block(x, blk, cfg, positions)
-        if moe_blk is not None:
-            x, a = moe_block(x, moe_blk, cfg, positions)
-            aux = aux + a
+        x, a = group(x, dense, moe_blk, cfg, positions)
+        aux = aux + a
     return x, aux
 
 

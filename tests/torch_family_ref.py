@@ -5,7 +5,9 @@ reference's converted parameters, in f32 on the CPU.
 Tolerances: atol = rtol = 1e-5 for modules and models (both sides sum
 in f32 in orders their BLAS picks); prefill + decode against forward
 within the reference's own 2e-4 (``tests/test_decode_consistency.py``);
-served tokens exactly.
+served tokens exactly; one step's gradients within ``GRAD_TOL``, the
+bound ``tests/test_torch_train.py`` holds the dense family to (autograd
+and ``jax.grad`` sum in different orders).
 """
 
 from __future__ import annotations
@@ -19,20 +21,27 @@ import torch
 
 from repro.configs import get_config as j_get_config
 from repro.configs import reduced as j_reduced
+from repro.core import policy_for as jpolicy_for
 from repro.core.consistency import ConsistencyLevel as JLevel
+from repro.data import DataConfig as JData
 from repro.models import build_model as j_build
+from repro.optim import adamw as jadamw
 from repro.serve import ServeSession as JSession
 from repro.serve import ServingEngine as JEngine
+from repro.train import Trainer as JTrainer
+from repro.train import TrainerConfig as JTrainerConfig
 from repro_torch import configs as tc
 from repro_torch.convert import params_from_numpy
 from repro_torch.core.consistency import ConsistencyLevel
 from repro_torch.models import build_model as t_build
 from repro_torch.models.common import count_params
 from repro_torch.serve import ServeSession, ServingEngine
-from torch_port_helpers import (MODEL_SERVING, family_inputs, model_serving_counters,
-                                model_serving_script, torch_batch)
+from repro_torch.tree import items
+from torch_port_helpers import (FAMILY_TRAIN, FAMILY_TRAIN_CASE, MODEL_SERVING, family_inputs,
+                                model_serving_counters, model_serving_script, torch_batch)
 
 TOL = dict(atol=1e-5, rtol=1e-5)
+GRAD_TOL = dict(rtol=1e-4, atol=1e-6)
 # Leaves that init to constants (norm weights and biases, fixed decays):
 # perturbed so that a wrong use of them shows.
 PERTURBED = {"bq", "bk", "bv", "w", "b", "conv_b", "dt_bias", "d_skip", "bonus_u",
@@ -193,3 +202,60 @@ def check_generate(arch, level="X_STCC", **over):
         ServeSession, n_tokens=TOKENS, **MODEL_SERVING)
     assert got == want
     assert model_serving_counters(t_eng) == model_serving_counters(j_eng)
+
+
+# ---- gradients ---------------------------------------------------------------
+
+
+def reference_grads(jcfg, np_tree, np_batch) -> tuple[float, dict]:
+    """``jax.value_and_grad`` of the reference's loss, jitted: ``(loss,
+    {"a/b": gradient as numpy})``."""
+    fn = jax.jit(jax.value_and_grad(j_build(jcfg).loss, has_aux=True))
+    (loss, _), grads = fn(jax.tree.map(jnp.asarray, np_tree),
+                          {k: jnp.asarray(v) for k, v in np_batch.items()})
+    flat = jax.tree_util.tree_flatten_with_path(grads)[0]
+    return float(loss), {"/".join(str(k.key) for k in path): np.asarray(g)
+                         for path, g in flat}
+
+
+def port_grads(tcfg, np_tree, np_batch) -> tuple[float, dict]:
+    """The port's loss and its gradients under autograd, on the
+    reference's converted parameters (``cfg.remat`` applies)."""
+    tree = params_from_numpy(np_tree, device="cpu")
+    wrt = {k: v.requires_grad_() for k, v in items(tree)}
+    loss, _ = t_build(tcfg).loss(tree, torch_batch(np_batch, "cpu"))
+    grads = torch.autograd.grad(loss, list(wrt.values()))
+    return float(loss.detach()), {k: g.numpy() for k, g in zip(wrt, grads)}
+
+
+def all_finite(grads: dict) -> bool:
+    return all(np.isfinite(g).all() for g in grads.values())
+
+
+def assert_grads_close(got: dict, want: dict, **tol):
+    assert sorted(got) == sorted(want)
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], err_msg=k, **(tol or GRAD_TOL))
+
+
+# ---- the trainer ---------------------------------------------------------------
+
+
+def reference_family_run(arch: str) -> dict:
+    """The reference's ``Trainer`` on the reduced ``arch`` under
+    ``FAMILY_TRAIN_CASE``: its initial parameters (one pod's), batches,
+    history and final sync state."""
+    level, pods, steps, kw = FAMILY_TRAIN_CASE
+    t = FAMILY_TRAIN
+    cfg = j_reduced(j_get_config(arch))
+    tr = JTrainer(cfg, JData(vocab_size=cfg.vocab_size, seq_len=t["seq"],
+                             global_batch=t["global_batch"]),
+                  jadamw.AdamWConfig(lr=t["lr"], warmup_steps=t["warmup_steps"],
+                                     total_steps=t["total_steps"]),
+                  jpolicy_for(level, delta_steps=t["delta"], **kw),
+                  JTrainerConfig(n_steps=steps, n_pods=pods, log_every=1))
+    state = tr.init_state()
+    params0 = jax.tree.map(lambda x: np.asarray(x[0]), state.params)
+    batches = [jax.tree.map(np.asarray, tr.batch_for(s)) for s in range(steps)]
+    state = tr.run(state)
+    return dict(params0=params0, batches=batches, history=tr.history, sync=state.sync)

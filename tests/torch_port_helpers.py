@@ -704,3 +704,34 @@ def expected_train_launches(case, delta: int = 4) -> dict:
     causal = level in ("CAUSAL", "TCC", "X_STCC")
     return {"op_ingest": 2 * merges, "vclock_chain": 2 * merges,
             "vclock_audit": merges if causal else 0}
+
+
+# The families' training check: each reduced configuration of
+# ``FAMILY_ARCHS`` in ``Trainer`` under X_STCC with Δ = 2 and int8
+# compression, 2 pods, 4 steps, a global batch of 4 x 16 tokens (16 fits
+# the hybrid's 16-token and the SSM's 128-token chunks and follows the
+# VLM's 8-position image prefix).
+FAMILY_TRAIN_CASE = ("X_STCC", 2, 4, {"compress_inter_pod": "int8"})
+FAMILY_TRAIN = dict(delta=2, seq=16, global_batch=4, lr=1e-3, warmup_steps=2,
+                    total_steps=8)
+
+
+def family_trainer(arch: str, device, **over):
+    """The port's ``Trainer`` for the reduced ``arch`` (config overrides
+    ``over``) under ``FAMILY_TRAIN_CASE``; every step logged."""
+    from repro_torch import configs
+    from repro_torch.core import policy_for
+    from repro_torch.data import DataConfig
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import Trainer, TrainerConfig
+
+    level, pods, steps, kw = FAMILY_TRAIN_CASE
+    t = FAMILY_TRAIN
+    cfg = configs.reduced(configs.get_config(arch), **over)
+    return Trainer(cfg, DataConfig(vocab_size=cfg.vocab_size, seq_len=t["seq"],
+                                   global_batch=t["global_batch"]),
+                   AdamWConfig(lr=t["lr"], warmup_steps=t["warmup_steps"],
+                               total_steps=t["total_steps"]),
+                   policy_for(level, delta_steps=t["delta"], **kw),
+                   TrainerConfig(n_steps=steps, n_pods=pods, log_every=1),
+                   device=device)
