@@ -138,7 +138,19 @@ non-zero exit code):
                 restore, ``RestartManager``, ``CheckpointRecovery``,
                 ``StoreRecovery`` of the pods' replica store against the CPU,
                 and ``rescale_train_state`` 2 -> 4 -> 2 keeping the mean;
- 10c. families — the MoE, VLM, hybrid, SSM and audio families
+ 10c. mesh    — a one-device mesh (``launch.mesh.make_mesh((1, 1))`` over an
+                NCCL process group of one rank): gemma-2b's parameter
+                placements all replicated; reduced qwen2-7b's ``sync_step``
+                (X_STCC, 2 pods, 4 merges) under ``use_mesh`` equal to the
+                same steps with no mesh, bit for bit (losses, parameters,
+                clocks, DUOT, merges, violations, severity,
+                ``inter_pod_gb``), with B.1 / chain / B.2 launched as
+                predicted; the dry run (``launch.dryrun``, meta device) of
+                the train phase's gemma-2b setting on that mesh: its
+                predicted per-device state must not exceed the train
+                phase's measured peak; its step FLOPs over the measured
+                local step, against the bf16 peak, printed (not gated);
+ 10d. families — the MoE, VLM, hybrid, SSM and audio families
                 (``FAMILIES``): (a) olmoe-1b-7b, internvl2-2b, zamba2-1.2b,
                 rwkv6-3b and whisper-large-v3 at full width and depth in
                 bf16 (random weights, B = 1, S = 2048; whisper's decoder
@@ -210,8 +222,8 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
 PHASES = ("device", "build", "kernels", "digest", "golden", "main", "faulty", "sharded",
-          "recovery", "geo", "adaptive", "serving", "model", "train", "families", "scale",
-          "profile")
+          "recovery", "geo", "adaptive", "serving", "model", "train", "mesh", "families",
+          "scale", "profile")
 
 # H100 SXM peaks (NVIDIA data sheet, as tabulated in the repo's
 # measurement notes): HBM bandwidth, and the 32-bit non-tensor-core rate
@@ -2717,6 +2729,9 @@ TRAIN_FULL = dict(arch="gemma-2b", pods=2, delta=2, compress="int8", global_batc
 TRAIN_FULL_CUTS = ("cuts of scale: none in width (gemma-2b's 18 layers, d_model 2048, "
                    "8 heads of 256, MQA, d_ff 16384, vocab 256,000); 6 steps")
 TRAIN_KERNELS = ("op_ingest", "vclock_chain", "vclock_audit")
+# The full-width run's peak device memory (bytes) and mean local-step
+# seconds, which the mesh phase holds its dry run against.
+TRAIN_MEASURED: dict = {}
 # The families' training at their published widths: bf16, random weights,
 # remat "full" where the arch has it (the transformer families), 2 pods,
 # X_STCC with Δ = 2 and int8 compression, 4 steps; a global batch of
@@ -3010,6 +3025,7 @@ def phase_train() -> dict:
         fail(f"train full width: launches {counts}, predicted {want}")
     local = [h["sec"] for h in hist[1:] if not h["synced"]]
     synced = [h["sec"] for h in hist[1:] if h["synced"]]
+    TRAIN_MEASURED.update(peak=peak, local_s=sum(local) / len(local))
     tokens = TRAIN_FULL["global_batch"] * TRAIN_FULL["seq"]
     n_params = cfg.param_count()
     log(f"[train] {cfg.name} at full width ({n_params} parameters, bf16, f32 moments, "
@@ -3101,6 +3117,105 @@ def phase_train() -> dict:
 
 
 # -- phase 10c ----------------------------------------------------------------
+
+
+def phase_mesh(dev: dict) -> None:
+    """(a) A (1, 1) mesh over an NCCL process group of one rank:
+    gemma-2b's placements all replicated, and reduced qwen2-7b's
+    ``sync_step`` under the mesh equal to the same steps without it, bit
+    for bit, its kernels launched as predicted; (b) the dry run of the
+    train phase's gemma-2b setting on that mesh against the train phase's
+    measured peak (``TRAIN_MEASURED``): predicted state <= measured peak."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate
+
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.core.cost_model import PAPER_PRICING
+    from repro_torch.kernels import ops
+    from repro_torch.launch.dryrun import dry_run
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import abstract_params, build_model, sharding
+    from repro_torch.tree import items
+    from torch_port_helpers import (MESH_STEP_CASE, mesh_step_launches, mesh_step_mismatches,
+                                    mesh_sync_steps, port_trainer, train_case_id)
+
+    if not TRAIN_MEASURED:
+        fail("the mesh phase holds its dry run against the train phase's gemma-2b run: "
+             "run the train phase before it")
+    t_phase = time.perf_counter()
+    cuda = torch.device("cuda")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        cfg = get_config(TRAIN_FULL["arch"])
+        with sharding.use_mesh(mesh):
+            placed = sharding.param_placements(abstract_params(build_model(cfg)), cfg)
+        sharded = [p for p, pl in items(placed) if not all(isinstance(x, Replicate) for x in pl)]
+        if sharded:
+            fail(f"mesh: on a (1, 1) mesh {cfg.name}'s leaves {sharded[:8]} are not replicated")
+        # (a) the sync steps under the mesh and without it.
+        params = port_trainer(MESH_STEP_CASE, "cpu").model.init(0, device="cpu")
+        t0 = time.perf_counter()
+        plain = mesh_sync_steps(cuda, params)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t1 = time.perf_counter()
+        on_mesh = mesh_sync_steps(cuda, params, mesh)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        counts, want = ops.launch_counts(), mesh_step_launches()
+        bad = mesh_step_mismatches(plain, on_mesh)
+        if bad:
+            fail(f"mesh: sync_step under the (1, 1) mesh != without it: {bad[:8]}")
+        if any(counts[k] != n for k, n in want.items()):
+            fail(f"mesh: launches {counts}, predicted {want}")
+        steps, state = on_mesh
+        log(f"[mesh] {mesh}: {len(list(items(placed)))} leaves of {cfg.name} all replicated; "
+            f"reduced qwen2-7b {train_case_id(MESH_STEP_CASE)}, sync_step x "
+            f"{MESH_STEP_CASE[2]}: under the mesh {t2 - t1:.3f} s, without {t1 - t0:.3f} s; "
+            f"losses {[float(m['loss']) for m in steps]}, merges {int(state.sync.merges)}, "
+            f"violations {int(state.sync.violations)}, severity {float(state.sync.severity)}, "
+            f"inter_pod_gb {float(state.sync.inter_pod_gb)}: equal bit for bit (losses, "
+            f"parameters, clocks, DUOT, counters); launches "
+            f"{ {k: counts[k] for k in want} } (predicted {want})")
+        # (b) the dry run of the train phase's setting against its measurement.
+        f = TRAIN_FULL
+        shape = ShapeSpec(f"train_{f['global_batch']}x{f['seq']}", f["seq"],
+                          f["global_batch"], "train")
+        t0 = time.perf_counter()
+        res = dry_run(cfg, shape, mesh, pods=f["pods"], pricing=PAPER_PRICING,
+                      program="local", policy="X_STCC", delta=f["delta"],
+                      compress=f["compress"])
+        t_dry = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    mem, roof = res["memory"], res["roofline"]
+    predicted, peak = mem["used_bytes_per_device"], TRAIN_MEASURED["peak"]
+    local_s = TRAIN_MEASURED["local_s"]
+    achieved = res["flops"] / local_s
+    log(f"[mesh] dry run of {cfg.name} as the train phase runs it ({f['pods']} pods on the "
+        f"(1, 1) mesh, X_STCC Δ = {f['delta']} {f['compress']}, batch {f['global_batch']} x "
+        f"{f['seq']}, remat {cfg.remat}; {t_dry:.1f} s on the meta device): predicted state "
+        f"{predicted} B ({predicted / 2**30:.2f} GiB: parameters "
+        f"{mem['params_bytes'] / 2**30:.2f}, one pod's gradients "
+        f"{mem['grads_bytes'] / 2**30:.2f}, AdamW moments {mem['opt_bytes'] / 2**30:.2f}, "
+        f"int8 anchor {mem['sync_bytes'] / 2**30:.2f}, batch {mem['batch_bytes']} B), "
+        f"measured peak {peak} B ({peak / 2**30:.2f} GiB); step FLOPs {res['flops']:.6e} "
+        f"(both pods' local step), measured local step {local_s:.6f} s: "
+        f"{achieved / 1e12:.1f} TFLOP/s, {achieved / res['rates']['peak_flops']:.4f} of the "
+        f"{res['rates']['peak_flops'] / 1e12:.0f} TFLOP/s bf16 peak (not gated); roofline step "
+        f"{roof['step_time_s']:.6f} s ({roof['dominant']}-bound: compute "
+        f"{roof['compute_s']:.6f} s, memory {roof['memory_s']:.6f} s at the unfused byte "
+        f"count {roof['bytes_per_device']:.6e}); {dev['smi']}")
+    if predicted > peak:
+        fail(f"mesh: the dry run predicts {predicted} B of state per device, more than the "
+             f"train phase's measured peak {peak} B")
+    log(f"[mesh] phase {time.perf_counter() - t_phase:.1f} s")
+
+
+# -- phase 10d ----------------------------------------------------------------
 
 # The families phase: the MoE, VLM, hybrid, SSM and audio families at full
 # width and depth, bf16, random weights from the port's initializer, B = 1.
@@ -4117,6 +4232,8 @@ def main() -> None:
         model_timings, launches["model"] = run("model", phase_model)
         timings.update(model_timings)
     launches["train"] = run("train", phase_train, {})
+    if "mesh" in phases:
+        timed("mesh", phase_mesh, dev)
     if "families" in phases:
         fam_timings, launches["families"] = run("families", phase_families)
         timings.update(fam_timings)

@@ -18,8 +18,9 @@ AdamW's two moments, per pod — exceeds the card's memory (olmoe-1b-7b
 and llama4-maverick at full depth), a sequence that does not fit the
 VLM's image prefix or the hybrid and SSM chunk rules, and a batch the
 pods do not divide.  The CPU takes only ``--reduced`` configs, as the
-reference does.  ``--dry-run`` (the reference's TPU mesh compile) is not
-ported.
+reference does.  ``--dry-run`` runs the dry run of ``--arch`` at
+``train_4k`` on both production meshes (``repro_torch.launch.dryrun``,
+on the meta device: any host will do) and returns its exit code.
 """
 
 import argparse
@@ -96,10 +97,13 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     if args.dry_run:
-        print("--dry-run compiles the reference's TPU mesh programs "
-              "(repro.launch.dryrun); the port has no counterpart yet",
-              file=sys.stderr)
-        return 2
+        from repro_torch.launch import dryrun
+
+        return dryrun.main([
+            "--arch", args.arch, "--shape", "train_4k", "--mesh", "both",
+            "--policy", args.policy, "--delta", str(args.delta),
+            "--compress", args.compress,
+        ])
 
     import torch
 

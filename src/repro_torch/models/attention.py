@@ -2,18 +2,21 @@
 with the KV cache, and one-token decode (port of
 ``repro.models.attention``).
 
-The port runs on one device and has no mesh, so the reference's
-sharding constraints, its ring attention (context parallelism) and its
-``lse_shardmap`` decode have no counterpart: on the reference's own
-one-device path they reduce to the plain code below (``_ring_applicable``
-is False without a mesh, and ``decode_comm="lse_shardmap"`` falls through
-to ``_decode_xla``).
+:func:`attn_parallel_mode` reads the active mesh
+(``repro_torch.models.sharding``) as the reference's does.  The mesh's
+collectives are not ported yet: the reference's sharding constraints,
+its ring attention over ``kv_seq`` (context parallelism) and its
+``lse_shardmap`` flash-decode combine run here as the reference's own
+one-device path, the plain code below (``_ring_applicable`` is False
+without a mesh, and ``decode_comm="lse_shardmap"`` falls through to
+``_decode_xla``).
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.models import sharding
 from repro_torch.models.common import apply_rope, fan_in_init, softcap, zeros_init
 
 Tensor = torch.Tensor
@@ -35,6 +38,32 @@ def init_attention_params(gen: torch.Generator, cfg, dtype,
         p["bk"] = zeros_init(gen, stack + (cfg.kv_dim,), dtype)
         p["bv"] = zeros_init(gen, stack + (cfg.kv_dim,), dtype)
     return p
+
+
+def _model_axis_size() -> int:
+    mesh = sharding.get_mesh()
+    if mesh is None:
+        return 1
+    axis = sharding.get_rule("heads")
+    shape = sharding.mesh_shape(mesh)
+    if axis is None or axis not in shape:
+        return 1
+    return int(shape[axis])
+
+
+def attn_parallel_mode(cfg) -> str:
+    """'tp' (shard heads over 'model') when both n_heads and n_kv_heads
+    divide the model axis, or off a mesh; otherwise 'dp' — attention
+    internals shard over 'data' only (compute duplicated across 'model';
+    zero model-axis collectives).  The grouped score/value tensors are
+    kv-head-major, so a non-dividing kv count would replicate the
+    quadratic intermediates."""
+    m = _model_axis_size()
+    if m == 1:
+        return "tp"
+    if cfg.n_heads % m == 0 and cfg.n_kv_heads % m == 0:
+        return "tp"
+    return "dp"
 
 
 def _project_q(x, p, cfg):

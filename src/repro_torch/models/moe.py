@@ -5,10 +5,12 @@ Used by olmoe-1b-7b (64 experts, top-8) and llama4-maverick (128
 experts, top-1 + a shared expert, on alternate layers).
 
 The reference runs dispatch and combine inside ``shard_map`` over the
-mesh's data axis when it has one; the port runs on one device, which is
-the reference's ``shards == 1`` branch: one capacity over all ``T``
-tokens.  Three rules are explicit here where the reference relies on
-XLA's:
+mesh's data axis when it has one, with a capacity per data shard; that
+per-shard dispatch is not ported yet (it waits for the mesh's
+collectives).  The port runs the reference's ``shards == 1`` branch: one
+capacity over all ``T`` tokens, with no host read, so the layer also
+runs on meta tensors (the dry run).  Three rules are explicit here where
+the reference relies on XLA's:
 
   * the top-k keeps the lower expert index first among equal
     probabilities (``jax.lax.top_k``'s order; ``torch.topk`` promises
@@ -76,13 +78,14 @@ def _route(probs: Tensor, cfg) -> tuple[Tensor, Tensor, Tensor, Tensor]:
 
 def _dispatch_local(xt: Tensor, probs: Tensor, cfg, capacity: int):
     """xt (T, D), probs (T, E) -> ``(buf (E, C, D), se, st, sg, pos)``.
-    A slot at ``pos >= capacity`` is dropped: it is masked out before the
-    write, never clamped into the buffer."""
+    A slot at ``pos >= capacity`` is dropped: it is written to a spare row
+    ``C`` that the returned view leaves out, never clamped into the
+    buffer.  No mask is read on the host, so the dispatch runs on meta
+    tensors and never waits for the device."""
     se, st, sg, pos = _route(probs, cfg)
-    buf = xt.new_zeros((cfg.n_experts, capacity, xt.shape[-1]))
-    kept = pos < capacity
-    buf[se[kept], pos[kept]] = xt[st[kept]]
-    return buf, se, st, sg, pos
+    buf = xt.new_zeros((cfg.n_experts, capacity + 1, xt.shape[-1]))
+    buf[se, torch.clamp(pos, max=capacity)] = xt[st]
+    return buf[:, :capacity], se, st, sg, pos
 
 
 def _combine_local(out_buf: Tensor, se, st, sg, pos, t_loc: int, capacity: int,

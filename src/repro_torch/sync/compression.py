@@ -60,7 +60,12 @@ def topk_index(mag: Tensor, k: int) -> Tensor:
     tie = mag == kth
     room = k - above.sum(dim=1, keepdim=True)
     take = above | (tie & (torch.cumsum(tie, dim=1) <= room))
-    idx = take.nonzero()[:, 1].reshape(rows, k)          # ascending index
+    # Each row takes exactly k entries: the j-th taken goes to column j,
+    # the rest to a spare column k (ascending index, no host read).
+    slot = torch.cumsum(take, dim=1).sub_(1).masked_fill_(~take, k)
+    cols = torch.arange(mag.shape[1], device=mag.device).expand_as(slot)
+    idx = torch.empty((rows, k + 1), dtype=torch.int64,
+                      device=mag.device).scatter_(1, slot, cols)[:, :k]
     order = torch.sort(torch.gather(mag, 1, idx), dim=1, descending=True,
                        stable=True).indices
     return torch.gather(idx, 1, order)

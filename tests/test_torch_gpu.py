@@ -989,3 +989,33 @@ def test_trainer_refuses_the_attention_kernel_on_the_card(cuda):
     with pytest.raises(ValueError, match="no backward"):
         Trainer(cfg, DataConfig(cfg.vocab_size, 16, 4), AdamWConfig(), policy_for("X_STCC"),
                 TrainerConfig(n_pods=2), device=cuda)
+
+
+# ---- the one-device mesh ---------------------------------------------------------
+
+
+def test_one_device_mesh_sync_step_equals_no_mesh(cuda):
+    """A (1, 1) mesh over an NCCL group of one rank: reduced qwen2-7b's
+    ``sync_step`` under ``use_mesh`` equals the same steps with no mesh,
+    bit for bit, with B.1 / chain / B.2 launched as predicted."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+    from torch_port_helpers import (MESH_STEP_CASE, mesh_step_launches, mesh_step_mismatches,
+                                    mesh_sync_steps)
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        params = port_trainer(MESH_STEP_CASE, "cpu").model.init(0, device="cpu")
+        plain = mesh_sync_steps(cuda, params)
+        ops.reset_launch_counts()
+        on_mesh = mesh_sync_steps(cuda, params, mesh)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+    finally:
+        dist.destroy_process_group()
+    assert mesh_step_mismatches(plain, on_mesh) == []
+    want = mesh_step_launches()
+    assert {k: counts[k] for k in want} == want

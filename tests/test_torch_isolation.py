@@ -63,8 +63,8 @@ def no_card():
 
 def test_every_new_module_is_covered():
     """The fault-path, geo, adaptive, serving, model, sharded/scalar,
-    training and model-family slices' modules are among those imported
-    above."""
+    training, model-family and mesh-tooling slices' modules are among
+    those imported above."""
     mods = set(_port_modules())
     for name in ("core.availability", "gossip", "gossip.digest", "gossip.scheduler",
                  "kernels.digest_compare", "kernels.histogram", "obs", "obs.metrics",
@@ -81,7 +81,8 @@ def test_every_new_module_is_covered():
                  "train.trainer", "checkpoint", "checkpoint.store", "runtime",
                  "runtime.fault_tolerance", "runtime.elastic", "runtime.recovery",
                  "launch.train", "tree", "models.moe", "models.mamba2",
-                 "models.hybrid", "models.rwkv6", "models.ssm_model", "models.encdec"):
+                 "models.hybrid", "models.rwkv6", "models.ssm_model", "models.encdec",
+                 "models.sharding", "launch.mesh", "launch.roofline", "launch.dryrun"):
         assert f"repro_torch.{name}" in mods, name
 
 

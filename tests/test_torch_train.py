@@ -356,8 +356,8 @@ def test_trainer_checkpoint_round_trip(tmp_path):
     assert [h["step"] for h in tr.history[-2:]] == [4, 5]
 
 
-def test_launch_train_runs_reduced_on_the_cpu(capsys):
-    from repro_torch.launch import train
+def test_launch_train_runs_reduced_on_the_cpu(capsys, monkeypatch):
+    from repro_torch.launch import dryrun, train
 
     assert train.main(["--arch", "gemma-2b", "--reduced", "--device", "cpu", "--steps", "4",
                        "--delta", "2", "--compress", "int8", "--seq", "16",
@@ -365,4 +365,10 @@ def test_launch_train_runs_reduced_on_the_cpu(capsys):
     out = capsys.readouterr().out
     assert "'synced': True" in out and "sync steps: 2" in out
     assert train.main(["--arch", "gemma-2b", "--device", "cpu"]) == 2
-    assert train.main(["--arch", "gemma-2b", "--dry-run"]) == 2
+    # --dry-run hands the train_4k cells on both meshes to the dry run and
+    # returns its exit code (tests/test_torch_dryrun.py runs it whole).
+    calls = []
+    monkeypatch.setattr(dryrun, "main", lambda argv: calls.append(argv) or 7)
+    assert train.main(["--arch", "gemma-2b", "--dry-run", "--delta", "2"]) == 7
+    assert calls == [["--arch", "gemma-2b", "--shape", "train_4k", "--mesh", "both",
+                      "--policy", "X_STCC", "--delta", "2", "--compress", "none"]]

@@ -735,3 +735,49 @@ def family_trainer(arch: str, device, **over):
                    policy_for(level, delta_steps=t["delta"], **kw),
                    TrainerConfig(n_steps=steps, n_pods=pods, log_every=1),
                    device=device)
+
+
+# The one-device mesh check: reduced qwen2-7b's ``sync_step`` under
+# ``use_mesh`` of a (1, 1) mesh against the same steps with no mesh, bit
+# for bit (``chip_smoke.py``'s mesh phase and the gpu test): X_STCC, 2
+# pods, a merge at each of 4 steps.
+MESH_STEP_CASE = ("X_STCC", 2, 4, {})
+
+
+def mesh_sync_steps(device, params, mesh=None) -> tuple[list[dict], object]:
+    """``MESH_STEP_CASE``'s trainer started from ``params`` (one pod's
+    tree) taking ``sync_step`` at every step, under ``use_mesh(mesh)``
+    when ``mesh`` is given: each step's metrics (tensors as numpy) and
+    the final state."""
+    import contextlib
+
+    from repro_torch.models import sharding
+
+    trainer = port_trainer(MESH_STEP_CASE, device)
+    state = trainer.init_state(params)
+    steps = []
+    with sharding.use_mesh(mesh) if mesh is not None else contextlib.nullcontext():
+        for step in range(MESH_STEP_CASE[2]):
+            state, metrics = trainer.fns.sync_step(state, trainer.batch_for(step))
+            steps.append({k: as_np(v) for k, v in metrics.items()})
+    return steps, state
+
+
+def mesh_step_launches() -> dict:
+    """The kernels ``mesh_sync_steps`` launches: per merge B.1 and the
+    chain twice, B.2 once."""
+    n = MESH_STEP_CASE[2]
+    return {"op_ingest": 2 * n, "vclock_chain": 2 * n, "vclock_audit": n}
+
+
+def mesh_step_mismatches(want, got) -> list[str]:
+    """Where two ``mesh_sync_steps`` runs differ, bit for bit: every
+    metric of every step, the parameters and the sync bookkeeping."""
+    from repro_torch.tree import items
+
+    (m_want, s_want), (m_got, s_got) = want, got
+    out = [f"step {i} {k}" for i, (a, b) in enumerate(zip(m_want, m_got)) for k in a
+           if not np.array_equal(a[k], b[k])]
+    out += [f"params/{p}" for (p, a), (_, b) in zip(items(s_want.params), items(s_got.params))
+            if not torch.equal(a.cpu(), b.cpu())]
+    return out + record_mismatches(sync_record(s_want.sync), sync_record(s_got.sync))
