@@ -3119,13 +3119,160 @@ def phase_train() -> dict:
 # -- phase 10c ----------------------------------------------------------------
 
 
+# The mesh's collective regions: gemma-2b at its published widths in f32
+# (one kv head: "dp" attention on a 16-way model axis), decoding after a
+# prompt and running its forward; olmoe-1b-7b's MoE layer at T = 16 x 256
+# on 16 data shards.
+MESH_REGIONS = dict(arch="gemma-2b", prompt=128, steps=16, seq=512, model=16,
+                    moe_arch="olmoe-1b-7b", moe_layers=2, moe_batch=16, moe_seq=256,
+                    data=16)
+MESH_CUTS = ("cuts of scale: none in width (gemma-2b's 18 layers at d_model 2048 in f32, "
+             "B = 1; olmoe-1b-7b's 64 experts, top-8, d_model 2048, d_ff 1024); olmoe's "
+             "depth cut to 2 of its 16 layers (the check is one MoE layer's, the forward "
+             "only drives the path); (d)'s 16-way axes are a MeshShape, every shard on "
+             "the one card; ring attention needs 2 or more ranks, which one card cannot "
+             "give under NCCL")
+
+
+def _mesh_decode(model, params, toks, mesh):
+    """``MESH_REGIONS``' prefill and decode steps under ``mesh``: the
+    steps' logits and the regions run (``torch_mesh_cases``)."""
+    from repro_torch.models import sharding
+    from torch_mesh_cases import count_regions, decode_logits
+
+    r = MESH_REGIONS
+    with count_regions() as calls, sharding.use_mesh(mesh):
+        out = decode_logits(model, params, {"tokens": toks}, r["prompt"], r["steps"],
+                            r["prompt"] + r["steps"])
+    return out, dict(calls)
+
+
+def _mesh_regions_stacked(gemma, dev: dict, xla) -> None:
+    """(d) The regions with every shard on this card (a ``MeshShape``):
+    the LSE decode at P = 16 against the plain decode, the ring forward
+    at P = 16 against the plain attention, and olmoe's MoE layer on 16
+    data shards against 16 no-mesh calls on the blocks."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, common, moe, sharding
+    from repro_torch.models.sharding import MeshShape
+    from torch_mesh_cases import count_regions, moe_input, record_dispatch
+
+    r = MESH_REGIONS
+    cfg, params, toks = gemma
+    cuda = torch.device("cuda")
+    n = cfg.n_layers
+    stacked = MeshShape({"data": 1, "model": r["model"]})
+    lse = build_model(dataclasses.replace(cfg, decode_comm="lse_shardmap"))
+    t0 = time.perf_counter()
+    got, calls = _mesh_decode(lse, params, toks, stacked)
+    torch.cuda.synchronize()
+    t_lse = time.perf_counter() - t0
+    err = float((got - xla).abs().max())
+    # The prompt's prefill takes the ring too ("dp" mode, the axis divides it).
+    if calls != {"ring": n, "lse": n * r["steps"]} or not torch.allclose(
+            got, xla, atol=1e-3, rtol=1e-3):
+        fail(f"mesh: the LSE decode over {stacked} vs the plain decode: max abs err {err}, "
+             f"regions {calls}")
+    log(f"[mesh] (d) {cfg.name} f32 prefill (the ring, P = {r['model']}) and LSE decode, "
+        f"{r['steps']} steps after a {r['prompt']}-token prompt, cache "
+        f"{r['prompt'] + r['steps']} slots over {stacked} (P = {r['model']}): logits within "
+        f"atol = rtol = 1e-3 of the plain prefill and decode (max abs err {err}); regions "
+        f"{calls}; {t_lse:.3f} s")
+
+    model = build_model(cfg)
+    g = torch.Generator(device=cuda).manual_seed(11)
+    seq = torch.randint(0, cfg.vocab_size, (1, r["seq"]), generator=g, device=cuda,
+                        dtype=torch.int32)
+    with torch.inference_mode():
+        plain = model.forward(params, {"tokens": seq})[0]
+        t0 = time.perf_counter()
+        with count_regions() as calls, sharding.use_mesh(stacked):
+            ring = model.forward(params, {"tokens": seq})[0]
+        torch.cuda.synchronize()
+        t_ring = time.perf_counter() - t0
+    err = float((ring - plain).abs().max())
+    if calls != {"ring": n, "lse": 0} or not torch.isfinite(ring).all() or not torch.allclose(
+            ring, plain, atol=1e-3, rtol=1e-3):
+        fail(f"mesh: the ring forward over {stacked} vs the plain attention: max abs err "
+             f"{err}, regions {calls}")
+    log(f"[mesh] (d) {cfg.name} f32 forward B = 1, S = {r['seq']} over {stacked}: the ring "
+        f"(P = {r['model']}, 'dp' mode) in all {n} layers, logits within atol = rtol = 1e-3 "
+        f"of the plain attention (max abs err {err}); {t_ring:.3f} s")
+    del plain, ring
+    torch.cuda.empty_cache()
+
+    ocfg = dataclasses.replace(get_config(r["moe_arch"]), dtype="float32",
+                               n_layers=r["moe_layers"])
+    omodel = build_model(ocfg)
+    oparams = omodel.init(0, device=cuda)
+    layer = common.layer(oparams["moe_blocks"]["moe"], 0)
+    case = dict(b=r["moe_batch"], s=r["moe_seq"])
+    x = torch.from_numpy(moe_input(ocfg, case)).to(cuda)
+    data = MeshShape({"data": r["data"], "model": r["model"]})
+    with torch.inference_mode():
+        with record_dispatch() as split:
+            with sharding.use_mesh(data):
+                t0 = time.perf_counter()
+                y, aux = moe.moe(x, layer, ocfg)
+                torch.cuda.synchronize()
+                t_moe = time.perf_counter() - t0
+            blocks = [moe.moe(x[i:i + 1], layer, ocfg)[0] for i in range(r["moe_batch"])]
+        with record_dispatch() as whole:
+            y_whole, aux_whole = moe.moe(x, layer, ocfg)
+        with record_dispatch() as fwd, sharding.use_mesh(data):
+            logits = omodel.forward(oparams, {"tokens": torch.zeros(
+                (r["moe_batch"], r["moe_seq"]), dtype=torch.int32, device=cuda)})[0]
+        torch.cuda.synchronize()
+    (_, cap, _, se, st, _, pos), per = split[0], split[1:]
+    bad = [k for k, a, b in (("experts", se, torch.cat([q[3] for q in per])),
+                             ("tokens", st, torch.cat([q[4] for q in per])),
+                             ("positions", pos, torch.cat([q[6] for q in per])))
+           if not torch.equal(a, b)]
+    if [q[1] for q in per] != [cap] * r["moe_batch"] or se.shape[0] != r["data"]:
+        bad.append(f"capacities {cap} vs {[q[1] for q in per]}, shards {se.shape[0]}")
+    y_blocks = torch.cat(blocks)
+    err = float((y - y_blocks).abs().max())
+    if bad or not torch.allclose(y, y_blocks, atol=1e-4, rtol=1e-4):
+        fail(f"mesh: {ocfg.name}'s MoE layer on {r['data']} data shards vs {r['moe_batch']} "
+             f"no-mesh calls on the blocks: {bad}, yt max abs err {err}")
+    if not torch.isfinite(logits).all() or [q[6].shape[0] for q in fwd] != [r["data"]] * len(
+            fwd) or len(fwd) != ocfg.n_layers:
+        fail(f"mesh: {ocfg.name}'s forward over {data}: logits finite "
+             f"{bool(torch.isfinite(logits).all())}, shards per dispatch "
+             f"{[q[6].shape[0] for q in fwd]}")
+    slots = pos.numel()
+    dropped, dropped_whole = int((pos >= cap).sum()), int((whole[0][6] >= whole[0][1]).sum())
+    log(f"[mesh] (d) {ocfg.name} f32 MoE layer, T = {r['moe_batch']} x {r['moe_seq']} over "
+        f"{data}: {r['data']} shards, capacity {cap} per shard ({whole[0][1]} without the "
+        f"split); routing and kept/dropped slots equal to {r['moe_batch']} no-mesh calls on "
+        f"the blocks, yt within atol = rtol = 1e-4 (max abs err {err}); dropped share "
+        f"{dropped / slots:.6f} ({dropped} of {slots} slots) with the split, "
+        f"{dropped_whole / slots:.6f} ({dropped_whole}) without; aux {float(aux):.6f} "
+        f"(without the split {float(aux_whole):.6f}); {t_moe:.3f} s; the {ocfg.n_layers}-layer "
+        f"forward over the mesh routed {len(fwd)} layers on {r['data']} shards; "
+        f"{MESH_CUTS}; {dev['smi']}")
+    del oparams, layer, x, y, y_blocks, y_whole, logits
+    torch.cuda.empty_cache()
+
+
 def phase_mesh(dev: dict) -> None:
     """(a) A (1, 1) mesh over an NCCL process group of one rank:
     gemma-2b's placements all replicated, and reduced qwen2-7b's
     ``sync_step`` under the mesh equal to the same steps without it, bit
     for bit, its kernels launched as predicted; (b) the dry run of the
     train phase's gemma-2b setting on that mesh against the train phase's
-    measured peak (``TRAIN_MEASURED``): predicted state <= measured peak."""
+    measured peak (``TRAIN_MEASURED``): predicted state <= measured peak;
+    (c) gemma-2b at full width in f32 decoding with
+    ``decode_comm="lse_shardmap"`` on that mesh (its ``pmax`` / ``psum``
+    NCCL all-reduces) against the plain decode; (d) the collective regions
+    at 16 shards on the card, under a ``MeshShape``
+    (:func:`_mesh_regions_stacked`)."""
+    import dataclasses
+
     import torch
     import torch.distributed as dist
     from torch.distributed.tensor import Replicate
@@ -3189,6 +3336,20 @@ def phase_mesh(dev: dict) -> None:
                       program="local", policy="X_STCC", delta=f["delta"],
                       compress=f["compress"])
         t_dry = time.perf_counter() - t0
+        # (c) gemma-2b's LSE decode on the NCCL mesh against the plain decode.
+        r = MESH_REGIONS
+        gcfg = dataclasses.replace(get_config(r["arch"]), dtype="float32")
+        gparams = build_model(gcfg).init(0, device=cuda)
+        g = torch.Generator(device=cuda).manual_seed(5)
+        toks = torch.randint(0, gcfg.vocab_size, (1, r["prompt"] + r["steps"]), generator=g,
+                             device=cuda, dtype=torch.int32)
+        xla, _ = _mesh_decode(build_model(gcfg), gparams, toks, None)
+        t0 = time.perf_counter()
+        nccl, calls = _mesh_decode(
+            build_model(dataclasses.replace(gcfg, decode_comm="lse_shardmap")), gparams,
+            toks, mesh)
+        torch.cuda.synchronize()
+        t_nccl = time.perf_counter() - t0
     finally:
         dist.destroy_process_group()
     mem, roof = res["memory"], res["roofline"]
@@ -3212,6 +3373,19 @@ def phase_mesh(dev: dict) -> None:
     if predicted > peak:
         fail(f"mesh: the dry run predicts {predicted} B of state per device, more than the "
              f"train phase's measured peak {peak} B")
+    err = float((nccl - xla).abs().max())
+    if calls != {"ring": 0, "lse": gcfg.n_layers * r["steps"]} or not torch.allclose(
+            nccl, xla, atol=1e-3, rtol=1e-3):
+        fail(f"mesh: the LSE decode on the NCCL mesh vs the plain decode: max abs err {err}, "
+             f"regions {calls}")
+    log(f"[mesh] (c) {gcfg.name} f32 ({gcfg.param_count()} parameters) LSE decode on the "
+        f"(1, 1) NCCL mesh, {r['steps']} steps after a {r['prompt']}-token prompt: "
+        f"{calls['lse']} regions, each a pmax and two psums as NCCL all-reduces over one "
+        f"rank; logits within atol = rtol = 1e-3 of the plain decode (max abs err {err}); "
+        f"{t_nccl:.3f} s")
+    _mesh_regions_stacked((gcfg, gparams, toks), dev, xla)
+    del gparams
+    torch.cuda.empty_cache()
     log(f"[mesh] phase {time.perf_counter() - t_phase:.1f} s")
 
 

@@ -14,7 +14,11 @@ For each cell the dry run:
      ``torch.utils.flop_counter.FlopCounterMode``, so every layer is
      counted and nothing is allocated (the reference compiles depth-1 and
      depth-2 probes and extrapolates, because XLA counts a scan body
-     once);
+     once).  The step runs under the mesh's ``MeshShape``, so the mesh's
+     regions run as on a mesh, their shards stacked in this process:
+     "dp" cells take the ring attention over ``kv_seq`` (its einsums
+     count the plain attention's S² FLOPs), and MoE cells with more than
+     2048 tokens per pod route each data shard on its own;
   4. derives the roofline (``launch.roofline``, H100 rates) and the
      per-device state, which must fit the card's 80 GB;
   5. prices 1000 steps with the paper's monetary cost model, splitting
@@ -26,7 +30,9 @@ it: the batch's (pod x data for training), times 'model' where the
 placements shard the op — a product with a parameter sharded over
 'model', that parameter's gradient, and the per-head work (attention,
 the SSM and WKV scans) when ``attn_parallel_mode`` is "tp" (a decode
-step: when the cache's sequence is sharded over 'model').  Bytes are the
+step: when the cache's sequence is sharded over 'model'; the ring's
+stacked shards are counted whole, as the "dp" attention was before the
+ring, an upper bound P times its per-device work).  Bytes are the
 input and output bytes of every aten op that is not a view, divided the
 same way: an upper bound, since nothing is fused.  For ``--program sync``
 the pods' merge is not run: it is priced from the placements
@@ -302,7 +308,7 @@ def dry_run(cfg, shape, mesh, *, pricing, program: str = "sync", policy: str = "
 
     counter = _counter(split, batch_n, model_axis)
     with torch.no_grad() if shape.kind != "train" else contextlib.nullcontext():
-        with FlopCounterMode(display=False) as fc, counter:
+        with sharding.use_mesh(mesh), FlopCounterMode(display=False) as fc, counter:
             run()
     t_count = time.perf_counter()
     if counter.flops != fc.get_total_flops():

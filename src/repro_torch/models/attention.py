@@ -3,16 +3,27 @@ with the KV cache, and one-token decode (port of
 ``repro.models.attention``).
 
 :func:`attn_parallel_mode` reads the active mesh
-(``repro_torch.models.sharding``) as the reference's does.  The mesh's
-collectives are not ported yet: the reference's sharding constraints,
-its ring attention over ``kv_seq`` (context parallelism) and its
-``lse_shardmap`` flash-decode combine run here as the reference's own
-one-device path, the plain code below (``_ring_applicable`` is False
-without a mesh, and ``decode_comm="lse_shardmap"`` falls through to
-``_decode_xla``).
+(``repro_torch.models.sharding``) as the reference's does, and the
+mesh's two collective regions run through ``sharding.shard_map``:
+
+  * ring attention over ``kv_seq`` (context parallelism): in "dp" mode,
+    when the axis divides the sequence, ``forward``, training and prefill
+    rotate K/V blocks around the ring (``_ring_applicable`` /
+    ``_ring_attention``); B.8's ``use_flash_kernel`` path keeps its
+    priority, as in the reference's ``full_attention``;
+  * the ``lse_shardmap`` flash-decode combine (``cfg.decode_comm``):
+    each ``kv_seq`` shard of the cache computes a partial decode and the
+    shards combine with a ``pmax`` and two ``psum``s; self, ring-buffer
+    and cross decodes all take it (``_decode_lse_shardmap``).
+
+Off a mesh both fall through to the plain code, the reference's own
+one-device path.  The reference's sharding constraints on activations
+are the identity on the port's plain tensors.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -109,6 +120,74 @@ def _gqa_out(weights, v, cfg):
     return out.reshape(b, out.shape[1], cfg.n_heads, cfg.head_dim)
 
 
+def _ring_body(ax, q, k, v, qpos, kpos, *, cfg, causal):
+    """One ring over the ``ax.size`` shards (each a leading-dim slice).
+
+    q: (X, B, S/P, H, hd); k, v: (X, B, S/P, Hkv, hd); qpos, kpos:
+    (X, B, S/P).  Shard j meets key blocks j, j-1, ..., j-P+1 (mod P),
+    keeping flash-style running (max, sum, out) statistics in f32."""
+    x_, b, sl, h, hd = q.shape
+    kvh = cfg.n_kv_heads
+    g = h // kvh
+    perm = [(j, (j + 1) % ax.size) for j in range(ax.size)]
+    qg = q.reshape(x_, b, sl, kvh, g, hd)
+    m = torch.full((x_, b, kvh, g, sl, 1), NEG_INF, dtype=torch.float32, device=q.device)
+    acc_l = torch.zeros_like(m)
+    acc_o = torch.zeros((x_, b, kvh, g, sl, hd), dtype=torch.float32, device=q.device)
+    for step in range(ax.size):
+        scores = torch.einsum("xbskgd,xbtkd->xbkgst", qg, k).to(torch.float32) / (hd ** 0.5)
+        if cfg.attn_logit_softcap > 0.0:
+            scores = cfg.attn_logit_softcap * torch.tanh(scores / cfg.attn_logit_softcap)
+        if causal:
+            mask = kpos[:, :, None, :] <= qpos[:, :, :, None]          # (X,B,S,T)
+            if cfg.sliding_window > 0:
+                mask = mask & (kpos[:, :, None, :] > qpos[:, :, :, None] - cfg.sliding_window)
+            scores = torch.where(mask[:, :, None, None], scores, NEG_INF)
+        m_new = torch.maximum(m, scores.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        pexp = torch.exp(scores - m_new)
+        acc_l = acc_l * alpha + pexp.sum(dim=-1, keepdim=True)
+        acc_o = acc_o * alpha + torch.einsum(
+            "xbkgst,xbtkd->xbkgsd", pexp.to(v.dtype), v).to(torch.float32)
+        m = m_new
+        if step < ax.size - 1:
+            k, v, kpos = (ax.permute(t, perm) for t in (k, v, kpos))
+    out = acc_o / torch.clamp(acc_l, min=1e-30)
+    out = out.permute(0, 1, 4, 2, 3, 5)               # (X,B,kv,g,S,hd) -> (X,B,S,kv,g,hd)
+    return out.reshape(x_, b, sl, h, hd).to(q.dtype)
+
+
+def _ring_attention(q, k, v, cfg, qpos, kpos, causal):
+    """Ring attention (context parallelism) over the ``kv_seq`` axis.
+
+    q/k/v are sequence-sharded across the ring; K/V blocks rotate by
+    ``permute`` while each shard keeps flash-style running statistics
+    (:func:`sharding.shard_map`: the ring's ranks on a ``DeviceMesh``, or
+    all its shards stacked in one process on a ``MeshShape``).
+    Differentiable: the ring is a Python loop over a static P, the
+    permute's backward the inverse permute."""
+    axis = sharding.get_rule("kv_seq")
+    data = sharding.get_rule("batch")
+    seq = (data, axis, None, None)
+    fn = sharding.shard_map(
+        functools.partial(_ring_body, cfg=cfg, causal=causal),
+        in_specs=(seq, seq, seq, (data, axis), (data, axis)),
+        out_specs=seq, axis=axis)
+    return fn(q, k, v, qpos, kpos)
+
+
+def _ring_applicable(cfg, s: int, t: int) -> bool:
+    mesh = sharding.get_mesh()
+    if mesh is None or cfg.attn_impl != "auto":
+        return False
+    axis = sharding.get_rule("kv_seq")
+    shape = sharding.mesh_shape(mesh)
+    if axis is None or axis not in shape:
+        return False
+    p = int(shape[axis])
+    return p > 1 and s == t and s % p == 0 and attn_parallel_mode(cfg) != "tp"
+
+
 def _attend_block(q_i, k, v, cfg, qpos_i, kpos, causal):
     """One query block vs the full key range.
 
@@ -129,8 +208,12 @@ def _attend_block(q_i, k, v, cfg, qpos_i, kpos, causal):
 def _masked_attention(q, k, v, cfg, qpos, kpos, causal):
     """Query-chunked attention: O(chunk x T) live scores instead of
     O(S x T), in chunks of ``cfg.attn_chunk`` queries when they divide S
-    (the reference's ``lax.scan`` over chunks, as a loop)."""
+    (the reference's ``lax.scan`` over chunks, as a loop).  Under a mesh
+    whose ``kv_seq`` axis splits the sequence in "dp" mode, the ring
+    attention runs instead, as in the reference."""
     b, s, h, hd = q.shape
+    if _ring_applicable(cfg, s, k.shape[1]):
+        return _ring_attention(q, k, v, cfg, qpos, kpos, causal)
     chunk = cfg.attn_chunk
     if not chunk or s <= chunk or s % chunk:
         return _attend_block(q, k, v, cfg, qpos, kpos, causal)
@@ -224,33 +307,40 @@ def decode_attention(
     ``pos % len`` and every populated slot is valid.
 
     Returns (output (B,1,D), new_k_cache, new_v_cache); the input caches
-    are left untouched, as in the reference."""
+    are left untouched, as in the reference.  With
+    ``cfg.decode_comm == "lse_shardmap"`` under a mesh, the attention runs
+    as a flash-decode over the cache's ``kv_seq`` shards
+    (:func:`_decode_lse_shardmap`)."""
     b = x.shape[0]
     zeros = torch.zeros((b,), dtype=torch.int32, device=x.device)
     if cross:
         q = _project_q(x, p, cfg)
+        new_k, new_v = k_cache, v_cache
         valid_len = torch.full((b,), k_cache.shape[1], dtype=torch.int32, device=x.device)
-        out = _decode_xla(q, k_cache, v_cache, valid_len, zeros, cfg)
-        return out.reshape(b, 1, cfg.q_dim) @ p["wo"], k_cache, v_cache
-    pos = torch.as_tensor(pos, device=x.device).to(torch.int32)
-    posb = torch.atleast_1d(pos).expand(b)
-    kv_len = k_cache.shape[1]
-    scatter = (posb % kv_len if ring else posb).long()
-    q, k, v = _project_qkv(x, p, cfg, posb[:, None])
-    rows = torch.arange(b, device=x.device)
-    new_k = k_cache.clone()
-    new_v = v_cache.clone()
-    new_k[rows, scatter] = k[:, 0]
-    new_v[rows, scatter] = v[:, 0]
-    if ring:
-        valid_len = torch.clamp(posb + 1, max=kv_len)
         window_lo = zeros
     else:
-        valid_len = posb + 1
-        window_lo = (torch.clamp(valid_len - cfg.sliding_window, min=0)
-                     if cfg.sliding_window > 0 else zeros)
+        pos = torch.as_tensor(pos, device=x.device).to(torch.int32)
+        posb = torch.atleast_1d(pos).expand(b)
+        kv_len = k_cache.shape[1]
+        scatter = (posb % kv_len if ring else posb).long()
+        q, k, v = _project_qkv(x, p, cfg, posb[:, None])
+        rows = torch.arange(b, device=x.device)
+        new_k = k_cache.clone()
+        new_v = v_cache.clone()
+        new_k[rows, scatter] = k[:, 0]
+        new_v[rows, scatter] = v[:, 0]
+        if ring:
+            valid_len = torch.clamp(posb + 1, max=kv_len)
+            window_lo = zeros
+        else:
+            valid_len = posb + 1
+            window_lo = (torch.clamp(valid_len - cfg.sliding_window, min=0)
+                         if cfg.sliding_window > 0 else zeros)
 
-    out = _decode_xla(q, new_k, new_v, valid_len, window_lo, cfg)
+    if cfg.decode_comm == "lse_shardmap" and sharding.get_mesh() is not None:
+        out = _decode_lse_shardmap(q, new_k, new_v, valid_len, window_lo, cfg)
+    else:
+        out = _decode_xla(q, new_k, new_v, valid_len, window_lo, cfg)
     out = out.reshape(b, 1, cfg.q_dim)
     return out @ p["wo"], new_k, new_v
 
@@ -269,3 +359,54 @@ def _decode_xla(q, k, v, valid_len, window_lo, cfg):
     scores = _decode_scores_masked(q, k, valid_len, window_lo, cfg)
     weights = torch.softmax(scores.to(torch.float32), dim=-1).to(q.dtype)
     return _gqa_out(weights, v, cfg)
+
+
+def _lse_body(ax, q, k, v, valid, lo, base, *, cfg):
+    """One shard's partial flash-decode, combined over the shards.
+
+    q: (X, B, 1, H, hd) (every shard's copy); k, v: (X, B, T/P, Hkv, hd),
+    the shard's slice of the cache; valid, lo: (X, B); base: (X, 1), the
+    shard's global offset.  Returns (X, B, 1, Hkv, G, hd)."""
+    x_, b, tl = k.shape[:3]
+    scores = _gqa_scores(q.flatten(0, 1), k.flatten(0, 1), cfg)     # (XB,K,G,1,Tl)
+    scores = softcap(scores, cfg.attn_logit_softcap).unflatten(0, (x_, b))
+    idx = base[:, :, None] + torch.arange(tl, dtype=torch.int32, device=k.device)
+    mask = (idx < valid[:, :, None]) & (idx >= lo[:, :, None])        # (X,B,Tl)
+    scores = torch.where(mask[:, :, None, None, None], scores, NEG_INF)
+    scores = scores.to(torch.float32)
+    m_glob = ax.pmax(scores.amax(dim=-1, keepdim=True))                # (X,B,K,G,1,1)
+    e = torch.exp(scores - m_glob)
+    denom = ax.psum(e.sum(dim=-1, keepdim=True))
+    part = torch.einsum("xbkgst,xbtkd->xbskgd", e.to(q.dtype), v)
+    num = ax.psum(part.to(torch.float32))                              # (X,B,1,K,G,hd)
+    d = denom[:, :, :, :, 0, 0][:, :, None]                            # (X,B,1,K,G)
+    return (num / torch.clamp(d[..., None], min=1e-30)).to(q.dtype)
+
+
+def _decode_lse_shardmap(q, k, v, valid_len, window_lo, cfg):
+    """Flash-decode combine across the sequence-sharded KV cache: each
+    ``kv_seq`` shard computes its local max, sum of exponentials and
+    weighted values, and the shards combine them with a ``pmax`` and two
+    ``psum``s (:func:`sharding.shard_map`).  Without a ``kv_seq`` axis on
+    the mesh, or with a cache length it does not divide, the plain
+    decode runs, as in the reference."""
+    axis = sharding.get_rule("kv_seq")
+    shape = sharding.mesh_shape(sharding.get_mesh())
+    if axis is None or axis not in shape:
+        return _decode_xla(q, k, v, valid_len, window_lo, cfg)
+    n_shards = int(shape[axis])
+    t = k.shape[1]
+    if t % n_shards != 0:
+        return _decode_xla(q, k, v, valid_len, window_lo, cfg)
+    data = sharding.get_rule("batch")
+    offsets = torch.arange(n_shards, dtype=torch.int32, device=k.device) * (t // n_shards)
+    fn = sharding.shard_map(
+        functools.partial(_lse_body, cfg=cfg),
+        in_specs=((data, None, None, None),        # q replicated over the axis
+                  (data, axis, None, None),        # k sequence-sharded
+                  (data, axis, None, None),        # v sequence-sharded
+                  (data,), (data,),                # valid_len, window_lo
+                  (axis,)),                        # each shard's base offset
+        out_specs=(data, None, None, None, None), axis=axis)
+    out = fn(q, k, v, valid_len, window_lo, offsets)                  # (B,1,K,G,hd)
+    return out.reshape(q.shape[0], 1, cfg.n_heads, cfg.head_dim)

@@ -24,12 +24,30 @@ on the rest.
 ``set_mesh(None)`` (the default) makes :func:`shard` the identity, so
 the same model code runs on one device.  The reference's
 ``set_pod_vmap`` has no counterpart: the port loops over pods.
+
+:func:`shard_map` is the port of ``jax.shard_map`` for the regions whose
+collectives run over one named mesh axis: the ring attention over
+``kv_seq`` and the flash-decode combine (``models/attention.py``).  The
+models hold plain global tensors, so the region takes them, runs its
+body on each shard of that axis with ``permute`` / ``pmax`` / ``psum``
+between the shards, and returns global tensors again.  The active mesh's
+type picks how: on a ``DeviceMesh`` each rank runs its own shard and the
+collectives are ``torch.distributed`` functional collectives over the
+axis's process group; on a :class:`MeshShape` (no process group: the dry
+run, one card) every shard runs in this process, stacked on a leading
+dimension, as ``shard_map`` on forced host devices computes.  Entries of
+a placement that name other axes (the batch's ``data``) only split
+independent rows: every rank keeps those rows whole.  The per-data-shard
+MoE dispatch (``models/moe.py``) has no collective and runs its blocks
+stacked in one process on any mesh.
 """
 
 from __future__ import annotations
 
 import contextlib
 import threading
+
+import torch
 
 _state = threading.local()
 
@@ -267,3 +285,232 @@ def param_placements(params, cfg):
     return _with_paths(
         lambda path, leaf: _on_mesh(pspec_for_param(path, tuple(leaf.shape), cfg)), params)
 
+
+# ---- shard_map ---------------------------------------------------------------
+
+
+def _axis_dim(placement, axis: str) -> int | None:
+    """The tensor dimension a placement splits over ``axis`` (``None``:
+    replicated over it)."""
+    for d, entry in enumerate(placement or ()):
+        if axis in axis_names(entry):
+            return d
+    return None
+
+
+def _shift(pairs, n: int) -> int:
+    """The shift of a cyclic ``permute``: every pair is ``(j, (j + s) % n)``."""
+    s = (pairs[0][1] - pairs[0][0]) % n
+    if sorted(pairs) != [(j, (j + s) % n) for j in range(n)]:
+        raise ValueError(f"permute takes a cyclic shift of all {n} shards, not {pairs}")
+    return s
+
+
+class StackedAxis:
+    """The axis handle of :func:`shard_map` on a :class:`MeshShape`: all
+    ``size`` shards in this process, on a leading dimension.  Autograd
+    differentiates every step as it is."""
+
+    def __init__(self, size: int):
+        self.size = size
+
+    def enter(self, x, dim):
+        if dim is None:
+            return x.unsqueeze(0).expand((self.size,) + tuple(x.shape))
+        return x.unflatten(dim, (self.size, -1)).movedim(dim, 0)
+
+    def leave(self, y, dim):
+        if dim is None:
+            return y[0]
+        return y.movedim(0, dim).flatten(dim, dim + 1)
+
+    def permute(self, x, pairs):
+        """Shard ``j``'s block goes to shard ``k`` for each ``(j, k)``."""
+        return torch.roll(x, _shift(pairs, self.size), dims=0)
+
+    def pmax(self, x):
+        return x.amax(dim=0, keepdim=True).expand_as(x)
+
+    def psum(self, x):
+        """The sum over the shards, added in ascending shard order."""
+        acc = x[0]
+        for j in range(1, self.size):
+            acc = acc + x[j]
+        return acc.unsqueeze(0).expand_as(x)
+
+
+def _funcol():
+    import torch.distributed._functional_collectives as funcol
+
+    return funcol
+
+
+def _gather(x, group):
+    """Every rank's ``x`` stacked on dim 0, in rank order."""
+    import torch.distributed as dist
+
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts)
+
+
+def _all_reduce(x, op: str, group):
+    funcol = _funcol()
+    return funcol.wait_tensor(funcol.all_reduce(x.contiguous(), op, group))
+
+
+def _permute(x, src_dst: list[int], group):
+    """``src_dst[m] == n``: rank m's ``x`` goes to rank n (flattened:
+    ``permute_tensor`` splits its input's first dim by element counts)."""
+    funcol = _funcol()
+    out = funcol.permute_tensor(x.contiguous().reshape(-1), src_dst, group)
+    return funcol.wait_tensor(out).reshape(x.shape)
+
+
+def _block(x, dim: int, axis):
+    """This rank's block of ``x`` along ``dim``, on a leading dim of 1."""
+    return x.unflatten(dim, (axis.size, -1)).movedim(dim, 0)[axis.rank:axis.rank + 1]
+
+
+def _whole(y, dim: int, axis):
+    """Every rank's block of ``y`` (leading dim 1), joined along ``dim``."""
+    return _gather(y, axis.group).movedim(0, dim).flatten(dim, dim + 1)
+
+
+class _Enter(torch.autograd.Function):
+    """A rank's block of a global tensor; the backward gathers every
+    rank's block of the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, dim, axis):
+        ctx.dim, ctx.axis = dim, axis
+        return _block(x, dim, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _whole(g, ctx.dim, ctx.axis), None, None
+
+
+class _Leave(torch.autograd.Function):
+    """The global tensor from every rank's block; the backward keeps this
+    rank's block of the gradient."""
+
+    @staticmethod
+    def forward(ctx, y, dim, axis):
+        ctx.dim, ctx.axis = dim, axis
+        return _whole(y, dim, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _block(g, ctx.dim, ctx.axis), None, None
+
+
+class _EnterReplicated(torch.autograd.Function):
+    """A replicated tensor on every rank; the backward sums the ranks'
+    gradients (the stacked mode's ``expand``)."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.unsqueeze(0)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, "sum", ctx.axis.group)[0], None
+
+
+class _LeaveReplicated(torch.autograd.Function):
+    """A replicated output, the same on every rank; the backward takes the
+    gradient through rank 0's copy only (the stacked mode's ``y[0]``)."""
+
+    @staticmethod
+    def forward(ctx, y, axis):
+        ctx.axis = axis
+        return y[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.unsqueeze(0)
+        return (g if ctx.axis.rank == 0 else torch.zeros_like(g)), None
+
+
+class _Permute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, shift, axis):
+        ctx.shift, ctx.axis = shift, axis
+        n = axis.size
+        return _permute(x, [(j + shift) % n for j in range(n)], axis.group)
+
+    @staticmethod
+    def backward(ctx, g):
+        n = ctx.axis.size
+        return _permute(g, [(j - ctx.shift) % n for j in range(n)], ctx.axis.group), None, None
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return _all_reduce(x, "sum", axis.group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, "sum", ctx.axis.group), None
+
+
+class GroupAxis:
+    """The axis handle of :func:`shard_map` on a ``DeviceMesh``: this
+    rank's shard (a leading dimension of 1) and functional collectives
+    over the axis's process group.  ``permute``'s backward is the inverse
+    permute, ``psum``'s a ``psum``; ``pmax`` has no gradient here (only
+    the decode, which no backward reaches, takes it)."""
+
+    def __init__(self, mesh, axis: str):
+        self.group = mesh.get_group(axis)
+        self.rank = mesh.get_local_rank(axis)
+        self.size = mesh_shape(mesh)[axis]
+
+    def enter(self, x, dim):
+        if dim is None:
+            return _EnterReplicated.apply(x, self)
+        return _Enter.apply(x, dim, self)
+
+    def leave(self, y, dim):
+        if dim is None:
+            return _LeaveReplicated.apply(y, self)
+        return _Leave.apply(y, dim, self)
+
+    def permute(self, x, pairs):
+        return _Permute.apply(x, _shift(pairs, self.size), self)
+
+    def pmax(self, x):
+        if torch.is_grad_enabled() and x.requires_grad:
+            raise NotImplementedError("pmax over a process group has no gradient")
+        return _all_reduce(x, "max", self.group)
+
+    def psum(self, x):
+        return _Psum.apply(x, self)
+
+
+def shard_map(fn, in_specs, out_specs, axis: str):
+    """``jax.shard_map`` over the mesh axis ``axis`` of the active mesh.
+
+    ``fn(ax, *blocks)`` gets an axis handle ``ax`` (``ax.size`` shards;
+    ``ax.permute(x, pairs)``, ``ax.pmax(x)``, ``ax.psum(x)``) and each
+    input's shard with a leading shard dimension: 1 on a ``DeviceMesh``
+    rank, ``ax.size`` on a :class:`MeshShape`; it returns one tensor that
+    keeps that dimension.  ``in_specs`` (one per input) and ``out_specs``
+    are placement tuples: a dimension whose entry names ``axis`` is split
+    into ``ax.size`` contiguous blocks, the others stay whole.  The
+    returned function takes and returns global tensors; a replicated
+    output is shard 0's."""
+    def run(*args):
+        mesh = get_mesh()
+        if _is_device_mesh(mesh):
+            ax = GroupAxis(mesh, axis)
+        else:
+            ax = StackedAxis(int(mesh_shape(mesh)[axis]))
+        blocks = [ax.enter(x, _axis_dim(spec, axis)) for x, spec in zip(args, in_specs)]
+        return ax.leave(fn(ax, *blocks), _axis_dim(out_specs, axis))
+
+    return run

@@ -1019,3 +1019,71 @@ def test_one_device_mesh_sync_step_equals_no_mesh(cuda):
     assert mesh_step_mismatches(plain, on_mesh) == []
     want = mesh_step_launches()
     assert {k: counts[k] for k in want} == want
+
+
+# ---- the mesh's collective regions ----------------------------------------------------
+
+
+def _reduced_kv1(device, **over):
+    """Reduced qwen2-7b with one kv head ("dp" attention on a model axis
+    of 2 or 4): its config, model and parameters on ``device``."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import build_model
+
+    cfg = reduced(get_config("qwen2-7b"), n_kv_heads=1, **over)
+    return cfg, build_model(cfg), build_model(cfg).init(0, device=device)
+
+
+def test_nccl_one_rank_lse_decode_equals_plain_decode(cuda):
+    """A (1, 1) mesh over an NCCL group of one rank: reduced qwen2-7b (one
+    kv head) decoding with ``decode_comm="lse_shardmap"``, its ``pmax`` /
+    ``psum`` NCCL all-reduces, within 1e-4 of the plain decode; the
+    combine ran in every layer of every step."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model, sharding
+    from torch_mesh_cases import count_regions, decode_logits
+
+    cfg, lse, params = _reduced_kv1(cuda, decode_comm="lse_shardmap")
+    toks = torch.randint(0, cfg.vocab_size, (2, 24), generator=torch.Generator().manual_seed(1),
+                         dtype=torch.int32).to(cuda)
+    want = decode_logits(build_model(dataclasses.replace(cfg, decode_comm="xla")), params,
+                         {"tokens": toks}, 16, 8, 24)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        with count_regions() as calls, sharding.use_mesh(make_mesh((1, 1), ("data", "model"))):
+            got = decode_logits(lse, params, {"tokens": toks}, 16, 8, 24)
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    assert calls == {"ring": 0, "lse": cfg.n_layers * 8}
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+def test_stacked_ring_forward_on_the_card(cuda):
+    """Under ``MeshShape({"data": 1, "model": 4})`` the ring attention
+    (all four shards on the card) gives reduced qwen2-7b's logits within
+    1e-4 of the plain attention on the card and of the ring on the CPU."""
+    from repro_torch.models import sharding
+    from repro_torch.models.sharding import MeshShape
+    from repro_torch.tree import tree_map
+    from torch_mesh_cases import count_regions
+
+    cfg, model, params = _reduced_kv1("cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 64), generator=torch.Generator().manual_seed(2),
+                         dtype=torch.int32)
+    mesh = MeshShape({"data": 1, "model": 4})
+    with torch.no_grad():
+        with sharding.use_mesh(mesh):
+            cpu = model.forward(params, {"tokens": toks})[0]
+        params = tree_map(lambda t: t.to(cuda), params)
+        plain = model.forward(params, {"tokens": toks.to(cuda)})[0]
+        with count_regions() as calls, sharding.use_mesh(mesh):
+            ring = model.forward(params, {"tokens": toks.to(cuda)})[0]
+    assert calls == {"ring": cfg.n_layers, "lse": 0}
+    torch.testing.assert_close(ring, plain, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(ring.cpu(), cpu, atol=1e-4, rtol=1e-4)

@@ -39,6 +39,7 @@ def test_every_module_imports_without_jax_or_repro():
         # chip_smoke.py uses the tests' helpers on the card's machine.
         sys.path.insert(0, {str(ROOT / "tests")!r})
         importlib.import_module("torch_port_helpers")
+        importlib.import_module("torch_mesh_cases")
         print("ok", len({_port_modules()!r}))
     """)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
