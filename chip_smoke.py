@@ -915,6 +915,154 @@ def time_admission(shape, iters: int) -> dict:
             "shape": f"P={p}, C={c}, R={r}, B={b}"}
 
 
+def parent_plan_placement(topology, reads, writes, sla):
+    """The parent's ``plan_placement`` on the card, op for op: six input
+    copies, the (R, K) grid kernel, ``argmax``, two gathers and three
+    copies out, then the host cost and the result -> a
+    ``PlacementResult``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.geo import placement as pl
+    from repro_torch.kernels import placement_score as pls
+
+    tables = pl.plan_tables(topology, reads)
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to("cuda")
+
+    util, feas = pls.placement_score_cuda(
+        t(reads), t(writes), *(t(tables[k]) for k in (
+            "read_price", "write_price", "read_rtt", "cand_meta")),
+        max_latency_ms=float(sla.max_read_latency_ms))
+    choice_t = torch.argmax(util, dim=1, keepdim=True)
+    utility = torch.gather(util, 1, choice_t)[:, 0].cpu().numpy()
+    feasible = torch.gather(feas, 1, choice_t)[:, 0].cpu().numpy().astype(bool)
+    del util, feas
+    choice = choice_t[:, 0].cpu().numpy().astype(np.int32)
+    cand = tables["candidates"]
+    return pl.PlacementResult(
+        choice=choice, counts=cand[choice], utility=utility.astype(np.float32),
+        feasible=feasible.astype(bool),
+        cost=pl.chosen_cost(tables, choice, reads, writes), candidates=cand)
+
+
+PLAN_FIELDS = ("choice", "counts", "utility", "feasible", "cost")
+
+
+def plans_differ(a, b) -> list[str]:
+    """The fields of two ``PlacementResult``s that differ, floats bit for
+    bit."""
+    import numpy as np
+
+    def bits(x):
+        return x.view(np.int32) if x.dtype == np.float32 else x
+
+    return [f for f in PLAN_FIELDS if getattr(a, f).dtype != getattr(b, f).dtype
+            or not np.array_equal(bits(getattr(a, f)), bits(getattr(b, f)))]
+
+
+def plan_device_ops(fn) -> tuple[int | None, int | None, int | None]:
+    """From one profiling session: the device operations one call of
+    ``fn`` runs, its CUDA kernels (no copy or fill) and its
+    ``placement_select`` kernels (``None``: not measured)."""
+    rows = _device_rows(fn, None)
+    if not rows:
+        return None, None, None
+
+    def per_call(keep):
+        return sum(e.count for e in rows if keep(e.key)) // PROFILED_CALLS
+
+    return (per_call(lambda k: True),
+            per_call(lambda k: not k.startswith(("Memcpy", "Memset"))),
+            per_call(lambda k: "placement_select" in k))
+
+
+def time_plan_select(r: int, iters: int) -> dict:
+    """B.5's fused select (``placement_select_cuda``) at R resources x the
+    124 candidates, G = 3: the kernel, its plain version, the parent's
+    device path on the same inputs (the grid kernel, ``argmax``, two
+    gathers), the device time and the bound by operations and by bytes.
+    At the geo path's R = 24 also one ``plan_placement`` on the paper's
+    topology: its wall, its device operations (at most four; one copy in,
+    one kernel, one copy out) and the parent's (``parent_plan_placement``)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.geo import placement as pl
+    from repro_torch.geo.topology import PAPER_TOPOLOGY
+    from repro_torch.kernels import placement_score as pls
+    from repro_torch.policy.sla import SLA_RELAXED
+    from torch_port_helpers import placement_inputs
+
+    args = placement_inputs(np.random.default_rng(r), r, torch.device("cuda"))
+    call = lambda: pls.placement_select_cuda(*args, max_latency_ms=10.0)  # noqa: E731
+    got = call()
+    want = pls.placement_select_ref(*args, max_latency_ms=10.0)
+    require_equal(f"placement_select timing R={r}", [got], [want])
+
+    def parent_device():
+        util, feas = pls.placement_score_cuda(*args, max_latency_ms=10.0)
+        choice = torch.argmax(util, dim=1, keepdim=True)
+        return choice, torch.gather(util, 1, choice), torch.gather(feas, 1, choice)
+
+    ms = cuda_time_ms(call, iters)
+    parent_ms = cuda_time_ms(parent_device, iters)
+    plain = cuda_time_ms(
+        lambda: pls.placement_select_ref(*args, max_latency_ms=10.0),
+        max(1, iters // 10), warmup=1)
+    kernels = cuda_kernels_per_call(call)
+    require_one_kernel(f"placement_select at R={r}", kernels)
+    dev_ms = device_ms_per_call(call)
+    k, g = args[2].shape
+    n_bytes = 2 * r * g * 4 + (3 * k * g + 2 * k) * 4 + 3 * r * 4
+    # What the function needs, each once: per cell the cost's 2G FMAs (two
+    # operations each), the violation count (and, popc), the penalty's
+    # product, the utility's subtraction and the argmax's compare; per row
+    # the demand's G sums and G tests; per candidate its G latency tests
+    # and the validity test.
+    n_ops = r * k * (4 * g + 5) + 2 * r * g + k * (g + 1)
+    out = {"ms": ms, "plain_ms": plain, "bound": bound_ms(n_bytes, n_ops),
+           "bound_bytes_ms": n_bytes / PEAK_BYTES_S * 1e3,
+           "bound_operations_ms": n_ops / PEAK_OPS_S * 1e3,
+           "err": max_abs_err([got], [want]), "parent_device_ms": parent_ms,
+           "cuda_kernels_per_call": kernels, "device_ms": dev_ms,
+           "shape": f"R={r}, K={k}, G={g}"}
+    log(f"[kernels] placement_select R={r}: kernel {ms:.6f} ms (device {dev_ms} ms), "
+        f"the parent's device path (grid kernel, argmax, gathers) {parent_ms:.6f} ms; "
+        f"bound {out['bound_operations_ms']:.6f} ms by operations, "
+        f"{out['bound_bytes_ms']:.6f} ms by bytes")
+    if r != 24:
+        return out
+    reads, writes = (a.cpu().numpy() for a in args[:2])
+    plan = lambda: pl.plan_placement(PAPER_TOPOLOGY, reads, writes,  # noqa: E731
+                                     SLA_RELAXED, device="cuda")
+    parent = lambda: parent_plan_placement(PAPER_TOPOLOGY, reads,  # noqa: E731
+                                           writes, SLA_RELAXED)
+    differ = plans_differ(plan(), parent())
+    if differ:
+        fail(f"plan_placement R={r}: {differ} differ from the parent's path")
+    ops_n, kern_n, sel_n = plan_device_ops(plan)
+    if ops_n is None:
+        fail(f"plan_placement R={r}: device operations not measured "
+             f"({_UNWHOLE[-PROFILE_TRIES:]})")
+    if sel_n != 1 or kern_n != 1 or ops_n > 4:
+        fail(f"plan_placement R={r}: {ops_n} device operations per call, {kern_n} "
+             f"CUDA kernels, {sel_n} placement_select; want <= 4, 1, 1")
+    parent_ops, parent_kernels, _ = plan_device_ops(parent)
+    whole, runs = host_bound_ms(plan, 10)
+    parent_whole, parent_runs = host_bound_ms(parent, 10)
+    log(f"[kernels] plan_placement R={r} (paper topology, SLA_RELAXED): "
+        f"{ops_n} device operations per call ({kern_n} CUDA kernel), wall "
+        f"{whole:.6f} ms (median of " + " / ".join(f"{x:.6f}" for x in runs)
+        + f"); the parent's path {parent_ops} device operations ({parent_kernels} "
+        f"CUDA kernels), {parent_whole:.6f} ms (median of "
+        + " / ".join(f"{x:.6f}" for x in parent_runs) + "); results bit-equal")
+    out.update(whole_call_ms=whole, runs=runs, parent_path_ms=parent_whole,
+               parent_path_ops=parent_ops, device_ops=ops_n)
+    return out
+
+
 def _digest_table(rng, p, k, m, device):
     """A (P, K, 4) digest table (extreme components, so the differences
     overflow; replica 1 equal to replica 0) and (M, 2) int64 pairs on the
@@ -1288,12 +1436,17 @@ def phase_kernels() -> dict:
             if not all(_bits_equal(g, w) for g, w in zip(got, want)):
                 fail(f"placement_score R={r} max_lat={max_lat}: differs from "
                      f"the plain version (max abs err {_placement_err(got, want)})")
+            # The fused select against the plain selection from that grid.
+            sel = pls.placement_select_cuda(*args, max_latency_ms=max_lat)
+            require_equal(f"placement_select R={r} max_lat={max_lat}", [sel],
+                          [pls.select_from_grid(*want)])
             n_checked += 1
-            del got, want
+            del got, want, sel
     torch.cuda.empty_cache()
-    log(f"[kernels] placement_score: {n_checked} cases bit-equal ((R, K, G) = "
-        f"(R, {N_CANDIDATES}, 3), R in 24,1,257,65537,65536,{SCALE['n_resources']} "
-        "x max_lat 10, inf; invalid, tied and zero-demand cells)")
+    log(f"[kernels] placement_score and placement_select: {n_checked} cases each "
+        f"bit-equal ((R, K, G) = (R, {N_CANDIDATES}, 3), R in 24,1,257,65537,65536,"
+        f"{SCALE['n_resources']} x max_lat 10, inf; invalid, tied and zero-demand "
+        "cells; the select against argmax and gathers of the plain grid)")
 
     def time_placement(r, iters):
         args = placement_inputs(np.random.default_rng(r), r, dev)
@@ -1326,6 +1479,9 @@ def phase_kernels() -> dict:
 
     timings["placement_score"] = time_placement(24, 200)
     timings[f"placement_score@{SCALE['n_resources']}"] = time_placement(
+        SCALE["n_resources"], 20)
+    timings["placement_select"] = time_plan_select(24, 200)
+    timings[f"placement_select@{SCALE['n_resources']}"] = time_plan_select(
         SCALE["n_resources"], 20)
 
     # policy_score: the adaptive run's S = 64, ragged widths and a fleet
@@ -1443,6 +1599,10 @@ def phase_kernels() -> dict:
                       + f" ms; device time {t['device_ms']} ms per call (profiler)")
         if "depth" in t:
             extra += f", design {t['design']}, serial depth {t['depth']} steps"
+        if "bound_bytes_ms" in t:
+            extra += (f", bound by operations {t['bound_operations_ms']:.6f} ms, by "
+                      f"bytes {t['bound_bytes_ms']:.6f} ms, the parent's device path "
+                      f"{t['parent_device_ms']:.6f} ms")
         if "cuda_kernels_per_call" in t:
             extra += f", CUDA kernels per call {t['cuda_kernels_per_call']}"
         if "parent_path_ms" in t:
@@ -2092,8 +2252,11 @@ def phase_geo() -> dict:
     return launches
 
 
-# The kernels the geo phase must launch: all six.
-GEO_KERNELS = ("placement_score", "op_ingest", "vclock_chain", "vclock_audit",
+# The kernels the geo phase must launch: the planner's select (one launch
+# per plan and per static baseline) and the replay's five.  The (R, K)
+# grid kernel is on no path since the planner selects on the card; the
+# kernels phase still holds it against its plain version.
+GEO_KERNELS = ("placement_select", "op_ingest", "vclock_chain", "vclock_audit",
                "digest_compare", "histogram")
 
 
@@ -4041,8 +4204,60 @@ def scale_planner() -> None:
     launches = ops.launch_counts()
     static = pl.evaluate_counts(PAPER_TOPOLOGY, pl.static_counts(PAPER_TOPOLOGY, 4),
                                 reads, writes, SLA_RELAXED, device="cuda")
-    if plan.choice.shape != (r,) or launches["placement_score"] != 1:
-        fail(f"scale planner: choice {plan.choice.shape}, launches {launches}")
+    if (plan.choice.shape != (r,) or launches["placement_select"] != 1
+            or launches["placement_score"] != 0):
+        fail(f"scale planner: choice {plan.choice.shape}, launches {launches} "
+             "(want placement_select 1, placement_score 0)")
+    # The wall taken apart: the same steps as plan_placement, one at a time.
+    split = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tables = pl.plan_tables(PAPER_TOPOLOGY, reads)
+    split["host tables"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ins = pl.device_inputs(reads, writes, tables, "cuda")
+    torch.cuda.synchronize()
+    split["H2D (reads, writes, the tables: three copies)"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = ops.placement_select(*ins, max_latency_ms=SLA_RELAXED.max_read_latency_ms)
+    torch.cuda.synchronize()
+    split["kernel"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = out.cpu().numpy()
+    split["D2H"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cost = pl.chosen_cost(tables, out[0], reads, writes)
+    split["host cost"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    counts = tables["candidates"][out[0]]
+    split["host counts"] = time.perf_counter() - t0
+    del ins
+    if not (np.array_equal(out[0], plan.choice) and np.array_equal(
+            out[1], plan.utility.view(np.int32)) and np.array_equal(
+            cost.view(np.int32), plan.cost.view(np.int32))
+            and np.array_equal(counts, plan.counts)):
+        fail("scale planner: the split steps differ from plan_placement")
+    # The parent's path on the same demand, in turns with this one (parent,
+    # change, parent after the first, cold call above): walls and peaks.
+    walls = {"change": [wall], "parent": []}
+    parent_peak = 0
+    for side in ("parent", "change", "parent"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        if side == "change":
+            pl.plan_placement(PAPER_TOPOLOGY, reads, writes, SLA_RELAXED, device="cuda")
+        else:
+            parent = parent_plan_placement(PAPER_TOPOLOGY, reads, writes, SLA_RELAXED)
+        torch.cuda.synchronize()
+        walls[side].append(time.perf_counter() - t0)
+        if side == "parent":
+            parent_peak = torch.cuda.max_memory_allocated()
+    differ = plans_differ(plan, parent)
+    if differ:
+        fail(f"scale planner: {differ} differ from the parent's path")
+    del parent
+    torch.cuda.empty_cache()
     if not (math.isfinite(plan.total_cost) and plan.total_cost > 0):
         fail(f"scale planner: total cost {plan.total_cost}")
     # Wherever the static placement is feasible, the plan (which searched
@@ -4073,8 +4288,13 @@ def scale_planner() -> None:
     counts, n = np.unique(plan.counts, axis=0, return_counts=True)
     top = sorted(zip(n.tolist(), map(tuple, counts.tolist())), reverse=True)[:4]
     log(f"[scale] planner R={r} K={plan.candidates.shape[0]} G=3 SLA_RELAXED: "
-        f"demand {demand_s:.3f} s (host), plan_placement wall {wall:.3f} s; "
-        f"max_memory_allocated {peak} B; feasible {plan.n_feasible}/{r}; total cost "
+        f"demand {demand_s:.3f} s (host), plan_placement wall {wall:.3f} s ("
+        + ", ".join(f"{k} {v:.6f} s" for k, v in split.items())
+        + f"); max_memory_allocated {peak} B; in turns (change cold, parent, "
+        f"change, parent) walls change {' / '.join(f'{w:.3f}' for w in walls['change'])}"
+        f" s, the parent's path (grid, argmax, gathers) "
+        f"{' / '.join(f'{w:.3f}' for w in walls['parent'])} s, its "
+        f"max_memory_allocated {parent_peak} B, results bit-equal; feasible {plan.n_feasible}/{r}; total cost "
         f"${plan.total_cost} vs static 4-per-DC ${static['total_cost']} "
         f"({static['n_feasible']}/{r} feasible); top placements {top}; "
         f"launches {launches}; choice/counts/utility/feasible/cost bit-equal to "
@@ -4345,6 +4565,9 @@ REPLACES = {
                   "src/repro/kernels/histogram.py:114"),
     "placement_score": ("src/repro_torch/csrc/placement_score.cu",
                         "src/repro/kernels/placement_score.py:71"),
+    # The same Pallas kernel, fused with the planner's argmax and gathers.
+    "placement_select": ("src/repro_torch/csrc/placement_score.cu",
+                         "src/repro/kernels/placement_score.py:71"),
     "policy_score": ("src/repro_torch/csrc/policy_score.cu",
                      "src/repro/kernels/policy_score.py:91"),
     "session_floor": ("src/repro_torch/csrc/session_floor.cu",
@@ -4354,12 +4577,15 @@ REPLACES = {
 }
 # The path whose launch counts each kernel reports: the flat main path
 # for the first slice's kernels, the fault path for gossip and obs, the
-# geo path for the planner, the adaptive path for the policy scorer, the
+# geo path for the planner's select (and the (R, K) grid kernel, which no
+# path launches since the planner selects on the card: it reads 0), the
+# adaptive path for the policy scorer, the
 # serving path for the session-floor admission, the model's forward for
 # the attention kernel.
 LAUNCH_PHASE = {"op_ingest": "main", "vclock_audit": "main", "vclock_chain": "main",
                 "digest_compare": "faulty", "histogram": "faulty",
-                "placement_score": "geo", "policy_score": "adaptive",
+                "placement_score": "geo", "placement_select": "geo",
+                "policy_score": "adaptive",
                 "session_floor": "serving", "flash_attention": "model"}
 
 
@@ -4479,6 +4705,19 @@ def main() -> None:
                       "device_ops"):
                 if k in t:
                     kernels[-1][k] = t[k]
+        if "bound_bytes_ms" in t:
+            # B.5's select: both bounds; the parent's device path (the grid
+            # kernel, argmax, gathers) on the same inputs; the scale's row.
+            kernels[-1].update(bound_operations_ms=t["bound_operations_ms"],
+                               bound_bytes_ms=t["bound_bytes_ms"],
+                               parent_device_ms=t["parent_device_ms"])
+            u = timings[f"placement_select@{SCALE['n_resources']}"]
+            kernels[-1][str(SCALE["n_resources"])] = {
+                k: u[k] for k in ("shape", "ms", "device_ms", "plain_ms",
+                                  "parent_device_ms", "bound_operations_ms",
+                                  "bound_bytes_ms")}
+            kernels[-1][str(SCALE["n_resources"])].update(
+                bound_ms=u["bound"][0], bound_by=u["bound"][1], max_abs_err=u["err"])
         for key in (f"policy_score@{FLEET_SESSIONS + 3}", "session_floor@16384"):
             if key.split("@")[0] == name:
                 u = timings[key]

@@ -15,9 +15,13 @@ read-latency bound:
 
 The candidate tables, the demand counts and the cost of the chosen plans
 are small and stay numpy on the host, op for op as in the reference, so
-they round as it does.  Only the (R, K) grid runs on the device: the
-scoring (``kernels.ops.placement_score``), the per-row argmax and the
-gather of the chosen cells.  The (R, K) utility never leaves the device.
+they round as it does.  The (R, K) grid is scored and reduced to each
+resource's choice on the device in one call, ``kernels.ops.
+placement_select`` (one kernel launch on the card, which never writes
+the grid), between the copies in (``device_inputs``: one for a small
+demand and the tables, three for a large one) and one (3, R) copy out.
+``score_candidates`` still returns the whole grid, as the reference's
+does.
 """
 
 from __future__ import annotations
@@ -209,6 +213,74 @@ class PlacementResult:
         }
 
 
+def _resource_gb(cfg: ClusterConfig, reads: np.ndarray) -> float:
+    # Each key bucket hosts an even share of the dataset.
+    return cfg.dataset_rows * cfg.row_bytes / 1e9 / max(1, reads.shape[0])
+
+
+_TABLES = ("read_price", "write_price", "read_rtt", "cand_meta")
+# Demand up to this size rides in the tables' copy (the geo path's plans
+# send 576 B): stacking a few KiB on the host costs microseconds, less
+# than a second copy's fixed cost.  Larger demand is copied straight from
+# its two arrays, since stacking it would write the whole demand again on
+# the host (120 MB at R = 5,000,000, G = 3).
+ONE_COPY_BYTES = 1 << 16
+
+
+def _one_copy(arrays: list[np.ndarray], dev: torch.device) -> list[torch.Tensor]:
+    """f32 ``arrays`` joined on the host, sent in one copy, split on ``dev``
+    into flat views."""
+    flat = torch.from_numpy(np.concatenate([a.ravel() for a in arrays])).to(dev)
+    return list(torch.split(flat, [a.size for a in arrays]))
+
+
+def device_inputs(
+    reads: np.ndarray,
+    writes: np.ndarray,
+    tables: dict[str, np.ndarray],
+    device: str | torch.device = "cuda",
+) -> tuple[torch.Tensor, ...]:
+    """The scorer's six f32 inputs on ``device``: ``reads``, ``writes``
+    (R, G), ``read_price``, ``write_price``, ``read_rtt`` (K, G) and
+    ``cand_meta`` (2, K).  The four tables go as one flat copy, the
+    demand with them up to ``ONE_COPY_BYTES`` (one copy in all), else as
+    two copies of its own."""
+    dev = resolve_device(device)
+    reads = np.ascontiguousarray(reads, np.float32)
+    writes = np.ascontiguousarray(writes, np.float32)
+    (r, g), k = reads.shape, tables["read_price"].shape[0]
+    tabs = [np.asarray(tables[name], np.float32) for name in _TABLES]
+    if reads.nbytes <= ONE_COPY_BYTES:
+        parts = _one_copy([reads, writes, *tabs], dev)
+    else:
+        parts = [torch.from_numpy(a).to(dev) for a in (reads, writes)]
+        parts += _one_copy(tabs, dev)
+    rd, wr, rp, wp, rtt, meta = parts
+    return (rd.view(r, g), wr.view(r, g), rp.view(k, g), wp.view(k, g),
+            rtt.view(k, g), meta.view(2, k))
+
+
+def select_candidates(
+    reads: np.ndarray,
+    writes: np.ndarray,
+    tables: dict[str, np.ndarray],
+    sla,
+    *,
+    impl: str | None = "auto",
+    device: str | torch.device = "cuda",
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Per resource the first candidate of maximal utility, with that
+    cell's utility and feasibility: ``(choice (R,) int32, utility (R,)
+    f32, feasible (R,) bool)`` on the host, the reference's ``argmax`` and
+    gathers over ``score_candidates``' grid, bit for bit.  One
+    ``ops.placement_select`` call on ``device``."""
+    out = kernel_ops.placement_select(
+        *device_inputs(reads, writes, tables, device),
+        max_latency_ms=float(sla.max_read_latency_ms), impl=impl,
+    ).cpu().numpy()
+    return out[0], out[1].view(np.float32), out[2].astype(bool)
+
+
 def score_candidates(
     reads: np.ndarray,
     writes: np.ndarray,
@@ -220,21 +292,53 @@ def score_candidates(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(utility, feasible) over the (R, K) grid, as tensors on ``device``
     (the reference returns numpy; the port keeps the grid on the card)."""
-    dev = resolve_device(device)
-
-    def t(x):
-        return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(dev)
-
     return kernel_ops.placement_score(
-        t(reads), t(writes), t(tables["read_price"]), t(tables["write_price"]),
-        t(tables["read_rtt"]), t(tables["cand_meta"]),
+        *device_inputs(reads, writes, tables, device),
         max_latency_ms=float(sla.max_read_latency_ms), impl=impl,
     )
 
 
-def _resource_gb(cfg: ClusterConfig, reads: np.ndarray) -> float:
-    # Each key bucket hosts an even share of the dataset.
-    return cfg.dataset_rows * cfg.row_bytes / 1e9 / max(1, reads.shape[0])
+def plan_tables(
+    topology: RegionTopology,
+    reads: np.ndarray,
+    *,
+    candidates: np.ndarray | None = None,
+    cfg: ClusterConfig = PAPER_CLUSTER,
+    pricing: PricingScheme = PAPER_PRICING,
+    resource_gb: float | None = None,
+    months: float = 1.0,
+    min_replicas: int = 1,
+    max_per_region: int = 4,
+) -> dict[str, np.ndarray]:
+    """``plan_placement``'s candidate set (with the static placement
+    added) and its tables, on the host."""
+    if candidates is None:
+        candidates = enumerate_candidates(
+            topology.n_regions, max_per_region=max_per_region,
+            min_total=min_replicas,
+        )
+    cand = np.asarray(candidates, np.int32)
+    static = static_counts(topology, max_per_region)[None, :]
+    if not (cand == static).all(axis=1).any():
+        cand = np.concatenate([cand, static.astype(np.int32)], axis=0)
+    if resource_gb is None:
+        resource_gb = _resource_gb(cfg, reads)
+    return candidate_tables(
+        topology, cand, cfg=cfg, pricing=pricing, resource_gb=resource_gb,
+        months=months, min_replicas=min_replicas,
+    )
+
+
+def chosen_cost(tables: dict[str, np.ndarray], choice: np.ndarray,
+                reads: np.ndarray, writes: np.ndarray) -> np.ndarray:
+    """Analytic cost of each resource's chosen plan (the -utility of a
+    feasible cell, recomputed so infeasible fallbacks report cost without
+    the penalty), host numpy op for op as the reference."""
+    return (
+        tables["cand_meta"][0][choice]
+        + np.sum(reads * tables["read_price"][choice], axis=1)
+        + np.sum(writes * tables["write_price"][choice], axis=1)
+    ).astype(np.float32)
 
 
 def plan_placement(
@@ -257,47 +361,24 @@ def plan_placement(
 
     The candidate set always includes the static ``max_per_region``-per-
     region placement, so the plan is never costlier than it wherever both
-    are feasible.  Scoring, argmax and the gather of the chosen cells run
-    on ``device`` (``"cuda"`` unless the caller asks for the CPU); only
-    (R,) results come back.
+    are feasible.  Scoring and the per-resource choice run on ``device``
+    (``"cuda"`` unless the caller asks for the CPU) as one
+    ``ops.placement_select`` call; only (R,) results come back.
     """
-    if candidates is None:
-        candidates = enumerate_candidates(
-            topology.n_regions, max_per_region=max_per_region,
-            min_total=min_replicas,
-        )
-    cand = np.asarray(candidates, np.int32)
-    static = static_counts(topology, max_per_region)[None, :]
-    if not (cand == static).all(axis=1).any():
-        cand = np.concatenate([cand, static.astype(np.int32)], axis=0)
-    if resource_gb is None:
-        resource_gb = _resource_gb(cfg, reads)
-    tables = candidate_tables(
-        topology, cand, cfg=cfg, pricing=pricing, resource_gb=resource_gb,
-        months=months, min_replicas=min_replicas,
+    tables = plan_tables(
+        topology, reads, candidates=candidates, cfg=cfg, pricing=pricing,
+        resource_gb=resource_gb, months=months, min_replicas=min_replicas,
+        max_per_region=max_per_region,
     )
-    util, feas = score_candidates(reads, writes, tables, sla, impl=impl,
-                                  device=device)
-    # torch.argmax returns the first maximum along the row, as np.argmax
-    # does, so tied candidates resolve to the lowest index in both.
-    choice_t = torch.argmax(util, dim=1, keepdim=True)
-    utility = torch.gather(util, 1, choice_t)[:, 0].cpu().numpy()
-    feasible = torch.gather(feas, 1, choice_t)[:, 0].cpu().numpy()
-    del util, feas
-    choice = choice_t[:, 0].cpu().numpy().astype(np.int32)
-    # Analytic cost of the chosen plan (the -utility of a feasible cell,
-    # recomputed so infeasible fallbacks report cost without the penalty).
-    cost = (
-        tables["cand_meta"][0][choice]
-        + np.sum(reads * tables["read_price"][choice], axis=1)
-        + np.sum(writes * tables["write_price"][choice], axis=1)
-    ).astype(np.float32)
+    choice, utility, feasible = select_candidates(
+        reads, writes, tables, sla, impl=impl, device=device)
+    cand = tables["candidates"]
     return PlacementResult(
         choice=choice,
         counts=cand[choice],
-        utility=utility.astype(np.float32),
-        feasible=feasible.astype(bool),
-        cost=cost,
+        utility=utility,
+        feasible=feasible,
+        cost=chosen_cost(tables, choice, reads, writes),
         candidates=cand,
     )
 
@@ -327,10 +408,8 @@ def evaluate_counts(
         topology, cand, cfg=cfg, pricing=pricing, resource_gb=resource_gb,
         months=months, min_replicas=min_replicas,
     )
-    util, feas = score_candidates(reads, writes, tables, sla, impl=impl,
-                                  device=device)
-    util = util[:, 0].cpu().numpy()
-    feas = feas[:, 0].cpu().numpy()
+    _, util, feas = select_candidates(reads, writes, tables, sla, impl=impl,
+                                      device=device)
     cost = (
         tables["cand_meta"][0][0]
         + np.sum(reads * tables["read_price"][0][None, :], axis=1)
@@ -339,7 +418,7 @@ def evaluate_counts(
     return {
         "cost": cost,
         "total_cost": float(cost.sum()),
-        "feasible": feas.astype(bool),
+        "feasible": feas,
         "n_feasible": int(feas.sum()),
-        "utility": np.asarray(util, np.float32),
+        "utility": util,
     }

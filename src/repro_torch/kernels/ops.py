@@ -23,9 +23,13 @@ from repro_torch.kernels import vclock_audit as _va
 from repro_torch.kernels import vclock_chain as _vch
 
 IMPLS = ("auto", "cuda", "torch")
-_COUNTED = {"op_ingest": _oi, "vclock_audit": _va, "vclock_chain": _vch,
-            "digest_compare": _dc, "histogram": _hg, "placement_score": _pls,
-            "policy_score": _ps, "session_floor": _sf, "flash_attention": _fa}
+# name -> (module, its counter): each wrapper counts its own launches.
+_COUNTED = {"op_ingest": (_oi, "launches"), "vclock_audit": (_va, "launches"),
+            "vclock_chain": (_vch, "launches"), "digest_compare": (_dc, "launches"),
+            "histogram": (_hg, "launches"), "placement_score": (_pls, "launches"),
+            "placement_select": (_pls, "select_launches"),
+            "policy_score": (_ps, "launches"), "session_floor": (_sf, "launches"),
+            "flash_attention": (_fa, "launches")}
 
 
 def resolve_impl(impl: str | None, t: torch.Tensor) -> str:
@@ -42,12 +46,12 @@ def resolve_impl(impl: str | None, t: torch.Tensor) -> str:
 
 def launch_counts() -> dict[str, int]:
     """Kernel launches per wrapper since the last reset."""
-    return {name: mod.launches for name, mod in _COUNTED.items()}
+    return {name: getattr(mod, attr) for name, (mod, attr) in _COUNTED.items()}
 
 
 def reset_launch_counts() -> None:
-    for mod in _COUNTED.values():
-        mod.launches = 0
+    for mod, attr in _COUNTED.values():
+        setattr(mod, attr, 0)
 
 
 def op_ingest(
@@ -197,6 +201,19 @@ def placement_score(reads, writes, read_price, write_price, read_rtt, cand_meta,
     ``read_rtt`` (K, G), ``cand_meta`` (2, K), all f32."""
     impl = resolve_impl(impl, reads)
     fn = _pls.placement_score_ref if impl == "torch" else _pls.placement_score_cuda
+    return fn(reads, writes, read_price, write_price, read_rtt, cand_meta,
+              max_latency_ms=max_latency_ms)
+
+
+def placement_select(reads, writes, read_price, write_price, read_rtt, cand_meta,
+                     *, max_latency_ms: float, impl: str | None = "auto"):
+    """The planner's selection -> ``(3, R)`` int32 ``[choice; utility's f32
+    bits; feasible]``: per resource the first candidate of maximal
+    utility (``np.argmax``'s rule) and that cell of ``placement_score``,
+    bit for bit.  Same inputs as ``placement_score``.  One kernel launch
+    on the card, which never writes the (R, K) grid."""
+    impl = resolve_impl(impl, reads)
+    fn = _pls.placement_select_ref if impl == "torch" else _pls.placement_select_cuda
     return fn(reads, writes, read_price, write_price, read_rtt, cand_meta,
               max_latency_ms=max_latency_ms)
 

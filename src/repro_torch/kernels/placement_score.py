@@ -25,6 +25,19 @@ that fused result is the contract.
     float64;
   * :func:`placement_score_cuda` — the hand-written kernel
     (``csrc/placement_score.cu``), ``__fmaf_rn`` for the two updates.
+
+The planner needs only each row's choice: the first ``k`` of maximal
+utility (``np.argmax``'s rule: ties to the lowest ``k``, a NaN above
+every number), with that cell's utility and feasibility.  The same
+module computes that as one ``(3, R)`` int32 result, ``[choice; the
+utility's f32 bits; feasible]``:
+
+  * :func:`placement_select_ref` — the plain version: the grid above,
+    ``torch.argmax`` and ``torch.gather`` (:func:`select_from_grid`),
+    ``ROWS_PER_CHUNK`` rows at a time;
+  * :func:`placement_select_cuda` — one launch of the fused score-and-
+    select kernel (``placement_select_kernel``), which never writes the
+    grid.
 """
 
 from __future__ import annotations
@@ -40,9 +53,11 @@ STRUCTURAL_WEIGHT = 10.0       # SLA excess per structural violation
 INFEASIBLE_PENALTY = 1.0e6     # utility cost per unit of excess
 
 ROWS_PER_CHUNK = 1 << 19       # plain version: rows scored per pass
-SMEM_MAX = 48 * 1024           # the kernel's static shared-memory budget
+SMEM_MAX = 48 * 1024           # the kernels' static shared-memory budget
+SELECT_MAX_G = 8               # regions the select kernel is built for
 
-launches = 0
+launches = 0                   # placement_score_cuda's kernel
+select_launches = 0            # placement_select_cuda's kernel
 
 
 def _score_rows(reads, writes, rprice, wprice, rtt, meta, max_lat):
@@ -95,6 +110,55 @@ def placement_score_ref(reads, writes, read_price, write_price, read_rtt,
     return util, feas
 
 
+def select_from_grid(util, feas):
+    """``(3, R)`` int32 ``[choice; utility bits; feasible]`` of an (R, K)
+    grid: ``torch.argmax`` (the first maximum; a NaN above every number,
+    the first NaN kept, as ``np.argmax``) and the chosen cells."""
+    choice = torch.argmax(util, dim=1, keepdim=True)
+    return torch.cat([choice.to(torch.int32).T,
+                      torch.gather(util, 1, choice).view(torch.int32).T,
+                      torch.gather(feas, 1, choice).T])
+
+
+def _check_select(k: int) -> None:
+    if k < 1:
+        raise ValueError("placement_select needs at least one candidate")
+
+
+def placement_select_ref(reads, writes, read_price, write_price, read_rtt,
+                         cand_meta, *, max_latency_ms: float):
+    """Plain version of the planner's selection: ``(3, R)`` int32
+    ``[choice; utility bits; feasible]``, bit-equal to
+    :func:`placement_score_ref` followed by :func:`select_from_grid`.
+    Scores and selects ``ROWS_PER_CHUNK`` rows at a time, so the whole
+    grid is never held."""
+    args = [t.to(torch.float32) for t in (reads, writes, read_price,
+                                          write_price, read_rtt, cand_meta)]
+    _check(*args)
+    reads, writes, rprice, wprice, rtt, meta = args
+    _check_select(rprice.shape[0])
+    max_lat = torch.tensor(max_latency_ms, dtype=torch.float32, device=reads.device)
+    r = reads.shape[0]
+    out = torch.empty((3, r), dtype=torch.int32, device=reads.device)
+    for lo in range(0, r, ROWS_PER_CHUNK):
+        hi = min(r, lo + ROWS_PER_CHUNK)
+        out[:, lo:hi] = select_from_grid(*_score_rows(
+            reads[lo:hi], writes[lo:hi], rprice, wprice, rtt, meta, max_lat))
+    return out
+
+
+def _cuda_inputs(name, *tensors):
+    """The six inputs, contiguous (views already contiguous are kept, not
+    copied), checked to be CUDA float32 of consistent shapes."""
+    ins = [t.contiguous() for t in tensors]
+    if not all(t.is_cuda for t in ins):
+        raise ValueError(f"{name} needs CUDA tensors")
+    if any(t.dtype != torch.float32 for t in ins):
+        raise ValueError(f"{name} needs float32 tensors")
+    _check(*ins)
+    return ins
+
+
 def _lib():
     fn = build.load("placement_score").placement_score_launch
     if fn.argtypes is None:
@@ -111,14 +175,9 @@ def placement_score_cuda(reads, writes, read_price, write_price, read_rtt,
     ``(utility, feasible)``.  The resource axis needs no padding: the
     kernel masks the ragged tail itself."""
     global launches
-    ins = [t.contiguous() for t in (reads, writes, read_price, write_price,
-                                    read_rtt, cand_meta)]
-    if not all(t.is_cuda for t in ins):
-        raise ValueError("placement_score_cuda needs CUDA tensors")
-    if any(t.dtype != torch.float32 for t in ins):
-        raise ValueError("placement_score_cuda needs float32 tensors")
-    _check(*ins)
-    reads, writes, rprice, wprice, rtt, meta = ins
+    reads, writes, rprice, wprice, rtt, meta = _cuda_inputs(
+        "placement_score_cuda", reads, writes, read_price, write_price, read_rtt,
+        cand_meta)
     r, g = reads.shape
     k = rprice.shape[0]
     if (3 * k * g + 2 * k) * 4 > SMEM_MAX:
@@ -136,3 +195,44 @@ def placement_score_cuda(reads, writes, read_price, write_price, read_rtt,
     build.check(err, "placement_score")
     launches += 1
     return util, feas
+
+
+def _select_lib():
+    fn = build.load("placement_score").placement_select_launch
+    if fn.argtypes is None:
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [vp, vp, vp, vp, vp, vp, ctypes.c_longlong, ci, ci,
+                       ctypes.c_float, vp, vp]
+        fn.restype = ci
+    return fn
+
+
+def placement_select_cuda(reads, writes, read_price, write_price, read_rtt,
+                          cand_meta, *, max_latency_ms: float):
+    """One launch of ``placement_select_kernel`` on CUDA f32 tensors:
+    :func:`placement_select_ref`'s ``(3, R)`` int32 result, without the
+    (R, K) grid.  Contiguous inputs (views into one copy, as the planner
+    passes them) are read in place."""
+    global select_launches
+    reads, writes, rprice, wprice, rtt, meta = _cuda_inputs(
+        "placement_select_cuda", reads, writes, read_price, write_price, read_rtt,
+        cand_meta)
+    r, g = reads.shape
+    k = rprice.shape[0]
+    _check_select(k)
+    if not 1 <= g <= SELECT_MAX_G:
+        raise ValueError(f"placement_select_cuda: G={g} regions (1 <= G <= "
+                         f"{SELECT_MAX_G})")
+    if k * ((3 * g + 2 + 3) // 4) * 16 > SMEM_MAX:
+        raise ValueError(f"placement_select_cuda: K={k}, G={g} exceed one "
+                         "block's shared memory")
+    out = torch.empty((3, r), dtype=torch.int32, device=reads.device)
+    if r == 0:
+        return out
+    err = _select_lib()(
+        reads.data_ptr(), writes.data_ptr(), rprice.data_ptr(),
+        wprice.data_ptr(), rtt.data_ptr(), meta.data_ptr(), r, k, g,
+        float(max_latency_ms), out.data_ptr(), build.stream_ptr(reads))
+    build.check(err, "placement_select")
+    select_launches += 1
+    return out

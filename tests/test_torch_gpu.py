@@ -398,8 +398,8 @@ def test_fault_path_launches_every_kernel(cuda):
     # Every kernel but the placement planner's, the policy scorer's, the
     # serving admission's and the model's attention runs on the fault path.
     assert all(v > 0 for k, v in counts.items()
-               if k not in ("placement_score", "policy_score", "session_floor",
-                            "flash_attention")), counts
+               if k not in ("placement_score", "placement_select", "policy_score",
+                            "session_floor", "flash_attention")), counts
 
 
 SHARDED_CASES = {
@@ -509,6 +509,39 @@ def test_placement_score_kernel_matches_plain(cuda, r, max_lat):
     assert torch.equal(got[1], want[1])
 
 
+@pytest.mark.parametrize("r", [24, 1, 257, 65537])
+@pytest.mark.parametrize("max_lat", [10.0, float("inf")])
+def test_placement_select_kernel_matches_plain(cuda, r, max_lat):
+    args = placement_inputs(np.random.default_rng(r), r, cuda)
+    before = pls.select_launches
+    got = pls.placement_select_cuda(*args, max_latency_ms=max_lat)
+    want = pls.placement_select_ref(*args, max_latency_ms=max_lat)
+    torch.cuda.synchronize()
+    assert pls.select_launches == before + 1
+    assert torch.equal(got, want)
+    assert torch.equal(want, pls.select_from_grid(
+        *pls.placement_score_ref(*args, max_latency_ms=max_lat)))
+    # The planner's small-demand layout: views into one copy; strided
+    # halves are made contiguous first.
+    demand = torch.stack(args[:2])
+    assert torch.equal(got, pls.placement_select_cuda(
+        demand[0], demand[1], *args[2:], max_latency_ms=max_lat))
+    wide = torch.cat(args[:2], dim=1)
+    assert torch.equal(got, pls.placement_select_cuda(
+        wide[:, :3], wide[:, 3:], *args[2:], max_latency_ms=max_lat))
+
+
+def test_plan_placement_is_one_select_launch(cuda):
+    reads = np.random.default_rng(0).integers(0, 5, (24, 3)).astype(np.float32)
+    ops.reset_launch_counts()
+    plan = pl.plan_placement(PAPER_TOPOLOGY, reads, reads, SLA_RELAXED, device=cuda)
+    counts = ops.launch_counts()
+    assert counts["placement_select"] == 1 and counts["placement_score"] == 0
+    want = pl.plan_placement(PAPER_TOPOLOGY, reads, reads, SLA_RELAXED, device="cpu")
+    for f in ("choice", "counts", "utility", "feasible", "cost"):
+        assert np.array_equal(getattr(plan, f), getattr(want, f)), f
+
+
 GEO_CASES = {
     **{f"geo/{lv.name}": (lv, {}) for lv in EVAL_LEVELS},
     "geo/X_STCC/gossip_recovery": (ConsistencyLevel.X_STCC, dict(
@@ -536,10 +569,12 @@ def test_geo_path_launches_every_kernel(cuda):
     plan = pl.plan_placement(PAPER_TOPOLOGY, reads, reads, SLA_RELAXED, device=cuda)
     assert plan.choice.shape == (24,)
     counts = ops.launch_counts()
-    # Every kernel but the adaptive path's policy scorer, the serving
-    # path's admission check and the model's attention.
+    # Every kernel but the (R, K) grid kernel (the planner selects on the
+    # card), the adaptive path's policy scorer, the serving path's
+    # admission check and the model's attention.
     assert all(v > 0 for k, v in counts.items()
-               if k not in ("policy_score", "session_floor", "flash_attention")), counts
+               if k not in ("placement_score", "policy_score", "session_floor",
+                            "flash_attention")), counts
 
 
 @pytest.mark.parametrize("s", [1, 64, 129, 1000, 65537])

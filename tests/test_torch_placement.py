@@ -1,7 +1,9 @@
 """Port's placement planner == JAX's: the plain ``placement_score`` bit for
 bit against the jitted reference (tiled twin and interpreted Pallas
-kernel), its FMA emulation against an exact ``Fraction`` oracle, and the
-planner's tables, choices, utilities, feasibility and costs."""
+kernel), its FMA emulation against an exact ``Fraction`` oracle, the
+plain ``placement_select`` against the interpreted Pallas kernel followed
+by ``np.argmax`` and the chosen cells, and the planner's tables, choices,
+utilities, feasibility and costs."""
 
 import dataclasses
 from fractions import Fraction
@@ -173,6 +175,120 @@ def test_placement_score_dispatch_and_checks():
     bad[5] = bad[5][:, :-1]
     with pytest.raises(ValueError, match="cand_meta"):
         tps.placement_score_ref(*bad, max_latency_ms=10.0)
+
+
+# -- the planner's selection ------------------------------------------------------
+
+
+def _select_case(case: str, seed: int = 0):
+    """Inputs of one ``placement_select`` case, numpy f32, on the paper's
+    124 candidates unless the case says otherwise."""
+    rng = np.random.default_rng(seed)
+    r = {"r0": 0, "r1": 1, "random": 130}.get(case, 100)
+    cand = jpl.enumerate_candidates(3)
+    if case == "k1":
+        cand = cand[[57]]
+    tabs = jpl.candidate_tables(J_ASYM if case == "random" else J_PAPER, cand,
+                                resource_gb=1.0 / max(1, r))
+    rp, wp, rtt = (tabs[k].copy() for k in ("read_price", "write_price", "read_rtt"))
+    meta = tabs["cand_meta"].copy()
+    reads = (rng.integers(0, 6, (r, 3)) * rng.random((r, 3)) * 50).astype(np.float32)
+    writes = rng.integers(0, 6, (r, 3)).astype(np.float32)
+    if case == "tied":           # every 9th candidate a copy of its left neighbour
+        dup = np.arange(1, rp.shape[0], 9)
+        for t in (rp, wp, rtt):
+            t[dup] = t[dup - 1]
+        meta[:, dup] = meta[:, dup - 1]
+    if case == "invalid":        # every 17th candidate invalid, one NaN flag
+        meta[1, ::17] = 0.0
+        meta[1, 3] = np.nan
+    if case == "infeasible":     # rows with demand in region 0 fit no candidate at 10 ms
+        rtt[:, 0] = 1000.0
+        reads[::4, 0] = 0.0
+        writes[::4, 0] = 0.0
+    if case == "zero":           # zero demand: -0.0 / 0.0 utilities tie
+        reads[::2] = 0.0
+        writes[::2] = 0.0
+        meta[0] = np.where(np.arange(meta.shape[1]) % 2, np.float32(-0.0), 0.0)
+        rp[1::2] *= -1.0
+        wp[1::2] *= -1.0
+    if case == "nan":            # a NaN price: the first NaN utility is the maximum
+        rp[5, 1] = np.nan
+        wp[40, 2] = np.nan
+        reads[::3] = np.nan
+    return (reads, writes, rp, wp, rtt, meta)
+
+
+def _reference_select(args, max_lat) -> np.ndarray:
+    """The reference's composition: the Pallas kernel (interpreted), then
+    ``np.argmax`` and the chosen cells, packed (3, R) int32.  Its kernel
+    refuses R = 0 (a block of zero rows), so an empty grid stands in."""
+    if args[0].shape[0]:
+        util, feas = (np.asarray(a) for a in jops.placement_score(
+            *args, max_latency_ms=max_lat, impl="pallas"))
+    else:
+        util = np.zeros((0, args[2].shape[0]), np.float32)
+        feas = util.astype(np.int32)
+    choice = np.argmax(util, axis=1).astype(np.int32)
+    rows = np.arange(util.shape[0])
+    return np.stack([choice, util[rows, choice].view(np.int32),
+                     feas[rows, choice].astype(np.int32)])
+
+
+SELECT_CASES = ["random", "tied", "invalid", "infeasible", "zero", "nan", "k1",
+                "r0", "r1"]
+
+
+@pytest.mark.parametrize("case", SELECT_CASES)
+@pytest.mark.parametrize("max_lat", [10.0, float("inf")])
+def test_plain_placement_select_bit_equal_to_pallas_argmax(case, max_lat):
+    args = _select_case(case)
+    want = _reference_select(args, max_lat)
+    got = ops.placement_select(*(torch.from_numpy(a) for a in args),
+                               max_latency_ms=max_lat, impl="torch")
+    assert got.dtype == torch.int32 and got.shape == want.shape
+    got = got.numpy()
+    # Choices and feasibility exactly, utilities bit for bit, with any NaN
+    # equal to any NaN (the emulated FMA and XLA's give NaNs of two signs).
+    nan = np.isnan(got[1].view(np.float32)) & np.isnan(want[1].view(np.float32))
+    assert nan.any() == (case == "nan")
+    both = np.stack([np.zeros_like(nan), nan, np.zeros_like(nan)])
+    np.testing.assert_array_equal(np.where(both, 0, got), np.where(both, 0, want))
+    if case == "zero":           # the tie is real and goes to candidate 0's -0.0
+        assert (got[0, ::2] == 0).all() and (got[1, ::2] == _bits(-0.0)).all()
+    if case == "infeasible" and max_lat == 10.0:
+        assert not got[2, 1::4].any() and got[2, ::4].all()
+
+
+def test_placement_select_dispatch_and_checks(monkeypatch):
+    args = [torch.from_numpy(a) for a in _select_case("tied")]
+    auto = ops.placement_select(*args, max_latency_ms=10.0)
+    assert torch.equal(auto, ops.placement_select(*args, max_latency_ms=10.0,
+                                                  impl="torch"))
+    # The plain version equals the grid it reduces, in one chunk or many.
+    assert torch.equal(auto, tps.select_from_grid(
+        *tps.placement_score_ref(*args, max_latency_ms=10.0)))
+    monkeypatch.setattr(tps, "ROWS_PER_CHUNK", 7)
+    assert torch.equal(auto, tps.placement_select_ref(*args, max_latency_ms=10.0))
+    # The planner's copies: a small demand rides in the tables' one copy;
+    # above ONE_COPY_BYTES reads and writes go as arrays of their own.
+    tables = dict(zip(("read_price", "write_price", "read_rtt", "cand_meta"),
+                      (a.numpy() for a in args[2:])))
+    for one_copy in (tpl.ONE_COPY_BYTES, 0):
+        monkeypatch.setattr(tpl, "ONE_COPY_BYTES", one_copy)
+        staged = tpl.device_inputs(args[0].numpy(), args[1].numpy(), tables, CPU)
+        assert all(torch.equal(a, b) for a, b in zip(staged, args))
+        storages = {t.untyped_storage().data_ptr() for t in staged}
+        assert len(storages) == (1 if one_copy else 3)
+        assert torch.equal(auto, ops.placement_select(*staged, max_latency_ms=10.0))
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.placement_select(*args, max_latency_ms=10.0, impl="cuda")
+    with pytest.raises(ValueError, match="CUDA"):
+        tps.placement_select_cuda(*args, max_latency_ms=10.0)
+    empty = [args[0], args[1], *(a[:0] for a in args[2:5]), args[5][:, :0]]
+    with pytest.raises(ValueError, match="candidate"):
+        ops.placement_select(*empty, max_latency_ms=10.0)
+    assert ops.launch_counts()["placement_select"] == 0
 
 
 # -- the planner ----------------------------------------------------------------
