@@ -3294,7 +3294,10 @@ MESH_CUTS = ("cuts of scale: none in width (gemma-2b's 18 layers at d_model 2048
              "depth cut to 2 of its 16 layers (the check is one MoE layer's, the forward "
              "only drives the path); (d)'s 16-way axes are a MeshShape, every shard on "
              "the one card; ring attention needs 2 or more ranks, which one card cannot "
-             "give under NCCL")
+             "give under NCCL; (e)'s SPMD runs on the (1, 1) mesh, where every "
+             "placement is replicated: TP and FSDP shards over 2 or more ranks, and a "
+             "ring between cards, are held only on the CPU (gloo), one card giving one "
+             "NCCL rank")
 
 
 def _mesh_decode(model, params, toks, mesh):
@@ -3422,6 +3425,132 @@ def _mesh_regions_stacked(gemma, dev: dict, xla) -> None:
     torch.cuda.empty_cache()
 
 
+def _mesh_spmd(mesh, gemma, dev: dict) -> None:
+    """(e) gemma-2b served as SPMD on the (1, 1) NCCL mesh, at the model
+    phase's settings (``MODEL``), DTensor parameters from
+    ``sharding.distribute_params`` against the same parameters plain:
+    the bf16 forward at S = ``MODEL["seq"]`` and the f32 forward at
+    ``MODEL["f32_seq"]`` (both through B.8), the prompt's bf16 prefill
+    (logits and cache) and a bf16 ``generate`` of ``MODEL["tokens"]``
+    tokens (tokens and every step's logits).  Bit-equal wanted (one rank:
+    no partial sums); otherwise each check prints its max abs error and
+    must hold within the model phase's atol = rtol = 1e-3.  B.8 must
+    launch ``n_layers`` times per meshed forward.  The meshed and plain
+    bf16 forwards' walls and device operations per forward are logged."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model, sharding
+    from repro_torch.serve import ServeSession, ServingEngine
+
+    t_e = time.perf_counter()
+    cfg32, params32, _ = gemma
+    cuda = torch.device("cuda")
+    bf = dataclasses.replace(cfg32, dtype="bfloat16", use_flash_kernel=True)
+    f32 = dataclasses.replace(cfg32, use_flash_kernel=True)
+    params_bf = _to(params32, dtype=torch.bfloat16)
+    with sharding.use_mesh(mesh):
+        placed_bf = sharding.distribute_params(params_bf, bf)
+        placed_32 = sharding.distribute_params(params32, f32)
+    model_bf, model_32 = build_model(bf), build_model(f32)
+    g = torch.Generator(device=cuda).manual_seed(7)
+    seq = torch.randint(0, cfg32.vocab_size, (1, MODEL["seq"]), generator=g, device=cuda,
+                        dtype=torch.int32)
+    prompt = seq[:, :MODEL["prompt"]]
+    max_seq = MODEL["prompt"] + MODEL["tokens"]
+
+    def meshed(fn):
+        def run():
+            with sharding.use_mesh(mesh):
+                return fn()
+        return run
+
+    def whole(x):
+        return x.full_tensor() if sharding.is_dtensor(x) else x
+
+    def wall(fn, reps=3):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps
+
+    results = []
+
+    def check(name, plain, got):
+        got = whole(got)
+        err = float((got.float() - plain.float()).abs().max())
+        equal = bool(torch.equal(got, plain))
+        results.append(f"{name} {'bit-equal' if equal else f'max abs err {err}'}")
+        if not equal and not torch.allclose(got.float(), plain.float(), atol=1e-3, rtol=1e-3):
+            fail(f"mesh (e): {name} on DTensors vs plain: max abs err {err}, beyond atol = "
+                 f"rtol = 1e-3")
+
+    def fwd_bf(params):
+        return model_bf.forward(params, {"tokens": seq})[0]
+
+    with torch.no_grad():
+        plain = fwd_bf(params_bf)
+        ops.reset_launch_counts()
+        got = meshed(lambda: fwd_bf(placed_bf))()
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()["flash_attention"]
+        if launches != cfg32.n_layers:
+            fail(f"mesh (e): the meshed bf16 forward launched flash_attention {launches} "
+                 f"times, want {cfg32.n_layers}")
+        check(f"bf16 forward S={MODEL['seq']}", plain, got)
+        del plain, got
+        plain_s = wall(lambda: fwd_bf(params_bf))
+        mesh_s = wall(meshed(lambda: fwd_bf(placed_bf)))
+        ops_plain, fa_plain = device_ops_per_call(lambda: fwd_bf(params_bf), "flash")
+        ops_mesh, fa_mesh = device_ops_per_call(meshed(lambda: fwd_bf(placed_bf)), "flash")
+        tok32 = seq[:, :MODEL["f32_seq"]]
+        check(f"f32 forward S={MODEL['f32_seq']}",
+              model_32.forward(params32, {"tokens": tok32})[0],
+              meshed(lambda: model_32.forward(placed_32, {"tokens": tok32})[0])())
+        batch = {"tokens": prompt, "max_seq": max_seq}
+        lp, cp = model_bf.prefill(params_bf, batch)
+        lm, cm = meshed(lambda: model_bf.prefill(placed_bf, batch))()
+        check(f"bf16 prefill logits ({MODEL['prompt']}-token prompt)", lp, lm)
+        check("bf16 prefill cache k", cp["k"], cm["k"])
+        check("bf16 prefill cache v", cp["v"], cm["v"])
+        del lp, cp, lm, cm
+        outs = []
+        for params, on_mesh in ((params_bf, False), (placed_bf, True)):
+            rec = _Recorder(model_bf)
+            eng = ServingEngine(rec, device=cuda)
+            eng.publish(params, version=1)
+
+            def run(eng=eng):
+                return eng.generate(ServeSession(0), batch, MODEL["tokens"])
+
+            t0 = time.perf_counter()
+            toks, _ = meshed(run)() if on_mesh else run()
+            torch.cuda.synchronize()
+            outs.append((toks, torch.stack([whole(x) for x in rec.logits]),
+                         time.perf_counter() - t0, eng.logit_gathers))
+        (t_plain, lg_plain, gen_plain_s, _), (t_mesh, lg_mesh, gen_mesh_s, gathers) = outs
+        if not torch.equal(t_plain, t_mesh) or gathers != MODEL["tokens"]:
+            fail(f"mesh (e): generate on DTensors {t_mesh.tolist()} vs plain "
+                 f"{t_plain.tolist()}, {gathers} logit gathers (want {MODEL['tokens']})")
+        check(f"bf16 generate's {MODEL['tokens']} steps' logits", lg_plain, lg_mesh)
+    del params_bf, placed_bf, placed_32
+    torch.cuda.empty_cache()
+    log(f"[mesh] (e) {cfg32.name} served as SPMD on the (1, 1) NCCL mesh, DTensor parameters "
+        f"(distribute_params; every placement replicated on one rank): "
+        f"{'; '.join(results)}; generate's tokens equal, {gathers} logit gathers; B.8 "
+        f"launched {launches} times per meshed forward; bf16 forward S={MODEL['seq']} wall "
+        f"{mesh_s:.4f} s meshed vs {plain_s:.4f} s plain, device operations per forward "
+        f"{ops_mesh} meshed ({fa_mesh} flash) vs {ops_plain} plain ({fa_plain} flash); "
+        f"generate of {MODEL['tokens']} tokens {gen_mesh_s:.3f} s meshed vs "
+        f"{gen_plain_s:.3f} s plain; {time.perf_counter() - t_e:.1f} s; {MESH_CUTS}; "
+        f"{dev['smi']}")
+
+
 def phase_mesh(dev: dict) -> None:
     """(a) A (1, 1) mesh over an NCCL process group of one rank:
     gemma-2b's placements all replicated, and reduced qwen2-7b's
@@ -3433,7 +3562,8 @@ def phase_mesh(dev: dict) -> None:
     ``decode_comm="lse_shardmap"`` on that mesh (its ``pmax`` / ``psum``
     NCCL all-reduces) against the plain decode; (d) the collective regions
     at 16 shards on the card, under a ``MeshShape``
-    (:func:`_mesh_regions_stacked`)."""
+    (:func:`_mesh_regions_stacked`); (e) gemma-2b served as SPMD with
+    DTensor parameters on the NCCL mesh (:func:`_mesh_spmd`)."""
     import dataclasses
 
     import torch
@@ -3513,6 +3643,8 @@ def phase_mesh(dev: dict) -> None:
             toks, mesh)
         torch.cuda.synchronize()
         t_nccl = time.perf_counter() - t0
+        # (e) the dense transformer served as SPMD on the mesh.
+        _mesh_spmd(mesh, (gcfg, gparams, toks), dev)
     finally:
         dist.destroy_process_group()
     mem, roof = res["memory"], res["roofline"]

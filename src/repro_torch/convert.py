@@ -78,12 +78,21 @@ def _leaf_tensor(x, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
-def params_from_numpy(tree: dict[str, Any], device="cuda") -> dict[str, Any]:
+def params_from_numpy(tree: dict[str, Any], device="cuda", mesh=None,
+                      cfg=None) -> dict[str, Any]:
     """The port's parameter dict from the reference's param pytree given as
     nested dicts of numpy arrays (``jax.tree.map(np.asarray, params)``):
     the same keys and leaf shapes, the same values and dtypes (bf16 bit
-    for bit)."""
+    for bit).  With a ``DeviceMesh`` ``mesh`` the leaves are DTensors
+    placed by the reference's rules for ``cfg``
+    (``sharding.distribute_params``), each placed as it is converted, so
+    the device never holds the whole tree."""
     dev = resolve_device(device)
+    if mesh is not None:
+        from repro_torch.models import sharding
+
+        with sharding.use_mesh(mesh):
+            return sharding.distribute_params(tree, cfg, convert=lambda a: _leaf_tensor(a, dev))
     return {k: params_from_numpy(v, dev) if isinstance(v, dict) else _leaf_tensor(v, dev)
             for k, v in tree.items()}
 

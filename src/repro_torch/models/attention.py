@@ -17,8 +17,14 @@ mesh's two collective regions run through ``sharding.shard_map``:
     and cross decodes all take it (``_decode_lse_shardmap``).
 
 Off a mesh both fall through to the plain code, the reference's own
-one-device path.  The reference's sharding constraints on activations
-are the identity on the port's plain tensors.
+one-device path.
+
+The reference's sharding constraints sit at its sites (``_project_qkv``,
+``_shard_scores``, ``full_attention``'s output, the decode's cache): the
+identity on plain tensors, a redistribution of DTensors on a
+``DeviceMesh``.  There B.8 runs on each rank's local heads or batch
+rows (:func:`flash_attention_spmd`) and the decode writes each rank's
+block of the sequence-sharded cache (:func:`write_cache`).
 """
 
 from __future__ import annotations
@@ -86,8 +92,13 @@ def _project_q(x, p, cfg):
     return q.reshape(b, s, cfg.n_heads, cfg.head_dim)
 
 
-def _project_qkv(x, p, cfg, positions):
-    """x: (B, S, D) -> q (B,S,H,hd), k,v (B,S,Hkv,hd)."""
+def _project_qkv(x, p, cfg, positions, *, flash: bool = False):
+    """x: (B, S, D) -> q (B,S,H,hd), k,v (B,S,Hkv,hd), constrained as the
+    reference's: heads over 'model' in "tp" mode, else the sequence over
+    ``kv_seq`` where the ring runs (not for the flash kernel, which runs
+    on whole sequences), else the batch only.  The flat projections are
+    placed before the reshape into heads, whose split of a model-sharded
+    dim needs the heads to divide the axis ("tp")."""
     b, s, _ = x.shape
     q = x @ p["wq"]
     k = x @ p["wk"]
@@ -96,13 +107,32 @@ def _project_qkv(x, p, cfg, positions):
         q = q + p["bq"]
         k = k + p["bk"]
         v = v + p["bv"]
+    tp = attn_parallel_mode(cfg) == "tp"
+    q = sharding.shard(q, "batch", None, "heads" if tp else None)
+    k = sharding.shard(k, "batch", None, "kv_heads" if tp else None)
+    v = sharding.shard(v, "batch", None, "kv_heads" if tp else None)
     q = q.reshape(b, s, cfg.n_heads, cfg.head_dim)
     k = k.reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
     v = v.reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
     if cfg.use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    if tp:
+        q = sharding.shard(q, "batch", None, "heads", None)
+        k = sharding.shard(k, "batch", None, "kv_heads", None)
+        v = sharding.shard(v, "batch", None, "kv_heads", None)
+    elif not flash and _ring_applicable(cfg, s, s):
+        q, k, v = (sharding.shard(t, "batch", "kv_seq", None, None) for t in (q, k, v))
+    else:  # batch-only: no model-axis collectives inside attention
+        q, k, v = (sharding.shard(t, "batch", None, None, None) for t in (q, k, v))
     return q, k, v
+
+
+def _shard_scores(scores, cfg):
+    """scores: (B, Hkv, G, S, T) — shard heads (tp) or batch only (dp)."""
+    if attn_parallel_mode(cfg) == "tp":
+        return sharding.shard(scores, "batch", "kv_heads", None, None, None)
+    return sharding.shard(scores, "batch", None, None, None, None)
 
 
 def _gqa_scores(q, k, cfg):
@@ -201,6 +231,7 @@ def _attend_block(q_i, k, v, cfg, qpos_i, kpos, causal):
         if cfg.sliding_window > 0:
             mask = mask & (kpos[:, None, :] > qpos_i[:, :, None] - cfg.sliding_window)
         scores = torch.where(mask[:, None, None, :, :], scores, NEG_INF)
+    scores = _shard_scores(scores, cfg)
     weights = torch.softmax(scores.to(torch.float32), dim=-1).to(q_i.dtype)
     return _gqa_out(weights, v, cfg)
 
@@ -232,6 +263,29 @@ def flash_block(s: int) -> int:
     return min(s & -s, 128)
 
 
+def flash_attention_spmd(q, k, v, cfg):
+    """B.8, ``kernels.ops.flash_attention`` (causal, the config's window),
+    on q (B, S, H, hd) and k/v (B, S, Hkv, hd).  On DTensors it runs on
+    each rank's local block (``sharding.local_map``): in "tp" mode its
+    H/m query heads and Hkv/m kv heads, so every GQA group stays whole on
+    one rank, in "dp" mode its batch rows; the output is wrapped with the
+    placement it was computed under.  On plain tensors it is the wrapper
+    itself."""
+    from repro_torch.kernels import ops as kernel_ops
+
+    blk = flash_block(q.shape[1])
+    if attn_parallel_mode(cfg) == "tp":
+        q_axes, kv_axes = ("batch", None, "heads", None), ("batch", None, "kv_heads", None)
+    else:
+        q_axes = kv_axes = ("batch", None, None, None)
+
+    def run(q_, k_, v_):
+        return kernel_ops.flash_attention(q_, k_, v_, causal=True, window=cfg.sliding_window,
+                                          block_q=blk, block_k=blk)
+
+    return sharding.local_map(run, (q_axes, kv_axes, kv_axes), q_axes)(q, k, v)
+
+
 def full_attention(
     x: Tensor,
     p: dict,
@@ -255,20 +309,20 @@ def full_attention(
         q = _project_q(x, p, cfg)
         k, v = cross_kv
         causal = False
+    elif cfg.use_flash_kernel and causal and cfg.attn_logit_softcap == 0.0:
+        q, k, v = _project_qkv(x, p, cfg, positions, flash=True)
+        out = flash_attention_spmd(q, k, v, cfg)
+        return out.reshape(b, s, cfg.q_dim) @ p["wo"]
     else:
         q, k, v = _project_qkv(x, p, cfg, positions)
-        if cfg.use_flash_kernel and causal and cfg.attn_logit_softcap == 0.0:
-            from repro_torch.kernels import ops as kernel_ops
-
-            blk = flash_block(s)
-            out = kernel_ops.flash_attention(q, k, v, causal=True,
-                                             window=cfg.sliding_window,
-                                             block_q=blk, block_k=blk)
-            return out.reshape(b, s, cfg.q_dim) @ p["wo"]
     t = k.shape[1]
     kpos = (positions[:, :t] if positions.shape[1] >= t
             else torch.arange(t, dtype=torch.int32, device=x.device).expand(b, t))
     out = _masked_attention(q, k, v, cfg, positions, kpos, causal)
+    if attn_parallel_mode(cfg) == "tp":
+        out = sharding.shard(out, "batch", None, "heads", None)
+    else:
+        out = sharding.shard(out, "batch", None, None, None)
     return out.reshape(b, s, cfg.q_dim) @ p["wo"]
 
 
@@ -284,6 +338,32 @@ def prefill_attention_with_cache(
 
 
 # ---- decode -----------------------------------------------------------------
+
+CACHE_AXES = ("batch", "kv_seq", None, None)
+
+
+def write_cache(cache, new, slot):
+    """A copy of the DTensor ``cache`` (B, T, Hkv, hd) with row b's slot
+    ``slot[b]`` (a plain tensor) set to ``new[b, 0]``.  Each rank writes
+    its own block of the cache (sequence-sharded over ``kv_seq``), and
+    only the rows whose slot falls in it: DTensor has no rule for writing
+    one position of a sharded dim."""
+    spec = sharding.resolve(cache.shape, CACHE_AXES)
+    b0 = sharding.block_start(cache.shape, spec, 0)
+    t0 = sharding.block_start(cache.shape, spec, 1)
+
+    def write(c, n):
+        bl, tl = c.shape[:2]
+        local = slot[b0:b0 + bl] - t0
+        mine = (local >= 0) & (local < tl)
+        local = local.clamp(0, tl - 1)
+        rows = torch.arange(bl, device=c.device)
+        out = c.clone()
+        out[rows, local] = torch.where(mine[:, None, None], n[:, 0], c[rows, local])
+        return out
+
+    return sharding.local_map(write, (CACHE_AXES, ("batch", None, None, None)),
+                              CACHE_AXES)(cache, new)
 
 
 def decode_attention(
@@ -324,11 +404,17 @@ def decode_attention(
         kv_len = k_cache.shape[1]
         scatter = (posb % kv_len if ring else posb).long()
         q, k, v = _project_qkv(x, p, cfg, posb[:, None])
-        rows = torch.arange(b, device=x.device)
-        new_k = k_cache.clone()
-        new_v = v_cache.clone()
-        new_k[rows, scatter] = k[:, 0]
-        new_v[rows, scatter] = v[:, 0]
+        if sharding.is_dtensor(k_cache):
+            new_k = write_cache(k_cache, k, scatter)
+            new_v = write_cache(v_cache, v, scatter)
+        else:
+            rows = torch.arange(b, device=x.device)
+            new_k = k_cache.clone()
+            new_v = v_cache.clone()
+            new_k[rows, scatter] = k[:, 0]
+            new_v[rows, scatter] = v[:, 0]
+        new_k = sharding.shard(new_k, *CACHE_AXES)
+        new_v = sharding.shard(new_v, *CACHE_AXES)
         if ring:
             valid_len = torch.clamp(posb + 1, max=kv_len)
             window_lo = zeros

@@ -1,5 +1,12 @@
 """Shared model components: norms, RoPE, sinusoidal positions,
-initializers, the loss (port of ``repro.models.common``)."""
+initializers, the loss (port of ``repro.models.common``).
+
+On DTensors (the dense transformer's SPMD on a ``DeviceMesh``)
+``rms_norm``, ``apply_rope`` and ``softcap`` run through DTensor's own
+rules, each on the placement the caller's constraint gave: they reduce
+only over the last, unsharded dim, and the plain tensors they make
+(rope's angles) meet DTensors as replicated values under
+``sharding.spmd``.  No op here needs a gather."""
 
 from __future__ import annotations
 

@@ -6,6 +6,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import sharding
 from repro_torch.models.common import fan_in_init
 
 Tensor = torch.Tensor
@@ -38,4 +39,5 @@ def mlp(x: Tensor, p: dict, kind: str) -> Tensor:
         else:
             raise ValueError(f"unknown mlp kind {kind!r}")
         h = act * up
+    h = sharding.shard(h, "batch", None, "ff")
     return h @ p["w_down"]

@@ -157,7 +157,11 @@ def moe(x: Tensor, p: dict, cfg) -> tuple[Tensor, Tensor]:
     under a mesh whose ``batch`` axis divides them, each data shard's
     contiguous block of tokens routes on its own, under its own capacity
     (the reference's ``shard_map`` over 'data'); the aux loss stays over
-    all tokens."""
+    all tokens.  DTensor activations raise: the MoE's expert parallelism
+    on a ``DeviceMesh`` is not ported (ROADMAP A.2)."""
+    if sharding.is_dtensor(x):
+        raise NotImplementedError(f"{cfg.name}: the MoE layer on DTensors (expert "
+                                  f"parallelism on a DeviceMesh) is ROADMAP A.2's next step")
     b, sl, d = x.shape
     e = cfg.n_experts
     t = b * sl

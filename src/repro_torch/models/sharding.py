@@ -40,6 +40,18 @@ a placement that name other axes (the batch's ``data``) only split
 independent rows: every rank keeps those rows whole.  The per-data-shard
 MoE dispatch (``models/moe.py``) has no collective and runs its blocks
 stacked in one process on any mesh.
+
+SPMD on a ``DeviceMesh`` (the dense transformer's serving path):
+:func:`distribute_params` places a parameter tree as DTensors by
+:func:`param_placements`, each rank holding only its blocks; the
+models' :func:`shard` constraints then redistribute the activations
+(FSDP over ``data``, TP over ``model``), and :func:`spmd` lets the plain
+tensors a model makes (positions, masks) meet DTensors as replicated
+values.  :func:`local_map` runs a function on each rank's local blocks
+(the flash kernel, the decode's cache write) and wraps its result with
+the placement it was computed under; :func:`shard_map` takes DTensors
+too, one block per rank.  Plain tensors on a ``DeviceMesh`` (the
+collective regions above, training) keep their behaviour.
 """
 
 from __future__ import annotations
@@ -184,28 +196,51 @@ def _on_mesh(placement):
     return placement
 
 
-def shard(x, *logical_axes: str | None):
-    """Place ``x`` by logical axes; the identity without an active mesh.
-
-    Axes that do not evenly divide their dimension are dropped (a 4-way
-    kv-head dim on a 16-way model axis would otherwise force padded or
-    replicated layouts).  A DTensor is redistributed to the resolved
-    placement; a plain tensor is returned unchanged."""
-    mesh = get_mesh()
-    if mesh is None:
-        return x
-    sizes = mesh_shape(mesh)
-    resolved = []
-    for dim, logical in zip(x.shape, logical_axes):
+def resolve(shape, logical_axes) -> tuple:
+    """The placement tuple of logical axes for a tensor of ``shape`` on
+    the active mesh: axes that do not evenly divide their dimension, or
+    have size 1, are dropped (a 4-way kv-head dim on a 16-way model axis
+    would otherwise force padded or replicated layouts), as the
+    reference's ``shard`` drops them."""
+    sizes = mesh_shape(get_mesh())
+    out = []
+    for dim, logical in zip(shape, logical_axes):
         axis = get_rule(logical)
         size = axis_size(sizes, axis)
-        resolved.append(axis if (axis is not None and size > 1 and dim % size == 0)
-                        else None)
+        out.append(axis if (axis is not None and size > 1 and dim % size == 0) else None)
+    return tuple(out)
+
+
+def is_dtensor(x) -> bool:
     from torch.distributed.tensor import DTensor
 
-    if isinstance(x, DTensor) and _is_device_mesh(mesh):
-        return x.redistribute(mesh, dtensor_placements(mesh, tuple(resolved)))
-    return x
+    return isinstance(x, DTensor)
+
+
+def _redistribute(x, mesh, placements):
+    """``x`` (a DTensor) on ``placements``.  Partial mesh dims reduce
+    first, each to its target (a ``_MaskPartial``, the vocab-sharded
+    embedding's, always to ``Replicate``), then the shards move."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    cur = list(x.placements)
+    if any(p.is_partial() for p in cur):
+        mid = [(t if type(p) is Partial else Replicate()) if p.is_partial() else p
+               for p, t in zip(cur, placements)]
+        x = x.redistribute(mesh, mid)
+    if list(x.placements) == list(placements):
+        return x
+    return x.redistribute(mesh, placements)
+
+
+def shard(x, *logical_axes: str | None):
+    """Place ``x`` by logical axes (:func:`resolve`); the identity without
+    an active mesh.  A DTensor is redistributed to the resolved placement;
+    a plain tensor is returned unchanged."""
+    mesh = get_mesh()
+    if mesh is None or not is_dtensor(x) or not _is_device_mesh(mesh):
+        return x
+    return _redistribute(x, mesh, dtensor_placements(mesh, resolve(x.shape, logical_axes)))
 
 
 def named_sharding(*logical_axes: str | None):
@@ -284,6 +319,135 @@ def param_placements(params, cfg):
     is a ``DeviceMesh`` (the reference's ``params_shardings``)."""
     return _with_paths(
         lambda path, leaf: _on_mesh(pspec_for_param(path, tuple(leaf.shape), cfg)), params)
+
+
+# ---- SPMD on a DeviceMesh ------------------------------------------------------
+
+
+def _block_of(t, mesh, placements):
+    """This rank's block of the whole tensor ``t`` under DTensor
+    ``placements``: each sharded mesh dim, in mesh order, splits what the
+    earlier ones left (DTensor's layout)."""
+    from torch.distributed.tensor import Shard
+
+    coord = mesh.get_coordinate()
+    block = t
+    for i, pl in enumerate(placements):
+        if isinstance(pl, Shard):
+            block = block.chunk(mesh.size(i), dim=pl.dim)[coord[i]]
+    return block
+
+
+def _from_whole(t, mesh, placements):
+    """A DTensor holding this rank's block of ``t`` (a copy when the block
+    is a part, so the whole can be freed); no collective.  Every sharded
+    dimension divides evenly (:func:`resolve`, :func:`pspec_for_param`)."""
+    from torch.distributed.tensor import DTensor
+
+    block = _block_of(t, mesh, placements)
+    if block.shape != t.shape:
+        block = block.contiguous().clone()
+    return DTensor.from_local(block, mesh, placements, run_check=False)
+
+
+def distribute_params(params, cfg, convert=None):
+    """``params`` as DTensors on the active ``DeviceMesh``, each leaf placed
+    by :func:`param_placements` and each rank keeping only its blocks
+    (sliced from the whole leaf, which every rank holds: no collective).
+    ``convert`` (a leaf -> tensor function, applied first) lets the leaves
+    be anything with a shape, each converted only as it is placed.  The
+    identity with no mesh or on a :class:`MeshShape` (but for
+    ``convert``).  Only the dense transformer's constraints are ported
+    (ROADMAP A.2); any other family raises ``NotImplementedError`` rather
+    than run replicated."""
+    mesh = get_mesh()
+    if mesh is None or not _is_device_mesh(mesh):
+        return params if convert is None else _with_paths(lambda _, leaf: convert(leaf),
+                                                            params)
+    if cfg.family != "dense" or cfg.n_experts:
+        raise NotImplementedError(
+            f"{cfg.name} ({cfg.family}): SPMD on a DeviceMesh covers the dense transformer "
+            f"only; the MoE's expert parallelism and the other families' constraints are "
+            f"ROADMAP A.2's next steps")
+    placed = param_placements(params, cfg)
+
+    def place(path, leaf):
+        pl = placed
+        for k in path:
+            pl = pl[k]
+        return _from_whole(leaf if convert is None else convert(leaf), mesh, pl)
+
+    return _with_paths(place, params)
+
+
+def local_nbytes(tree) -> int:
+    """The bytes this rank holds of a tree of tensors or DTensors."""
+    if isinstance(tree, dict):
+        return sum(local_nbytes(v) for v in tree.values())
+    t = tree.to_local() if is_dtensor(tree) else tree
+    return t.numel() * t.element_size()
+
+
+def spmd(params):
+    """The context a model's entry point runs in: where ``params`` are
+    DTensors, plain tensors (tokens, positions, masks, scalars) meet them
+    as replicated values (``implicit_replication``); else nothing."""
+    leaf = params
+    while isinstance(leaf, dict):
+        leaf = next(iter(leaf.values()))
+    if not is_dtensor(leaf):
+        return contextlib.nullcontext()
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    return implicit_replication()
+
+
+def _as_placed(x, placement, mesh):
+    """``x`` (a DTensor, or a plain tensor every rank holds whole) as a
+    DTensor on the placement tuple ``placement``."""
+    target = dtensor_placements(mesh, placement)
+    if is_dtensor(x):
+        return _redistribute(x, mesh, target)
+    return _from_whole(x, mesh, target)
+
+
+def block_start(shape, placement, dim: int) -> int:
+    """Where this rank's block of dimension ``dim`` starts in the whole
+    tensor of ``shape`` under the placement tuple ``placement`` on the
+    active ``DeviceMesh`` (0 when the dimension is whole)."""
+    mesh = get_mesh()
+    names = list(mesh.mesh_dim_names)
+    coord = mesh.get_coordinate()
+    entry = (tuple(placement) + (None,) * len(shape))[dim]
+    idx, n = 0, 1
+    for i, name in enumerate(names):
+        if name in axis_names(entry):
+            idx, n = idx * mesh.size(i) + coord[i], n * mesh.size(i)
+    return idx * (int(shape[dim]) // n)
+
+
+def local_map(fn, in_axes, out_axes):
+    """``fn`` on each rank's local blocks.
+
+    ``in_axes`` holds logical axes for each argument: the argument (a
+    DTensor, or a plain tensor every rank holds whole) is placed by
+    :func:`resolve` and ``fn`` gets its local block.  ``fn``'s result, one
+    tensor with the whole shape of the first argument, is this rank's
+    block of a DTensor placed by ``out_axes`` (resolved against that
+    shape).  With no DTensor argument, or off a ``DeviceMesh``, ``fn``
+    runs on the arguments as they are."""
+    def run(*args):
+        mesh = get_mesh()
+        if mesh is None or not _is_device_mesh(mesh) or not any(map(is_dtensor, args)):
+            return fn(*args)
+        from torch.distributed.tensor import DTensor
+
+        local = [_as_placed(x, resolve(x.shape, axes), mesh).to_local()
+                 for x, axes in zip(args, in_axes)]
+        out = dtensor_placements(mesh, resolve(args[0].shape, out_axes))
+        return DTensor.from_local(fn(*local).contiguous(), mesh, out, run_check=False)
+
+    return run
 
 
 # ---- shard_map ---------------------------------------------------------------
@@ -503,9 +667,13 @@ def shard_map(fn, in_specs, out_specs, axis: str):
     are placement tuples: a dimension whose entry names ``axis`` is split
     into ``ax.size`` contiguous blocks, the others stay whole.  The
     returned function takes and returns global tensors; a replicated
-    output is shard 0's."""
+    output is shard 0's.  Given DTensors on a ``DeviceMesh``, every entry
+    splits (``data`` too) and the result is a DTensor
+    (:func:`_shard_map_blocks`)."""
     def run(*args):
         mesh = get_mesh()
+        if _is_device_mesh(mesh) and any(map(is_dtensor, args)):
+            return _shard_map_blocks(fn, args, in_specs, out_specs, axis, mesh)
         if _is_device_mesh(mesh):
             ax = GroupAxis(mesh, axis)
         else:
@@ -514,3 +682,29 @@ def shard_map(fn, in_specs, out_specs, axis: str):
         return ax.leave(fn(ax, *blocks), _axis_dim(out_specs, axis))
 
     return run
+
+
+def _shard_map_blocks(fn, args, in_specs, out_specs, axis: str, mesh):
+    """:func:`shard_map` on DTensor arguments (plain ones are every rank's
+    whole copy): each argument is placed by its spec, entries that do not
+    divide their dimension dropped, and ``fn`` gets this rank's block
+    (a leading dimension of 1) and the ``axis`` group's handle; its
+    result is this rank's block of a DTensor placed by ``out_specs``
+    (less the axes an input dropped)."""
+    from torch.distributed.tensor import DTensor
+
+    sizes = mesh_shape(mesh)
+    dropped: set[str] = set()
+    blocks = []
+    for x, spec in zip(args, in_specs):
+        fitted = []
+        for dim, entry in zip(x.shape, tuple(spec) + (None,) * (x.dim() - len(spec))):
+            n = axis_size(sizes, entry)
+            if n > 1 and dim % n:
+                dropped.update(axis_names(entry))
+            fitted.append(entry if n > 1 and dim % n == 0 else None)
+        blocks.append(_as_placed(x, tuple(fitted), mesh).to_local().unsqueeze(0))
+    y = fn(GroupAxis(mesh, axis), *blocks)[0].contiguous()
+    out = tuple(None if entry is None or axis_size(sizes, entry) == 1
+                or dropped & set(axis_names(entry)) else entry for entry in out_specs)
+    return DTensor.from_local(y, mesh, dtensor_placements(mesh, out), run_check=False)

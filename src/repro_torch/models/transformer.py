@@ -23,6 +23,14 @@ at a time: ``"full"`` recomputes each group in the backward pass
 (``torch.utils.checkpoint``, non-reentrant), ``"selective"`` keeps the
 group's matmuls without batch dims (the projections) and recomputes the
 rest, ``"none"`` keeps everything.
+
+On a ``DeviceMesh`` with DTensor parameters (``sharding.
+distribute_params``) the dense family runs as SPMD, as the reference runs
+under a mesh: the entry points run under ``sharding.spmd`` and the
+reference's ``shard`` constraints sit at its sites (the embedding, each
+block's residual, the serve layer, the prefill cache, the vocab-sharded
+logits).  The embedding table stays vocab-sharded: a lookup is a masked
+partial sum over the vocab shards.
 """
 
 from __future__ import annotations
@@ -34,7 +42,7 @@ import torch
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.device import resolve_device
-from repro_torch.models import attention, mlp, moe
+from repro_torch.models import attention, mlp, moe, sharding
 from repro_torch.models.common import (
     arange_positions,
     const_init,
@@ -125,7 +133,8 @@ def _dense_block(x, blk, cfg, positions):
     h = rms_norm(x, blk["attn_norm"], cfg.norm_eps)
     x = x + attention.full_attention(h, blk["attn"], cfg, positions)
     h = rms_norm(x, blk["mlp_norm"], cfg.norm_eps)
-    return x + mlp.mlp(h, blk["mlp"], cfg.mlp_kind)
+    x = x + mlp.mlp(h, blk["mlp"], cfg.mlp_kind)
+    return sharding.shard(x, "batch", "residual", None)
 
 
 def _moe_block(x, blk, cfg, positions):
@@ -193,21 +202,34 @@ def _scale_embed(x, cfg):
     return x
 
 
+def _lookup(table, tokens):
+    """The rows of ``tokens`` in the embedding table.  A DTensor table is
+    read by ``F.embedding``, which keeps it vocab-sharded (a masked
+    partial sum, reduced by the constraint after it) where an index
+    would gather it; its rows are placed on the batch."""
+    if not sharding.is_dtensor(table):
+        return table[tokens.long()]
+    x = torch.nn.functional.embedding(tokens.long(), table)
+    return sharding.shard(x, "batch", None, None)
+
+
 def embed_tokens(params, cfg, tokens, batch):
     """(B, S, D) embeddings; with the VLM prefix, the projected
     ``vis_embeds`` first and the tokens cut to keep S positions."""
-    x = params["embed"][tokens.long()]
+    x = _lookup(params["embed"], tokens)
     if cfg.n_vis_tokens and "vis_embeds" in batch:
         vis = batch["vis_embeds"].to(x.dtype) @ params["vis_proj"]
         x = torch.cat([vis, x[:, : x.shape[1] - vis.shape[1]]], dim=1)
-    return _scale_embed(x, cfg)
+    return sharding.shard(_scale_embed(x, cfg), "batch", None, None)
 
 
 def lm_logits(params, cfg, x):
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if cfg.tie_embeddings:
-        return x @ params["embed"].T
-    return x @ params["lm_head"]
+        logits = x @ params["embed"].T
+    else:
+        logits = x @ params["lm_head"]
+    return sharding.shard(logits, "batch", None, "vocab")
 
 
 # ---- public entry points ----------------------------------------------------
@@ -216,9 +238,10 @@ def lm_logits(params, cfg, x):
 def forward(params, cfg, batch) -> tuple[Tensor, Tensor]:
     tokens = batch["tokens"]
     b, s = tokens.shape
-    x = embed_tokens(params, cfg, tokens, batch)
-    x, aux = backbone(params, cfg, x, arange_positions(b, s, tokens.device))
-    return lm_logits(params, cfg, x), aux
+    with sharding.spmd(params):
+        x = embed_tokens(params, cfg, tokens, batch)
+        x, aux = backbone(params, cfg, x, arange_positions(b, s, tokens.device))
+        return lm_logits(params, cfg, x), aux
 
 
 def loss_fn(params, cfg, batch) -> tuple[Tensor, dict]:
@@ -253,7 +276,8 @@ def _serve_layer(x, blk, cfg, attend):
     if "moe" in blk:
         y, _ = moe.moe(h, blk["moe"], cfg)
         return x + y, k, v
-    return x + mlp.mlp(h, blk["mlp"], cfg.mlp_kind), k, v
+    x = x + mlp.mlp(h, blk["mlp"], cfg.mlp_kind)
+    return sharding.shard(x, "batch", None, None), k, v
 
 
 def _serve_layers(params, cfg):
@@ -265,6 +289,11 @@ def _serve_layers(params, cfg):
 def prefill(params, cfg, batch) -> tuple[Tensor, dict]:
     """Full-sequence prefill; returns (last-position logits, filled cache
     padded to ``batch["max_seq"]``)."""
+    with sharding.spmd(params):
+        return _prefill(params, cfg, batch)
+
+
+def _prefill(params, cfg, batch):
     tokens = batch["tokens"]
     b, s = tokens.shape
     positions = arange_positions(b, s, tokens.device)
@@ -285,8 +314,8 @@ def prefill(params, cfg, batch) -> tuple[Tensor, dict]:
         k_stack = torch.nn.functional.pad(k_stack, (0, 0, 0, 0, 0, pad))
         v_stack = torch.nn.functional.pad(v_stack, (0, 0, 0, 0, 0, pad))
     cache = {
-        "k": k_stack,
-        "v": v_stack,
+        "k": sharding.shard(k_stack, None, "batch", "kv_seq", None, None),
+        "v": sharding.shard(v_stack, None, "batch", "kv_seq", None, None),
         "pos": torch.tensor(s, dtype=torch.int32, device=tokens.device),
     }
     return lm_logits(params, cfg, x[:, -1:, :]), cache
@@ -294,8 +323,13 @@ def prefill(params, cfg, batch) -> tuple[Tensor, dict]:
 
 def decode_step(params, cfg, cache, tokens) -> tuple[Tensor, dict]:
     """One token for every sequence.  tokens: (B, 1)."""
+    with sharding.spmd(params):
+        return _decode_step(params, cfg, cache, tokens)
+
+
+def _decode_step(params, cfg, cache, tokens):
     pos = cache["pos"]
-    x = _scale_embed(params["embed"][tokens.long()], cfg)
+    x = _scale_embed(_lookup(params["embed"], tokens), cfg)
     nks, nvs = [], []
     for li, blk in enumerate(_serve_layers(params, cfg)):
         def attend(h, p, li=li):

@@ -40,6 +40,7 @@ import torch
 from repro_torch.core.consistency import ConsistencyLevel
 from repro_torch.core.replicated_store import ReplicatedStore
 from repro_torch.device import resolve_device
+from repro_torch.models import sharding
 from repro_torch.obs.metrics import HostHistogram
 
 
@@ -143,6 +144,8 @@ class ServingEngine:
         self.timeouts = 0
         self.downgrades = 0
         self.retry_wait_ms = 0.0
+        # Vocab-sharded logits gathered for the greedy argmax (SPMD only).
+        self.logit_gathers = 0
         # Liveness: a down replica is inadmissible for every session; a
         # rebuilding one is reachable but serves nothing.
         self.replica_up = np.ones(max_replicas, bool)
@@ -691,13 +694,23 @@ class ServingEngine:
         on the bound replica.  Returns ``(tokens (B, n_tokens) int32,
         replica)``."""
         logits, cache, r = self.prefill(session, batch, preferred)
-        tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+        tok = self._greedy(logits)
         out = [tok]
         for _ in range(n_tokens - 1):
             logits, cache = self.decode(session, cache, tok, r)
-            tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+            tok = self._greedy(logits)
             out.append(tok)
         return torch.cat(out, dim=1), r
+
+    def _greedy(self, logits):
+        """(B, 1) int32 argmax of the last position.  Vocab-sharded DTensor
+        logits (SPMD on a ``DeviceMesh``) are gathered first, once per
+        token (``logit_gathers``)."""
+        last = logits[:, -1]
+        if sharding.is_dtensor(last):
+            last = last.full_tensor()
+            self.logit_gathers += 1
+        return torch.argmax(last, dim=-1)[:, None].to(torch.int32)
 
     # -- metrics -----------------------------------------------------------------
 

@@ -23,6 +23,7 @@ from repro_torch.policy import sla as tsla
 from repro_torch.storage import simulator as tsim
 from repro_torch.storage import ycsb as ty
 
+from torch_jax_cache import compile_cache  # noqa: F401  (autouse)
 from torch_port_helpers import CPU, adaptive_mismatches, jlevel, reference_draws
 
 torch.set_num_threads(1)

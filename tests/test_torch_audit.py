@@ -18,6 +18,7 @@ from repro_torch.core import audit as taudit
 from repro_torch.kernels import ops
 from repro_torch.kernels import vclock_audit as va
 
+from torch_jax_cache import compile_cache  # noqa: F401  (autouse)
 from torch_port_helpers import AUDIT_MIXES as MIXES, CPU, as_np, audit_mix, jax_to_numpy
 
 torch.set_num_threads(1)

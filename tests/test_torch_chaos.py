@@ -16,6 +16,7 @@ from repro_torch.core.consistency import ConsistencyLevel as TL
 from repro_torch.obs import trace
 from repro_torch.obs.metrics import ObsConfig
 
+from torch_jax_cache import compile_cache  # noqa: F401  (autouse)
 from torch_port_helpers import CPU
 
 torch.set_num_threads(1)

@@ -24,6 +24,7 @@ from repro_torch.core.consistency import ConsistencyLevel as TL
 from repro_torch.engine.config import EngineConfig
 from repro_torch.storage.cluster import ClusterConfig as TCluster
 
+from torch_jax_cache import compile_cache  # noqa: F401  (autouse)
 from torch_port_helpers import CPU, as_np, assert_tree_equal, jax_to_numpy, jlevel
 
 torch.set_num_threads(1)

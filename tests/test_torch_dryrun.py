@@ -22,6 +22,8 @@ from repro_torch.launch.train import train_state_bytes
 from repro_torch.models import abstract_params, build_model, moe
 from repro_torch.models.sharding import MeshShape
 
+from torch_jax_cache import compile_cache  # noqa: F401  (autouse)
+
 torch.set_num_threads(1)
 
 

@@ -29,6 +29,7 @@ from repro_torch.storage import simulator as tsim
 from repro_torch.storage import ycsb as tycsb
 
 from test_torch_xstcc import C, P, R, _ops
+from torch_jax_cache import compile_cache  # noqa: F401  (autouse)
 from torch_port_helpers import CPU, as_np, assert_tree_equal, jax_to_numpy, tlevel
 
 torch.set_num_threads(1)

@@ -15,6 +15,8 @@ from repro.kernels.ref import flash_attention_ref as jax_ref
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 
+from torch_jax_cache import compile_cache  # noqa: F401  (autouse)
+
 torch.set_num_threads(1)
 
 # (b, h, hkv, s, hd, causal, window, dtype): the shapes of the reference's

@@ -36,6 +36,7 @@ from repro_torch.obs import metrics as tobs
 from repro_torch.storage import simulator as tsim
 from repro_torch.storage.ycsb import WORKLOAD_A
 
+from torch_jax_cache import compile_cache  # noqa: F401  (autouse)
 from torch_port_helpers import (CPU, assert_tree_equal, geo_mismatches,
                                 jax_to_numpy, jlevel)
 

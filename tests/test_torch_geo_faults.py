@@ -31,6 +31,7 @@ from repro_torch.gossip.scheduler import GossipConfig
 from repro_torch.obs.metrics import ObsConfig
 from repro_torch.storage.ycsb import WORKLOAD_A
 
+from torch_jax_cache import compile_cache  # noqa: F401  (autouse)
 from torch_port_helpers import CPU, geo_mismatches, jlevel
 
 torch.set_num_threads(1)

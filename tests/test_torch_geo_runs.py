@@ -19,6 +19,7 @@ from repro_torch.core.consistency import EVAL_LEVELS
 from repro_torch.storage import simulator as tsim
 from repro_torch.storage.ycsb import WORKLOAD_A
 
+from torch_jax_cache import compile_cache  # noqa: F401  (autouse)
 from torch_port_helpers import CPU, geo_mismatches, jlevel
 
 torch.set_num_threads(1)

@@ -1122,3 +1122,60 @@ def test_stacked_ring_forward_on_the_card(cuda):
     assert calls == {"ring": cfg.n_layers, "lse": 0}
     torch.testing.assert_close(ring, plain, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(ring.cpu(), cpu, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_nccl_one_rank_spmd_flash_wrapper(cuda, dtype):
+    """A (1, 1) mesh over an NCCL group of one rank, reduced gemma-2b's
+    parameters as DTensors: B.8's local-shard wrapper
+    (``attention.flash_attention_spmd``) on the DTensor q/k/v launches the
+    kernel once and equals the kernel on the plain tensors bit for bit,
+    and the plain attention within B.8's contract; the model's flash
+    forward on the DTensors launches it once per layer and equals the
+    plain flash forward bit for bit."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import attention, build_model, common, sharding, transformer
+
+    cfg = dataclasses.replace(reduced(get_config("gemma-2b")), dtype=dtype,
+                              use_flash_kernel=True)
+    model = build_model(cfg)
+    params = model.init(0, device=cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, 64), generator=torch.Generator().manual_seed(3),
+                         dtype=torch.int32).to(cuda)
+    pos = common.arange_positions(2, 64, cuda)
+    blk = common.layer(params["dense_blocks"], 0, 0)
+    tol = 2e-2 if dtype == "bfloat16" else 2e-5
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        with torch.no_grad():
+            x = transformer.embed_tokens(params, cfg, toks, {})
+            q, k, v = attention._project_qkv(x, blk["attn"], cfg, pos, flash=True)
+            want = ops.flash_attention(q, k, v, causal=True, block_q=64, block_k=64)
+            plain_attn = attention._attend_block(q, k, v, cfg, pos, pos, True)
+            plain_fwd = model.forward(params, {"tokens": toks})[0]
+            with sharding.use_mesh(mesh):
+                placed = sharding.distribute_params(params, cfg)
+                with sharding.spmd(placed):
+                    xd = transformer.embed_tokens(placed, cfg, toks, {})
+                    qd, kd, vd = attention._project_qkv(xd, common.layer(
+                        placed["dense_blocks"], 0, 0)["attn"], cfg, pos, flash=True)
+                    ops.reset_launch_counts()
+                    got = attention.flash_attention_spmd(qd, kd, vd, cfg)
+                    one = ops.launch_counts()["flash_attention"]
+                ops.reset_launch_counts()
+                fwd = model.forward(placed, {"tokens": toks})[0]
+                per_forward = ops.launch_counts()["flash_attention"]
+            torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    assert sharding.is_dtensor(got) and (one, per_forward) == (1, cfg.n_layers)
+    assert torch.equal(got.full_tensor(), want)
+    torch.testing.assert_close(got.full_tensor().float(), plain_attn.float(), atol=tol, rtol=tol)
+    assert torch.equal(fwd.full_tensor(), plain_fwd)

@@ -15,6 +15,8 @@ from repro.kernels import histogram as jhg
 from repro_torch.kernels import histogram as thg
 from repro_torch.kernels import ops
 
+from torch_jax_cache import compile_cache  # noqa: F401  (autouse)
+
 torch.set_num_threads(1)
 
 

@@ -6,6 +6,12 @@ both of the port's modes: every shard stacked in this process under a
 ``MeshShape``, and one shard per rank of a spawned gloo group (worlds 4
 and 2) under a ``DeviceMesh``.
 
+The dense transformer served as SPMD (the ``spmd`` cases, in the same
+subprocess and gloo groups): DTensor parameters placed by the
+reference's rules on a (1, 2) "tp", a (2, 1) FSDP and a (2, 2) "dp"
+mesh, held against the reference under the same mesh and against the
+port with no mesh.
+
 Tolerances: logits atol = rtol = 1e-5 (f32; the ring and the combine add
 in other orders than the plain attention, as they do in the reference);
 one step's gradients rtol 1e-4, atol 1e-6, the families' rule.  Every
@@ -19,6 +25,7 @@ import pytest
 import torch
 from jax.sharding import AbstractMesh
 
+from torch_jax_cache import compile_cache  # noqa: F401  (autouse)
 import torch_mesh_cases as mc
 from repro.configs import get_config as j_get_config
 from repro.configs import reduced as j_reduced
@@ -34,8 +41,10 @@ GRAD_TOL = dict(rtol=1e-4, atol=1e-6)
 CASES = mc.CASES[PART]
 RING = [c for c in CASES if c["kind"] == "ring"]
 DECODE = [c for c in CASES if c["kind"] == "decode"]
+SPMD = [c for c in CASES if c["kind"] == "spmd"]
+B8_TOL = dict(atol=2e-5, rtol=2e-5)       # B.8's f32 contract
 # The gloo groups: world size -> the meshes run on it.
-WORLDS = {4: (mc.M22, mc.M14), 2: (mc.M12,)}
+WORLDS = {4: (mc.M22, mc.M14), 2: (mc.M12, mc.M21)}
 MODES = ("stacked", "gloo")
 
 torch.set_num_threads(1)
@@ -82,6 +91,87 @@ def test_lse_decode_logits(runs, case, mode):
     # Every decode step's attention went through the combine; with a cache
     # length the axis does not divide, none did (the reference's _decode_xla).
     assert int(got["calls/lse"]) == case["lse"] * case["steps"]
+
+
+# ---- the dense transformer as SPMD on a DeviceMesh ------------------------------------
+
+
+def _spmd_runs(runs, case):
+    """(the gloo ranks' outputs, the reference's, the port's with no mesh)."""
+    got, want = mc.outputs(runs, case, "gloo")
+    plain, _ = mc.outputs(runs, case, "stacked")
+    return got, want, plain
+
+
+def _dp_ring(case) -> bool:
+    cfg = mc.port_config(case["cfg"])
+    m = case["mesh"]["model"]
+    return m > 1 and (cfg.n_heads % m or cfg.n_kv_heads % m)
+
+
+@pytest.mark.parametrize("case", SPMD, ids=mc.case_ids(SPMD))
+def test_spmd_logits_match_reference_and_plain_port(runs, case):
+    """forward, the prompt's prefill and every decode step's logits, with
+    DTensor parameters, against the reference under the same mesh and the
+    port with no mesh (atol = rtol = 1e-5: the TP out-projections add
+    partial sums in another order)."""
+    got, want, plain = _spmd_runs(runs, case)
+    for key in ("forward", "prefill", "decode"):
+        assert got[key].shape == want[key].shape == plain[key].shape, key
+        np.testing.assert_allclose(got[key], want[key], err_msg=key, **TOL)
+        np.testing.assert_allclose(got[key], plain[key], err_msg=key, **TOL)
+    # "dp" mode runs the ring over the model axis in forward and both prefills.
+    n = mc.port_config(case["cfg"]).n_layers
+    assert int(got["calls/ring"]) == (3 * n if _dp_ring(case) else 0)
+    assert int(plain["calls/ring"]) == int(got["calls/lse"]) == 0
+
+
+@pytest.mark.parametrize("case", SPMD, ids=mc.case_ids(SPMD))
+def test_spmd_generate_tokens_equal_plain(runs, case):
+    """Greedy ``generate`` through ``ServingEngine`` gives the port's
+    no-mesh tokens exactly, with one gather of the vocab-sharded logits
+    per token."""
+    got, _, plain = _spmd_runs(runs, case)
+    assert got["generate"].shape == (case["b"], case["gen"])
+    np.testing.assert_array_equal(got["generate"], plain["generate"])
+    assert int(got["logit_gathers"]) == case["gen"]
+    assert int(plain["logit_gathers"]) == 0
+
+
+@pytest.mark.parametrize("case", SPMD, ids=mc.case_ids(SPMD))
+def test_spmd_rank_holds_only_its_shards(runs, case):
+    """Each rank's parameter bytes are the sum of its leaves' shard shapes
+    (``sharding.shard_shape`` of ``pspec_for_param``), less than the whole
+    tree's on every mesh here (an axis exceeds 1)."""
+    got, _, _ = _spmd_runs(runs, case)
+    local, shards, whole = (int(x) for x in got["bytes"])
+    assert local == shards < whole
+
+
+@pytest.mark.parametrize("case", SPMD, ids=mc.case_ids(SPMD))
+def test_spmd_flash_wrapper_on_local_shards(runs, case):
+    """B.8's wrapper (its plain version on the CPU) on each rank's local
+    block: the local heads in "tp" mode, the local batch rows otherwise,
+    one call per layer per forward; its output against the plain attention
+    on the same DTensors, and the flash forward's logits against the
+    port's flash forward with no mesh."""
+    got, _, plain = _spmd_runs(runs, case)
+    cfg = mc.port_config(case["cfg"])
+    np.testing.assert_allclose(got["b8_wrapper"], got["b8_plain"], **B8_TOL)
+    np.testing.assert_allclose(got["flash_forward"], plain["flash_forward"], **TOL)
+    assert int(got["flash_calls"]) == int(plain["flash_calls"]) == cfg.n_layers
+    d, m = case["mesh"]["data"], case["mesh"]["model"]
+    heads = cfg.n_heads if _dp_ring(case) else cfg.n_heads // m
+    assert tuple(got["flash_q_shape"]) == (case["b"] // d, case["s"], heads, cfg.head_dim)
+    assert tuple(plain["flash_q_shape"]) == (case["b"], case["s"], cfg.n_heads, cfg.head_dim)
+
+
+def test_moe_config_refuses_device_mesh(runs):
+    """``distribute_params`` of a MoE configuration on a ``DeviceMesh``
+    raises ``NotImplementedError`` instead of running replicated."""
+    for case in SPMD:
+        got, _, _ = _spmd_runs(runs, case)
+        assert int(got["moe_refused"]) == 1, case["id"]
 
 
 # ---- the port's own rules, against the reference's where it has them ---------------

@@ -22,6 +22,7 @@ import pytest
 import torch
 from jax.sharding import AbstractMesh
 
+from torch_jax_cache import compile_cache  # noqa: F401  (autouse)
 import torch_mesh_cases as mc
 from repro.models import moe as j_moe
 from repro.models import sharding as j_sharding

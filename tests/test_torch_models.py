@@ -31,6 +31,8 @@ from repro_torch.models import build_model as t_build
 from repro_torch.models import common as t_common
 from repro_torch.models import mlp as t_mlp
 
+from torch_jax_cache import compile_cache  # noqa: F401  (autouse)
+
 torch.set_num_threads(1)
 TOL = dict(atol=1e-5, rtol=1e-5)
 

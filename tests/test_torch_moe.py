@@ -23,6 +23,7 @@ from repro_torch.models import moe as t_moe
 from repro_torch.models import transformer as t_tr
 from torch_family_ref import (both, cfgs, check_decode_matches_forward, check_generate,
                               check_layout, check_model, close, np_params)
+from torch_jax_cache import compile_cache  # noqa: F401  (autouse)
 
 torch.set_num_threads(1)
 

@@ -31,6 +31,7 @@ from repro_torch.obs import metrics as tobs
 from repro_torch.storage import simulator as tsim
 from repro_torch.storage import ycsb as tycsb
 
+from torch_jax_cache import compile_cache  # noqa: F401  (autouse)
 from torch_port_helpers import CPU
 
 torch.set_num_threads(1)

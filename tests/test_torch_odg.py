@@ -33,6 +33,7 @@ from repro_torch.kernels import ops as tops
 from repro_torch.storage import simulator as tsim
 from repro_torch.storage import ycsb as tycsb
 
+from torch_jax_cache import compile_cache  # noqa: F401  (autouse)
 from torch_port_helpers import CPU, as_np, assert_tree_equal, jax_to_numpy
 
 torch.set_num_threads(1)

@@ -11,6 +11,8 @@ from repro.kernels.ref import op_ingest_ref as j_ref
 from repro_torch.kernels import op_ingest as oi
 from repro_torch.kernels import ops
 
+from torch_jax_cache import compile_cache  # noqa: F401  (autouse)
+
 torch.set_num_threads(1)
 
 CADENCES = ("scalar", "apply0", "emulated_pending")

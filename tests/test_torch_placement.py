@@ -26,6 +26,7 @@ from repro_torch.kernels import fp, ops
 from repro_torch.kernels import placement_score as tps
 from repro_torch.policy import sla as tsla
 
+from torch_jax_cache import compile_cache  # noqa: F401  (autouse)
 from torch_port_helpers import CPU
 
 torch.set_num_threads(1)

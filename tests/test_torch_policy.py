@@ -30,6 +30,7 @@ from repro_torch.obs import metrics as tmetrics
 from repro_torch.policy import controller as tctl
 from repro_torch.policy import sla as tsla
 
+from torch_jax_cache import compile_cache  # noqa: F401  (autouse)
 from torch_port_helpers import CPU, policy_inputs
 
 torch.set_num_threads(1)

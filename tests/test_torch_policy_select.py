@@ -21,6 +21,7 @@ from repro_torch.kernels import policy_score as tps
 from repro_torch.policy import controller as tctl
 from repro_torch.policy import sla as tsla
 
+from torch_jax_cache import compile_cache  # noqa: F401  (autouse)
 from torch_port_helpers import CPU, f32_same, select_inputs
 
 torch.set_num_threads(1)

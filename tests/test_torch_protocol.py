@@ -18,6 +18,7 @@ from repro_torch.engine.replay import EpochEngine as TEngine
 from repro_torch.storage import simulator as tsim
 from repro_torch.storage import ycsb as tycsb
 
+from torch_jax_cache import compile_cache  # noqa: F401  (autouse)
 from torch_port_helpers import CPU, jlevel
 
 torch.set_num_threads(1)

@@ -32,6 +32,7 @@ from repro_torch.storage import simulator as tsim
 from repro_torch.storage.ycsb import WORKLOAD_A
 
 from test_torch_xstcc import C, P, _ops
+from torch_jax_cache import compile_cache  # noqa: F401  (autouse)
 from torch_port_helpers import CPU, as_np, assert_tree_equal, jax_to_numpy, jlevel
 
 torch.set_num_threads(1)

@@ -20,6 +20,8 @@ from repro_torch.launch import roofline as trl
 from repro_torch.models import abstract_params, build_model, sharding
 from repro_torch.sync import SyncEngine
 
+from torch_jax_cache import compile_cache  # noqa: F401  (autouse)
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 ARCHS = list_archs()
 KINDS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all", "collective-permute")

@@ -32,6 +32,7 @@ from repro_torch.runtime import (FailurePolicy, NodeHealth, PartialRestoreError,
                                  elastic, schedule_from_snapshots)
 from repro_torch.tree import leaves
 
+from torch_jax_cache import compile_cache  # noqa: F401  (autouse)
 from torch_port_helpers import as_np, port_trainer
 
 torch.set_num_threads(1)

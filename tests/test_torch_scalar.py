@@ -23,6 +23,7 @@ from repro_torch.storage import simulator as tsim
 from repro_torch.storage.ycsb import WORKLOAD_A as TA
 from repro_torch.storage.ycsb import WORKLOAD_B as TB
 
+from torch_jax_cache import compile_cache  # noqa: F401  (autouse)
 from torch_port_helpers import CPU, as_np, assert_tree_equal, jax_to_numpy
 
 torch.set_num_threads(1)

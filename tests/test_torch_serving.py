@@ -15,6 +15,7 @@ from repro.runtime import NodeHealth
 from repro_torch.core.consistency import ConsistencyLevel as TL
 from repro_torch.serve import engine as tserve
 
+from torch_jax_cache import compile_cache  # noqa: F401  (autouse)
 from torch_port_helpers import attempt
 from torch_serving_harness import NullModel, run_both
 

@@ -24,6 +24,7 @@ from repro_torch.policy import controller as tctl
 from repro_torch.policy import sla as tsla
 from repro_torch.serve import engine as tserve
 
+from torch_jax_cache import compile_cache  # noqa: F401  (autouse)
 from torch_port_helpers import CPU, plain, reference_draws, serving_script
 from torch_serving_harness import NullModel, Side, run_both
 

@@ -15,6 +15,7 @@ from repro_torch import convert
 from repro_torch.geo import topology as ttopo
 from repro_torch.serve import engine as tserve
 
+from torch_jax_cache import compile_cache  # noqa: F401  (autouse)
 from torch_port_helpers import CPU, attempt, jax_to_numpy, plain, router_script
 from torch_serving_harness import NullModel, Side, run_both, snapshot
 

@@ -24,6 +24,7 @@ from repro_torch.core.consistency import ConsistencyLevel
 from repro_torch.launch import serve as t_serve
 from repro_torch.models import build_model
 from repro_torch.serve import ServeSession, ServingEngine
+from torch_jax_cache import compile_cache  # noqa: F401  (autouse)
 from torch_port_helpers import (MODEL_SERVING, model_serving_counters,
                                 model_serving_script)
 

@@ -23,6 +23,7 @@ from repro_torch.core.replicated_store import ReplicatedStore as TStore
 from repro_torch.kernels import ops
 from repro_torch.kernels import session_floor as tsf
 
+from torch_jax_cache import compile_cache  # noqa: F401  (autouse)
 from torch_port_helpers import CPU, as_np, assert_tree_equal, jax_to_numpy
 
 torch.set_num_threads(1)

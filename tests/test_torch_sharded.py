@@ -36,6 +36,7 @@ from repro_torch.obs.metrics import ObsConfig
 from repro_torch.storage import simulator as tsim
 from repro_torch.storage.ycsb import WORKLOAD_A as TA
 
+from torch_jax_cache import compile_cache  # noqa: F401  (autouse)
 from torch_port_helpers import CPU, as_np, assert_tree_equal
 
 torch.set_num_threads(1)

@@ -29,6 +29,8 @@ from repro_torch.models import abstract_params, build_model
 from repro_torch.models import sharding
 from repro_torch.models.attention import attn_parallel_mode
 
+from torch_jax_cache import compile_cache  # noqa: F401  (autouse)
+
 torch.set_num_threads(1)
 
 ARCHS = list_archs()

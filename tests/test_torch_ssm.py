@@ -28,6 +28,7 @@ from repro_torch.models import mamba2 as t_mamba2
 from repro_torch.models import rwkv6 as t_rwkv6
 from torch_family_ref import (both, cfgs, check_decode_matches_forward, check_generate,
                               check_layout, check_model, close, close_tree, np_params)
+from torch_jax_cache import compile_cache  # noqa: F401  (autouse)
 
 torch.set_num_threads(1)
 

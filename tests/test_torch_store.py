@@ -11,6 +11,7 @@ from repro.core.replicated_store import ReplicatedStore as JStore
 from repro_torch.core.replicated_store import ReplicatedStore as TStore
 
 from test_torch_xstcc import C, P, Q, R, _batch_result_equal, _ops
+from torch_jax_cache import compile_cache  # noqa: F401  (autouse)
 from torch_port_helpers import CPU, assert_tree_equal, tlevel
 
 torch.set_num_threads(1)

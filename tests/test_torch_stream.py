@@ -14,6 +14,7 @@ from repro_torch.core.replicated_store import merge_cadence
 from repro_torch.engine import stream as tstream
 from repro_torch.storage import ycsb as tycsb
 
+from torch_jax_cache import compile_cache  # noqa: F401  (autouse)
 from torch_port_helpers import jlevel
 
 torch.set_num_threads(1)

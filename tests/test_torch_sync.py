@@ -27,6 +27,7 @@ from repro_torch.core import cost_model as tcost
 from repro_torch.sync import compression as tcomp
 from repro_torch.sync.engine import SyncEngine as TEngine
 
+from torch_jax_cache import compile_cache  # noqa: F401  (autouse)
 from torch_port_helpers import as_np, assert_tree_equal
 
 torch.set_num_threads(1)

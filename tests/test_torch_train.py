@@ -48,6 +48,7 @@ from repro_torch.optim import adamw
 from repro_torch.train import split_batch_for_pods, stack_for_pods
 from repro_torch.tree import items, leaves
 
+from torch_jax_cache import compile_cache  # noqa: F401  (autouse)
 from torch_port_helpers import (TRAIN_CASES, as_np, assert_tree_equal, port_trainer,
                                 train_case_id)
 

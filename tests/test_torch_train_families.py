@@ -23,6 +23,7 @@ from repro_torch.optim import AdamWConfig
 from repro_torch.train import make_train_fns, split_batch_for_pods
 from repro_torch.tree import leaves
 from torch_family_ref import reference_family_run
+from torch_jax_cache import compile_cache  # noqa: F401  (autouse)
 from torch_port_helpers import (FAMILY_ARCHS, FAMILY_TRAIN_CASE, family_inputs,
                                 family_trainer, torch_batch)
 

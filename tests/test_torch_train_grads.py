@@ -17,6 +17,7 @@ import torch
 from repro_torch.models import moe as t_moe
 from torch_family_ref import (all_finite, assert_grads_close, cfgs, np_params, port_grads,
                               reference_grads)
+from torch_jax_cache import compile_cache  # noqa: F401  (autouse)
 from torch_port_helpers import family_inputs
 
 torch.set_num_threads(1)

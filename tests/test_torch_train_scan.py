@@ -27,6 +27,7 @@ from repro_torch.models import build_model
 from repro_torch.models import mamba2 as t_mamba2
 from torch_family_ref import (all_finite, assert_grads_close, both, cfgs, close, np_params,
                               port_grads, reference_grads)
+from torch_jax_cache import compile_cache  # noqa: F401  (autouse)
 from torch_port_helpers import family_inputs, torch_batch
 
 torch.set_num_threads(1)

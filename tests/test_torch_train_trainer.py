@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.convert import params_from_numpy
 from torch_family_ref import reference_family_run
+from torch_jax_cache import compile_cache  # noqa: F401  (autouse)
 from torch_port_helpers import as_np, assert_tree_equal, family_trainer
 
 torch.set_num_threads(1)

@@ -15,6 +15,7 @@ import torch
 from repro.core import xstcc as jx
 from repro_torch.kernels import vclock_chain as vch
 
+from torch_jax_cache import compile_cache  # noqa: F401  (autouse)
 from torch_port_helpers import CHAIN_MIXES, as_np, chain_mix
 
 torch.set_num_threads(1)

@@ -14,6 +14,7 @@ from repro_torch import convert
 from repro_torch.core import xstcc as tx
 from repro_torch.kernels import ops
 
+from torch_jax_cache import compile_cache  # noqa: F401  (autouse)
 from torch_port_helpers import CPU, as_np, assert_tree_equal, jax_to_numpy
 
 torch.set_num_threads(1)

@@ -15,7 +15,15 @@ entry points it drives:
     ``decode_comm="lse_shardmap"``, every step's logits;
   * ``moe``: the first MoE layer's output, aux loss and each data
     shard's routing at T = 4096 tokens, the model's logits (and with
-    ``grad`` one step's gradients).
+    ``grad`` one step's gradients);
+  * ``spmd``: the dense transformer as SPMD on a ``DeviceMesh`` with
+    DTensor parameters (``sharding.distribute_params``): ``forward``, the
+    prompt's ``prefill`` and ``steps`` decode steps' logits, a greedy
+    ``generate`` through ``ServingEngine``, the rank's parameter bytes,
+    and B.8's local-shard wrapper (``attention.flash_attention_spmd``,
+    its plain version here) against the plain attention on the same
+    DTensors.  Its in-process run is the port with no mesh (the SPMD
+    path's own baseline), not a ``MeshShape``.
 """
 
 from __future__ import annotations
@@ -45,6 +53,8 @@ CONFIGS = {
     "qwen_lse": ("qwen2-7b", {"n_kv_heads": 1, "decode_comm": "lse_shardmap"}),
     "zamba2_lse": ("zamba2-1.2b", {"sliding_window": 16, "decode_comm": "lse_shardmap"}),
     "whisper_lse": ("whisper-large-v3", {"decode_comm": "lse_shardmap"}),
+    "qwen_spmd": ("qwen2-7b", {}),
+    "gemma_spmd": ("gemma-2b", {}),
     "olmoe": ("olmoe-1b-7b", {}),
     "llama4": ("llama4-maverick-400b-a17b", {}),
 }
@@ -67,6 +77,7 @@ M21 = {"data": 2, "model": 1}
 RING = dict(kind="ring", b=2, s=64)
 DECODE = dict(kind="decode", b=2, prompt=8, steps=4, max_seq=16)
 MOE = dict(kind="moe", b=16, s=256)          # T = 4096 > the reference's _SMALL_T
+SPMD = dict(kind="spmd", b=2, s=16, prompt=8, steps=3, max_seq=16, gen=4)
 
 CASES = {
     "attention": [
@@ -85,6 +96,12 @@ CASES = {
         # 18 cache slots on a 4-way axis: the reference decodes with _decode_xla.
         dict(DECODE, id="lse_indivisible", cfg="qwen_lse", mesh=M14, steps=3, max_seq=18,
              lse=0),
+        # SPMD: reduced qwen2-7b's 4 heads and 4 kv heads divide the model
+        # axis ("tp"); reduced gemma-2b's one kv head does not ("dp", the
+        # ring in forward and prefill); the (2, 1) mesh is FSDP only.
+        dict(SPMD, id="spmd_tp_d1m2", cfg="qwen_spmd", mesh=M12),
+        dict(SPMD, id="spmd_fsdp_d2m1", cfg="qwen_spmd", mesh=M21),
+        dict(SPMD, id="spmd_dp_d2m2", cfg="gemma_spmd", mesh=M22),
     ],
     "moe": [
         dict(MOE, id="olmoe_d2m2", cfg="olmoe", mesh=M22, grad=True),
@@ -275,7 +292,106 @@ def _moe(case, cfg, params) -> dict:
     return out
 
 
-RUN = {"ring": _ring, "decode": _decode, "moe": _moe}
+def _whole(x):
+    """A DTensor's global value (a collective: every rank calls it in the
+    same order); a plain tensor as it is."""
+    from repro_torch.models import sharding
+
+    return x.full_tensor() if sharding.is_dtensor(x) else x
+
+
+def _spmd(case, cfg, params) -> dict:
+    """The SPMD case's outputs on the active mesh (``None``: the port's
+    plain path): logits of ``forward`` over all ``s`` tokens, of the
+    prompt's ``prefill`` and of ``steps`` decode steps; ``gen`` greedy
+    tokens from the prompt through ``ServingEngine`` and its logit
+    gathers; the forward with ``use_flash_kernel`` and its wrapper calls;
+    on a ``DeviceMesh``, the rank's parameter bytes beside the shards'
+    and the whole tree's, B.8's wrapper against the plain attention on
+    the first layer's DTensor q/k/v, and whether a MoE config refuses to
+    be distributed."""
+    import dataclasses
+
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.models import (abstract_params, attention, build_model, common, sharding,
+                                    transformer)
+    from repro_torch.serve import ServeSession, ServingEngine
+    from repro_torch.tree import tree_map
+
+    model = build_model(cfg)
+    mesh = sharding.get_mesh()
+    placed = params_from_numpy(tree_map(lambda t: t.numpy(), params), "cpu", mesh=mesh,
+                               cfg=cfg) if mesh is not None else params
+    batch = _batch(inputs(cfg, case))
+    toks, k = batch["tokens"], case["prompt"]
+    out = {}
+    with torch.no_grad():
+        out["forward"] = _whole(model.forward(placed, {"tokens": toks})[0])
+        pre, cache = model.prefill(placed, {"tokens": toks[:, :k], "max_seq": case["max_seq"]})
+        out["prefill"] = _whole(pre)
+        steps = []
+        for i in range(case["steps"]):
+            logits, cache = model.decode_step(placed, cache, toks[:, k + i:k + i + 1])
+            steps.append(_whole(logits))
+        out["decode"] = torch.stack(steps)
+        eng = ServingEngine(model, device="cpu")
+        eng.publish(placed, version=1)
+        out["generate"], _ = eng.generate(
+            ServeSession(0), {"tokens": toks[:, :k], "max_seq": k + case["gen"]}, case["gen"])
+        out["logit_gathers"] = torch.tensor(eng.logit_gathers)
+        flash = build_model(dataclasses.replace(cfg, use_flash_kernel=True))
+        with record_flash() as seen:
+            out["flash_forward"] = _whole(flash.forward(placed, {"tokens": toks})[0])
+        out["flash_calls"] = torch.tensor(len(seen))
+        out["flash_q_shape"] = torch.tensor(seen[0])
+    if mesh is None:
+        return out
+    whole = sharding.local_nbytes(params)
+    shards = 0
+    for key, leaf in items(params):
+        spec = sharding.pspec_for_param(tuple(key.split("/")), tuple(leaf.shape), cfg)
+        shards += int(np.prod(sharding.shard_shape(tuple(leaf.shape), spec))) * leaf.element_size()
+    out["bytes"] = torch.tensor([sharding.local_nbytes(placed), shards, whole])
+    # B.8's wrapper and the plain attention on the same DTensors.
+    blk = common.layer(placed["dense_blocks"], 0, 0)
+    pos = common.arange_positions(*toks.shape, toks.device)
+    with torch.no_grad(), sharding.spmd(placed):
+        x = transformer.embed_tokens(placed, cfg, toks, {})
+        h = common.rms_norm(x, blk["attn_norm"], cfg.norm_eps)
+        q, kk, v = attention._project_qkv(h, blk["attn"], cfg, pos, flash=True)
+        out["b8_wrapper"] = _whole(attention.flash_attention_spmd(q, kk, v, cfg))
+        out["b8_plain"] = _whole(attention._attend_block(q, kk, v, cfg, pos, pos, True))
+    moe_cfg = port_config("olmoe")
+    try:
+        sharding.distribute_params(abstract_params(build_model(moe_cfg)), moe_cfg)
+        out["moe_refused"] = torch.tensor(0)
+    except NotImplementedError:
+        out["moe_refused"] = torch.tensor(1)
+    return out
+
+
+@contextlib.contextmanager
+def record_flash():
+    """Record the q shape every call of ``kernels.ops.flash_attention``
+    (B.8's wrapper) gets inside the block: a rank's local block on a
+    ``DeviceMesh``."""
+    from repro_torch.kernels import ops
+
+    seen = []
+    flash = ops.flash_attention
+
+    def spy(q, *a, **kw):
+        seen.append(tuple(q.shape))
+        return flash(q, *a, **kw)
+
+    ops.flash_attention = spy
+    try:
+        yield seen
+    finally:
+        ops.flash_attention = flash
+
+
+RUN = {"ring": _ring, "decode": _decode, "moe": _moe, "spmd": _spmd}
 
 
 @contextlib.contextmanager
@@ -390,8 +506,9 @@ def run_all(part: str, tmp_dir, worlds: dict) -> tuple[dict, dict, dict]:
     """The reference's arrays, the port's stacked outputs and the gloo
     groups' outputs for every case of ``part``: the parameters first, then
     the reference's subprocess while the port runs its cases in this
-    process (each under its ``MeshShape``) and in one gloo group per world
-    size of ``worlds`` (world -> the meshes it runs)."""
+    process (each under its ``MeshShape``; an ``spmd`` case with no mesh)
+    and in one gloo group per world size of ``worlds`` (world -> the
+    meshes it runs)."""
     from repro_torch.models.sharding import MeshShape
 
     tmp_dir = pathlib.Path(tmp_dir)
@@ -399,7 +516,8 @@ def run_all(part: str, tmp_dir, worlds: dict) -> tuple[dict, dict, dict]:
     params = write_params(part, params_path)
     proc = start_reference(part, params_path, ref_path)
     try:
-        stacked = {c["id"]: port_outputs(c, params, MeshShape(c["mesh"])) for c in CASES[part]}
+        stacked = {c["id"]: port_outputs(c, params, None if c["kind"] == "spmd"
+                                         else MeshShape(c["mesh"])) for c in CASES[part]}
         gloo = {}
         for world, meshes in worlds.items():
             ids = [c["id"] for c in CASES[part] if c["mesh"] in meshes]

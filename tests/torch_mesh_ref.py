@@ -123,7 +123,26 @@ def _moe(case, cfg, params, out):
     out["probs"], out["capacity"] = np.asarray(probs), np.asarray(cap)
 
 
-RUN = {"ring": _ring, "decode": _decode, "moe": _moe}
+def _spmd(case, cfg, params, out):
+    """forward logits over all ``s`` tokens, then the prompt's prefill and
+    ``steps`` decode steps' logits, under the case's mesh."""
+    model = build_model(cfg)
+    toks = jnp.asarray(mc.inputs(cfg, case)["tokens"])
+    k, max_seq = case["prompt"], case["max_seq"]
+    with sharding.use_mesh(_mesh(case["mesh"])):
+        logits, _ = jax.jit(lambda p, t: model.forward(p, {"tokens": t}))(params, toks)
+        pre, cache = jax.jit(lambda p, t: model.prefill(p, {"tokens": t, "max_seq": max_seq}))(
+            params, toks[:, :k])
+        step = jax.jit(lambda p, c, t: model.decode_step(p, c, t))
+        steps = []
+        for i in range(case["steps"]):
+            lg, cache = step(params, cache, toks[:, k + i:k + i + 1])
+            steps.append(np.asarray(lg))
+    out["forward"], out["prefill"] = np.asarray(logits), np.asarray(pre)
+    out["decode"] = np.stack(steps)
+
+
+RUN = {"ring": _ring, "decode": _decode, "moe": _moe, "spmd": _spmd}
 
 
 def main(part: str, params_path: str, path: str) -> None:
