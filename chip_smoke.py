@@ -150,6 +150,15 @@ non-zero exit code):
                 predicted per-device state must not exceed the train
                 phase's measured peak; its step FLOPs over the measured
                 local step, against the bf16 peak, printed (not gated);
+                (c) gemma-2b's LSE decode on that mesh and (d) the ring,
+                the LSE decode and olmoe's dispatch at 16 shards under a
+                ``MeshShape`` (``MESH_REGIONS``); (e) gemma-2b, then
+                olmoe-1b-7b, internvl2-2b, zamba2-1.2b, rwkv6-3b and
+                whisper-large-v3 at full width and cut depth
+                (``MESH_FAMILY_LAYERS``), served as SPMD with DTensor
+                parameters on that mesh in bf16 with B.8: forward, prefill
+                and ``generate`` bit-equal to the same parameters plain,
+                B.8's launches per meshed forward equal to plain;
  10d. families — the MoE, VLM, hybrid, SSM and audio families
                 (``FAMILIES``): (a) olmoe-1b-7b, internvl2-2b, zamba2-1.2b,
                 rwkv6-3b and whisper-large-v3 at full width and depth in
@@ -3289,6 +3298,13 @@ def phase_train() -> dict:
 MESH_REGIONS = dict(arch="gemma-2b", prompt=128, steps=16, seq=512, model=16,
                     moe_arch="olmoe-1b-7b", moe_layers=2, moe_batch=16, moe_seq=256,
                     data=16)
+# (e)'s families served as SPMD: full width, depth cut (``MESH_FAMILY_LAYERS``),
+# bf16 with B.8, B = 1: a forward over ``seq`` tokens (whisper's decoder
+# ``whisper_seq`` over its 1500 frames), the prompt's prefill and a
+# ``tokens``-token ``generate``.
+MESH_FAMILIES = dict(seq=2048, whisper_seq=448, prompt=128, tokens=4)
+MESH_FAMILY_LAYERS = {"olmoe-1b-7b": 2, "internvl2-2b": 2, "zamba2-1.2b": 6, "rwkv6-3b": 2,
+                      "whisper-large-v3": 2}
 MESH_CUTS = ("cuts of scale: none in width (gemma-2b's 18 layers at d_model 2048 in f32, "
              "B = 1; olmoe-1b-7b's 64 experts, top-8, d_model 2048, d_ff 1024); olmoe's "
              "depth cut to 2 of its 16 layers (the check is one MoE layer's, the forward "
@@ -3297,7 +3313,13 @@ MESH_CUTS = ("cuts of scale: none in width (gemma-2b's 18 layers at d_model 2048
              "give under NCCL; (e)'s SPMD runs on the (1, 1) mesh, where every "
              "placement is replicated: TP and FSDP shards over 2 or more ranks, and a "
              "ring between cards, are held only on the CPU (gloo), one card giving one "
-             "NCCL rank")
+             "NCCL rank; (e)'s families at full width, depth cut to olmoe-1b-7b 2 of 16 "
+             "layers, internvl2-2b 2 of 24, zamba2-1.2b 6 of 38 (one group: 6 Mamba2 "
+             "layers, one shared attention site), rwkv6-3b 2 of 32, whisper-large-v3 2 of "
+             "32 decoder and 2 of 32 encoder layers (every layer of a family has the same "
+             "shapes and placements, so one or two show each; DTensor's host cost grows "
+             "with depth); llama4-maverick (128 experts of 5120 x 8192, more than one "
+             "H100 holds) served as SPMD only reduced, on the CPU")
 
 
 def _mesh_decode(model, params, toks, mesh):
@@ -3425,7 +3447,7 @@ def _mesh_regions_stacked(gemma, dev: dict, xla) -> None:
     torch.cuda.empty_cache()
 
 
-def _mesh_spmd(mesh, gemma, dev: dict) -> None:
+def _mesh_spmd(mesh, gemma, dev: dict) -> int:
     """(e) gemma-2b served as SPMD on the (1, 1) NCCL mesh, at the model
     phase's settings (``MODEL``), DTensor parameters from
     ``sharding.distribute_params`` against the same parameters plain:
@@ -3436,7 +3458,8 @@ def _mesh_spmd(mesh, gemma, dev: dict) -> None:
     no partial sums); otherwise each check prints its max abs error and
     must hold within the model phase's atol = rtol = 1e-3.  B.8 must
     launch ``n_layers`` times per meshed forward.  The meshed and plain
-    bf16 forwards' walls and device operations per forward are logged."""
+    bf16 forwards' walls and device operations per forward are logged;
+    returns B.8's launches in the counted meshed forward."""
     import dataclasses
 
     import torch
@@ -3549,9 +3572,130 @@ def _mesh_spmd(mesh, gemma, dev: dict) -> None:
         f"generate of {MODEL['tokens']} tokens {gen_mesh_s:.3f} s meshed vs "
         f"{gen_plain_s:.3f} s plain; {time.perf_counter() - t_e:.1f} s; {MESH_CUTS}; "
         f"{dev['smi']}")
+    return launches
 
 
-def phase_mesh(dev: dict) -> None:
+def _mesh_families(mesh, dev: dict) -> int:
+    """(e) the MoE, VLM, hybrid, SSM and audio families served as SPMD on
+    the (1, 1) NCCL mesh, each at full width and cut depth
+    (``MESH_FAMILY_LAYERS``) in bf16 with B.8, DTensor parameters from
+    ``sharding.distribute_params`` against the same parameters plain: the
+    forward, the prompt's prefill (logits and every cache leaf) and a
+    ``generate`` (tokens and every step's logits), each bit-equal (one
+    rank: no partial sums).  B.8 must launch as often per meshed forward
+    as per plain forward, once per causal self-attention layer.  Logs
+    each family's meshed and plain walls; returns B.8's launches in the
+    counted meshed forwards."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model, sharding
+    from repro_torch.serve import ServeSession, ServingEngine
+    from torch_port_helpers import causal_attention_layers, family_inputs, torch_batch
+
+    f = MESH_FAMILIES
+    cuda = torch.device("cuda")
+    total = 0
+
+    def whole(x):
+        return x.full_tensor() if sharding.is_dtensor(x) else x
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    for arch, n_layers in MESH_FAMILY_LAYERS.items():
+        t_arch = time.perf_counter()
+        base = get_config(arch)
+        over = dict(n_layers=n_layers, use_flash_kernel=True, dtype="bfloat16")
+        if base.is_encdec:
+            over["n_encoder_layers"] = n_layers
+        cfg = dataclasses.replace(base, **over)
+        model = build_model(cfg)
+        params = model.init(0, device=cuda)
+        with sharding.use_mesh(mesh):
+            placed = sharding.distribute_params(params, cfg)
+        s = f["whisper_seq"] if cfg.is_encdec else f["seq"]
+        batch = torch_batch(family_inputs(cfg, 1, s, 7), cuda, dtype=torch.bfloat16)
+        batch.pop("labels")
+        prompt = dict(batch, tokens=batch["tokens"][:, :f["prompt"] + cfg.n_vis_tokens],
+                      max_seq=f["prompt"] + cfg.n_vis_tokens + f["tokens"])
+        want = causal_attention_layers(cfg)
+        bad = []
+
+        def check(name, plain, got):
+            if not torch.equal(whole(got), plain):
+                err = float((whole(got).float() - plain.float()).abs().max())
+                bad.append(f"{name} max abs err {err}")
+
+        with torch.no_grad():
+            ops.reset_launch_counts()
+            (plain, _), plain_s = wall(lambda: model.forward(params, batch))
+            plain_launches = ops.launch_counts()["flash_attention"]
+            ops.reset_launch_counts()
+            with sharding.use_mesh(mesh):
+                (got, _), first_s = wall(lambda: model.forward(placed, batch))
+            launches = ops.launch_counts()["flash_attention"]
+            check("forward", plain, got)
+            del plain, got
+            _, plain_s = wall(lambda: model.forward(params, batch))
+            with sharding.use_mesh(mesh):
+                _, mesh_s = wall(lambda: model.forward(placed, batch))
+            lp, cp = model.prefill(params, prompt)
+            with sharding.use_mesh(mesh):
+                lm, cm = model.prefill(placed, prompt)
+            check("prefill logits", lp, lm)
+            cache_keys = sorted(cp)
+            for k in cache_keys:
+                check(f"prefill cache {k}", cp[k], cm[k])
+            del lp, cp, lm, cm
+            outs = []
+            for p, on_mesh in ((params, False), (placed, True)):
+                rec = _Recorder(model)
+                eng = ServingEngine(rec, device=cuda)
+                eng.publish(p, version=1)
+
+                def run(eng=eng):
+                    return eng.generate(ServeSession(0), prompt, f["tokens"])
+
+                if on_mesh:
+                    with sharding.use_mesh(mesh):
+                        (toks, _), gen_s = wall(run)
+                else:
+                    (toks, _), gen_s = wall(run)
+                outs.append((toks, torch.stack([whole(x) for x in rec.logits]), gen_s,
+                             eng.logit_gathers))
+        (t_plain, lg_plain, gen_plain_s, _), (t_mesh, lg_mesh, gen_mesh_s, gathers) = outs
+        check(f"generate's {f['tokens']} steps' logits", lg_plain, lg_mesh)
+        if not torch.equal(t_plain, t_mesh) or gathers != f["tokens"]:
+            bad.append(f"generate tokens {t_mesh.tolist()} vs plain {t_plain.tolist()}, "
+                       f"{gathers} logit gathers")
+        if launches != plain_launches or launches != want:
+            bad.append(f"B.8 launched {launches} times per meshed forward, {plain_launches} "
+                       f"plain, want {want}")
+        if bad:
+            fail(f"mesh (e) {arch} ({n_layers} layers) on DTensors vs plain: {bad}")
+        total += launches
+        log(f"[mesh] (e) {arch} ({n_layers} of {base.n_layers} layers, full width, bf16, "
+            f"B.8) served as SPMD on the (1, 1) NCCL mesh: forward S={s}, the "
+            f"{f['prompt']}-token prompt's prefill (logits, caches {cache_keys}) "
+            f"and generate's {f['tokens']} tokens and logits bit-equal to plain; "
+            f"{gathers} logit gathers; B.8 {launches} launches per meshed forward "
+            f"({plain_launches} plain); forward wall {mesh_s:.4f} s meshed (first "
+            f"{first_s:.4f}) vs {plain_s:.4f} s plain; generate {gen_mesh_s:.3f} s meshed vs "
+            f"{gen_plain_s:.3f} s plain; {time.perf_counter() - t_arch:.1f} s; {dev['smi']}")
+        del params, placed, batch, prompt, outs
+        torch.cuda.empty_cache()
+    return total
+
+
+def phase_mesh(dev: dict) -> dict:
     """(a) A (1, 1) mesh over an NCCL process group of one rank:
     gemma-2b's placements all replicated, and reduced qwen2-7b's
     ``sync_step`` under the mesh equal to the same steps without it, bit
@@ -3563,7 +3707,9 @@ def phase_mesh(dev: dict) -> None:
     NCCL all-reduces) against the plain decode; (d) the collective regions
     at 16 shards on the card, under a ``MeshShape``
     (:func:`_mesh_regions_stacked`); (e) gemma-2b served as SPMD with
-    DTensor parameters on the NCCL mesh (:func:`_mesh_spmd`)."""
+    DTensor parameters on the NCCL mesh (:func:`_mesh_spmd`), then the
+    other five families (:func:`_mesh_families`).  Returns B.8's launches
+    in (e)'s counted meshed forwards."""
     import dataclasses
 
     import torch
@@ -3643,8 +3789,12 @@ def phase_mesh(dev: dict) -> None:
             toks, mesh)
         torch.cuda.synchronize()
         t_nccl = time.perf_counter() - t0
-        # (e) the dense transformer served as SPMD on the mesh.
-        _mesh_spmd(mesh, (gcfg, gparams, toks), dev)
+        # (e) the dense transformer, then every other family, served as SPMD
+        # on the mesh.
+        launches = _mesh_spmd(mesh, (gcfg, gparams, toks), dev)
+        t0 = time.perf_counter()
+        launches += _mesh_families(mesh, dev)
+        log(f"[mesh] (e) the five families {time.perf_counter() - t0:.1f} s")
     finally:
         dist.destroy_process_group()
     mem, roof = res["memory"], res["roofline"]
@@ -3682,6 +3832,7 @@ def phase_mesh(dev: dict) -> None:
     del gparams
     torch.cuda.empty_cache()
     log(f"[mesh] phase {time.perf_counter() - t_phase:.1f} s")
+    return {"flash_attention": launches}
 
 
 # -- phase 10d ----------------------------------------------------------------
@@ -4765,7 +4916,7 @@ def main() -> None:
         timings.update(model_timings)
     launches["train"] = run("train", phase_train, {})
     if "mesh" in phases:
-        timed("mesh", phase_mesh, dev)
+        launches["mesh"] = timed("mesh", phase_mesh, dev)
     if "families" in phases:
         fam_timings, launches["families"] = run("families", phase_families)
         timings.update(fam_timings)
@@ -4796,6 +4947,10 @@ def main() -> None:
             # of the other functions.
             "library_ms": t.get("library_ms"),
         })
+        if name == "flash_attention" and "mesh" in launches:
+            # The mesh phase's (e): B.8 in the counted meshed forwards of the
+            # six families served as SPMD on the (1, 1) NCCL mesh.
+            kernels[-1]["mesh_launches"] = launches["mesh"][name]
         if name == "flash_attention" and "families" in launches:
             # The families phase: B.8 in the counted full-width forwards, and
             # the kernel at each family's attention shape.

@@ -83,13 +83,24 @@ def attn_parallel_mode(cfg) -> str:
     return "dp"
 
 
+def split_heads(t, n: int, cfg, logical: str):
+    """(B, S, n·hd) -> (B, S, n, hd).  In "tp" mode the flat projection is
+    placed on ``logical`` ("heads" / "kv_heads") before the reshape and
+    the heads after it, as :func:`_project_qkv` places q/k/v; otherwise
+    on the batch only."""
+    b, s, _ = t.shape
+    tp = attn_parallel_mode(cfg) == "tp"
+    t = sharding.shard(t, "batch", None, logical if tp else None)
+    t = t.reshape(b, s, n, cfg.head_dim)
+    return sharding.shard(t, "batch", None, logical if tp else None, None)
+
+
 def _project_q(x, p, cfg):
     """x: (B, S, D) -> q (B,S,H,hd), no rotary embedding (cross attention)."""
-    b, s, _ = x.shape
     q = x @ p["wq"]
     if cfg.qkv_bias:
         q = q + p["bq"]
-    return q.reshape(b, s, cfg.n_heads, cfg.head_dim)
+    return split_heads(q, cfg.n_heads, cfg, "heads")
 
 
 def _project_qkv(x, p, cfg, positions, *, flash: bool = False):
@@ -138,16 +149,16 @@ def _shard_scores(scores, cfg):
 def _gqa_scores(q, k, cfg):
     """(B,S,H,hd) x (B,T,Hkv,hd) -> (B,Hkv,G,S,T) grouped scores."""
     b, s, h, hd = q.shape
-    g = h // cfg.n_kv_heads
-    qg = q.reshape(b, s, cfg.n_kv_heads, g, hd)
+    kvh = k.shape[2]                  # a rank's local kv heads inside local_map
+    qg = q.reshape(b, s, kvh, h // kvh, hd)
     return torch.einsum("bskgd,btkd->bkgst", qg, k) / (hd ** 0.5)
 
 
 def _gqa_out(weights, v, cfg):
     """(B,Hkv,G,S,T) x (B,T,Hkv,hd) -> (B,S,H,hd)."""
-    b = v.shape[0]
     out = torch.einsum("bkgst,btkd->bskgd", weights, v)
-    return out.reshape(b, out.shape[1], cfg.n_heads, cfg.head_dim)
+    b, s, kvh, g, hd = out.shape
+    return out.reshape(b, s, kvh * g, hd)
 
 
 def _ring_body(ax, q, k, v, qpos, kpos, *, cfg, causal):
@@ -241,10 +252,27 @@ def _masked_attention(q, k, v, cfg, qpos, kpos, causal):
     O(S x T), in chunks of ``cfg.attn_chunk`` queries when they divide S
     (the reference's ``lax.scan`` over chunks, as a loop).  Under a mesh
     whose ``kv_seq`` axis splits the sequence in "dp" mode, the ring
-    attention runs instead, as in the reference."""
-    b, s, h, hd = q.shape
-    if _ring_applicable(cfg, s, k.shape[1]):
+    attention runs instead, as in the reference.  On DTensors the chunks
+    run on each rank's local heads ("tp") or batch rows ("dp")
+    (``sharding.local_map``), as B.8 does: DTensor's rules would split the
+    grouped score products' flattened batch into strided shards."""
+    if _ring_applicable(cfg, q.shape[1], k.shape[1]):
         return _ring_attention(q, k, v, cfg, qpos, kpos, causal)
+    if attn_parallel_mode(cfg) == "tp":
+        q_axes, kv_axes = ("batch", None, "heads", None), ("batch", None, "kv_heads", None)
+    else:
+        q_axes = kv_axes = ("batch", None, None, None)
+
+    def run(q_, k_, v_, qpos_, kpos_):
+        return _chunked_attention(q_, k_, v_, cfg, qpos_, kpos_, causal)
+
+    return sharding.local_map(run, (q_axes, kv_axes, kv_axes, ("batch", None), ("batch", None)),
+                              q_axes)(q, k, v, qpos, kpos)
+
+
+def _chunked_attention(q, k, v, cfg, qpos, kpos, causal):
+    """:func:`_masked_attention`'s chunks, on whole tensors."""
+    s = q.shape[1]
     chunk = cfg.attn_chunk
     if not chunk or s <= chunk or s % chunk:
         return _attend_block(q, k, v, cfg, qpos, kpos, causal)

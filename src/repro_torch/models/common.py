@@ -6,13 +6,15 @@ On DTensors (the dense transformer's SPMD on a ``DeviceMesh``)
 rules, each on the placement the caller's constraint gave: they reduce
 only over the last, unsharded dim, and the plain tensors they make
 (rope's angles) meet DTensors as replicated values under
-``sharding.spmd``.  No op here needs a gather."""
+``sharding.spmd``.  No op here needs a gather; :func:`embed_lookup`
+reads a vocab-sharded table without one."""
 
 from __future__ import annotations
 
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.models import sharding
 
 Tensor = torch.Tensor
 
@@ -84,6 +86,17 @@ def sinusoidal_positions(n_positions: int, d_model: int, device=None) -> Tensor:
 def arange_positions(b: int, s: int, device) -> Tensor:
     """(B, S) int32 absolute positions 0 .. S-1."""
     return torch.arange(s, dtype=torch.int32, device=device).expand(b, s)
+
+
+def embed_lookup(table: Tensor, tokens: Tensor) -> Tensor:
+    """The rows of ``tokens`` in the embedding table.  A DTensor table is
+    read by ``F.embedding``, which keeps it vocab-sharded (a masked
+    partial sum, reduced by the constraint after it) where an index
+    would gather it; its rows are placed on the batch."""
+    if not sharding.is_dtensor(table):
+        return table[tokens.long()]
+    x = torch.nn.functional.embedding(tokens.long(), table)
+    return sharding.shard(x, "batch", None, None)
 
 
 def layer(tree, *idx):

@@ -8,6 +8,13 @@ only); the decoder is a causal transformer (B.8 on its self-attention
 with ``cfg.use_flash_kernel``) with cross attention to the encoder's
 memory.  Positions are fixed sinusoids, MLPs plain GELU, the LM head
 tied to the embedding.
+
+On a ``DeviceMesh`` with DTensor parameters the entry points run as SPMD
+(``sharding.spmd``) with the reference's constraints: each encoder and
+decoder block's residual on the batch and the vocab-sharded logits; the
+cross K/V take the self attention's head placement, and the prefill's
+self and cross caches are placed as the dense transformer's
+(``attention.CACHE_AXES``).
 """
 
 from __future__ import annotations
@@ -15,12 +22,13 @@ from __future__ import annotations
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models import attention, mlp
+from repro_torch.models import attention, mlp, sharding
 from repro_torch.models.common import (
     arange_positions,
     const_init,
     cross_entropy_loss,
     dtype_of,
+    embed_lookup,
     init_generator,
     layer,
     layer_norm,
@@ -79,19 +87,18 @@ def encode(params, cfg, frames: Tensor) -> Tensor:
         h = _ln(x, blk["ln1"], cfg.norm_eps)
         x = x + attention.full_attention(h, blk["attn"], cfg, positions, causal=False)
         h = _ln(x, blk["ln2"], cfg.norm_eps)
-        x = x + mlp.mlp(h, blk["mlp"], "gelu")
+        x = sharding.shard(x + mlp.mlp(h, blk["mlp"], "gelu"), "batch", None, None)
     return _ln(x, params["enc_final_ln"], cfg.norm_eps)
 
 
 def _cross_kv(blk, cfg, memory):
-    b, f, _ = memory.shape
     k = memory @ blk["cross_attn"]["wk"]
     v = memory @ blk["cross_attn"]["wv"]
     if cfg.qkv_bias:
         k = k + blk["cross_attn"]["bk"]
         v = v + blk["cross_attn"]["bv"]
-    return (k.reshape(b, f, cfg.n_kv_heads, cfg.head_dim),
-            v.reshape(b, f, cfg.n_kv_heads, cfg.head_dim))
+    return (attention.split_heads(k, cfg.n_kv_heads, cfg, "kv_heads"),
+            attention.split_heads(v, cfg.n_kv_heads, cfg, "kv_heads"))
 
 
 def _dec_block(x, blk, cfg, positions, memory):
@@ -101,21 +108,27 @@ def _dec_block(x, blk, cfg, positions, memory):
     x = x + attention.full_attention(h, blk["cross_attn"], cfg, positions,
                                      cross_kv=_cross_kv(blk, cfg, memory))
     h = _ln(x, blk["ln3"], cfg.norm_eps)
-    return x + mlp.mlp(h, blk["mlp"], "gelu")
+    return sharding.shard(x + mlp.mlp(h, blk["mlp"], "gelu"), "batch", None, None)
 
 
 def _embed(params, cfg, tokens):
     s = tokens.shape[1]
-    x = params["embed"][tokens.long()]
+    x = embed_lookup(params["embed"], tokens)
     return x + sinusoidal_positions(s, cfg.d_model, x.device).to(x.dtype)[None]
 
 
 def _logits(params, cfg, x):
     x = _ln(x, params["dec_final_ln"], cfg.norm_eps)
-    return x @ params["embed"].T                                     # tied head
+    logits = x @ params["embed"].T                                   # tied head
+    return sharding.shard(logits, "batch", None, "vocab")
 
 
 def forward(params, cfg, batch) -> tuple[Tensor, Tensor]:
+    with sharding.spmd(params):
+        return _forward(params, cfg, batch)
+
+
+def _forward(params, cfg, batch):
     tokens = batch["tokens"]
     b, s = tokens.shape
     memory = encode(params, cfg, batch["frames"].to(dtype_of(cfg)))
@@ -151,6 +164,11 @@ def init_cache(cfg, batch_size: int, max_seq: int, device="cuda") -> dict:
 def prefill(params, cfg, batch) -> tuple[Tensor, dict]:
     """Encode + decoder prefill; fills the self- and cross-attention
     caches (the self cache padded to ``batch["max_seq"]``)."""
+    with sharding.spmd(params):
+        return _prefill(params, cfg, batch)
+
+
+def _prefill(params, cfg, batch):
     tokens = batch["tokens"]
     b, s = tokens.shape
     memory = encode(params, cfg, batch["frames"].to(dtype_of(cfg)))
@@ -168,7 +186,7 @@ def prefill(params, cfg, batch) -> tuple[Tensor, dict]:
         x = x + attention.full_attention(h, blk["cross_attn"], cfg, positions,
                                          cross_kv=(ck, cv))
         h = _ln(x, blk["ln3"], cfg.norm_eps)
-        x = x + mlp.mlp(h, blk["mlp"], "gelu")
+        x = sharding.shard(x + mlp.mlp(h, blk["mlp"], "gelu"), "batch", None, None)
         ks.append(k)
         vs.append(v)
         cks.append(ck)
@@ -178,14 +196,21 @@ def prefill(params, cfg, batch) -> tuple[Tensor, dict]:
     if pad > 0:
         k_stack = torch.nn.functional.pad(k_stack, (0, 0, 0, 0, 0, pad))
         v_stack = torch.nn.functional.pad(v_stack, (0, 0, 0, 0, 0, pad))
+    k_stack, v_stack, ck, cv = (sharding.shard(t, None, *attention.CACHE_AXES) for t in (
+        k_stack, v_stack, torch.stack(cks), torch.stack(cvs)))
     return _logits(params, cfg, x[:, -1:]), {
-        "k": k_stack, "v": v_stack, "ck": torch.stack(cks), "cv": torch.stack(cvs),
+        "k": k_stack, "v": v_stack, "ck": ck, "cv": cv,
         "pos": torch.tensor(s, dtype=torch.int32, device=tokens.device)}
 
 
 def decode_step(params, cfg, cache, tokens) -> tuple[Tensor, dict]:
+    with sharding.spmd(params):
+        return _decode_step(params, cfg, cache, tokens)
+
+
+def _decode_step(params, cfg, cache, tokens):
     pos = cache["pos"]
-    x = params["embed"][tokens.long()]
+    x = embed_lookup(params["embed"], tokens)
     # The new token's sinusoidal position.
     ang = pos.to(torch.float32) / sinusoid_timescales(cfg.d_model, x.device)
     x = x + torch.cat([torch.sin(ang), torch.cos(ang)])[None, None, :].to(x.dtype)

@@ -9,6 +9,12 @@ leaves (rem, ...) for the layers past the last whole group, and
 ``params["shared_attn"]``.  With ``cfg.sliding_window`` (the launcher's
 ``long_500k`` setting) the sites keep a ring buffer of the last
 ``sliding_window`` keys: position p sits at slot ``p % kv_len``.
+
+On a ``DeviceMesh`` with DTensor parameters the entry points run as SPMD
+(``sharding.spmd``) with the reference's constraints: each Mamba2
+block's residual and the vocab-sharded logits; the decode caches (SSM
+state, conv tail) are placed on the batch, the shared sites' KV caches as
+the dense transformer's (``attention.CACHE_AXES``).
 """
 
 from __future__ import annotations
@@ -16,12 +22,13 @@ from __future__ import annotations
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models import attention, mamba2, mlp
+from repro_torch.models import attention, mamba2, mlp, sharding
 from repro_torch.models.common import (
     arange_positions,
     const_init,
     cross_entropy_loss,
     dtype_of,
+    embed_lookup,
     init_generator,
     layer,
     normal_init,
@@ -88,7 +95,8 @@ def _layout(params, cfg):
 
 def _mamba_block(x, blk, cfg):
     h = rms_norm(x, blk["norm"], cfg.norm_eps)
-    return x + mamba2.mamba2_forward(h, blk["mamba"], cfg)
+    return sharding.shard(x + mamba2.mamba2_forward(h, blk["mamba"], cfg),
+                          "batch", None, None)
 
 
 def _shared_block(x, blk, cfg, positions):
@@ -100,14 +108,19 @@ def _shared_block(x, blk, cfg, positions):
 
 def _logits(params, cfg, x):
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x @ params["lm_head"]
+    return sharding.shard(x @ params["lm_head"], "batch", None, "vocab")
 
 
 def forward(params, cfg, batch) -> tuple[Tensor, Tensor]:
+    with sharding.spmd(params):
+        return _forward(params, cfg, batch)
+
+
+def _forward(params, cfg, batch):
     tokens = batch["tokens"]
     b, s = tokens.shape
     positions = arange_positions(b, s, tokens.device)
-    x = params["embed"][tokens.long()]
+    x = embed_lookup(params["embed"], tokens)
     shared = params.get("shared_attn")
     groups, tail = _layout(params, cfg)
     for grp in groups:
@@ -158,10 +171,22 @@ def prefill(params, cfg, batch) -> tuple[Tensor, dict]:
     end-of-sequence state; the shared attention sites fill their KV
     caches (the trailing ``kv_len`` positions, rotated so position p sits
     at ring slot ``p % kv_len``)."""
+    with sharding.spmd(params):
+        return _prefill(params, cfg, batch)
+
+
+def _roll(t, shift: int):
+    """``t`` (B, T, Hkv, hd) rolled by ``shift`` slots, on each rank's
+    batch rows."""
+    rows = ("batch", None, None, None)
+    return sharding.local_map(lambda a: torch.roll(a, shift, dims=1), (rows,), rows)(t)
+
+
+def _prefill(params, cfg, batch):
     tokens = batch["tokens"]
     b, s = tokens.shape
     positions = arange_positions(b, s, tokens.device)
-    x = params["embed"][tokens.long()]
+    x = embed_lookup(params["embed"], tokens)
     shared = params.get("shared_attn")
     kv_len = _kv_len(cfg, int(batch.get("max_seq", s)))
     groups, tail = _layout(params, cfg)
@@ -172,7 +197,7 @@ def prefill(params, cfg, batch) -> tuple[Tensor, dict]:
         h = rms_norm(x, blk["norm"], cfg.norm_eps)
         out, st = mamba2.mamba2_forward(h, blk["mamba"], cfg, return_state=True)
         states.append(st)
-        return x + out
+        return sharding.shard(x + out, "batch", None, None)
 
     for grp in groups:
         for blk in grp:
@@ -186,16 +211,17 @@ def prefill(params, cfg, batch) -> tuple[Tensor, dict]:
             x = x + mlp.mlp(h, shared["mlp"], cfg.mlp_kind)
             k, v = k[:, -kv_len:], v[:, -kv_len:]
             if cfg.sliding_window and s > kv_len and s % kv_len:
-                k = torch.roll(k, s % kv_len, dims=1)
-                v = torch.roll(v, s % kv_len, dims=1)
+                k, v = _roll(k, s % kv_len), _roll(v, s % kv_len)
             ks.append(k)
             vs.append(v)
     for blk in tail:
         x = mamba_pre(x, blk)
 
     cache = {
-        "ssm": torch.stack([st["ssm"] for st in states]),
-        "conv": torch.stack([st["conv"] for st in states]),
+        "ssm": sharding.shard(torch.stack([st["ssm"] for st in states]),
+                              None, "batch", None, None, None),
+        "conv": sharding.shard(torch.stack([st["conv"] for st in states]),
+                               None, "batch", None, None),
         "pos": torch.tensor(s, dtype=torch.int32, device=tokens.device),
     }
     if shared is not None:
@@ -204,13 +230,19 @@ def prefill(params, cfg, batch) -> tuple[Tensor, dict]:
         if pad > 0:
             k_stack = torch.nn.functional.pad(k_stack, (0, 0, 0, 0, 0, pad))
             v_stack = torch.nn.functional.pad(v_stack, (0, 0, 0, 0, 0, pad))
-        cache["k"], cache["v"] = k_stack, v_stack
+        cache["k"], cache["v"] = (sharding.shard(t, None, *attention.CACHE_AXES)
+                                  for t in (k_stack, v_stack))
     return _logits(params, cfg, x[:, -1:]), cache
 
 
 def decode_step(params, cfg, cache, tokens) -> tuple[Tensor, dict]:
+    with sharding.spmd(params):
+        return _decode_step(params, cfg, cache, tokens)
+
+
+def _decode_step(params, cfg, cache, tokens):
     pos = cache["pos"]
-    x = params["embed"][tokens.long()]
+    x = embed_lookup(params["embed"], tokens)
     shared = params.get("shared_attn")
     groups, tail = _layout(params, cfg)
     new_ssm, new_conv, new_k, new_v = [], [], [], []

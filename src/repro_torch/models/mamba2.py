@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import sharding
 from repro_torch.models.common import const_init, fan_in_init, init_device, normal_init
 
 Tensor = torch.Tensor
@@ -88,22 +89,51 @@ def mamba2_forward(x: Tensor, p: dict, cfg, *, return_state: bool = False):
 
     ``return_state=True`` also returns the decode cache at the end of the
     sequence (exact prefill in one linear pass).  Raises ``ValueError``
-    where the reference asserts: ``L`` not a multiple of the chunk."""
-    bsz, l, _ = x.shape
-    d_in, nh, hp, ns = dims(cfg)
+    where the reference asserts: ``L`` not a multiple of the chunk.
+
+    On DTensors the two projections run as placed (TP over 'model'); the
+    packed ``in_proj`` output is made whole over 'model' (its [z, x, B,
+    C, dt] boundaries are not block boundaries) and the split, the conv
+    and the chunk loop run on each rank's batch rows
+    (``sharding.local_map``)."""
+    l = x.shape[1]
     q = min(cfg.ssm_chunk, l)
     if q <= 0 or l % q:
         raise ValueError(f"seq {l} not divisible by chunk {q}")
-    g = l // q
-
     xz = x @ p["in_proj"]
+
+    def core(xz_, conv_w, conv_b, a_log, dt_bias, d_skip):
+        return _ssd(xz_, conv_w, conv_b, a_log, dt_bias, d_skip, cfg, q, return_state)
+
+    outs = sharding.local_map(
+        core, (_ROWS3,) + (None,) * 5,
+        (_ROWS3, _ROWS4, _ROWS3) if return_state else _ROWS3)(
+        xz, p["conv_w"], p["conv_b"], p["a_log"], p["dt_bias"], p["d_skip"])
+    if not return_state:
+        return outs @ p["out_proj"]
+    y, h, tail = outs
+    return y @ p["out_proj"], {"ssm": h, "conv": tail}
+
+
+_ROWS2 = ("batch", None)
+_ROWS3 = ("batch", None, None)
+_ROWS4 = ("batch", None, None, None)
+
+
+def _ssd(xz, conv_w, conv_b, a_log, dt_bias, d_skip, cfg, q: int, return_state: bool):
+    """The SSD between the projections: ``in_proj``'s output (B, L, ·) ->
+    the gated y (B, L, d_in), with the final state (B, H, N, P) and the
+    conv tail (B, W - 1, C) when ``return_state``."""
+    bsz, l, _ = xz.shape
+    d_in, nh, hp, ns = dims(cfg)
+    g = l // q
     z, xin, bmat, cmat, dt = _split_proj(xz, cfg)
     conv_in = torch.cat([xin, bmat, cmat], dim=-1)
-    conv_out = _causal_conv(conv_in, p["conv_w"], p["conv_b"])
+    conv_out = _causal_conv(conv_in, conv_w, conv_b)
     xin, bmat, cmat = torch.split(conv_out, [d_in, ns, ns], dim=-1)
 
-    dt = F.softplus(dt.to(torch.float32) + p["dt_bias"])            # (B,L,H)
-    a = -torch.exp(p["a_log"])                                      # (H,)
+    dt = F.softplus(dt.to(torch.float32) + dt_bias)                # (B,L,H)
+    a = -torch.exp(a_log)                                           # (H,)
     log_decay = dt * a[None, None, :]                               # (B,L,H) <= 0
 
     xh = xin.reshape(bsz, l, nh, hp).to(torch.float32)
@@ -121,7 +151,7 @@ def mamba2_forward(x: Tensor, p: dict, cfg, *, return_state: bool = False):
 
     # Intra-chunk: scores[i,j] = (C_i . B_j) * exp(cum_i - cum_j), j <= i.
     rel = cum[:, :, :, None, :] - cum[:, :, None, :, :]             # (B,G,Q,Q,H)
-    tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device))
+    tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=xz.device))
     decay_ij = masked_decay(rel, tri[None, None, :, :, None])
     cb = torch.einsum("bgin,bgjn->bgij", cv, bv)                    # (B,G,Q,Q)
     # "bgij,bgijh,bgjhp->bgihp": (decay * cb), then the sum over j.
@@ -134,7 +164,7 @@ def mamba2_forward(x: Tensor, p: dict, cfg, *, return_state: bool = False):
     s_chunk = torch.einsum("bgjhp,bgjn->bghnp", xb * w_j[..., None], bv)
 
     # Inter-chunk recurrence: H_g = exp(total_g) * H_{g-1} + S_chunk_g.
-    h_cur = torch.zeros((bsz, nh, ns, hp), dtype=torch.float32, device=x.device)
+    h_cur = torch.zeros((bsz, nh, ns, hp), dtype=torch.float32, device=xz.device)
     h_prevs = []
     for gi in range(g):
         h_prevs.append(h_cur)
@@ -147,15 +177,13 @@ def mamba2_forward(x: Tensor, p: dict, cfg, *, return_state: bool = False):
                            torch.exp(cum)[..., None] * cv[:, :, :, None, :], h_prevs)
 
     y = (y_intra + y_inter).reshape(bsz, l, nh, hp)
-    y = y + xh * p["d_skip"][None, None, :, None]
-    y = y.reshape(bsz, l, d_in).to(x.dtype)
+    y = y + xh * d_skip[None, None, :, None]
+    y = y.reshape(bsz, l, d_in).to(xz.dtype)
     y = y * F.silu(z)
-    out = y @ p["out_proj"]
     if not return_state:
-        return out
+        return y
     # Decode cache at position l: final SSM state + conv tail window.
-    tail = conv_in[:, l - (CONV_WIDTH - 1):, :]
-    return out, {"ssm": h_cur, "conv": tail}
+    return y, h_cur, conv_in[:, l - (CONV_WIDTH - 1):, :]
 
 
 def init_mamba2_cache(bsz: int, cfg, dtype, device) -> dict:
@@ -168,21 +196,37 @@ def init_mamba2_cache(bsz: int, cfg, dtype, device) -> dict:
 
 
 def mamba2_decode(x: Tensor, p: dict, cfg, cache: dict) -> tuple[Tensor, dict]:
-    """One-token step.  x: (B, 1, D) -> ((B, 1, D), new cache)."""
-    bsz = x.shape[0]
-    d_in, nh, hp, ns = dims(cfg)
-
+    """One-token step.  x: (B, 1, D) -> ((B, 1, D), new cache).  On
+    DTensors the step between the projections runs on each rank's batch
+    rows, as in :func:`mamba2_forward`."""
     xz = (x @ p["in_proj"])[:, 0]
+
+    def core(xz_, conv, ssm, conv_w, conv_b, a_log, dt_bias, d_skip):
+        return _ssd_step(xz_, conv, ssm, conv_w, conv_b, a_log, dt_bias, d_skip, cfg)
+
+    y, h, window = sharding.local_map(
+        core, (_ROWS2, _ROWS3, _ROWS4) + (None,) * 5, (_ROWS2, _ROWS4, _ROWS3))(
+        xz, cache["conv"], cache["ssm"], p["conv_w"], p["conv_b"], p["a_log"],
+        p["dt_bias"], p["d_skip"])
+    out = (y @ p["out_proj"])[:, None, :]
+    return out, {"ssm": h, "conv": window}
+
+
+def _ssd_step(xz, conv, ssm, conv_w, conv_b, a_log, dt_bias, d_skip, cfg):
+    """One token between the projections: ``in_proj``'s output (B, ·) and
+    the cache -> (gated y (B, d_in), new state, new conv window)."""
+    bsz = xz.shape[0]
+    d_in, nh, hp, ns = dims(cfg)
     z, xin, bmat, cmat, dt = _split_proj(xz, cfg)
 
     conv_in = torch.cat([xin, bmat, cmat], dim=-1)                  # (B,C)
-    window = torch.cat([cache["conv"], conv_in[:, None, :]], dim=1)
-    conv_out = torch.einsum("bwc,wc->bc", window, p["conv_w"]) + p["conv_b"]
+    window = torch.cat([conv, conv_in[:, None, :]], dim=1)
+    conv_out = torch.einsum("bwc,wc->bc", window, conv_w) + conv_b
     conv_out = F.silu(conv_out)
     xin, bmat, cmat = torch.split(conv_out, [d_in, ns, ns], dim=-1)
 
-    dt = F.softplus(dt.to(torch.float32) + p["dt_bias"])            # (B,H)
-    a = -torch.exp(p["a_log"])
+    dt = F.softplus(dt.to(torch.float32) + dt_bias)                 # (B,H)
+    a = -torch.exp(a_log)
     decay = torch.exp(dt * a[None, :])                              # (B,H)
 
     xh = xin.reshape(bsz, nh, hp).to(torch.float32)
@@ -190,9 +234,7 @@ def mamba2_decode(x: Tensor, p: dict, cfg, cache: dict) -> tuple[Tensor, dict]:
     bmat = bmat.to(torch.float32)
     cmat = cmat.to(torch.float32)
 
-    h = cache["ssm"] * decay[:, :, None, None] + torch.einsum("bn,bhp->bhnp", bmat, xbar)
-    y = torch.einsum("bn,bhnp->bhp", cmat, h) + xh * p["d_skip"][None, :, None]
-    y = y.reshape(bsz, d_in).to(x.dtype)
-    y = y * F.silu(z)
-    out = (y @ p["out_proj"])[:, None, :]
-    return out, {"ssm": h, "conv": window[:, 1:, :]}
+    h = ssm * decay[:, :, None, None] + torch.einsum("bn,bhp->bhnp", bmat, xbar)
+    y = torch.einsum("bn,bhnp->bhp", cmat, h) + xh * d_skip[None, :, None]
+    y = y.reshape(bsz, d_in).to(xz.dtype)
+    return y * F.silu(z), h, window[:, 1:, :]

@@ -12,7 +12,9 @@ port runs those blocks stacked on a leading shard dimension, every
 block on every rank (a ``DeviceMesh`` rank too: the region has no
 collective, and each rank holds the global batch), with no host read,
 so the layer also runs on meta tensors (the dry run).  Off a mesh, or
-at up to ``_SMALL_T`` tokens, the whole batch is one block.  Within each
+at up to ``_SMALL_T`` tokens, the whole batch is one block.  On DTensor
+activations (SPMD on a ``DeviceMesh``) each rank routes its own data
+block instead, with the experts parallel over 'model' (:func:`_moe_spmd`).  Within each
 block three rules are explicit here where the reference relies on XLA's:
 
   * the top-k keeps the lower expert index first among equal
@@ -141,15 +143,23 @@ def _combine_local(out_buf: Tensor, se, st, sg, pos, t_loc: int, capacity: int,
     return yt
 
 
-def _experts(buf: Tensor, p: dict) -> Tensor:
+def _experts(buf: Tensor, w_gate: Tensor, w_up: Tensor, w_down: Tensor) -> Tensor:
     """The expert SwiGLU on every shard's buffer: (S, E, C, D) -> (S, E,
     C, D), one ``bmm`` per weight over the E experts, the shards' slots
     side by side (the weights are never copied per shard)."""
     s, e, c, d = buf.shape
     h = buf.transpose(0, 1).reshape(e, s * c, d)
-    act = F.silu(torch.bmm(h, p["expert_gate"])) * torch.bmm(h, p["expert_up"])
-    out = torch.bmm(act, p["expert_down"])
+    act = F.silu(torch.bmm(h, w_gate)) * torch.bmm(h, w_up)
+    out = torch.bmm(act, w_down)
     return out.reshape(e, s, c, -1).transpose(0, 1)
+
+
+def _aux_loss(probs: Tensor, e: int) -> Tensor:
+    """Load-balancing aux loss (Switch / OLMoE style) over all tokens."""
+    top1 = torch.argmax(probs, dim=-1)
+    dispatch_frac = F.one_hot(top1, e).to(torch.float32).mean(dim=0)
+    prob_frac = probs.mean(dim=0)
+    return e * torch.sum(dispatch_frac * prob_frac)
 
 
 def moe(x: Tensor, p: dict, cfg) -> tuple[Tensor, Tensor]:
@@ -157,11 +167,10 @@ def moe(x: Tensor, p: dict, cfg) -> tuple[Tensor, Tensor]:
     under a mesh whose ``batch`` axis divides them, each data shard's
     contiguous block of tokens routes on its own, under its own capacity
     (the reference's ``shard_map`` over 'data'); the aux loss stays over
-    all tokens.  DTensor activations raise: the MoE's expert parallelism
-    on a ``DeviceMesh`` is not ported (ROADMAP A.2)."""
+    all tokens.  DTensor activations (SPMD on a ``DeviceMesh``) take
+    :func:`_moe_spmd`."""
     if sharding.is_dtensor(x):
-        raise NotImplementedError(f"{cfg.name}: the MoE layer on DTensors (expert "
-                                  f"parallelism on a DeviceMesh) is ROADMAP A.2's next step")
+        return _moe_spmd(x, p, cfg)
     b, sl, d = x.shape
     e = cfg.n_experts
     t = b * sl
@@ -169,20 +178,69 @@ def moe(x: Tensor, p: dict, cfg) -> tuple[Tensor, Tensor]:
 
     logits = (xt @ p["router"]).to(torch.float32)
     probs = torch.softmax(logits, dim=-1)
-
-    # Load-balancing aux loss (Switch / OLMoE style).
-    top1 = torch.argmax(probs, dim=-1)
-    dispatch_frac = F.one_hot(top1, e).to(torch.float32).mean(dim=0)
-    prob_frac = probs.mean(dim=0)
-    aux = e * torch.sum(dispatch_frac * prob_frac)
+    aux = _aux_loss(probs, e)
 
     shards = _n_data_shards(t) if t > _SMALL_T else 1
     t_loc = t // shards
     cap = capacity(cfg, t_loc)
     buf, se, st, sg, pos = _dispatch_local(xt.reshape(shards, t_loc, d),
                                            probs.reshape(shards, t_loc, e), cfg, cap)
-    yt = _combine_local(_experts(buf, p), se, st, sg, pos, t_loc, cap, x.dtype).reshape(t, d)
+    out = _experts(buf, p["expert_gate"], p["expert_up"], p["expert_down"])
+    yt = _combine_local(out, se, st, sg, pos, t_loc, cap, x.dtype).reshape(t, d)
 
+    if cfg.shared_expert:
+        yt = yt + mlp(xt[None], p["shared"], cfg.mlp_kind)[0]
+    return yt.reshape(b, sl, d), aux.to(torch.float32)
+
+
+_SLOTS = ("batch", None)
+_BUF = ("batch", "experts", None, None)
+
+
+def _moe_spmd(x: Tensor, p: dict, cfg) -> tuple[Tensor, Tensor]:
+    """The layer on DTensors, as the reference runs it under a mesh: the
+    router's logits made whole over 'model' (it is placed (fsdp, model),
+    so they come out sharded on E) before the softmax and top-k; above
+    ``_SMALL_T`` tokens with a ``batch`` axis that divides them, each
+    rank dispatches and combines its own data block (the reference's
+    ``shard_map`` over 'data'), else every rank routes the whole batch as
+    one block (the tokens gathered over 'data' first); the dispatch and
+    combine are index plumbing with no DTensor rule, run on local blocks
+    (``sharding.local_map``).  The buffer is placed (batch, experts):
+    each rank runs its experts only, their d_in gathered over 'data'
+    (FSDP), and the output buffer is gathered over 'model' before the
+    combine (the reference's MoE all-to-all).  The aux loss is computed
+    whole on every rank from the gathered probabilities."""
+    b, sl, d = x.shape
+    e = cfg.n_experts
+    t = b * sl
+    xt = sharding.shard(x.reshape(t, d), "batch", None)
+    logits = sharding.shard(xt @ p["router"], "batch", None).to(torch.float32)
+    probs = torch.softmax(logits, dim=-1)
+    aux = _aux_loss(probs.full_tensor(), e)
+
+    shards = _n_data_shards(t) if t > _SMALL_T else 1
+    t_loc = t // shards
+    cap = capacity(cfg, t_loc)
+    tokens = _SLOTS if shards > 1 else (None, None)
+
+    def dispatch(xt_, probs_):
+        return _dispatch_local(xt_[None], probs_[None], cfg, cap)
+
+    buf, se, st, sg, pos = sharding.local_map(
+        dispatch, (tokens, tokens), (_BUF,) + (_SLOTS,) * 4)(xt, probs)
+    buf = sharding.shard(buf, *_BUF)
+    experts = ("experts", None, None)
+    out = sharding.local_map(_experts, (_BUF, experts, experts, experts), _BUF)(
+        buf, p["expert_gate"], p["expert_up"], p["expert_down"])
+    out = sharding.shard(out, "batch", None, None, None)
+
+    def combine(out_, se_, st_, sg_, pos_):
+        return _combine_local(out_, se_, st_, sg_, pos_, t_loc, cap, x.dtype)
+
+    yt = sharding.local_map(combine, (("batch", None, None, None),) + (_SLOTS,) * 4,
+                            ("batch", None, None))(out, se, st, sg, pos)
+    yt = sharding.shard(yt.reshape(t, d), "batch", None)
     if cfg.shared_expert:
         yt = yt + mlp(xt[None], p["shared"], cfg.mlp_kind)[0]
     return yt.reshape(b, sl, d), aux.to(torch.float32)

@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import sharding
 from repro_torch.models.common import const_init, fan_in_init, normal_init
 
 Tensor = torch.Tensor
@@ -83,27 +84,55 @@ def _decay(xw: Tensor, p: dict) -> Tensor:
     return -torch.exp(w)  # log w_t
 
 
+_ROWS2 = ("batch", None)
+_ROWS3 = ("batch", None, None)
+_ROWS4 = ("batch", None, None, None)
+
+
+def _shifted(x: Tensor) -> Tensor:
+    """:func:`_token_shift` on each rank's batch rows (``x`` whole
+    elsewhere)."""
+    return sharding.local_map(_token_shift, (_ROWS3,), _ROWS3)(x)
+
+
 def rwkv6_time_mix(x: Tensor, p: dict, cfg, *, chunk: int = CHUNK,
                    return_state: bool = False):
     """Full-sequence chunked time-mix.  x: (B, L, D) -> (B, L, D).
 
     ``return_state=True`` also returns the (B, H, K, V) state at the end
     of the sequence (exact one-pass prefill).  Raises ``ValueError``
-    where the reference asserts: ``L`` not a multiple of the chunk."""
-    bsz, l, d = x.shape
-    nh, hk = dims(cfg)
+    where the reference asserts: ``L`` not a multiple of the chunk.  On
+    DTensors the projections run as placed and the token shift and the
+    chunk loop run on each rank's batch rows (``sharding.local_map``)."""
+    l = x.shape[1]
     q = min(chunk, l)
     if q <= 0 or l % q:
         raise ValueError(f"seq {l} not divisible by chunk {q}")
-    g = l // q
 
-    xs = _token_shift(x)
+    xs = _shifted(x)
     r = _mix(x, xs, p["mu_r"]) @ p["w_r"]
     k = _mix(x, xs, p["mu_k"]) @ p["w_k"]
     v = _mix(x, xs, p["mu_v"]) @ p["w_v"]
     gate = F.silu(_mix(x, xs, p["mu_w"]) @ p["w_g"])
     logw = _decay(_mix(x, xs, p["mu_w"]), p)                        # (B,L,D) <= 0
 
+    def core(r_, k_, v_, logw_, bonus_u):
+        return _wkv(r_, k_, v_, logw_, bonus_u, cfg, q, x.dtype)
+
+    y, s_cur = sharding.local_map(core, (_ROWS3,) * 4 + (None,), (_ROWS3, _ROWS4))(
+        r, k, v, logw, p["bonus_u"])
+    out = (y * gate) @ p["w_o"]
+    if not return_state:
+        return out
+    return out, s_cur
+
+
+def _wkv(r, k, v, logw, bonus_u, cfg, q: int, dtype):
+    """The chunked WKV between the projections: r, k, v, log-decay (B, L,
+    D) -> (y (B, L, D) in ``dtype``, the final state (B, H, K, V))."""
+    bsz, l, d = r.shape
+    nh, hk = dims(cfg)
+    g = l // q
     # Heads.
     rh = r.reshape(bsz, g, q, nh, hk).to(torch.float32)
     kh = k.reshape(bsz, g, q, nh, hk).to(torch.float32)
@@ -119,17 +148,17 @@ def rwkv6_time_mix(x: Tensor, p: dict, cfg, *, chunk: int = CHUNK,
     ri = rh * torch.exp(cum_prev)                                   # (B,G,Q,H,K)
     kj = kh * torch.exp(-cum)                                       # relative
     scores = torch.einsum("bgihk,bgjhk->bghij", ri, kj)
-    tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=x.device), diagonal=-1)
-    scores = torch.where(tri[None, None, None], scores, torch.zeros((), device=x.device))
+    tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=r.device), diagonal=-1)
+    scores = torch.where(tri[None, None, None], scores, torch.zeros((), device=r.device))
     y_intra = torch.einsum("bghij,bgjhk->bgihk", scores, vh)
-    diag = torch.einsum("bgihk,bgihk->bgih", rh, kh * p["bonus_u"][None, None, None])
+    diag = torch.einsum("bgihk,bgihk->bgih", rh, kh * bonus_u[None, None, None])
     y_intra = y_intra + diag[..., None] * vh
 
     # Chunk-final state increments: S += sum_j exp(total - cum_j) k_j (x) v_j.
     wj = torch.exp(total[:, :, None] - cum)                         # (B,G,Q,H,K)
     s_chunk = torch.einsum("bgjhk,bgjhv->bghkv", kh * wj, vh)
 
-    s_cur = torch.zeros((bsz, nh, hk, hk), dtype=torch.float32, device=x.device)
+    s_cur = torch.zeros((bsz, nh, hk, hk), dtype=torch.float32, device=r.device)
     s_prevs = []
     for gi in range(g):
         s_prevs.append(s_cur)
@@ -137,15 +166,11 @@ def rwkv6_time_mix(x: Tensor, p: dict, cfg, *, chunk: int = CHUNK,
     s_prevs = torch.stack(s_prevs, dim=1)                           # (B,G,H,K,V)
 
     y_inter = torch.einsum("bgihk,bghkv->bgihv", ri, s_prevs)
-    y = (y_intra + y_inter).reshape(bsz, l, d).to(x.dtype)
-    out = (y * gate) @ p["w_o"]
-    if not return_state:
-        return out
-    return out, s_cur
+    return (y_intra + y_inter).reshape(bsz, l, d).to(dtype), s_cur
 
 
 def rwkv6_channel_mix(x: Tensor, p: dict) -> Tensor:
-    xs = _token_shift(x)
+    xs = _shifted(x)
     k = _mix(x, xs, p["cm_mu_k"]) @ p["cm_k"]
     k = torch.square(F.relu(k))
     r = torch.sigmoid(_mix(x, xs, p["cm_mu_r"]) @ p["cm_r"])
@@ -166,7 +191,7 @@ def rwkv6_decode(x: Tensor, p: dict, cfg, cache: dict) -> tuple[Tensor, None, di
     """One-token step: ``(time-mix out, None, new cache)``; the caller
     runs the channel mix through :func:`rwkv6_channel_mix_step` on its
     own post-time-mix residual (the reference's three-value signature)."""
-    bsz, _, d = x.shape
+    d = x.shape[-1]
     nh, hk = dims(cfg)
     xt = x[:, 0]
     xs = cache["tm_shift"].to(xt.dtype)
@@ -174,19 +199,24 @@ def rwkv6_decode(x: Tensor, p: dict, cfg, cache: dict) -> tuple[Tensor, None, di
     def mix1(mu):
         return (xt * mu + xs * (1.0 - mu)).to(xt.dtype)
 
-    r = (mix1(p["mu_r"]) @ p["w_r"]).reshape(bsz, nh, hk).to(torch.float32)
-    k = (mix1(p["mu_k"]) @ p["w_k"]).reshape(bsz, nh, hk).to(torch.float32)
-    v = (mix1(p["mu_v"]) @ p["w_v"]).reshape(bsz, nh, hk).to(torch.float32)
+    r = mix1(p["mu_r"]) @ p["w_r"]
+    k = mix1(p["mu_k"]) @ p["w_k"]
+    v = mix1(p["mu_v"]) @ p["w_v"]
     gate = F.silu(mix1(p["mu_w"]) @ p["w_g"])
     lora = torch.tanh(mix1(p["mu_w"]).to(torch.float32) @ p["decay_a"])
     logw = -torch.exp(p["decay_w0"] + lora @ p["decay_b"])
-    w = torch.exp(logw).reshape(bsz, nh, hk)
 
-    s = cache["state"]                                              # (B,H,K,V)
-    kv = torch.einsum("bhk,bhv->bhkv", k, v)
-    out = torch.einsum("bhk,bhkv->bhv", r, s + p["bonus_u"][None, :, :, None] * kv)
-    s_new = s * w[..., None] + kv
-    tm_out = (out.reshape(bsz, d) * gate).to(x.dtype) @ p["w_o"]
+    def step(r_, k_, v_, logw_, s, bonus_u):
+        """The state update on (B, D) rows: (out (B, D), new state)."""
+        rh, kh, vh = (t.reshape(t.shape[0], nh, hk).to(torch.float32) for t in (r_, k_, v_))
+        w = torch.exp(logw_).reshape(logw_.shape[0], nh, hk)
+        kv = torch.einsum("bhk,bhv->bhkv", kh, vh)
+        out = torch.einsum("bhk,bhkv->bhv", rh, s + bonus_u[None, :, :, None] * kv)
+        return out.reshape(out.shape[0], d), s * w[..., None] + kv
+
+    out, s_new = sharding.local_map(step, (_ROWS2,) * 4 + (_ROWS4, None), (_ROWS2, _ROWS4))(
+        r, k, v, logw, cache["state"], p["bonus_u"])
+    tm_out = (out * gate).to(x.dtype) @ p["w_o"]
     new_cache = dict(cache, state=s_new, tm_shift=xt)
     return tm_out[:, None, :], None, new_cache
 

@@ -38,20 +38,22 @@ run, one card) every shard runs in this process, stacked on a leading
 dimension, as ``shard_map`` on forced host devices computes.  Entries of
 a placement that name other axes (the batch's ``data``) only split
 independent rows: every rank keeps those rows whole.  The per-data-shard
-MoE dispatch (``models/moe.py``) has no collective and runs its blocks
-stacked in one process on any mesh.
+MoE dispatch (``models/moe.py``) has no collective and, on plain tensors,
+runs its blocks stacked in one process on any mesh.
 
-SPMD on a ``DeviceMesh`` (the dense transformer's serving path):
+SPMD on a ``DeviceMesh`` (every family's serving path):
 :func:`distribute_params` places a parameter tree as DTensors by
 :func:`param_placements`, each rank holding only its blocks; the
 models' :func:`shard` constraints then redistribute the activations
 (FSDP over ``data``, TP over ``model``), and :func:`spmd` lets the plain
 tensors a model makes (positions, masks) meet DTensors as replicated
 values.  :func:`local_map` runs a function on each rank's local blocks
-(the flash kernel, the decode's cache write) and wraps its result with
-the placement it was computed under; :func:`shard_map` takes DTensors
-too, one block per rank.  Plain tensors on a ``DeviceMesh`` (the
-collective regions above, training) keep their behaviour.
+(the flash kernel, the plain attention, the decode's cache write, the
+MoE's dispatch and combine, the SSD and WKV scans) and wraps its results
+with the placements they were computed under; :func:`shard_map` takes
+DTensors too, one block per rank.  Plain tensors on a ``DeviceMesh``
+(the collective regions above) keep their behaviour; training refuses
+DTensor leaves (:func:`refuse_dtensors`).
 """
 
 from __future__ import annotations
@@ -357,18 +359,12 @@ def distribute_params(params, cfg, convert=None):
     ``convert`` (a leaf -> tensor function, applied first) lets the leaves
     be anything with a shape, each converted only as it is placed.  The
     identity with no mesh or on a :class:`MeshShape` (but for
-    ``convert``).  Only the dense transformer's constraints are ported
-    (ROADMAP A.2); any other family raises ``NotImplementedError`` rather
-    than run replicated."""
+    ``convert``).  Every family serves on the placed tree; training on it
+    refuses (:func:`refuse_dtensors`)."""
     mesh = get_mesh()
     if mesh is None or not _is_device_mesh(mesh):
         return params if convert is None else _with_paths(lambda _, leaf: convert(leaf),
                                                             params)
-    if cfg.family != "dense" or cfg.n_experts:
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}): SPMD on a DeviceMesh covers the dense transformer "
-            f"only; the MoE's expert parallelism and the other families' constraints are "
-            f"ROADMAP A.2's next steps")
     placed = param_placements(params, cfg)
 
     def place(path, leaf):
@@ -378,6 +374,14 @@ def distribute_params(params, cfg, convert=None):
         return _from_whole(leaf if convert is None else convert(leaf), mesh, pl)
 
     return _with_paths(place, params)
+
+
+def refuse_dtensors(tree, what: str) -> None:
+    """Raise ``NotImplementedError`` if ``tree`` holds a DTensor: ``what``
+    (a training entry point) runs on plain tensors only."""
+    if _has_dtensor(tree):
+        raise NotImplementedError(f"{what} on DTensor leaves (training under SPMD on a "
+                                  f"DeviceMesh) is ROADMAP A.2's next step")
 
 
 def local_nbytes(tree) -> int:
@@ -426,26 +430,60 @@ def block_start(shape, placement, dim: int) -> int:
     return idx * (int(shape[dim]) // n)
 
 
+def _has_dtensor(tree) -> bool:
+    if isinstance(tree, dict):
+        return any(_has_dtensor(v) for v in tree.values())
+    return is_dtensor(tree)
+
+
+def _gathered(tree):
+    """Every leaf of ``tree`` whole on this rank: a DTensor gathered (its
+    partial sums reduced), a plain tensor as it is."""
+    if isinstance(tree, dict):
+        return {k: _gathered(v) for k, v in tree.items()}
+    return tree.full_tensor() if is_dtensor(tree) else tree
+
+
 def local_map(fn, in_axes, out_axes):
     """``fn`` on each rank's local blocks.
 
     ``in_axes`` holds logical axes for each argument: the argument (a
     DTensor, or a plain tensor every rank holds whole) is placed by
-    :func:`resolve` and ``fn`` gets its local block.  ``fn``'s result, one
-    tensor with the whole shape of the first argument, is this rank's
-    block of a DTensor placed by ``out_axes`` (resolved against that
-    shape).  With no DTensor argument, or off a ``DeviceMesh``, ``fn``
-    runs on the arguments as they are."""
+    :func:`resolve` and ``fn`` gets its local block.  ``None`` in place of
+    an argument's axes gives ``fn`` that argument (a tensor or a dict of
+    them: parameters) whole on every rank.  ``out_axes`` are the logical
+    axes of ``fn``'s result, or a tuple of them when ``fn`` returns a
+    tuple: each result is this rank's block of a DTensor placed on the
+    mesh axes of its logical axes that the inputs were split on (an axis
+    :func:`resolve` dropped for every input, such as a batch the data
+    axis does not divide, is dropped).  With no DTensor argument, or off
+    a ``DeviceMesh``, ``fn`` runs on the arguments as they are."""
     def run(*args):
         mesh = get_mesh()
-        if mesh is None or not _is_device_mesh(mesh) or not any(map(is_dtensor, args)):
+        if mesh is None or not _is_device_mesh(mesh) or not any(map(_has_dtensor, args)):
             return fn(*args)
         from torch.distributed.tensor import DTensor
 
-        local = [_as_placed(x, resolve(x.shape, axes), mesh).to_local()
-                 for x, axes in zip(args, in_axes)]
-        out = dtensor_placements(mesh, resolve(args[0].shape, out_axes))
-        return DTensor.from_local(fn(*local).contiguous(), mesh, out, run_check=False)
+        kept: set = set()
+        local = []
+        for x, axes in zip(args, in_axes):
+            if axes is None:
+                local.append(_gathered(x))
+                continue
+            spec = resolve(x.shape, axes)
+            kept.update(a for a, e in zip(axes, spec) if e is not None)
+            local.append(_as_placed(x, spec, mesh).to_local())
+        out = fn(*local)
+        many = isinstance(out, tuple)
+
+        def wrap(y, axes):
+            spec = tuple(get_rule(a) if a in kept else None for a in axes)
+            return DTensor.from_local(y.contiguous(), mesh, dtensor_placements(mesh, spec),
+                                      run_check=False)
+
+        if not many:
+            return wrap(out, out_axes)
+        return tuple(wrap(y, axes) for y, axes in zip(out, out_axes))
 
     return run
 

@@ -6,6 +6,13 @@ Block = LayerNorm -> time-mix (+residual) -> LayerNorm -> channel-mix
 convention).  Decode is O(1) per token with a (B, H, K, V) state per
 layer; prefill is one chunked pass that also returns the states and the
 two token-shift inputs of every layer.
+
+On a ``DeviceMesh`` with DTensor parameters the entry points run as SPMD
+(``sharding.spmd``) with the reference's constraints: each block's
+residual on the batch and the vocab-sharded logits; the time-mix's chunk
+loop and the token shifts run on each rank's batch rows
+(``models/rwkv6.py``), and the decode state and shifts are placed on the
+batch.
 """
 
 from __future__ import annotations
@@ -13,11 +20,12 @@ from __future__ import annotations
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models import rwkv6
+from repro_torch.models import rwkv6, sharding
 from repro_torch.models.common import (
     const_init,
     cross_entropy_loss,
     dtype_of,
+    embed_lookup,
     init_generator,
     layer,
     layer_norm,
@@ -56,23 +64,28 @@ def _blocks(params, cfg):
 
 
 def _embed(params, cfg, tokens):
-    x = params["embed"][tokens.long()]
+    x = embed_lookup(params["embed"], tokens)
     return layer_norm(x, params["ln0_w"], params["ln0_b"], cfg.norm_eps)
 
 
 def _logits(params, cfg, x):
     x = layer_norm(x, params["final_ln_w"], params["final_ln_b"], cfg.norm_eps)
-    return x @ params["lm_head"]
+    return sharding.shard(x @ params["lm_head"], "batch", None, "vocab")
 
 
 def _block(x, blk, cfg):
     h = layer_norm(x, blk["ln1_w"], blk["ln1_b"], cfg.norm_eps)
     x = x + rwkv6.rwkv6_time_mix(h, blk["rwkv"], cfg)
     h = layer_norm(x, blk["ln2_w"], blk["ln2_b"], cfg.norm_eps)
-    return x + rwkv6.rwkv6_channel_mix(h, blk["rwkv"])
+    return sharding.shard(x + rwkv6.rwkv6_channel_mix(h, blk["rwkv"]), "batch", None, None)
 
 
 def forward(params, cfg, batch) -> tuple[Tensor, Tensor]:
+    with sharding.spmd(params):
+        return _forward(params, cfg, batch)
+
+
+def _forward(params, cfg, batch):
     x = _embed(params, cfg, batch["tokens"])
     for blk in _blocks(params, cfg):
         x = _block(x, blk, cfg)
@@ -103,6 +116,11 @@ def init_cache(cfg, batch_size: int, max_seq: int, device="cuda") -> dict:
 
 
 def decode_step(params, cfg, cache, tokens) -> tuple[Tensor, dict]:
+    with sharding.spmd(params):
+        return _decode_step(params, cfg, cache, tokens)
+
+
+def _decode_step(params, cfg, cache, tokens):
     x = _embed(params, cfg, tokens)
     sts, tms, cms = [], [], []
     for i, blk in enumerate(_blocks(params, cfg)):
@@ -127,6 +145,11 @@ def prefill(params, cfg, batch) -> tuple[Tensor, dict]:
     """Exact one-pass prefill: the chunked-parallel forward also yields the
     end-of-sequence states and each layer's last normalized inputs (the
     token shifts)."""
+    with sharding.spmd(params):
+        return _prefill(params, cfg, batch)
+
+
+def _prefill(params, cfg, batch):
     tokens = batch["tokens"]
     s = tokens.shape[1]
     x = _embed(params, cfg, tokens)
@@ -136,15 +159,15 @@ def prefill(params, cfg, batch) -> tuple[Tensor, dict]:
         tm_out, s_final = rwkv6.rwkv6_time_mix(h, blk["rwkv"], cfg, return_state=True)
         x = x + tm_out
         h2 = layer_norm(x, blk["ln2_w"], blk["ln2_b"], cfg.norm_eps)
-        x = x + rwkv6.rwkv6_channel_mix(h2, blk["rwkv"])
+        x = sharding.shard(x + rwkv6.rwkv6_channel_mix(h2, blk["rwkv"]), "batch", None, None)
         sts.append(s_final)
         tms.append(h[:, -1])
         cms.append(h2[:, -1])
     dtype = dtype_of(cfg)
     cache = {
-        "state": torch.stack(sts),
-        "tm_shift": torch.stack(tms).to(dtype),
-        "cm_shift": torch.stack(cms).to(dtype),
+        "state": sharding.shard(torch.stack(sts), None, "batch", None, None, None),
+        "tm_shift": sharding.shard(torch.stack(tms).to(dtype), None, "batch", None),
+        "cm_shift": sharding.shard(torch.stack(cms).to(dtype), None, "batch", None),
         "pos": torch.tensor(s, dtype=torch.int32, device=tokens.device),
     }
     return _logits(params, cfg, x[:, -1:]), cache

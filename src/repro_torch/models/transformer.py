@@ -25,12 +25,13 @@ group's matmuls without batch dims (the projections) and recomputes the
 rest, ``"none"`` keeps everything.
 
 On a ``DeviceMesh`` with DTensor parameters (``sharding.
-distribute_params``) the dense family runs as SPMD, as the reference runs
-under a mesh: the entry points run under ``sharding.spmd`` and the
-reference's ``shard`` constraints sit at its sites (the embedding, each
-block's residual, the serve layer, the prefill cache, the vocab-sharded
-logits).  The embedding table stays vocab-sharded: a lookup is a masked
-partial sum over the vocab shards.
+distribute_params``) the dense, MoE and VLM families run as SPMD, as the
+reference runs under a mesh: the entry points run under ``sharding.spmd``
+and the reference's ``shard`` constraints sit at its sites (the
+embedding, each block's residual, the MoE block's, the serve layer, the
+prefill cache, the vocab-sharded logits; the MoE layer's own in
+``models/moe.py``).  The embedding table stays vocab-sharded: a lookup is
+a masked partial sum over the vocab shards (``common.embed_lookup``).
 """
 
 from __future__ import annotations
@@ -48,6 +49,7 @@ from repro_torch.models.common import (
     const_init,
     cross_entropy_loss,
     dtype_of,
+    embed_lookup,
     fan_in_init,
     init_generator,
     layer,
@@ -142,7 +144,7 @@ def _moe_block(x, blk, cfg, positions):
     x = x + attention.full_attention(h, blk["attn"], cfg, positions)
     h = rms_norm(x, blk["mlp_norm"], cfg.norm_eps)
     y, aux = moe.moe(h, blk["moe"], cfg)
-    return x + y, aux
+    return sharding.shard(x + y, "batch", "residual", None), aux
 
 
 def _save_projections(ctx, op, *args, **kwargs):
@@ -202,23 +204,15 @@ def _scale_embed(x, cfg):
     return x
 
 
-def _lookup(table, tokens):
-    """The rows of ``tokens`` in the embedding table.  A DTensor table is
-    read by ``F.embedding``, which keeps it vocab-sharded (a masked
-    partial sum, reduced by the constraint after it) where an index
-    would gather it; its rows are placed on the batch."""
-    if not sharding.is_dtensor(table):
-        return table[tokens.long()]
-    x = torch.nn.functional.embedding(tokens.long(), table)
-    return sharding.shard(x, "batch", None, None)
-
-
 def embed_tokens(params, cfg, tokens, batch):
     """(B, S, D) embeddings; with the VLM prefix, the projected
     ``vis_embeds`` first and the tokens cut to keep S positions."""
-    x = _lookup(params["embed"], tokens)
+    x = embed_lookup(params["embed"], tokens)
     if cfg.n_vis_tokens and "vis_embeds" in batch:
         vis = batch["vis_embeds"].to(x.dtype) @ params["vis_proj"]
+        # The projected prefix ((fsdp, model) weights) takes the token
+        # rows' batch placement before the two are joined.
+        vis = sharding.shard(vis, "batch", None, None)
         x = torch.cat([vis, x[:, : x.shape[1] - vis.shape[1]]], dim=1)
     return sharding.shard(_scale_embed(x, cfg), "batch", None, None)
 
@@ -275,8 +269,9 @@ def _serve_layer(x, blk, cfg, attend):
     h = rms_norm(x, blk["mlp_norm"], cfg.norm_eps)
     if "moe" in blk:
         y, _ = moe.moe(h, blk["moe"], cfg)
-        return x + y, k, v
-    x = x + mlp.mlp(h, blk["mlp"], cfg.mlp_kind)
+        x = x + y
+    else:
+        x = x + mlp.mlp(h, blk["mlp"], cfg.mlp_kind)
     return sharding.shard(x, "batch", None, None), k, v
 
 
@@ -329,7 +324,7 @@ def decode_step(params, cfg, cache, tokens) -> tuple[Tensor, dict]:
 
 def _decode_step(params, cfg, cache, tokens):
     pos = cache["pos"]
-    x = _scale_embed(_lookup(params["embed"], tokens), cfg)
+    x = _scale_embed(embed_lookup(params["embed"], tokens), cfg)
     nks, nvs = [], []
     for li, blk in enumerate(_serve_layers(params, cfg)):
         def attend(h, p, li=li):

@@ -20,6 +20,7 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch.kernels.fp import div_f32
+from repro_torch.models.sharding import refuse_dtensors
 from repro_torch.tree import leaves, tree_map
 
 Tensor = torch.Tensor
@@ -115,7 +116,9 @@ def _update(p: Tensor, g: Tensor, m: Tensor, v: Tensor, cfg: AdamWConfig,
 
 
 def apply(params, grads, state: AdamWState, cfg: AdamWConfig) -> tuple[Any, AdamWState, dict]:
-    """One AdamW step, in place.  Returns (params, new_state, metrics)."""
+    """One AdamW step, in place.  Returns (params, new_state, metrics).
+    DTensor leaves raise ``NotImplementedError`` (ROADMAP A.2)."""
+    refuse_dtensors(params, "adamw.apply")
     if cfg.grad_clip > 0:
         grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
     else:

@@ -43,6 +43,7 @@ from repro_torch.core.consistency import ConsistencyLevel, ConsistencyPolicy
 from repro_torch.core.replicated_store import ReplicatedStore
 from repro_torch.device import resolve_device
 from repro_torch.kernels.fp import div_f32
+from repro_torch.models.sharding import refuse_dtensors
 from repro_torch.sync import compression
 from repro_torch.tree import leaves, tree_map
 
@@ -158,6 +159,7 @@ class SyncEngine:
         keeps its local parameters and catches up at the next merge it
         participates in — the Δ bound caps how stale it can get.
         """
+        refuse_dtensors(params, "SyncEngine.merge")
         if self.n_pods == 1:
             return params, sync._replace(merges=sync.merges + 1)
         up = None if up is None else _host_mask(up)

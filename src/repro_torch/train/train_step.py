@@ -29,6 +29,7 @@ from repro_torch.core.consistency import ConsistencyPolicy
 from repro_torch.device import resolve_device
 from repro_torch.kernels.fp import div_f32
 from repro_torch.models.model_zoo import Model, abstract_params
+from repro_torch.models.sharding import refuse_dtensors
 from repro_torch.optim import adamw
 from repro_torch.sync.engine import SyncEngine, SyncState
 from repro_torch.tree import leaves, tree_map
@@ -74,7 +75,10 @@ def make_train_fns(
 
     def init(seed_or_gen=0, params=None) -> TrainState:
         """The state from ``model.init(seed_or_gen)`` on the device, or from
-        ``params`` (one pod's tree; moved to the device)."""
+        ``params`` (one pod's tree; moved to the device).  DTensor
+        parameters raise ``NotImplementedError`` (ROADMAP A.2), as do the
+        step functions on a DTensor state."""
+        refuse_dtensors(params or {}, "make_train_fns' init")
         if params is None:
             params = model.init(seed_or_gen, dev)
         else:
@@ -101,6 +105,7 @@ def make_train_fns(
         return new_opt.count, loss.detach(), om
 
     def local_step(state: TrainState, batch) -> tuple[TrainState, dict]:
+        refuse_dtensors(state.params, "local_step / sync_step")
         losses, norms, count, lr = [], [], state.opt.count, None
         for p in range(n_pods):
             pod_batch = {k: v[p] for k, v in batch.items()}

@@ -1179,3 +1179,58 @@ def test_nccl_one_rank_spmd_flash_wrapper(cuda, dtype):
     assert torch.equal(got.full_tensor(), want)
     torch.testing.assert_close(got.full_tensor().float(), plain_attn.float(), atol=tol, rtol=tol)
     assert torch.equal(fwd.full_tensor(), plain_fwd)
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_nccl_one_rank_spmd_families(cuda, arch):
+    """A (1, 1) mesh over an NCCL group of one rank, each family's reduced
+    f32 parameters as DTensors, B.8 on: ``forward``, the prompt's prefill
+    (logits and every cache leaf) and a greedy ``generate`` equal to the
+    same parameters plain, bit for bit (one rank: no partial sums), with
+    as many B.8 launches per meshed forward as per plain forward."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model, sharding
+    from repro_torch.serve import ServeSession, ServingEngine
+
+    cfg = dataclasses.replace(reduced(get_config(arch)), use_flash_kernel=True)
+    model = build_model(cfg)
+    params = model.init(0, device=cuda)
+    batch = torch_batch(family_inputs(cfg, 2, 32, 5), cuda)
+    batch.pop("labels")
+    k = 16 + cfg.n_vis_tokens
+    prompt = dict(batch, tokens=batch["tokens"][:, :k], max_seq=k + 4)
+
+    def run(p):
+        ops.reset_launch_counts()
+        fwd = model.forward(p, batch)[0]
+        launches = ops.launch_counts()["flash_attention"]
+        logits, cache = model.prefill(p, prompt)
+        eng = ServingEngine(model, device=cuda)
+        eng.publish(p, version=1)
+        toks, _ = eng.generate(ServeSession(0), prompt, 4)
+        out = {"forward": fwd, "prefill": logits, **{f"cache/{n}": c for n, c in cache.items()},
+               "generate": toks}
+        return {n: x.full_tensor() if sharding.is_dtensor(x) else x
+                for n, x in out.items()}, launches, eng.logit_gathers
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        with torch.no_grad():
+            want, plain_launches, _ = run(params)
+            with sharding.use_mesh(mesh):
+                got, launches, gathers = run(sharding.distribute_params(params, cfg))
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    assert sorted(got) == sorted(want)
+    for name in want:
+        assert torch.equal(got[name], want[name]), name
+    assert launches == plain_launches == causal_attention_layers(cfg)
+    assert gathers == 4

@@ -1,13 +1,13 @@
 """The mesh's attention regions in the port (``sharding.shard_map``): the
 ring attention over ``kv_seq`` and the ``lse_shardmap`` flash-decode
 combine, against the reference under the same mesh of forced host
-devices (``tests/torch_mesh_ref.py``, one subprocess for the file), in
+devices (``tests/torch_mesh_ref.py``, one subprocess per gloo group), in
 both of the port's modes: every shard stacked in this process under a
 ``MeshShape``, and one shard per rank of a spawned gloo group (worlds 4
 and 2) under a ``DeviceMesh``.
 
 The dense transformer served as SPMD (the ``spmd`` cases, in the same
-subprocess and gloo groups): DTensor parameters placed by the
+subprocesses and gloo groups): DTensor parameters placed by the
 reference's rules on a (1, 2) "tp", a (2, 1) FSDP and a (2, 2) "dp"
 mesh, held against the reference under the same mesh and against the
 port with no mesh.
@@ -43,8 +43,8 @@ RING = [c for c in CASES if c["kind"] == "ring"]
 DECODE = [c for c in CASES if c["kind"] == "decode"]
 SPMD = [c for c in CASES if c["kind"] == "spmd"]
 B8_TOL = dict(atol=2e-5, rtol=2e-5)       # B.8's f32 contract
-# The gloo groups: world size -> the meshes run on it.
-WORLDS = {4: (mc.M22, mc.M14), 2: (mc.M12, mc.M21)}
+# The gloo groups, spawned at once: (world size, the meshes it runs).
+WORLDS = [(4, (mc.M22, mc.M14)), (2, (mc.M12, mc.M21))]
 MODES = ("stacked", "gloo")
 
 torch.set_num_threads(1)
@@ -166,12 +166,14 @@ def test_spmd_flash_wrapper_on_local_shards(runs, case):
     assert tuple(plain["flash_q_shape"]) == (case["b"], case["s"], cfg.n_heads, cfg.head_dim)
 
 
-def test_moe_config_refuses_device_mesh(runs):
-    """``distribute_params`` of a MoE configuration on a ``DeviceMesh``
-    raises ``NotImplementedError`` instead of running replicated."""
+def test_training_refuses_dtensor_leaves(runs):
+    """The training entry points (``make_train_fns``' init and local /
+    sync step, ``adamw.apply``, ``SyncEngine.merge``) raise
+    ``NotImplementedError`` on DTensor parameters instead of training
+    them (training under SPMD is ROADMAP A.2's next step)."""
     for case in SPMD:
         got, _, _ = _spmd_runs(runs, case)
-        assert int(got["moe_refused"]) == 1, case["id"]
+        assert int(got["train_refused"]) == 4, case["id"]
 
 
 # ---- the port's own rules, against the reference's where it has them ---------------

@@ -3,7 +3,7 @@
 contiguous block of tokens routes on its own, under its own capacity,
 as the reference's ``shard_map`` over 'data' does.  Held against the
 reference under the same mesh of forced host devices
-(``tests/torch_mesh_ref.py``, one subprocess for the file), with the
+(``tests/torch_mesh_ref.py``, one subprocess per gloo group), with the
 port under a ``MeshShape`` in this process and under a ``DeviceMesh`` of
 spawned gloo groups of 4 and 2.
 
@@ -35,7 +35,7 @@ PART = "moe"
 TOL = dict(atol=1e-5, rtol=1e-5)
 GRAD_TOL = dict(rtol=1e-4, atol=1e-6)
 CASES = mc.CASES[PART]
-WORLDS = {4: (mc.M22, mc.M41), 2: (mc.M21,)}
+WORLDS = [(4, (mc.M22, mc.M41)), (2, (mc.M21,))]
 MODES = ("stacked", "gloo")
 
 torch.set_num_threads(1)

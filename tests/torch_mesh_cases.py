@@ -1,6 +1,6 @@
-"""The cases of ``tests/test_torch_mesh_{attention,moe}.py`` and the
-port's side of them, JAX-free: the reference side is
-``tests/torch_mesh_ref.py``, run in a subprocess with four forced host
+"""The cases of ``tests/test_torch_mesh_{attention,moe,families}.py`` and
+the port's side of them, JAX-free: the reference side is
+``tests/torch_mesh_ref.py``, run in subprocesses with four forced host
 devices; the port runs each case under a ``MeshShape`` in the test
 process (every shard stacked in one process) and in a gloo group of
 spawned processes (a ``DeviceMesh``, one shard per rank), on the
@@ -16,14 +16,19 @@ entry points it drives:
   * ``moe``: the first MoE layer's output, aux loss and each data
     shard's routing at T = 4096 tokens, the model's logits (and with
     ``grad`` one step's gradients);
-  * ``spmd``: the dense transformer as SPMD on a ``DeviceMesh`` with
-    DTensor parameters (``sharding.distribute_params``): ``forward``, the
+  * ``spmd``: a model as SPMD on a ``DeviceMesh`` with DTensor
+    parameters (``sharding.distribute_params``): ``forward``, the
     prompt's ``prefill`` and ``steps`` decode steps' logits, a greedy
     ``generate`` through ``ServingEngine``, the rank's parameter bytes,
-    and B.8's local-shard wrapper (``attention.flash_attention_spmd``,
-    its plain version here) against the plain attention on the same
-    DTensors.  Its in-process run is the port with no mesh (the SPMD
-    path's own baseline), not a ``MeshShape``.
+    the flash forward's B.8 calls (``attention.flash_attention_spmd``,
+    the plain version here) and, for the dense transformer, B.8's
+    local-shard wrapper against the plain attention on the same DTensors
+    and the training entry points' refusal of DTensor leaves; for a MoE
+    configuration, the first MoE layer on DTensor activations
+    (``moe._moe_spmd``) at ``MOE_TOKENS``' sizes, above ``_SMALL_T`` and
+    at it, with each data shard's routing, and the placements the MoE
+    block's and serve layer's constraints give.  Its in-process run is the
+    port with no mesh (the SPMD path's own baseline), not a ``MeshShape``.
 """
 
 from __future__ import annotations
@@ -57,6 +62,10 @@ CONFIGS = {
     "gemma_spmd": ("gemma-2b", {}),
     "olmoe": ("olmoe-1b-7b", {}),
     "llama4": ("llama4-maverick-400b-a17b", {}),
+    "internvl2": ("internvl2-2b", {}),
+    "zamba2": ("zamba2-1.2b", {}),
+    "rwkv6": ("rwkv6-3b", {}),
+    "whisper": ("whisper-large-v3", {}),
 }
 
 # Configurations that differ only in settings no parameter depends on
@@ -78,6 +87,16 @@ RING = dict(kind="ring", b=2, s=64)
 DECODE = dict(kind="decode", b=2, prompt=8, steps=4, max_seq=16)
 MOE = dict(kind="moe", b=16, s=256)          # T = 4096 > the reference's _SMALL_T
 SPMD = dict(kind="spmd", b=2, s=16, prompt=8, steps=3, max_seq=16, gen=4)
+# The other families: three served tokens, whose two decode steps' logits
+# are the decode check (no ``steps``); the VLM's prompt holds its 8 image
+# positions and 8 tokens.
+FAMILY_SPMD = dict(SPMD, steps=0, gen=3)
+FAMILY_SPMD_CFGS = {"olmoe": {}, "llama4": {}, "internvl2": dict(s=24, prompt=16, max_seq=24),
+                    "zamba2": {}, "rwkv6": {}, "whisper": {}}
+# The MoE layer's (b, s) on DTensors: T = 4096 > _SMALL_T (each data shard
+# routes its own block) and T = 2048 (the whole batch as one block).
+MOE_TOKENS = ((16, 256), (8, 256))
+SPMD_MESHES = {"tp_d1m2": M12, "fsdp_d2m1": M21, "d2m2": M22}
 
 CASES = {
     "attention": [
@@ -110,6 +129,10 @@ CASES = {
         dict(MOE, id="llama4_d4m1", cfg="llama4", mesh=M41),
         dict(MOE, id="olmoe_d2m1", cfg="olmoe", mesh=M21),
     ],
+    # Every family but the dense one, as SPMD on each mesh.
+    "families": [dict(FAMILY_SPMD, id=f"{name}_{mid}", cfg=name, mesh=mesh, **over)
+                 for name, over in FAMILY_SPMD_CFGS.items()
+                 for mid, mesh in SPMD_MESHES.items()],
 }
 
 
@@ -119,7 +142,7 @@ def case_by_id(part: str, cid: str) -> dict:
 
 def inputs(cfg, case) -> dict:
     """The case's batch as numpy: tokens and labels (B, S) int32, and
-    whisper's frames."""
+    whisper's frames or the VLM's image prefix."""
     s = case.get("s", case.get("prompt", 0) + case.get("steps", 0))
     rng = np.random.default_rng(SEED + 1)
     toks = rng.integers(0, cfg.vocab_size, (case["b"], s)).astype(np.int32)
@@ -127,7 +150,15 @@ def inputs(cfg, case) -> dict:
     if cfg.is_encdec:
         out["frames"] = rng.standard_normal((case["b"], cfg.n_frames, cfg.d_model),
                                             dtype=np.float32)
+    if cfg.n_vis_tokens:
+        out["vis_embeds"] = rng.standard_normal((case["b"], cfg.n_vis_tokens, cfg.d_model),
+                                                dtype=np.float32)
     return out
+
+
+def extras(batch: dict) -> dict:
+    """The batch's inputs besides the tokens (frames, the image prefix)."""
+    return {k: v for k, v in batch.items() if k in ("frames", "vis_embeds")}
 
 
 def moe_input(cfg, case) -> np.ndarray:
@@ -170,15 +201,16 @@ def write_params(part: str, path) -> dict:
     return arrays
 
 
-def start_reference(part: str, params_path, out_path) -> subprocess.Popen:
-    """Start ``torch_mesh_ref.py`` for ``part`` in a subprocess (it runs
-    while the port's side does); :func:`reference_arrays` waits for it."""
+def start_reference(part: str, params_path, out_path, ids=()) -> subprocess.Popen:
+    """Start ``torch_mesh_ref.py`` for ``part`` (its cases ``ids``, or all)
+    in a subprocess (it runs while the port's side does);
+    :func:`reference_arrays` waits for it."""
     env = dict(os.environ)
     src = str(HERE.parent / "src")
     env["PYTHONPATH"] = os.pathsep.join([src, str(HERE), env.get("PYTHONPATH", "")])
     env["JAX_PLATFORMS"] = "cpu"
     return subprocess.Popen([sys.executable, str(HERE / "torch_mesh_ref.py"), part,
-                             str(params_path), str(out_path)],
+                             str(params_path), str(out_path), ",".join(ids)],
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
 
 
@@ -300,21 +332,38 @@ def _whole(x):
     return x.full_tensor() if sharding.is_dtensor(x) else x
 
 
+class Recorder:
+    """A model whose prefill and decode keep every logits tensor they
+    return (the served path's logits, read after ``generate``)."""
+
+    def __init__(self, model):
+        self.model, self.logits = model, []
+
+    def prefill(self, params, batch):
+        logits, cache = self.model.prefill(params, batch)
+        self.logits.append(logits)
+        return logits, cache
+
+    def decode_step(self, params, cache, tokens):
+        logits, cache = self.model.decode_step(params, cache, tokens)
+        self.logits.append(logits)
+        return logits, cache
+
+
 def _spmd(case, cfg, params) -> dict:
     """The SPMD case's outputs on the active mesh (``None``: the port's
     plain path): logits of ``forward`` over all ``s`` tokens, of the
-    prompt's ``prefill`` and of ``steps`` decode steps; ``gen`` greedy
-    tokens from the prompt through ``ServingEngine`` and its logit
-    gathers; the forward with ``use_flash_kernel`` and its wrapper calls;
-    on a ``DeviceMesh``, the rank's parameter bytes beside the shards'
-    and the whole tree's, B.8's wrapper against the plain attention on
-    the first layer's DTensor q/k/v, and whether a MoE config refuses to
-    be distributed."""
+    prompt's ``prefill`` and of ``steps`` decode steps fed the next tokens
+    (with no ``steps``, the ``gen - 1`` decode steps of ``generate``, fed
+    its greedy tokens); ``gen`` greedy tokens from the prompt through
+    ``ServingEngine`` and its logit gathers; the forward with
+    ``use_flash_kernel`` and its wrapper calls; on a ``DeviceMesh``, the
+    rank's parameter bytes beside the shards' and the whole tree's, and
+    per family the checks of :func:`_spmd_dense` and :func:`_spmd_moe`."""
     import dataclasses
 
     from repro_torch.convert import params_from_numpy
-    from repro_torch.models import (abstract_params, attention, build_model, common, sharding,
-                                    transformer)
+    from repro_torch.models import build_model, sharding
     from repro_torch.serve import ServeSession, ServingEngine
     from repro_torch.tree import tree_map
 
@@ -323,27 +372,34 @@ def _spmd(case, cfg, params) -> dict:
     placed = params_from_numpy(tree_map(lambda t: t.numpy(), params), "cpu", mesh=mesh,
                                cfg=cfg) if mesh is not None else params
     batch = _batch(inputs(cfg, case))
-    toks, k = batch["tokens"], case["prompt"]
+    toks, k, more = batch["tokens"], case["prompt"], extras(batch)
+    prompt = dict(more, tokens=toks[:, :k])
     out = {}
     with torch.no_grad():
-        out["forward"] = _whole(model.forward(placed, {"tokens": toks})[0])
-        pre, cache = model.prefill(placed, {"tokens": toks[:, :k], "max_seq": case["max_seq"]})
-        out["prefill"] = _whole(pre)
-        steps = []
-        for i in range(case["steps"]):
-            logits, cache = model.decode_step(placed, cache, toks[:, k + i:k + i + 1])
-            steps.append(_whole(logits))
-        out["decode"] = torch.stack(steps)
-        eng = ServingEngine(model, device="cpu")
+        out["forward"] = _whole(model.forward(placed, dict(more, tokens=toks))[0])
+        if case["steps"]:
+            pre, cache = model.prefill(placed, dict(prompt, max_seq=case["max_seq"]))
+            out["prefill"] = _whole(pre)
+            steps = []
+            for i in range(case["steps"]):
+                logits, cache = model.decode_step(placed, cache, toks[:, k + i:k + i + 1])
+                steps.append(_whole(logits))
+            out["decode"] = torch.stack(steps)
+        rec = Recorder(model)
+        eng = ServingEngine(rec, device="cpu")
         eng.publish(placed, version=1)
-        out["generate"], _ = eng.generate(
-            ServeSession(0), {"tokens": toks[:, :k], "max_seq": k + case["gen"]}, case["gen"])
+        out["generate"], _ = eng.generate(ServeSession(0), dict(prompt, max_seq=k + case["gen"]),
+                                          case["gen"])
         out["logit_gathers"] = torch.tensor(eng.logit_gathers)
+        if not case["steps"]:
+            out["prefill"] = _whole(rec.logits[0])
+            out["decode"] = torch.stack([_whole(x) for x in rec.logits[1:]])
         flash = build_model(dataclasses.replace(cfg, use_flash_kernel=True))
         with record_flash() as seen:
-            out["flash_forward"] = _whole(flash.forward(placed, {"tokens": toks})[0])
+            out["flash_forward"] = _whole(flash.forward(placed, dict(more, tokens=toks))[0])
         out["flash_calls"] = torch.tensor(len(seen))
-        out["flash_q_shape"] = torch.tensor(seen[0])
+        if seen:
+            out["flash_q_shape"] = torch.tensor(seen[0])
     if mesh is None:
         return out
     whole = sharding.local_nbytes(params)
@@ -352,7 +408,24 @@ def _spmd(case, cfg, params) -> dict:
         spec = sharding.pspec_for_param(tuple(key.split("/")), tuple(leaf.shape), cfg)
         shards += int(np.prod(sharding.shard_shape(tuple(leaf.shape), spec))) * leaf.element_size()
     out["bytes"] = torch.tensor([sharding.local_nbytes(placed), shards, whole])
-    # B.8's wrapper and the plain attention on the same DTensors.
+    if cfg.family == "dense":
+        out.update(_spmd_dense(cfg, placed, toks))
+    if cfg.n_experts:
+        out.update(_spmd_moe(cfg, placed, mesh))
+    return out
+
+
+def _spmd_dense(cfg, placed, toks) -> dict:
+    """B.8's wrapper and the plain attention on the first layer's DTensor
+    q/k/v; how many of the training entry points refuse the DTensor
+    parameters (``train_refused``: make_train_fns' init, its local step,
+    ``adamw.apply`` and ``SyncEngine.merge``)."""
+    from repro_torch.core.consistency import ConsistencyLevel, ConsistencyPolicy
+    from repro_torch.models import attention, build_model, common, sharding, transformer
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import TrainState, make_train_fns
+
+    out = {}
     blk = common.layer(placed["dense_blocks"], 0, 0)
     pos = common.arange_positions(*toks.shape, toks.device)
     with torch.no_grad(), sharding.spmd(placed):
@@ -361,12 +434,74 @@ def _spmd(case, cfg, params) -> dict:
         q, kk, v = attention._project_qkv(h, blk["attn"], cfg, pos, flash=True)
         out["b8_wrapper"] = _whole(attention.flash_attention_spmd(q, kk, v, cfg))
         out["b8_plain"] = _whole(attention._attend_block(q, kk, v, cfg, pos, pos, True))
-    moe_cfg = port_config("olmoe")
-    try:
-        sharding.distribute_params(abstract_params(build_model(moe_cfg)), moe_cfg)
-        out["moe_refused"] = torch.tensor(0)
-    except NotImplementedError:
-        out["moe_refused"] = torch.tensor(1)
+    fns = make_train_fns(build_model(cfg), adamw.AdamWConfig(),
+                         ConsistencyPolicy(ConsistencyLevel.X_STCC), 2, device="cpu")
+    state = TrainState(params=placed, opt=None, sync=None, step=0)
+    calls = (lambda: fns.init(params=placed), lambda: fns.local_step(state, {}),
+             lambda: adamw.apply(placed, placed, adamw.AdamWState(placed, placed, 0),
+                                 adamw.AdamWConfig()),
+             lambda: fns.engine.merge(placed, None))
+    refused = 0
+    for call in calls:
+        try:
+            call()
+        except NotImplementedError:
+            refused += 1
+    out["train_refused"] = torch.tensor(refused)
+    return out
+
+
+def placement_code(x) -> torch.Tensor:
+    """A DTensor's placements as ints, one per mesh dimension: ``d`` for
+    ``Shard(d)``, -1 for ``Replicate``, -2 for a partial sum."""
+    return torch.tensor([p.dim if p.is_shard() else (-2 if p.is_partial() else -1)
+                         for p in x.placements])
+
+
+def _spmd_moe(cfg, placed, mesh) -> dict:
+    """The first MoE layer on DTensor activations (placed on the batch) at
+    each of ``MOE_TOKENS``' sizes: ``moe<T>/`` its output, aux loss and
+    every data shard's routing (each rank's recorded dispatch, joined over
+    'data'); ``moe_block_pl`` / ``serve_layer_pl``: the placements of the
+    MoE block's and serve layer's outputs (their constraints) given an
+    input replicated over the mesh."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
+
+    from repro_torch.models import attention, common, moe, sharding, transformer
+
+    out = {}
+    blk = common.layer(placed["moe_blocks"], 0)
+    for b, s in MOE_TOKENS:
+        x = torch.from_numpy(moe_input(cfg, dict(b=b, s=s)))
+        xd = distribute_tensor(x, mesh, sharding.dtensor_placements(
+            mesh, sharding.resolve(x.shape, ("batch", None, None))))
+        with record_dispatch() as routes, torch.no_grad(), sharding.spmd(placed):
+            y, aux = moe.moe(xd, blk["moe"], cfg)
+        (probs, cap, buf, se, st, sg, pos), = routes
+        t = f"moe{b * s}"
+        split = b * s > moe._SMALL_T and moe._n_data_shards(b * s) > 1
+        data = list(mesh.mesh_dim_names).index("data")
+        join = [Replicate()] * mesh.ndim
+        join[data] = Shard(0)
+
+        def joined(a):
+            return DTensor.from_local(a.contiguous(), mesh, join).full_tensor() if split else a
+
+        out.update({f"{t}/y": _whole(y), f"{t}/aux": aux, f"{t}/capacity": torch.tensor(cap),
+                    f"{t}/shards": torch.tensor(joined(se).shape[0]),
+                    f"{t}/probs": joined(probs).reshape(-1, cfg.n_experts)})
+        out.update({f"{t}/{k}": joined(a) for k, a in (("buf", buf), ("se", se), ("st", st),
+                                                        ("sg", sg), ("pos", pos))})
+    # The constraints after the MoE layer, on a replicated input.
+    x = torch.from_numpy(moe_input(cfg, dict(b=2, s=8)))
+    xd = distribute_tensor(x, mesh, [Replicate()] * mesh.ndim)
+    pos = common.arange_positions(2, 8, x.device)
+    with torch.no_grad(), sharding.spmd(placed):
+        y, _ = transformer._moe_block(xd, blk, cfg, pos)
+        out["moe_block_pl"] = placement_code(y)
+        y, _, _ = transformer._serve_layer(
+            xd, blk, cfg, lambda h, p: attention.prefill_attention_with_cache(h, p, cfg, pos))
+        out["serve_layer_pl"] = placement_code(y)
     return out
 
 
@@ -484,49 +619,83 @@ def _gloo_rank(rank: int, world: int, part: str, ids: list, params_path: str, st
         dist.destroy_process_group()
 
 
-def run_gloo(part: str, world: int, ids: list, params_path, tmp_dir) -> list[dict]:
-    """The port's outputs of the cases ``ids`` in a gloo group of
-    ``world`` spawned processes (a ``DeviceMesh`` per case's mesh shape),
-    one dict per rank."""
+def start_gloo(part: str, world: int, ids: list, params_path, tmp_dir):
+    """Spawn a gloo group of ``world`` processes running the cases ``ids``
+    (a ``DeviceMesh`` per case's mesh shape); :func:`gloo_outputs` waits
+    for it."""
     import torch.multiprocessing as mp
 
     tmp_dir = pathlib.Path(tmp_dir)
     tmp_dir.mkdir(parents=True, exist_ok=True)
     store = tmp_dir / "store"
-    mp.spawn(_gloo_rank, args=(world, part, list(ids), str(params_path), str(store),
-                               str(tmp_dir)), nprocs=world, join=True)
+    return mp.spawn(_gloo_rank, args=(world, part, list(ids), str(params_path), str(store),
+                                      str(tmp_dir)), nprocs=world, join=False)
+
+
+def gloo_outputs(ctx, world: int, tmp_dir) -> list[dict]:
+    """The outputs of a group from :func:`start_gloo`, one dict per rank,
+    once every rank has ended."""
+    while not ctx.join():
+        pass
     outs = []
     for r in range(world):
-        with np.load(tmp_dir / f"rank{r}.npz") as z:
+        with np.load(pathlib.Path(tmp_dir) / f"rank{r}.npz") as z:
             outs.append({k: z[k] for k in z.files})
     return outs
 
 
-def run_all(part: str, tmp_dir, worlds: dict) -> tuple[dict, dict, dict]:
+def _plain_key(case: dict) -> tuple:
+    """Cases that differ only in their mesh and id have one plain run."""
+    return tuple(sorted((k, str(v)) for k, v in case.items() if k not in ("id", "mesh")))
+
+
+def run_all(part: str, tmp_dir, worlds: list) -> tuple[dict, dict, dict]:
     """The reference's arrays, the port's stacked outputs and the gloo
-    groups' outputs for every case of ``part``: the parameters first, then
-    the reference's subprocess while the port runs its cases in this
-    process (each under its ``MeshShape``; an ``spmd`` case with no mesh)
-    and in one gloo group per world size of ``worlds`` (world -> the
-    meshes it runs)."""
+    groups' outputs for every case of ``part``.  The parameters first;
+    then, all at once, one gloo group per ``(world, meshes)`` entry of
+    ``worlds`` for the cases on those meshes (a ``DeviceMesh`` each) with
+    a reference subprocess of its own for the same cases, while the port
+    runs every case in this process (each under its ``MeshShape``; an
+    ``spmd`` case with no mesh, once for the cases that differ only in
+    their mesh)."""
     from repro_torch.models.sharding import MeshShape
 
     tmp_dir = pathlib.Path(tmp_dir)
-    params_path, ref_path = tmp_dir / "params.npz", tmp_dir / "ref.npz"
+    params_path = tmp_dir / "params.npz"
     params = write_params(part, params_path)
-    proc = start_reference(part, params_path, ref_path)
+    groups = []
+    for i, (world, meshes) in enumerate(worlds):
+        ids = [c["id"] for c in CASES[part] if c["mesh"] in meshes]
+        groups.append((world, ids, tmp_dir / f"gloo{i}", tmp_dir / f"ref{i}.npz"))
+    refs, started = [], []
     try:
-        stacked = {c["id"]: port_outputs(c, params, None if c["kind"] == "spmd"
-                                         else MeshShape(c["mesh"])) for c in CASES[part]}
+        for world, ids, where, ref_path in groups:
+            refs.append(start_reference(part, params_path, ref_path, ids))
+            started.append(start_gloo(part, world, ids, params_path, where))
+        stacked, plain = {}, {}
+        for c in CASES[part]:
+            if c["kind"] != "spmd":
+                stacked[c["id"]] = port_outputs(c, params, MeshShape(c["mesh"]))
+                continue
+            key = _plain_key(c)
+            if key not in plain:
+                plain[key] = port_outputs(c, params, None)
+            stacked[c["id"]] = plain[key]
         gloo = {}
-        for world, meshes in worlds.items():
-            ids = [c["id"] for c in CASES[part] if c["mesh"] in meshes]
-            ranks = run_gloo(part, world, ids, params_path, tmp_dir / f"gloo{world}")
+        for ctx, (world, ids, where, _) in zip(started, groups):
+            ranks = gloo_outputs(ctx, world, where)
             gloo.update({cid: [case_arrays(r, cid) for r in ranks] for cid in ids})
     except BaseException:
-        proc.kill()
+        for proc in refs:
+            proc.kill()
+        for ctx in started:
+            for p in ctx.processes:
+                p.kill()
         raise
-    return reference_arrays(proc, ref_path), stacked, gloo
+    ref = {}
+    for proc, (*_, ref_path) in zip(refs, groups):
+        ref.update(reference_arrays(proc, ref_path))
+    return ref, stacked, gloo
 
 
 def outputs(runs: tuple, case: dict, mode: str) -> tuple[dict, dict]:

@@ -1,15 +1,16 @@
-"""The reference side of ``tests/test_torch_mesh_{attention,moe}.py``: the
-JAX models under a mesh of forced host devices, run as a subprocess so
-the forced device count stays out of the test process.
+"""The reference side of ``tests/test_torch_mesh_*.py``: the JAX models
+under a mesh of forced host devices, run as a subprocess so the forced
+device count stays out of the test process.
 
-    python tests/torch_mesh_ref.py {attention|moe} PARAMS.npz OUT.npz
+    python tests/torch_mesh_ref.py {attention|moe|families} PARAMS.npz OUT.npz [IDS]
 
 reads the seeded parameters of ``torch_mesh_cases.write_params``
 (``params/<name>/<a/b/...>``, the reference's layout) and writes, for
-every case of ``torch_mesh_cases`` in that part, the reference's
-outputs under the case's mesh on the case's inputs.  Each entry
-point is jitted as a fresh closure inside the mesh: a jitted function
-called outside the mesh first would reuse that trace.
+every case of ``torch_mesh_cases`` in that part (or only those named in
+the comma-separated IDS), the reference's outputs under the case's mesh
+on the case's inputs.  Each entry point is jitted as a fresh closure
+inside the mesh: a jitted function called outside the mesh first would
+reuse that trace.
 """
 
 from __future__ import annotations
@@ -87,31 +88,20 @@ def _decode(case, cfg, params, out):
     out["decode"] = np.stack(steps)
 
 
-def _moe(case, cfg, params, out):
-    """The first MoE layer under the case's mesh (output, aux) and each
-    data shard's routing from the reference's ``_dispatch_local`` on its
-    block; the model's logits; with ``grad``, one step's gradients."""
-    model = build_model(cfg)
-    batch = mc.inputs(cfg, case)
-    jb = {k: jnp.asarray(v) for k, v in batch.items()}
-    p = jax.tree.map(lambda a: jnp.asarray(a[0]), params["moe_blocks"]["moe"])
-    x = jnp.asarray(mc.moe_input(cfg, case))
+def _moe_layer(cfg, p, x, out, prefix=""):
+    """The MoE layer ``p`` on ``x`` under the active mesh (output, aux)
+    and each data shard's routing from the reference's
+    ``_dispatch_local`` on its block, as its ``shard_map`` body computes
+    it."""
     b, sl, d = x.shape
     t = b * sl
-    with sharding.use_mesh(_mesh(case["mesh"])):
-        y, aux = jax.jit(lambda x_, p_: j_moe.moe(x_, p_, cfg))(x, p)
-        shards = j_moe._n_data_shards(t) if t > j_moe._SMALL_T else 1
-        logits, _ = jax.jit(lambda p_, b_: model.forward(p_, b_))(params, jb)
-        if case.get("grad"):
-            fn = jax.jit(lambda p_, b_: jax.value_and_grad(model.loss, has_aux=True)(p_, b_))
-            (loss, _), grads = fn(params, jb)
-            out["loss"] = np.asarray(loss)
-            _flat("grad", jax.tree.map(np.asarray, grads), out)
-    out["y"], out["aux"], out["forward"] = np.asarray(y), np.asarray(aux), np.asarray(logits)
-    out["shards"] = np.asarray(shards)
-    # Each shard's routing, as the reference's shard_map body computes it.
-    xt = x.reshape(t, d)
-    probs = jax.nn.softmax(jnp.einsum("td,de->te", xt, p["router"]).astype(jnp.float32), -1)
+    y, aux = jax.jit(lambda x_, p_: j_moe.moe(x_, p_, cfg))(x, p)
+    shards = j_moe._n_data_shards(t) if t > j_moe._SMALL_T else 1
+    out[prefix + "y"], out[prefix + "aux"] = np.asarray(y), np.asarray(aux)
+    out[prefix + "shards"] = np.asarray(shards)
+    xt = np.asarray(x).reshape(t, d)
+    probs = np.asarray(jax.jit(lambda xt_, r: jax.nn.softmax(
+        jnp.einsum("td,de->te", xt_, r).astype(jnp.float32), -1))(xt, p["router"]))
     t_loc = t // shards
     cap = max(1, int(cfg.capacity_factor * t_loc * cfg.top_k / cfg.n_experts))
     cap = max(8, (cap + 7) // 8 * 8)
@@ -119,25 +109,60 @@ def _moe(case, cfg, params, out):
     routes = [dispatch(xt[i * t_loc:(i + 1) * t_loc], probs[i * t_loc:(i + 1) * t_loc], cfg,
                        cap) for i in range(shards)]
     for j, name in enumerate(("buf", "se", "st", "sg", "pos")):
-        out[name] = np.stack([np.asarray(r[j]) for r in routes])
-    out["probs"], out["capacity"] = np.asarray(probs), np.asarray(cap)
+        out[prefix + name] = np.stack([np.asarray(r[j]) for r in routes])
+    out[prefix + "probs"], out[prefix + "capacity"] = np.asarray(probs), np.asarray(cap)
+
+
+def _moe(case, cfg, params, out):
+    """The first MoE layer under the case's mesh (:func:`_moe_layer`); the
+    model's logits; with ``grad``, one step's gradients."""
+    model = build_model(cfg)
+    batch = mc.inputs(cfg, case)
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    p = jax.tree.map(lambda a: jnp.asarray(a[0]), params["moe_blocks"]["moe"])
+    x = jnp.asarray(mc.moe_input(cfg, case))
+    with sharding.use_mesh(_mesh(case["mesh"])):
+        _moe_layer(cfg, p, x, out)
+        logits, _ = jax.jit(lambda p_, b_: model.forward(p_, b_))(params, jb)
+        if case.get("grad"):
+            fn = jax.jit(lambda p_, b_: jax.value_and_grad(model.loss, has_aux=True)(p_, b_))
+            (loss, _), grads = fn(params, jb)
+            out["loss"] = np.asarray(loss)
+            _flat("grad", jax.tree.map(np.asarray, grads), out)
+    out["forward"] = np.asarray(logits)
 
 
 def _spmd(case, cfg, params, out):
     """forward logits over all ``s`` tokens, then the prompt's prefill and
-    ``steps`` decode steps' logits, under the case's mesh."""
+    ``steps`` decode steps' logits fed the next tokens (with no ``steps``,
+    ``gen - 1`` decode steps fed the greedy tokens, and the ``gen`` greedy
+    tokens), under the case's mesh; for a MoE configuration the first MoE
+    layer at each of ``MOE_TOKENS``' sizes (``moe<T>/``)."""
     model = build_model(cfg)
-    toks = jnp.asarray(mc.inputs(cfg, case)["tokens"])
-    k, max_seq = case["prompt"], case["max_seq"]
+    batch = mc.inputs(cfg, case)
+    toks, more = batch["tokens"], {k: jnp.asarray(v) for k, v in mc.extras(batch).items()}
+    k = case["prompt"]
+    greedy = not case["steps"]
+    max_seq = k + case["gen"] if greedy else case["max_seq"]
     with sharding.use_mesh(_mesh(case["mesh"])):
-        logits, _ = jax.jit(lambda p, t: model.forward(p, {"tokens": t}))(params, toks)
-        pre, cache = jax.jit(lambda p, t: model.prefill(p, {"tokens": t, "max_seq": max_seq}))(
-            params, toks[:, :k])
+        logits, _ = jax.jit(lambda p, b: model.forward(p, b))(
+            params, dict(more, tokens=jnp.asarray(toks)))
+        pre, cache = jax.jit(lambda p, b: model.prefill(p, dict(b, max_seq=max_seq)))(
+            params, dict(more, tokens=jnp.asarray(toks[:, :k])))
         step = jax.jit(lambda p, c, t: model.decode_step(p, c, t))
-        steps = []
-        for i in range(case["steps"]):
-            lg, cache = step(params, cache, toks[:, k + i:k + i + 1])
+        steps, tokens = [], [np.argmax(np.asarray(pre)[:, -1], -1)[:, None].astype(np.int32)]
+        for i in range(case["gen"] - 1 if greedy else case["steps"]):
+            lg, cache = step(params, cache, jnp.asarray(tokens[-1] if greedy
+                                                        else toks[:, k + i:k + i + 1]))
             steps.append(np.asarray(lg))
+            tokens.append(np.argmax(steps[-1][:, -1], -1)[:, None].astype(np.int32))
+        if greedy:
+            out["generate"] = np.concatenate(tokens, axis=1)
+        if cfg.n_experts:
+            p = jax.tree.map(lambda a: jnp.asarray(a[0]), params["moe_blocks"]["moe"])
+            for b, s in mc.MOE_TOKENS:
+                x = jnp.asarray(mc.moe_input(cfg, dict(b=b, s=s)))
+                _moe_layer(cfg, p, x, out, f"moe{b * s}/")
     out["forward"], out["prefill"] = np.asarray(logits), np.asarray(pre)
     out["decode"] = np.stack(steps)
 
@@ -145,12 +170,16 @@ def _spmd(case, cfg, params, out):
 RUN = {"ring": _ring, "decode": _decode, "moe": _moe, "spmd": _spmd}
 
 
-def main(part: str, params_path: str, path: str) -> None:
+def main(part: str, params_path: str, path: str, ids: str = "") -> None:
+    """The reference's outputs of the cases of ``part`` (those in the
+    comma-separated ``ids``, if given) into ``path``."""
     assert len(jax.devices()) == 4, jax.devices()
     with np.load(params_path) as z:
         arrays = {k: z[k] for k in z.files}
     out_arrays: dict = {}
     for case in mc.CASES[part]:
+        if ids and case["id"] not in ids.split(","):
+            continue
         params = jax.tree.map(jnp.asarray,
                               mc.nested(arrays, f"params/{mc.params_name(case['cfg'])}"))
         out: dict = {}
@@ -160,4 +189,4 @@ def main(part: str, params_path: str, path: str) -> None:
 
 
 if __name__ == "__main__":
-    main(*sys.argv[1:4])
+    main(*sys.argv[1:5])
