@@ -3319,7 +3319,20 @@ MESH_CUTS = ("cuts of scale: none in width (gemma-2b's 18 layers at d_model 2048
              "32 decoder and 2 of 32 encoder layers (every layer of a family has the same "
              "shapes and placements, so one or two show each; DTensor's host cost grows "
              "with depth); llama4-maverick (128 experts of 5120 x 8192, more than one "
-             "H100 holds) served as SPMD only reduced, on the CPU")
+             "H100 holds) served as SPMD only reduced, on the CPU; (a'') gemma-2b's training on "
+             "DTensors at full width, depth cut to 2 of 18 layers (every layer has the same "
+             "shapes and placements), one local and one sync step, 4 x 512 tokens; training "
+             "over 2 or more ranks (TP / FSDP shards, pods split over 'pod') is held only on "
+             "the CPU (gloo); (g) use_devices on the one rank takes the sequential branch: "
+             "one shard per rank needs 2 or more ranks")
+
+
+# (a'') training on DTensors at full width: gemma-2b in f32 (d_model 2048,
+# vocab 256,000), 2 of its 18 layers, 2 pods, X_STCC with Δ = 1 and int8.
+MESH_TRAIN = dict(arch="gemma-2b", layers=2, pods=2, delta=1, compress="int8",
+                  global_batch=4, seq=512)
+# (g) use_devices on one rank.
+MESH_DEVICES = dict(level="TCC", n_shards=2, n_ops=6000)
 
 
 def _mesh_decode(model, params, toks, mesh):
@@ -3695,11 +3708,147 @@ def _mesh_families(mesh, dev: dict) -> int:
     return total
 
 
+def _mesh_train_full(mesh, dev: dict) -> None:
+    """(a'') ``MESH_TRAIN``: gemma-2b at full width in f32, depth cut, a
+    local and a sync step on the state placed on the (1, 1) NCCL ``mesh``
+    (DTensors) against the same steps on plain tensors, bit for bit
+    (metrics, parameters, moments, anchor, bookkeeping), B.1, the chain
+    and B.2 launched as one merge predicts in each; each run's state is
+    freed before the next."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import policy_for
+    from repro_torch.data import DataConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models import sharding
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import Trainer, TrainerConfig
+    from repro_torch.tree import items
+    from torch_port_helpers import (as_np, expected_train_launches, record_mismatches,
+                                    state_trees, sync_record)
+
+    t_all = time.perf_counter()
+    f = MESH_TRAIN
+    cfg = dataclasses.replace(get_config(f["arch"]), dtype="float32", n_layers=f["layers"])
+    trainer = Trainer(
+        cfg, DataConfig(vocab_size=cfg.vocab_size, seq_len=f["seq"],
+                        global_batch=f["global_batch"]),
+        AdamWConfig(lr=1e-4, warmup_steps=1, total_steps=4),
+        policy_for("X_STCC", delta_steps=f["delta"], compress_inter_pod=f["compress"]),
+        TrainerConfig(n_steps=2, n_pods=f["pods"]), device="cuda")
+    params = trainer.model.init(0, device="cuda")
+    want = expected_train_launches(("X_STCC", f["pods"], 1, {}), delta=1)
+    runs = {}
+    for name, m in (("plain", None), ("mesh", mesh)):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        with sharding.use_mesh(m):
+            state = trainer.init_state(params)
+            walls, metrics = [], []
+            for step, fn in enumerate((trainer.fns.local_step, trainer.fns.sync_step)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, mt = fn(state, trainer.batch_for(step))
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                metrics.append({k: as_np(v) for k, v in mt.items()})
+        placed = all(map(sharding.is_dtensor, (v for _, v in items(state.params))))
+        if placed != (m is not None):
+            fail(f"mesh: (a'') {name}: DTensor parameters {placed}")
+        counts = ops.launch_counts()
+        if any(counts[k] != n for k, n in want.items()):
+            fail(f"mesh: (a'') {name}: launches {counts}, predicted {want}")
+        peak = torch.cuda.max_memory_allocated()
+        tensors = {f"{t}/{k}": v for t, tree in state_trees(state).items()
+                   for k, v in items(tree)}
+        if m is None:
+            # The plain run's tensors wait on the host; the meshed run's are
+            # compared with them on the card, one at a time.
+            record = {k: v.cpu() for k, v in tensors.items()}
+            differ = []
+        else:
+            differ = [k for k, v in tensors.items()
+                      if k not in record or not torch.equal(sharding.local(
+                          sharding.replicate(v)), record[k].to(v.device))]
+        runs[name] = (metrics, sorted(tensors), differ, sync_record(state.sync), walls, peak)
+        del state, tensors
+    (m0, k0, _, s0, w0, p0), (m1, k1, differ, s1, w1, p1) = runs["plain"], runs["mesh"]
+    bad = [f"step {i} {k}" for i, (a, b) in enumerate(zip(m0, m1)) for k in a
+           if not np.array_equal(a[k], b[k])]
+    bad += differ + record_mismatches(s0, s1)
+    if bad or k0 != k1:
+        fail(f"mesh: (a'') {cfg.name} on DTensors != plain: {bad[:8]}")
+    del params, runs, record
+    torch.cuda.empty_cache()
+    log(f"[mesh] (a'') {cfg.name} f32 at full width, {f['layers']} of "
+        f"{get_config(f['arch']).n_layers} layers "
+        f"({cfg.param_count()} parameters per pod), {f['pods']} pods, X_STCC Δ = {f['delta']} "
+        f"{f['compress']}, batch {f['global_batch']} x {f['seq']}: local step {w1[0]:.6f} s "
+        f"meshed against {w0[0]:.6f} s plain, sync step {w1[1]:.6f} s against {w0[1]:.6f} s; "
+        f"peak {p1} B meshed ({p1 / 2**30:.2f} GiB), {p0} B plain ({p0 / 2**30:.2f} GiB); "
+        f"losses {[float(x['loss']) for x in m1]}, grad norms "
+        f"{[float(x['grad_norm']) for x in m1]}: equal bit for bit (metrics, {len(k0)} "
+        f"tensors of parameters, moments and anchor, clocks, DUOT, counters); launches per "
+        f"run {want}; {time.perf_counter() - t_all:.1f} s; {dev['smi']}")
+
+
+def _mesh_use_devices(dev: dict) -> None:
+    """(g) ``run_protocol_sharded`` with ``use_devices=True`` under a
+    one-rank {"shard": 1} NCCL mesh against ``use_devices=False``,
+    exactly: one rank is fewer than the shards, so the replay takes the
+    sequential branch (``replay.shard_group`` is ``None``), as the
+    reference does with fewer devices than shards."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.consistency import ConsistencyLevel
+    from repro_torch.engine import EngineConfig, replay
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import sharding
+    from repro_torch.storage.simulator import run_protocol_sharded
+    from repro_torch.storage.ycsb import WORKLOAD_A
+    from torch_mesh_cases import flatten
+
+    g = MESH_DEVICES
+    level = ConsistencyLevel[g["level"]]
+    kw = dict(n_shards=g["n_shards"], n_ops=g["n_ops"], audit=True, device="cuda")
+    t0 = time.perf_counter()
+    base = run_protocol_sharded(level, WORKLOAD_A, use_devices=False, **kw)
+    shard_mesh = make_mesh((1,), ("shard",))
+    with sharding.use_mesh(shard_mesh):
+        group = replay.shard_group(EngineConfig(level, n_shards=g["n_shards"],
+                                                use_devices=True))
+        got = run_protocol_sharded(level, WORKLOAD_A, use_devices=True, **kw)
+    torch.cuda.synchronize()
+    flat_base, flat_got = {}, {}
+    flatten("r", base, flat_base)
+    flatten("r", got, flat_got)
+    bad = [k for k in flat_base if k not in flat_got
+           or not np.array_equal(np.asarray(flat_base[k]), np.asarray(flat_got[k]))]
+    if group is not None or bad or sorted(flat_base) != sorted(flat_got):
+        fail(f"mesh: (g) use_devices on one rank != use_devices=False: {bad[:8]}, "
+             f"group {group}")
+    log(f"[mesh] (g) run_protocol_sharded {g['level']} {g['n_shards']} shards, "
+        f"{g['n_ops']} ops, use_devices=True under {shard_mesh}: 1 rank < {g['n_shards']} "
+        f"shards, so the sequential branch (shard_group None); result equal to "
+        f"use_devices=False in all {len(flat_base)} fields (staleness "
+        f"{got['staleness_rate']}, severity {got['severity']}); "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
 def phase_mesh(dev: dict) -> dict:
     """(a) A (1, 1) mesh over an NCCL process group of one rank:
     gemma-2b's placements all replicated, and reduced qwen2-7b's
     ``sync_step`` under the mesh equal to the same steps without it, bit
-    for bit, its kernels launched as predicted; (b) the dry run of the
+    for bit, its kernels launched as predicted, then (a') on the state
+    placed on the mesh (DTensors), bit for bit, (a'') gemma-2b's training
+    at full width on DTensors against plain tensors
+    (:func:`_mesh_train_full`) and (g) ``use_devices`` on one rank
+    (:func:`_mesh_use_devices`); (b) the dry run of the
     train phase's gemma-2b setting on that mesh against the train phase's
     measured peak (``TRAIN_MEASURED``): predicted state <= measured peak;
     (c) gemma-2b at full width in f32 decoding with
@@ -3722,7 +3871,7 @@ def phase_mesh(dev: dict) -> dict:
     from repro_torch.launch.dryrun import dry_run
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import abstract_params, build_model, sharding
-    from repro_torch.tree import items
+    from repro_torch.tree import items, leaves
     from torch_port_helpers import (MESH_STEP_CASE, mesh_step_launches, mesh_step_mismatches,
                                     mesh_sync_steps, port_trainer, train_case_id)
 
@@ -3757,6 +3906,26 @@ def phase_mesh(dev: dict) -> dict:
             fail(f"mesh: sync_step under the (1, 1) mesh != without it: {bad[:8]}")
         if any(counts[k] != n for k, n in want.items()):
             fail(f"mesh: launches {counts}, predicted {want}")
+        # (a') the same steps on the state placed on the mesh (DTensors).
+        ops.reset_launch_counts()
+        t3 = time.perf_counter()
+        on_dtensors = mesh_sync_steps(cuda, params, mesh, placed=True)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        counts_p = ops.launch_counts()
+        bad = mesh_step_mismatches(plain, on_dtensors)
+        if bad or not all(map(sharding.is_dtensor, leaves(on_dtensors[1].params))):
+            fail(f"mesh: sync_step on the DTensor state != the plain steps: {bad[:8]}")
+        if any(counts_p[k] != n for k, n in want.items()):
+            fail(f"mesh: (a') launches {counts_p}, predicted {want}")
+        log(f"[mesh] (a') reduced qwen2-7b {train_case_id(MESH_STEP_CASE)}, sync_step x "
+            f"{MESH_STEP_CASE[2]} on the DTensor state (init_state under the mesh): "
+            f"{t4 - t3:.3f} s, plain {t1 - t0:.3f} s; equal bit for bit to the plain steps "
+            f"(losses, grad norms, parameters, moments, clocks, DUOT, counters); launches "
+            f"{ {k: counts_p[k] for k in want} } (predicted {want})")
+        del on_dtensors
+        _mesh_train_full(mesh, dev)
+        _mesh_use_devices(dev)
         steps, state = on_mesh
         log(f"[mesh] {mesh}: {len(list(items(placed)))} leaves of {cfg.name} all replicated; "
             f"reduced qwen2-7b {train_case_id(MESH_STEP_CASE)}, sync_step x "

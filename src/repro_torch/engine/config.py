@@ -35,10 +35,12 @@ class EngineConfig:
 
     ``n_shards`` splits clients, resources and ops into disjoint tenant
     shards, each replayed on its own stream (seed ``seed + s``) under the
-    one fault schedule.  ``use_devices`` is accepted for the reference's
-    signature and changes nothing: the reference spreads shards over a
-    device mesh when the host has enough devices, and the port runs them
-    on its one card.
+    one fault schedule.  ``use_devices`` spreads the shards one per rank
+    where the reference spreads them one per device: with no faults and no
+    topology, over the active ``DeviceMesh``'s 'shard' axis (or, with no
+    mesh, the initialized process group) when it has at least
+    ``n_shards`` ranks (``replay.shard_group``); otherwise the shards run
+    one after another, as the reference runs them with too few devices.
     """
 
     level: ConsistencyLevel

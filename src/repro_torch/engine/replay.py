@@ -14,7 +14,9 @@ becomes an ``if`` with no device sync; the stream and what a merge or
 kernel consumes go to the device once.  Per round the host reads the DUOT size and one flag per
 merge-fixpoint pass.  Disjoint tenant shards (``n_shards > 1``) run one
 after another inside each round, each with its own carry, under the
-one fault schedule.
+one fault schedule; with ``use_devices`` and a process group of at
+least ``n_shards`` ranks (:func:`shard_group`), each rank runs only its
+own shard and the carries are gathered at the end.
 
 One deliberate difference on the geo path: the reference sums each op's
 f32 RTT into a per-region f32 vector every round, in an order XLA picks.
@@ -534,7 +536,11 @@ class EpochEngine:
         after shard: the shards share nothing, so this is the
         reference's mapped shard axis.  The carries are stacked once at
         the end, along a leading shard axis (``out``), and the per-round
-        series become ``(S, T)`` arrays.
+        series become ``(S, T)`` arrays.  Where :func:`shard_group`
+        gives a group (the reference's device mesh over the shard axis),
+        rank ``r`` of it runs shard ``r`` alone, on this engine's device,
+        and every rank then gathers every shard's carry and series, so
+        each returns what the one-process run returns.
         """
         return self.execute(self.prepare(w))
 
@@ -548,6 +554,13 @@ class EpochEngine:
             # Host bounds: the histogram params are computed once.
             self.ob_lo, self.ob_hi, self.n_op_metrics = obs_lib.batch_bounds(self.specs)
             self.depth_hi = float(self.config.obs.depth_hi)
+        group = shard_group(self.config)
+        owned = range(n_shards)
+        if group is not None:
+            import torch.distributed as dist
+
+            rank = dist.get_rank(group)
+            owned = range(rank, rank + 1) if rank < n_shards else range(0)
         carries = [self._init_carry(store) for _ in range(n_shards)]
         ys = [{"gossip": [], "obs": [], "tel": []} for _ in range(n_shards)]
         masks = prep["masks"]
@@ -569,19 +582,25 @@ class EpochEngine:
 
         for t in range(n_rounds):
             m = round_masks(t)
-            for s, batched in enumerate(prep["batched"]):
-                ops = {k: v[t] for k, v in batched.items()}
+            for s in owned:
+                ops = {k: v[t] for k, v in prep["batched"][s].items()}
                 carries[s] = self.round_step(store, carries[s], ops, m, t * sub,
                                              sub, prep["emulate"], ys[s])
         if rem:
             m = round_masks(None)
-            for s, tail in enumerate(prep["tails"]):
-                carries[s] = self.round_step(store, carries[s], tail, m,
+            for s in owned:
+                carries[s] = self.round_step(store, carries[s], prep["tails"][s], m,
                                              n_rounds * sub, rem, prep["emulate"], None)
 
         def series(key: str, width: int) -> list[np.ndarray]:
             return [torch.stack(y[key]).cpu().numpy() if y[key]
                     else np.zeros((0, width), np.int64) for y in ys]
+
+        if group is not None:
+            ys = [{k: list(v) for k, v in y.items()} for y in ys]
+            got = _gather_shards(group, {s: (carries[s], ys[s]) for s in owned}, n_shards,
+                                 self.device)
+            carries, ys = [got[s][0] for s in range(n_shards)], [got[s][1] for s in range(n_shards)]
 
         def by_column(arrs: list[np.ndarray]) -> tuple:
             cols = [tuple(a[:, i] for i in range(a.shape[1])) for a in arrs]
@@ -603,6 +622,61 @@ class EpochEngine:
         from repro_torch.engine import results
 
         return results.assemble(self.config, self.replay(w), w)
+
+
+def shard_group(config: EngineConfig):
+    """The process group that replays ``config``'s shards one per rank, or
+    ``None`` where they run one after another in this process.
+
+    The reference's rule (``use_devices``, no faults, no topology, at
+    least ``n_shards`` devices) with ranks for devices: the active
+    ``DeviceMesh``'s 'shard' axis, or, with no mesh set, every rank of
+    the initialized process group; too few ranks, no process group, or a
+    mesh without a 'shard' axis give ``None``."""
+    c = config
+    if not (c.use_devices and c.n_shards > 1 and c.faults is None and c.topology is None):
+        return None
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()):
+        return None
+    from repro_torch.models import sharding
+
+    mesh = sharding.get_mesh()
+    if mesh is None:
+        group = dist.group.WORLD
+    elif "shard" in sharding.mesh_shape(mesh) and sharding._is_device_mesh(mesh):
+        group = mesh.get_group("shard")
+    else:
+        return None
+    return group if dist.get_world_size(group) >= c.n_shards else None
+
+
+def _moved(tree, device):
+    """``tree`` (tensors in dicts, lists and tuples, host values) with
+    every tensor on ``device``."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    if isinstance(tree, dict):
+        return {k: _moved(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_moved(v, device) for v in tree]
+    if isinstance(tree, tuple):
+        parts = [_moved(v, device) for v in tree]
+        return type(tree)(*parts) if hasattr(tree, "_fields") else tuple(parts)
+    return tree
+
+
+def _gather_shards(group, mine: dict, n_shards: int, device) -> dict:
+    """Every shard's payload, gathered over ``group`` from the ranks that
+    ran them (``mine``: this rank's ``{shard: payload}``), on ``device``:
+    host copies travel as pickled objects, so every bit is kept."""
+    import torch.distributed as dist
+
+    parts = [None] * dist.get_world_size(group)
+    dist.all_gather_object(parts, _moved(mine, "cpu"), group=group)
+    every = {s: p for part in parts for s, p in part.items()}
+    return {s: _moved(every[s], device) for s in range(n_shards)}
 
 
 def session_telemetry_runner(

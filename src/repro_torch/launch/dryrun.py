@@ -199,6 +199,15 @@ def _state_bytes(specs, mesh, itemsize: int | None = None, pods: int = 0) -> int
     return total
 
 
+def _sync_bytes(sync, specs, mesh, pods: int) -> int:
+    """Per-device bytes of the sync state's compression tensors, placed as
+    ``train_step.distribute_state`` places them: the anchor as one pod's
+    parameters, the top-k residual as the pod-stacked parameters (the
+    store's clocks and DUOT, a few KiB, are not counted)."""
+    return ((sync.anchor is not None) * _state_bytes(specs, mesh)
+            + (sync.residual is not None) * _state_bytes(specs, mesh, pods=pods))
+
+
 def _batch_devices(axes: dict, b: int, pods: int) -> int:
     """The devices a batch of ``b`` is split over: (pod, data), else data
     alone, else none (the reference's decode ``tok_spec`` rule)."""
@@ -241,7 +250,6 @@ def dry_run(cfg, shape, mesh, *, pricing, program: str = "sync", policy: str = "
         from repro_torch.core import policy_for
         from repro_torch.optim import AdamWConfig
         from repro_torch.train.train_step import make_train_fns, split_batch_for_pods
-        from repro_torch.tree import leaves
 
         pol = policy_for(policy, delta_steps=delta, compress_inter_pod=compress)
         opt_cfg = AdamWConfig(state_dtype=cfg.optimizer_state_dtype)
@@ -260,10 +268,7 @@ def dry_run(cfg, shape, mesh, *, pricing, program: str = "sync", policy: str = "
             "params_bytes": _state_bytes(leaf_specs, mesh, pods=pods),
             "grads_bytes": _state_bytes(leaf_specs, mesh),
             "opt_bytes": 2 * _state_bytes(leaf_specs, mesh, moment, pods),
-            # The sync state is replicated, as the reference places it.
-            "sync_bytes": sum(x.numel() * x.element_size()
-                              for t in (state.sync.anchor, state.sync.residual)
-                              if t is not None for x in leaves(t)),
+            "sync_bytes": _sync_bytes(state.sync, leaf_specs, mesh, pods),
             "batch_bytes": _spec_bytes(specs, mesh),
         }
         rows = shape.global_batch // batch_n * shape.seq_len

@@ -92,9 +92,16 @@ def embed_lookup(table: Tensor, tokens: Tensor) -> Tensor:
     """The rows of ``tokens`` in the embedding table.  A DTensor table is
     read by ``F.embedding``, which keeps it vocab-sharded (a masked
     partial sum, reduced by the constraint after it) where an index
-    would gather it; its rows are placed on the batch."""
+    would gather it; its rows are placed on the batch.  A DTensor table
+    that takes a gradient is gathered whole and indexed on each rank's
+    rows (``sharding.local_map``): DTensor cannot carry the masked
+    partial sum back through the constraint's backward."""
     if not sharding.is_dtensor(table):
         return table[tokens.long()]
+    if torch.is_grad_enabled() and table.requires_grad:
+        rows = ("batch",) + (None,) * (tokens.dim() - 1)
+        return sharding.local_map(lambda t, tok: t[tok.long()], (None, rows),
+                                  rows + (None,))(table, tokens)
     x = torch.nn.functional.embedding(tokens.long(), table)
     return sharding.shard(x, "batch", None, None)
 
@@ -179,17 +186,27 @@ def count_params(params) -> int:
     return int(params.numel())
 
 
-def cross_entropy_loss(logits: Tensor, labels: Tensor, *, z_loss: float = 0.0) -> Tensor:
-    """Mean token cross-entropy in f32 with optional z-loss.
-
-    logits: (..., V); labels: (...,) int.  Ignores label == -100 (any
-    negative label).
-    """
+def _token_nll(logits: Tensor, labels: Tensor, z_loss: float) -> Tensor:
     logits = logits.to(torch.float32)
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.clamp(min=0).long()[..., None])[..., 0]
     nll = lse - gold
     if z_loss > 0.0:
         nll = nll + z_loss * torch.square(lse)
+    return nll
+
+
+def cross_entropy_loss(logits: Tensor, labels: Tensor, *, z_loss: float = 0.0) -> Tensor:
+    """Mean token cross-entropy in f32 with optional z-loss.
+
+    logits: (..., V); labels: (...,) int.  Ignores label == -100 (any
+    negative label).  DTensor logits: each rank's rows of the batch, the
+    vocabulary made whole (``sharding.local_map``).
+    """
+    nll_of = lambda lg, lb: _token_nll(lg, lb, z_loss)
+    if sharding.is_dtensor(logits):
+        rows = ("batch",) + (None,) * (labels.dim() - 1)
+        nll_of = sharding.local_map(nll_of, (rows + (None,), rows), rows)
+    nll = nll_of(logits, labels)
     mask = (labels >= 0).to(torch.float32)
     return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)

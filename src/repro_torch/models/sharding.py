@@ -41,7 +41,8 @@ independent rows: every rank keeps those rows whole.  The per-data-shard
 MoE dispatch (``models/moe.py``) has no collective and, on plain tensors,
 runs its blocks stacked in one process on any mesh.
 
-SPMD on a ``DeviceMesh`` (every family's serving path):
+SPMD on a ``DeviceMesh`` (every family's serving path, and the dense
+transformer's training):
 :func:`distribute_params` places a parameter tree as DTensors by
 :func:`param_placements`, each rank holding only its blocks; the
 models' :func:`shard` constraints then redistribute the activations
@@ -52,18 +53,31 @@ values.  :func:`local_map` runs a function on each rank's local blocks
 MoE's dispatch and combine, the SSD and WKV scans) and wraps its results
 with the placements they were computed under; :func:`shard_map` takes
 DTensors too, one block per rank.  Plain tensors on a ``DeviceMesh``
-(the collective regions above) keep their behaviour; training refuses
-DTensor leaves (:func:`refuse_dtensors`).
+(the collective regions above) keep their behaviour.
+
+Training state on a ``DeviceMesh`` is pod-stacked: each leaf carries a
+leading ``(n_pods, ...)`` dimension, placed ``P("pod", *spec)`` as the
+reference's dry run places it (:func:`distribute_pods`).  The pods are a
+loop, not a mapped axis: :func:`pod_rows` names the pods this rank
+holds, :func:`pod_slice` gives one of them as a DTensor on the mesh
+without its pod axis, and the merges' reductions over pods and over a
+leaf's inner shards are collectives over the matching mesh dimensions
+(:func:`pod_sum`, :func:`pod_gather`, :func:`shards_reduce`,
+:func:`shards_whole`).  Each of these takes plain tensors too, where it
+is the one-process operation.
 """
 
 from __future__ import annotations
 
 import contextlib
-import threading
+import types
 
 import torch
 
-_state = threading.local()
+# The active mesh is the process's, not a thread's: autograd runs a CUDA
+# backward, and the layers' rematerialized forwards inside it, on its own
+# threads, which must see the mesh the forward ran under.
+_state = types.SimpleNamespace(mesh=None)
 
 
 class MeshShape:
@@ -104,7 +118,7 @@ def set_mesh(mesh) -> None:
 
 
 def get_mesh():
-    return getattr(_state, "mesh", None)
+    return _state.mesh
 
 
 @contextlib.contextmanager
@@ -326,16 +340,16 @@ def param_placements(params, cfg):
 # ---- SPMD on a DeviceMesh ------------------------------------------------------
 
 
-def _block_of(t, mesh, placements):
+def _block_of(t, mesh, placements, skip: int | None = None):
     """This rank's block of the whole tensor ``t`` under DTensor
-    ``placements``: each sharded mesh dim, in mesh order, splits what the
-    earlier ones left (DTensor's layout)."""
+    ``placements``: each sharded mesh dim (but ``skip``), in mesh order,
+    splits what the earlier ones left (DTensor's layout)."""
     from torch.distributed.tensor import Shard
 
     coord = mesh.get_coordinate()
     block = t
     for i, pl in enumerate(placements):
-        if isinstance(pl, Shard):
+        if isinstance(pl, Shard) and i != skip:
             block = block.chunk(mesh.size(i), dim=pl.dim)[coord[i]]
     return block
 
@@ -359,8 +373,9 @@ def distribute_params(params, cfg, convert=None):
     ``convert`` (a leaf -> tensor function, applied first) lets the leaves
     be anything with a shape, each converted only as it is placed.  The
     identity with no mesh or on a :class:`MeshShape` (but for
-    ``convert``).  Every family serves on the placed tree; training on it
-    refuses (:func:`refuse_dtensors`)."""
+    ``convert``).  Every family serves on the placed tree; the dense
+    transformer also trains on it (its pod-stacked state:
+    :func:`distribute_pods`)."""
     mesh = get_mesh()
     if mesh is None or not _is_device_mesh(mesh):
         return params if convert is None else _with_paths(lambda _, leaf: convert(leaf),
@@ -374,14 +389,6 @@ def distribute_params(params, cfg, convert=None):
         return _from_whole(leaf if convert is None else convert(leaf), mesh, pl)
 
     return _with_paths(place, params)
-
-
-def refuse_dtensors(tree, what: str) -> None:
-    """Raise ``NotImplementedError`` if ``tree`` holds a DTensor: ``what``
-    (a training entry point) runs on plain tensors only."""
-    if _has_dtensor(tree):
-        raise NotImplementedError(f"{what} on DTensor leaves (training under SPMD on a "
-                                  f"DeviceMesh) is ROADMAP A.2's next step")
 
 
 def local_nbytes(tree) -> int:
@@ -401,9 +408,24 @@ def spmd(params):
         leaf = next(iter(leaf.values()))
     if not is_dtensor(leaf):
         return contextlib.nullcontext()
-    from torch.distributed.tensor.experimental import implicit_replication
+    return _implicit_replication()
 
-    return implicit_replication()
+
+@contextlib.contextmanager
+def _implicit_replication():
+    """torch's ``implicit_replication``, nestable: it restores the switch
+    as it found it (torch's turns it off on leaving, so an entry point
+    called inside another one, a forward inside the loss, would end the
+    outer one's)."""
+    from torch.distributed.tensor import DTensor
+
+    dispatch = DTensor._op_dispatcher
+    prev = dispatch._allow_implicit_replication
+    dispatch._allow_implicit_replication = True
+    try:
+        yield
+    finally:
+        dispatch._allow_implicit_replication = prev
 
 
 def _as_placed(x, placement, mesh):
@@ -436,12 +458,23 @@ def _has_dtensor(tree) -> bool:
     return is_dtensor(tree)
 
 
-def _gathered(tree):
-    """Every leaf of ``tree`` whole on this rank: a DTensor gathered (its
-    partial sums reduced), a plain tensor as it is."""
-    if isinstance(tree, dict):
-        return {k: _gathered(v) for k, v in tree.items()}
-    return tree.full_tensor() if is_dtensor(tree) else tree
+def _local_block(x, spec, split: set, mesh):
+    """``local_map``'s argument ``x`` as ``fn`` takes it: placed by the
+    tuple ``spec`` (``None``: every leaf whole), this rank's block.  Its
+    gradient is this rank's part of the whole gradient wherever the
+    other arguments split the work over mesh axes it is not split on
+    (``split``): those partial sums are reduced by DTensor's backward."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    if isinstance(x, dict):
+        return {k: _local_block(v, spec, split, mesh) for k, v in x.items()}
+    if not is_dtensor(x) and spec is None:
+        return x
+    target = dtensor_placements(mesh, spec or ())
+    placed = _as_placed(x, spec or (), mesh)
+    grads = [Partial() if isinstance(p, Replicate) and name in split else p
+             for p, name in zip(target, mesh.mesh_dim_names)]
+    return placed.to_local(grad_placements=grads)
 
 
 def local_map(fn, in_axes, out_axes):
@@ -457,7 +490,10 @@ def local_map(fn, in_axes, out_axes):
     mesh axes of its logical axes that the inputs were split on (an axis
     :func:`resolve` dropped for every input, such as a batch the data
     axis does not divide, is dropped).  With no DTensor argument, or off
-    a ``DeviceMesh``, ``fn`` runs on the arguments as they are."""
+    a ``DeviceMesh``, ``fn`` runs on the arguments as they are.  Under
+    autograd each argument's gradient is summed over the mesh axes the
+    other arguments split the work on and it does not (a parameter taken
+    whole, keys and values replicated beside split queries)."""
     def run(*args):
         mesh = get_mesh()
         if mesh is None or not _is_device_mesh(mesh) or not any(map(_has_dtensor, args)):
@@ -465,14 +501,13 @@ def local_map(fn, in_axes, out_axes):
         from torch.distributed.tensor import DTensor
 
         kept: set = set()
-        local = []
+        specs = []
         for x, axes in zip(args, in_axes):
-            if axes is None:
-                local.append(_gathered(x))
-                continue
-            spec = resolve(x.shape, axes)
-            kept.update(a for a, e in zip(axes, spec) if e is not None)
-            local.append(_as_placed(x, spec, mesh).to_local())
+            specs.append(None if axes is None else resolve(x.shape, axes))
+            if axes is not None:
+                kept.update(a for a, e in zip(axes, specs[-1]) if e is not None)
+        split = {a for logical in kept for a in axis_names(get_rule(logical))}
+        local = [_local_block(x, spec, split, mesh) for x, spec in zip(args, specs)]
         out = fn(*local)
         many = isinstance(out, tuple)
 
@@ -486,6 +521,213 @@ def local_map(fn, in_axes, out_axes):
         return tuple(wrap(y, axes) for y, axes in zip(out, out_axes))
 
     return run
+
+
+# ---- pod-stacked training state -------------------------------------------------
+
+
+def _pod_dim(mesh) -> int | None:
+    """The index of the mesh dimension named 'pod' (``None``: there is none)."""
+    names = list(mesh.mesh_dim_names)
+    return names.index("pod") if "pod" in names else None
+
+
+def _pod_entry(n_pods: int, mesh=None):
+    """The placement entry of a pod-stacked leaf's leading dimension:
+    'pod' where the mesh (default: the active one) has a pod axis of more
+    than one device that divides ``n_pods`` (the reference's ``P("pod" if
+    pods > 1 else None, ...)``), else ``None``."""
+    size = int(mesh_shape(get_mesh() if mesh is None else mesh).get("pod", 1))
+    return "pod" if size > 1 and n_pods % size == 0 else None
+
+
+def distribute_pods(tree, cfg, pods: bool = True):
+    """A training tree as DTensors on the active ``DeviceMesh``, each rank
+    keeping only its blocks of the whole it holds (no collective): with
+    ``pods`` the leaves are pod-stacked ``(P, ...)`` and placed
+    ``(_pod_entry(P), *pspec_for_param(inner))``, as the reference's dry run
+    places parameters and AdamW moments; without, one pod's tree (the
+    compression anchor) placed by :func:`pspec_for_param`, replicated over
+    'pod'.  The identity off a ``DeviceMesh``."""
+    mesh = get_mesh()
+    if mesh is None or not _is_device_mesh(mesh):
+        return tree
+
+    def place(path, leaf):
+        spec = tuple(pspec_for_param(path, tuple(leaf.shape[1:] if pods else leaf.shape), cfg))
+        if pods:
+            spec = (_pod_entry(leaf.shape[0], mesh),) + spec
+        return _from_whole(leaf, mesh, dtensor_placements(mesh, spec))
+
+    return _with_paths(place, tree)
+
+
+def local(x):
+    """This rank's block of a DTensor (a view: writes reach it); a plain
+    tensor as it is."""
+    return x.to_local() if is_dtensor(x) else x
+
+
+def map_local(fn, x):
+    """``fn`` on this rank's block of ``x``, placed as ``x`` again (a plain
+    tensor: ``fn(x)``)."""
+    if not is_dtensor(x):
+        return fn(x)
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(fn(x.to_local()), x.device_mesh, x.placements, run_check=False)
+
+
+def placed_like(g, p):
+    """``g`` (a gradient) on the placements of ``p``: its partial sums
+    reduced and its shards moved; a plain ``g`` as it is."""
+    if not is_dtensor(g):
+        return g
+    return _redistribute(g, p.device_mesh, list(p.placements))
+
+
+def replicate(x):
+    """The DTensor ``x`` whole on every rank (its partial sums reduced;
+    differentiable)."""
+    from torch.distributed.tensor import Replicate
+
+    return _redistribute(x, x.device_mesh, [Replicate()] * x.device_mesh.ndim)
+
+
+def _pods_split(x) -> int:
+    """The ranks the pods of the pod-stacked DTensor ``x`` are split over
+    (1: every rank holds every pod)."""
+    pd = _pod_dim(x.device_mesh)
+    return 1 if pd is None or not x.placements[pd].is_shard() else x.device_mesh.size(pd)
+
+
+def pod_rows(x) -> range:
+    """The pods (indices into the leading dimension) whose rows this rank
+    holds of the pod-stacked ``x``: every pod, unless ``x`` is a DTensor
+    split over 'pod', where its block of them."""
+    if not is_dtensor(x) or _pods_split(x) == 1:
+        return range(x.shape[0])
+    block = x.shape[0] // _pods_split(x)
+    c = x.device_mesh.get_coordinate()[_pod_dim(x.device_mesh)]
+    return range(c * block, (c + 1) * block)
+
+
+def _inner_placements(x) -> list:
+    """The placements of one pod's row of the pod-stacked DTensor ``x`` on
+    the mesh dimensions other than 'pod'."""
+    from torch.distributed.tensor import Shard
+
+    pd = _pod_dim(x.device_mesh)
+    out = []
+    for d, p in enumerate(x.placements):
+        if d == pd:
+            continue
+        if p.is_shard() and p.dim == 0:
+            raise ValueError(f"a pod-stacked leaf's pod dimension is split over the mesh "
+                             f"dimension {x.device_mesh.mesh_dim_names[d]!r}")
+        out.append(Shard(p.dim - 1) if p.is_shard() else p)
+    return out
+
+
+def pod_slice(x, j: int):
+    """Row ``j`` of this rank's rows of the pod-stacked ``x`` (pod
+    ``pod_rows(x)[j]``), a view whose writes reach ``x``: for a DTensor, a
+    DTensor on the mesh without its pod axis (``mesh["data", "model"]``),
+    never gathered over the pods."""
+    if not is_dtensor(x):
+        return x[j]
+    from torch.distributed.tensor import DTensor
+
+    mesh = x.device_mesh
+    pd = _pod_dim(mesh)
+    if pd is not None:
+        names = tuple(n for d, n in enumerate(mesh.mesh_dim_names) if d != pd)
+        mesh = mesh[names[0] if len(names) == 1 else names]
+    return DTensor.from_local(x.to_local()[j], mesh, _inner_placements(x), run_check=False)
+
+
+def pod_row(x, i: int):
+    """Pod ``i``'s row of the pod-stacked ``x`` on every rank: for a DTensor,
+    a DTensor on ``x``'s mesh replicated over 'pod' (broadcast from the
+    ranks holding the pod where the pods are split), its other dimensions
+    placed as in ``x``."""
+    if not is_dtensor(x):
+        return x[i]
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh = x.device_mesh
+    pd = _pod_dim(mesh)
+    rows, block = pod_rows(x), x.to_local()
+    if _pods_split(x) > 1:
+        group = mesh.get_group(pd)
+        row = block[i - rows.start].clone() if i in rows else torch.empty_like(block[0])
+        dist.broadcast(row, src=dist.get_global_rank(group, i // len(rows)), group=group)
+    else:
+        row = block[i]
+    inner = iter(_inner_placements(x))
+    pls = [Replicate() if d == pd else next(inner) for d in range(mesh.ndim)]
+    return DTensor.from_local(row, mesh, pls, run_check=False)
+
+
+def pod_sum(v, x, keepdim: bool = False):
+    """The sum over dimension 0 of ``v`` (laid out as ``x``'s local block:
+    this rank's pods) over every pod: the local sum, then an all-reduce
+    over the 'pod' group where ``x``'s pods are split."""
+    s = torch.sum(v, dim=0, keepdim=keepdim)
+    if is_dtensor(x) and _pods_split(x) > 1:
+        import torch.distributed as dist
+
+        dist.all_reduce(s, group=x.device_mesh.get_group(_pod_dim(x.device_mesh)))
+    return s
+
+
+def pod_gather(v, x):
+    """``v`` (laid out as ``x``'s local block) with every pod's rows, in
+    pod order (gathered over 'pod' where ``x``'s pods are split)."""
+    if not is_dtensor(x) or _pods_split(x) == 1:
+        return v
+    return _gather(v, x.device_mesh.get_group(_pod_dim(x.device_mesh)))
+
+
+def shards_reduce(t, x, op: str = "sum"):
+    """``t``, computed on this rank's block of ``x``, reduced in place
+    (``"sum"`` or ``"max"``) over every mesh dimension but 'pod' that
+    shards ``x``: the value over ``x``'s whole (pod row).  A plain ``x``:
+    ``t`` as it is."""
+    if is_dtensor(x):
+        import torch.distributed as dist
+
+        red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+        pd = _pod_dim(x.device_mesh)
+        for d, p in enumerate(x.placements):
+            if d != pd and p.is_shard():
+                dist.all_reduce(t, op=red, group=x.device_mesh.get_group(d))
+    return t
+
+
+def shards_whole(v, x):
+    """``v`` (laid out as ``x``'s local block) with every dimension but the
+    pods' made whole: gathered over each mesh dimension but 'pod' that
+    shards ``x``."""
+    if not is_dtensor(x):
+        return v
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh, pd = x.device_mesh, _pod_dim(x.device_mesh)
+    target = [p if d == pd else Replicate() for d, p in enumerate(x.placements)]
+    if target == list(x.placements):
+        return v
+    placed = DTensor.from_local(v.contiguous(), mesh, x.placements, run_check=False)
+    return placed.redistribute(mesh, target).to_local()
+
+
+def shards_block(w, x):
+    """This rank's block of ``w`` (``x``'s pods, every other dimension
+    whole), as ``x`` holds it: the inverse of :func:`shards_whole`."""
+    if not is_dtensor(x):
+        return w
+    return _block_of(w, x.device_mesh, x.placements, skip=_pod_dim(x.device_mesh))
 
 
 # ---- shard_map ---------------------------------------------------------------

@@ -10,6 +10,13 @@ f32 values computed on the host, so a step never waits for the device.
 Unlike the reference's functional ``apply``, the port writes the new
 parameters and moments into the tensors it is given and returns them: a
 full-width model's parameters and moments are never held twice.
+
+DTensor leaves (training on a ``DeviceMesh``): the global norm is the one
+norm of the whole tree on every rank (each leaf's sum of squares over its
+local block, all-reduced over the mesh dimensions that shard it), and
+the update runs in place on each leaf's local block, the gradient first
+placed as its parameter (its partial sums reduced).  Weight decay keeps
+the ``ndim >= 2`` rule, which the global and the local shapes share.
 """
 
 from __future__ import annotations
@@ -20,7 +27,7 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch.kernels.fp import div_f32
-from repro_torch.models.sharding import refuse_dtensors
+from repro_torch.models import sharding
 from repro_torch.tree import leaves, tree_map
 
 Tensor = torch.Tensor
@@ -47,8 +54,11 @@ class AdamWState(NamedTuple):
 
 
 def init(params, cfg: AdamWConfig) -> AdamWState:
+    """Zero moments placed as ``params`` (DTensor leaves: each rank's
+    block)."""
     dt = getattr(torch, cfg.state_dtype)
-    z = lambda p: torch.zeros(p.shape, dtype=dt, device=p.device)
+    z = lambda p: sharding.map_local(
+        lambda b: torch.zeros(b.shape, dtype=dt, device=b.device), p)
     return AdamWState(mu=tree_map(z, params), nu=tree_map(z, params), count=0)
 
 
@@ -77,7 +87,11 @@ def _bias_correction(b: float, count: int) -> float:
 
 
 def global_norm(tree) -> Tensor:
-    sq = [torch.sum(torch.square(x.to(_F32))) for x in leaves(tree)]
+    """The norm of the whole tree, a plain scalar (the same on every rank
+    for DTensor leaves: each leaf's local sum of squares is all-reduced
+    over the mesh dimensions that shard it)."""
+    sq = [sharding.shards_reduce(torch.sum(torch.square(sharding.local(x).to(_F32))), x)
+          for x in leaves(tree)]
     return torch.sqrt(torch.sum(torch.stack(sq)))
 
 
@@ -85,7 +99,8 @@ def clip_by_global_norm(grads, max_norm: float) -> tuple[Any, Tensor]:
     norm = global_norm(grads)
     ceiling = torch.full((), max_norm, dtype=_F32, device=norm.device)
     scale = torch.clamp(ceiling / torch.clamp(norm, min=1e-9), max=1.0)
-    return tree_map(lambda g: (g.to(_F32) * scale).to(g.dtype), grads), norm
+    clip = lambda g: sharding.map_local(lambda b: (b.to(_F32) * scale).to(b.dtype), g)
+    return tree_map(clip, grads), norm
 
 
 def _update(p: Tensor, g: Tensor, m: Tensor, v: Tensor, cfg: AdamWConfig,
@@ -117,8 +132,9 @@ def _update(p: Tensor, g: Tensor, m: Tensor, v: Tensor, cfg: AdamWConfig,
 
 def apply(params, grads, state: AdamWState, cfg: AdamWConfig) -> tuple[Any, AdamWState, dict]:
     """One AdamW step, in place.  Returns (params, new_state, metrics).
-    DTensor leaves raise ``NotImplementedError`` (ROADMAP A.2)."""
-    refuse_dtensors(params, "adamw.apply")
+    DTensor leaves update their local blocks (each gradient placed as its
+    parameter first); ``grad_norm`` is the whole tree's."""
+    grads = tree_map(sharding.placed_like, grads, params)
     if cfg.grad_clip > 0:
         grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
     else:
@@ -130,7 +146,7 @@ def apply(params, grads, state: AdamWState, cfg: AdamWConfig) -> tuple[Any, Adam
     with torch.no_grad():
         for p, g, m, v in zip(leaves(params), leaves(grads), leaves(state.mu),
                               leaves(state.nu)):
-            _update(p, g, m, v, cfg, lr, b1c, b2c)
+            _update(*map(sharding.local, (p, g, m, v)), cfg, lr, b1c, b2c)
     return (
         params,
         AdamWState(mu=state.mu, nu=state.nu, count=count),

@@ -348,8 +348,11 @@ def run_protocol_sharded(
     resources, so the merged telemetry is exactly the sum of the
     per-shard unsharded runs; ``per_shard`` lists each shard's counts and
     ``severity`` (with ``audit``) is the mean of the shards'.  The shards
-    run one after another inside each round on ``device``;
-    ``use_devices`` is accepted and changes nothing (one card).
+    run one after another inside each round on ``device``; with
+    ``use_devices`` and a process group of at least ``n_shards`` ranks
+    (the active ``DeviceMesh``'s 'shard' axis, or the world with no mesh
+    set), each rank replays only its own shard on ``device`` and every
+    rank returns the one-process result (``engine.replay.shard_group``).
     """
     if n_clients % n_shards or n_resources % n_shards or n_ops % n_shards:
         raise ValueError(

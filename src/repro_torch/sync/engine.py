@@ -28,6 +28,17 @@ donated, as the reference's jitted trainer donates it, so a full-width
 model is never held twice.  The f32 operations and their order are the
 reference's; sums over the pod axis of more than two pods may differ
 from XLA's in the last bit (its reduction order).
+
+DTensor leaves (a state from ``train_step.distribute_state``): every
+merge works on each rank's local block.  The reductions over pods are a
+local sum and, where the pods are split over 'pod', an all-reduce over
+that group; the gossip's neighbour rows are gathered over 'pod'; the
+int8 scale is one max per pod over the whole leaf (each block's max,
+all-reduced over the mesh dimensions that shard the leaf); top-k selects
+over each pod's whole leaf (gathered over those dimensions), with
+``compression.topk_index``'s lower-index-first tie rule, and each rank
+keeps its block of the result.  The store's bookkeeping runs on its
+small state, which every rank holds whole.
 """
 
 from __future__ import annotations
@@ -43,7 +54,7 @@ from repro_torch.core.consistency import ConsistencyLevel, ConsistencyPolicy
 from repro_torch.core.replicated_store import ReplicatedStore
 from repro_torch.device import resolve_device
 from repro_torch.kernels.fp import div_f32
-from repro_torch.models.sharding import refuse_dtensors
+from repro_torch.models import sharding
 from repro_torch.sync import compression
 from repro_torch.tree import leaves, tree_map
 
@@ -127,9 +138,10 @@ class SyncEngine:
             self.policy.level is ConsistencyLevel.X_STCC
             and self.policy.compress_inter_pod != "none"
         )
-        anchor = tree_map(lambda x: x[0].clone(), params_stacked) if needs_anchor else None
+        anchor = (tree_map(lambda x: sharding.map_local(torch.clone, sharding.pod_row(x, 0)),
+                           params_stacked) if needs_anchor else None)
         residual = (
-            tree_map(torch.zeros_like, params_stacked)
+            tree_map(lambda x: sharding.map_local(torch.zeros_like, x), params_stacked)
             if self.policy.compress_inter_pod == "topk"
             else None
         )
@@ -159,7 +171,6 @@ class SyncEngine:
         keeps its local parameters and catches up at the next merge it
         participates in — the Δ bound caps how stale it can get.
         """
-        refuse_dtensors(params, "SyncEngine.merge")
         if self.n_pods == 1:
             return params, sync._replace(merges=sync.merges + 1)
         up = None if up is None else _host_mask(up)
@@ -183,28 +194,36 @@ class SyncEngine:
         w = torch.as_tensor(up.astype(np.float32), device=self.device)
         return w, torch.clamp(torch.sum(w), min=1.0)
 
-    def _pods(self, w: Tensor, ndim: int) -> Tensor:
-        return w.reshape((self.n_pods,) + (1,) * (ndim - 1))
+    @staticmethod
+    def _pods(w: Tensor, x, ndim: int) -> Tensor:
+        """``w`` (per pod) at the pods of ``x``'s local rows, shaped to
+        broadcast over a ``ndim``-dim block."""
+        rows = sharding.pod_rows(x)
+        w = w[rows.start:rows.stop]
+        return w.reshape((len(rows),) + (1,) * (ndim - 1))
 
-    def _write(self, x: Tensor, merged: Tensor, up: np.ndarray | None) -> None:
-        """``x`` (P, ...) takes ``merged`` (f32, x's inner shape) at the
+    def _write(self, x, merged: Tensor, up: np.ndarray | None) -> None:
+        """``x`` (P, ...) takes ``merged`` (f32, x's inner block) at the
         live pods, cast to x's dtype; dropped pods keep their rows."""
+        xl = sharding.local(x)
         if up is None:
-            x.copy_(merged.expand_as(x))
+            xl.copy_(merged.expand_as(xl))
             return
-        for i in np.flatnonzero(up):
-            x[i].copy_(merged)
+        for j, i in enumerate(sharding.pod_rows(x)):
+            if up[i]:
+                xl[j].copy_(merged)
 
-    def _mean(self, v: Tensor, w: Tensor | None, n) -> Tensor:
-        """The (masked) mean over the pod axis of f32 ``v`` (P, ...)."""
+    def _mean(self, v: Tensor, x, w: Tensor | None, n) -> Tensor:
+        """The (masked) mean over every pod of f32 ``v`` (``x``'s local
+        rows)."""
         if w is None:
-            return div_f32(torch.sum(v, dim=0), self.n_pods)
-        return torch.sum(v * self._pods(w, v.dim()), dim=0) / n
+            return div_f32(sharding.pod_sum(v, x), self.n_pods)
+        return sharding.pod_sum(v * self._pods(w, x, v.dim()), x) / n
 
     def _mean_merge(self, params, up: np.ndarray | None) -> None:
         w, n = self._pod_weights(up)
         for x in leaves(params):
-            self._write(x, self._mean(x.to(torch.float32), w, n), up)
+            self._write(x, self._mean(sharding.local(x).to(torch.float32), x, w, n), up)
 
     def _quorum_merge(self, params, merges: Tensor, up: np.ndarray | None) -> None:
         p = self.n_pods
@@ -217,10 +236,11 @@ class SyncEngine:
         else:
             denom = torch.full((), float(q), dtype=torch.float32, device=self.device)
         for x in leaves(params):
-            mask = self._pods(member, x.dim())
-            x32 = x.to(torch.float32)
-            msum = torch.sum(torch.where(mask, x32, 0.0), dim=0, keepdim=True)
-            x.copy_(torch.where(mask, msum / denom, x32))
+            xl = sharding.local(x)
+            mask = self._pods(member, x, xl.dim())
+            x32 = xl.to(torch.float32)
+            msum = sharding.pod_sum(torch.where(mask, x32, 0.0), x, keepdim=True)
+            xl.copy_(torch.where(mask, msum / denom, x32))
 
     def _gossip_merge(self, params, up: np.ndarray | None) -> None:
         # A gossip hop runs only when both endpoints are live.
@@ -228,11 +248,14 @@ class SyncEngine:
         if up is not None:
             ok = torch.as_tensor(up & np.roll(up, 1), device=self.device)
         for x in leaves(params):
-            x32 = x.to(torch.float32)
-            mixed = (x32 + torch.roll(x32, 1, dims=0)) * 0.5
+            xl = sharding.local(x)
+            x32 = xl.to(torch.float32)
+            rows = sharding.pod_rows(x)
+            prev = torch.roll(sharding.pod_gather(x32, x), 1, dims=0)[rows.start:rows.stop]
+            mixed = (x32 + prev) * 0.5
             if ok is not None:
-                mixed = torch.where(self._pods(ok, x.dim()), mixed, x32)
-            x.copy_(mixed)
+                mixed = torch.where(self._pods(ok, x, xl.dim()), mixed, x32)
+            xl.copy_(mixed)
 
     def _xstcc_merge(self, params, sync: SyncState, up: np.ndarray | None) -> None:
         method = self.policy.compress_inter_pod
@@ -249,42 +272,49 @@ class SyncEngine:
 
     def _int8_leaf(self, x, a, w, n, up) -> None:
         """Quantize each pod's delta from the anchor to int8 (per-pod
-        scale), average the dequantized deltas, and move the anchor there.
-        ``d`` holds delta, then the codes, then their dequantized values in
-        place: the codes are integers in [-127, 127], exact in f32, so the
-        int8 round trip changes nothing."""
-        p = self.n_pods
-        a32 = a.to(torch.float32)
-        d = x.to(torch.float32, copy=True).sub_(a32)
-        lo, hi = torch.aminmax(d.reshape(p, -1), dim=1)
-        scale = div_f32(torch.clamp(torch.maximum(-lo, hi), min=1e-12), 127.0)
-        sb = self._pods(scale, x.dim())
+        scale: the max over the pod's whole leaf), average the dequantized
+        deltas, and move the anchor there.  ``d`` holds delta, then the
+        codes, then their dequantized values in place: the codes are
+        integers in [-127, 127], exact in f32, so the int8 round trip
+        changes nothing."""
+        xl, al = sharding.local(x), sharding.local(a)
+        a32 = al.to(torch.float32)
+        d = xl.to(torch.float32, copy=True).sub_(a32)
+        lo, hi = torch.aminmax(d.reshape(d.shape[0], -1), dim=1)
+        amax = sharding.shards_reduce(torch.maximum(-lo, hi), x, "max")
+        scale = div_f32(torch.clamp(amax, min=1e-12), 127.0)
+        sb = scale.reshape((d.shape[0],) + (1,) * (d.dim() - 1))
         d.div_(sb).round_().clamp_(-127, 127).mul_(sb)
-        merged = self._mean(d, w, n).add_(a32)
+        merged = self._mean(d, x, w, n).add_(a32)
         del d
         self._write(x, merged, up)
-        a.copy_(merged)
+        al.copy_(merged)
 
     def _topk_leaf(self, x, a, r, w, n, up) -> None:
         """Top-k with error feedback: each pod sends its k largest-magnitude
-        delta entries (plus its residual), keeps the rest as residual."""
-        p = self.n_pods
-        a32 = a.to(torch.float32)
-        flat = x.to(torch.float32, copy=True).sub_(a32).add_(r.to(torch.float32))
-        flat = flat.reshape(p, -1)
+        delta entries (plus its residual) of its whole leaf, keeps the rest
+        as residual."""
+        xl, al, rl = sharding.local(x), sharding.local(a), sharding.local(r)
+        a32 = al.to(torch.float32)
+        delta = xl.to(torch.float32, copy=True).sub_(a32).add_(rl.to(torch.float32))
+        whole = sharding.shards_whole(delta, x)
+        del delta
+        flat = whole.reshape(whole.shape[0], -1)
         k = max(1, int(flat.shape[1] * self.policy.topk_fraction))
         idx = compression.topk_index(torch.abs(flat), k)
         sparse = torch.zeros_like(flat).scatter_(1, idx, torch.gather(flat, 1, idx))
-        resid = flat.scatter_(1, idx, 0.0)           # flat - sparse
-        merged = self._mean(sparse, w, n).reshape(x.shape[1:]).add_(a32)
+        resid = sharding.shards_block(flat.scatter_(1, idx, 0.0).reshape(whole.shape), x)
+        sparse = sharding.shards_block(sparse.reshape(whole.shape), x)
+        merged = self._mean(sparse, x, w, n).add_(a32)
         if up is None:
-            r.copy_(resid.reshape(r.shape))
+            rl.copy_(resid)
         else:
             # A dropped pod transmits nothing: its residual is untouched.
-            for i in np.flatnonzero(up):
-                r[i].copy_(resid[i].reshape(r.shape[1:]))
+            for j, i in enumerate(sharding.pod_rows(x)):
+                if up[i]:
+                    rl[j].copy_(resid[j])
         self._write(x, merged, up)
-        a.copy_(merged)
+        al.copy_(merged)
 
     # -- protocol bookkeeping --------------------------------------------------
 

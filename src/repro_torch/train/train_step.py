@@ -17,10 +17,20 @@ donates it.
 Optimizer moments deliberately stay pod-local between merges (the
 DiLoCo-style choice): the paper's protocol replicates the *data* (here:
 parameters), not the optimizer's private scratch state.
+
+On a ``DeviceMesh`` the state is DTensors (:func:`distribute_state`, or
+``init`` under ``sharding.use_mesh(mesh)``), placed as the reference's
+dry run places it.  The pod loop then runs on each rank only the pods
+its 'pod' coordinate holds (every pod on a mesh without a pod axis),
+each pod's slice a DTensor on the mesh without its pod axis, sharded over
+'data' / 'model' by the parameter rules; the gradients are placed as
+their parameters before AdamW, and the metrics' per-pod losses and norms
+are gathered over 'pod'.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Callable, NamedTuple
 
 import torch
@@ -29,7 +39,7 @@ from repro_torch.core.consistency import ConsistencyPolicy
 from repro_torch.device import resolve_device
 from repro_torch.kernels.fp import div_f32
 from repro_torch.models.model_zoo import Model, abstract_params
-from repro_torch.models.sharding import refuse_dtensors
+from repro_torch.models import sharding
 from repro_torch.optim import adamw
 from repro_torch.sync.engine import SyncEngine, SyncState
 from repro_torch.tree import leaves, tree_map
@@ -55,8 +65,35 @@ def stack_for_pods(tree, n_pods: int):
     return tree_map(lambda x: x[None].repeat((n_pods,) + (1,) * x.dim()), tree)
 
 
-def _index(tree, i: int):
-    return tree_map(lambda x: x[i], tree)
+def _index(tree, j: int):
+    """Row ``j`` of this rank's pod rows of every leaf (a view; on DTensor
+    leaves a DTensor on the mesh without its pod axis, never gathered)."""
+    return tree_map(lambda x: sharding.pod_slice(x, j), tree)
+
+
+def _first(tree):
+    return leaves(tree)[0]
+
+
+def distribute_state(state: TrainState, cfg, mesh=None) -> TrainState:
+    """``state`` (plain tensors, every rank holding the whole) placed on
+    ``mesh`` (default: the active mesh; a ``DeviceMesh``) as the
+    reference's dry run places it: parameters and AdamW moments
+    ``P("pod" if the mesh has a pod axis else None, *pspec_for_param)``;
+    the compression anchor placed as one pod's parameters and the top-k
+    residual as the parameters (ROADMAP C: each rank merges its own
+    block); the store's clocks, DUOT and counters replicated (every rank
+    holds them whole); ``count`` and ``step`` host integers.  Each rank
+    keeps only its blocks.  The identity off a ``DeviceMesh``."""
+    with sharding.use_mesh(sharding.get_mesh() if mesh is None else mesh):
+        place = lambda t, pods=True: None if t is None else sharding.distribute_pods(
+            t, cfg, pods)
+        return state._replace(
+            params=place(state.params),
+            opt=state.opt._replace(mu=place(state.opt.mu), nu=place(state.opt.nu)),
+            sync=state.sync._replace(anchor=place(state.sync.anchor, False),
+                                     residual=place(state.sync.residual)),
+        )
 
 
 def make_train_fns(
@@ -75,46 +112,55 @@ def make_train_fns(
 
     def init(seed_or_gen=0, params=None) -> TrainState:
         """The state from ``model.init(seed_or_gen)`` on the device, or from
-        ``params`` (one pod's tree; moved to the device).  DTensor
-        parameters raise ``NotImplementedError`` (ROADMAP A.2), as do the
-        step functions on a DTensor state."""
-        refuse_dtensors(params or {}, "make_train_fns' init")
+        ``params`` (one pod's tree of plain tensors, or DTensors made whole
+        first; moved to the device).  Under ``sharding.use_mesh`` of a
+        ``DeviceMesh`` the state is placed there (:func:`distribute_state`)."""
         if params is None:
             params = model.init(seed_or_gen, dev)
         else:
-            params = tree_map(lambda x: x.to(dev), params)
+            params = tree_map(lambda x: (x.full_tensor() if sharding.is_dtensor(x) else x)
+                              .to(dev), params)
         stacked = stack_for_pods(params, n_pods)
         del params
-        return TrainState(
+        state = TrainState(
             params=stacked,
             opt=adamw.init(stacked, opt_cfg),
             sync=engine.init_state(stacked),
             step=0,
         )
+        return distribute_state(state, model.cfg)
 
     def one_pod(params, mu, nu, count, batch):
-        """Gradient and AdamW update of one pod's slice, in place."""
+        """Gradient and AdamW update of one pod's slice, in place (DTensor
+        slices under their own mesh)."""
+        placed = sharding.is_dtensor(_first(params))
         wrt = tree_map(lambda x: x.detach().requires_grad_(), params)
-        with torch.enable_grad():
-            loss, _ = model.loss(wrt, batch)
-        grads = iter(torch.autograd.grad(loss, leaves(wrt)))
-        gtree = tree_map(lambda _: next(grads), wrt)
-        del wrt
-        _, new_opt, om = adamw.apply(params, gtree, adamw.AdamWState(mu, nu, count),
-                                     opt_cfg)
-        return new_opt.count, loss.detach(), om
+        with (sharding.use_mesh(_first(wrt).device_mesh) if placed
+              else contextlib.nullcontext()):
+            with torch.enable_grad(), sharding.spmd(wrt):
+                loss, _ = model.loss(wrt, batch)
+                if placed:
+                    loss = sharding.replicate(loss)
+                grads = iter(torch.autograd.grad(loss, leaves(wrt)))
+            gtree = tree_map(lambda _: next(grads), wrt)
+            del wrt
+            _, new_opt, om = adamw.apply(params, gtree, adamw.AdamWState(mu, nu, count),
+                                         opt_cfg)
+        return new_opt.count, sharding.local(loss.detach()), om
 
     def local_step(state: TrainState, batch) -> tuple[TrainState, dict]:
-        refuse_dtensors(state.params, "local_step / sync_step")
         losses, norms, count, lr = [], [], state.opt.count, None
-        for p in range(n_pods):
+        lead = _first(state.params)
+        for j, p in enumerate(sharding.pod_rows(lead)):
             pod_batch = {k: v[p] for k, v in batch.items()}
-            new_count, loss, om = one_pod(_index(state.params, p), _index(state.opt.mu, p),
-                                          _index(state.opt.nu, p), state.opt.count,
+            new_count, loss, om = one_pod(_index(state.params, j), _index(state.opt.mu, j),
+                                          _index(state.opt.nu, j), state.opt.count,
                                           pod_batch)
             count, lr = new_count, om["lr"]
             losses.append(loss)
             norms.append(om["grad_norm"])
+        losses = sharding.pod_gather(torch.stack(losses), lead)
+        norms = sharding.pod_gather(torch.stack(norms), lead)
         new_state = TrainState(
             params=state.params,
             opt=adamw.AdamWState(mu=state.opt.mu, nu=state.opt.nu, count=count),
@@ -122,8 +168,8 @@ def make_train_fns(
             step=state.step + 1,
         )
         metrics = {
-            "loss": div_f32(torch.sum(torch.stack(losses)), n_pods),
-            "grad_norm": div_f32(torch.sum(torch.stack(norms)), n_pods),
+            "loss": div_f32(torch.sum(losses), n_pods),
+            "grad_norm": div_f32(torch.sum(norms), n_pods),
             "lr": lr,
         }
         return new_state, metrics

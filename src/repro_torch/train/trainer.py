@@ -10,6 +10,12 @@ step.
 Attention trains through the plain masked attention, as the reference
 does (its ``use_flash_kernel=False``): the hand-written attention kernel
 (B.8) has no backward, so a config that asks for it is refused here.
+
+Under ``sharding.use_mesh`` of a ``DeviceMesh`` the state is DTensors
+(``train_step.distribute_state``): ``init_state`` and
+``restore_checkpoint`` place it on the active mesh, and a checkpoint
+holds pod 0's parameters made whole on every rank, so the store sees
+plain tensors.
 """
 
 from __future__ import annotations
@@ -23,11 +29,12 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.consistency import ConsistencyPolicy
 from repro_torch.data import DataConfig, batch_at, extra_inputs
 from repro_torch.device import resolve_device
-from repro_torch.models import abstract_params, build_model
+from repro_torch.models import abstract_params, build_model, sharding
 from repro_torch.optim import AdamWConfig, adamw
 from repro_torch.train.train_step import (
     TrainFns,
     TrainState,
+    distribute_state,
     make_train_fns,
     split_batch_for_pods,
     stack_for_pods,
@@ -92,7 +99,8 @@ class Trainer:
 
     def init_state(self, params=None) -> TrainState:
         """From the model's own init (seeded with ``tcfg.seed``), or from
-        ``params``, one pod's tree (the reference's, converted)."""
+        ``params``, one pod's tree (the reference's, converted); placed on
+        the active ``DeviceMesh``, if any."""
         return self.fns.init(self.tcfg.seed, params=params)
 
     def is_sync_step(self, step: int) -> bool:
@@ -132,10 +140,13 @@ class Trainer:
     # -- checkpoint / recovery ---------------------------------------------------
 
     def save_checkpoint(self, state: TrainState, step: int) -> int:
-        merged = tree_map(lambda x: x[0], state.params)
+        merged = tree_map(lambda x: _whole(sharding.pod_row(x, 0)), state.params)
         return self.ckpt_store.save(merged, step, self.ckpt_session)
 
     def restore_checkpoint(self) -> tuple[TrainState, int]:
+        """The state from the newest checkpoint (pod 0's parameters on every
+        pod, fresh moments and sync state), placed on the active
+        ``DeviceMesh``, if any, as ``init_state`` places it."""
         template = abstract_params(self.model)
         params, version, _ = self.ckpt_store.restore(template, self.ckpt_session)
         meta_step = 0
@@ -154,4 +165,9 @@ class Trainer:
             sync=self.fns.engine.init_state(stacked),
             step=int(meta_step),
         )
-        return state, meta_step
+        return distribute_state(state, self.model_cfg), meta_step
+
+
+def _whole(x):
+    """A DTensor gathered on every rank; a plain tensor as it is."""
+    return x.full_tensor() if sharding.is_dtensor(x) else x

@@ -1056,6 +1056,37 @@ def test_one_device_mesh_sync_step_equals_no_mesh(cuda):
     assert {k: counts[k] for k in want} == want
 
 
+def test_one_device_mesh_sync_step_on_dtensors_equals_no_mesh(cuda):
+    """The same steps on the state ``init_state`` places on the (1, 1)
+    NCCL mesh (DTensor leaves: the pod loop, AdamW on local blocks, the
+    merge on DTensors) equal the plain steps bit for bit, with the same
+    launches."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import sharding
+    from repro_torch.tree import leaves
+    from torch_port_helpers import (MESH_STEP_CASE, mesh_step_launches, mesh_step_mismatches,
+                                    mesh_sync_steps)
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        params = port_trainer(MESH_STEP_CASE, "cpu").model.init(0, device="cpu")
+        plain = mesh_sync_steps(cuda, params)
+        ops.reset_launch_counts()
+        placed = mesh_sync_steps(cuda, params, mesh, placed=True)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        assert all(map(sharding.is_dtensor, leaves(placed[1].params)))
+        assert mesh_step_mismatches(plain, placed) == []
+    finally:
+        dist.destroy_process_group()
+    want = mesh_step_launches()
+    assert {k: counts[k] for k in want} == want
+
+
 # ---- the mesh's collective regions ----------------------------------------------------
 
 

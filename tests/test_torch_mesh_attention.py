@@ -12,10 +12,20 @@ reference's rules on a (1, 2) "tp", a (2, 1) FSDP and a (2, 2) "dp"
 mesh, held against the reference under the same mesh and against the
 port with no mesh.
 
+Training on DTensor leaves (the ``train`` cases, in the world of 4): the
+dense transformer's state placed as the reference's dry run places it on
+a (pod 2, data 1, model 2) and a (pod 2, data 2, model 1) mesh, a local
+step, a sync step and an ``up``-masked merge, against the reference's
+jitted steps under the same mesh and against the port with no mesh.
+``use_devices`` (the ``devices`` case, in the world of 2): the sharded
+replay with one shard per rank, against the one-process replay.
+
 Tolerances: logits atol = rtol = 1e-5 (f32; the ring and the combine add
 in other orders than the plain attention, as they do in the reference);
 one step's gradients rtol 1e-4, atol 1e-6, the families' rule.  Every
 rank of a gloo group must hold the same global outputs, bit for bit.
+Training: losses and grad norms rtol 1e-5; the sync bookkeeping exact;
+parameters, anchor and residual by ``_assert_train_state_close``.
 """
 
 import dataclasses
@@ -42,9 +52,11 @@ CASES = mc.CASES[PART]
 RING = [c for c in CASES if c["kind"] == "ring"]
 DECODE = [c for c in CASES if c["kind"] == "decode"]
 SPMD = [c for c in CASES if c["kind"] == "spmd"]
+TRAIN = [c for c in CASES if c["kind"] == "train"]
+DEVICES = [c for c in CASES if c["kind"] == "devices"]
 B8_TOL = dict(atol=2e-5, rtol=2e-5)       # B.8's f32 contract
 # The gloo groups, spawned at once: (world size, the meshes it runs).
-WORLDS = [(4, (mc.M22, mc.M14)), (2, (mc.M12, mc.M21))]
+WORLDS = [(4, (mc.M22, mc.M14, mc.P2D1M2, mc.P2D2M1)), (2, (mc.M12, mc.M21, mc.SHARD2))]
 MODES = ("stacked", "gloo")
 
 torch.set_num_threads(1)
@@ -120,9 +132,11 @@ def test_spmd_logits_match_reference_and_plain_port(runs, case):
         assert got[key].shape == want[key].shape == plain[key].shape, key
         np.testing.assert_allclose(got[key], want[key], err_msg=key, **TOL)
         np.testing.assert_allclose(got[key], plain[key], err_msg=key, **TOL)
-    # "dp" mode runs the ring over the model axis in forward and both prefills.
+    # "dp" mode runs the ring over the model axis in forward and both
+    # prefills (and in the training check's local step, once per pod).
     n = mc.port_config(case["cfg"]).n_layers
-    assert int(got["calls/ring"]) == (3 * n if _dp_ring(case) else 0)
+    assert int(got["calls/ring"]) - int(got["train_ring"]) == (3 * n if _dp_ring(case) else 0)
+    assert int(got["train_ring"]) == (2 * n if _dp_ring(case) else 0)
     assert int(plain["calls/ring"]) == int(got["calls/lse"]) == 0
 
 
@@ -166,14 +180,128 @@ def test_spmd_flash_wrapper_on_local_shards(runs, case):
     assert tuple(plain["flash_q_shape"]) == (case["b"], case["s"], cfg.n_heads, cfg.head_dim)
 
 
-def test_training_refuses_dtensor_leaves(runs):
-    """The training entry points (``make_train_fns``' init and local /
-    sync step, ``adamw.apply``, ``SyncEngine.merge``) raise
-    ``NotImplementedError`` on DTensor parameters instead of training
-    them (training under SPMD is ROADMAP A.2's next step)."""
+def test_training_entry_points_take_dtensor_leaves(runs):
+    """The training entry points (``make_train_fns``' init from DTensor
+    parameters, its local step, ``adamw.apply`` and ``SyncEngine.merge``)
+    train the DTensor parameters of every SPMD mesh, DTensor leaves in and
+    out."""
     for case in SPMD:
         got, _, _ = _spmd_runs(runs, case)
-        assert int(got["train_refused"]) == 4, case["id"]
+        assert int(got["train_ran"]) == 4, case["id"]
+
+
+# ---- training on DTensor leaves ------------------------------------------------------
+
+# Parameters, compression anchor and residual after the steps.  The tight
+# tier is tests/test_torch_train.py's AdamW bound (rtol 1e-6, atol 1e-7)
+# widened ten times for the TP / FSDP partial sums, which add in another
+# order than one device (and than XLA).  AdamW divides each gradient entry
+# by its own magnitude, so where a gradient is rounding noise (the key
+# bias's is zero: one shift of every key leaves each softmax unchanged)
+# two correct runs step in unrelated directions, each step at most ``lr``
+# long; an int8 code at a rounding boundary moves by one quantum (far
+# below ``lr``) and a top-k selection at its k-th magnitude swaps an entry
+# whose delta is at most the steps' length.  So at most ``FLIP_SHARE`` of
+# the entries may leave the tight tier, and none by more than 2 ``lr`` per
+# step taken.
+STATE_TOL = dict(atol=1e-6, rtol=1e-5)
+FLIP_SHARE = 1e-3
+FLIP_ATOL = 2 * mc.TRAIN_OPT["lr"] * mc.TRAIN["steps"]
+STATE_TREES = ("params", "anchor", "residual")
+
+
+def _assert_train_state_close(got: dict, want: dict, tag: str) -> None:
+    keys = sorted(k for k in want if k.startswith(tag + "/") and k.split("/")[1] in STATE_TREES)
+    assert keys and keys == sorted(k for k in got if k.startswith(tag + "/")
+                                   and k.split("/")[1] in STATE_TREES)
+    loose = total = 0
+    for k in keys:
+        g, w = got[k], want[k]
+        assert g.shape == w.shape and np.isfinite(g).all(), k
+        err = np.abs(g.astype(np.float64) - w)
+        assert err.max() <= FLIP_ATOL, (k, err.max())
+        loose += int((err > STATE_TOL["atol"] + STATE_TOL["rtol"] * np.abs(w)).sum())
+        total += g.size
+    assert loose <= FLIP_SHARE * total, (tag, loose, total)
+
+
+@pytest.mark.parametrize("case", TRAIN, ids=mc.case_ids(TRAIN))
+def test_train_steps_match_reference(runs, case):
+    """A local step, a sync step and a merge with pod 1 down, on the
+    DTensor state placed as the dry run places it, against the reference's
+    jitted steps under the same mesh: losses and grad norms within rtol
+    1e-5, the bookkeeping (merges, violations, severity, the bill, the
+    clocks, the DUOT) exact, the state by ``_assert_train_state_close``."""
+    got, want, _ = _spmd_runs(runs, case)
+    assert bool(got["placed"])
+    for key in ("loss", "grad_norm"):
+        assert got[key].shape == want[key].shape == (mc.TRAIN["steps"],)
+        np.testing.assert_allclose(got[key], want[key], rtol=1e-5, err_msg=key)
+    for tag in ("sync", "masked"):
+        book = sorted(k for k in want if k.startswith(tag + "/")
+                      and k.split("/")[1] not in STATE_TREES)
+        assert book and int(want[f"{tag}/merges"]) == (1 if tag == "sync" else 2)
+        for k in book:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+        _assert_train_state_close(got, want, tag)
+    for k in (k for k in want if k.startswith(("mu/", "nu/"))):
+        np.testing.assert_allclose(got[k], want[k], atol=1e-6, rtol=1e-4, err_msg=k)
+
+
+@pytest.mark.parametrize("case", TRAIN, ids=mc.case_ids(TRAIN))
+def test_global_norm_over_dtensor_leaves(runs, case):
+    """``adamw.global_norm`` of a pod's DTensor parameters, sharded over
+    'model' or 'data', is the whole tree's norm on every rank (rtol 1e-6:
+    the shards' sums of squares add in another order)."""
+    got, _, _ = _spmd_runs(runs, case)
+    np.testing.assert_allclose(got["norms"][0], got["norms"][1], rtol=1e-6)
+
+
+@pytest.mark.parametrize("case", TRAIN, ids=mc.case_ids(TRAIN))
+def test_train_steps_match_plain_port(runs, case):
+    """The same steps on the DTensor state against the port's plain
+    tensors with no mesh: the same bounds, and every bookkeeping value
+    exact."""
+    got, _, plain = _spmd_runs(runs, case)
+    np.testing.assert_allclose(got["loss"], plain["loss"], rtol=1e-5)
+    np.testing.assert_allclose(got["grad_norm"], plain["grad_norm"], rtol=1e-5)
+    for tag in ("sync", "masked"):
+        for k in (k for k in plain if k.startswith(tag + "/")
+                  and k.split("/")[1] not in STATE_TREES):
+            np.testing.assert_array_equal(got[k], plain[k], err_msg=k)
+        _assert_train_state_close(got, plain, tag)
+
+
+@pytest.mark.parametrize("case", [c for c in TRAIN if c["mesh"]["model"] > 1],
+                         ids=mc.case_ids([c for c in TRAIN if c["mesh"]["model"] > 1]))
+@pytest.mark.parametrize("method", ["int8", "topk"])
+def test_compression_over_each_pods_whole_leaf(runs, case, method):
+    """The int8 scale and the top-k selection of a leaf sharded over
+    'model' are each pod's whole leaf's: the merge on the mesh equals the
+    merge of the whole leaf in one process bit for bit, and differs from
+    merging each rank's half alone (its two halves drift 100 times apart)."""
+    got, _, _ = _spmd_runs(runs, case)
+    mesh_, plain, halves = (got[f"whole_leaf/{method}/{k}"] for k in ("mesh", "plain", "halves"))
+    np.testing.assert_array_equal(mesh_, plain)
+    assert not np.array_equal(halves, plain)
+
+
+@pytest.mark.parametrize("case", DEVICES, ids=mc.case_ids(DEVICES))
+def test_use_devices_spreads_shards_over_ranks(runs, case):
+    """``run_protocol_sharded(use_devices=True)`` on a {"shard": 2} gloo mesh:
+    each rank replays only its own shard (half the one-process run's
+    rounds) and returns the one-process run's result dict and stacked
+    carries bit for bit."""
+    got, _, plain = _spmd_runs(runs, case)
+    assert bool(got["spread"]) and not bool(plain["spread"])
+    assert int(plain["rounds"]) == case["n_shards"] * int(got["rounds"]) > 0
+    keys = sorted(k for k in plain if k not in ("rounds", "spread"))
+    assert keys == sorted(k for k in got if k not in ("rounds", "spread"))
+    assert any(k.startswith("carry/") for k in keys) and any(k.startswith("result/")
+                                                              for k in keys)
+    for k in keys:
+        assert got[k].dtype == plain[k].dtype, k
+        np.testing.assert_array_equal(got[k], plain[k], err_msg=k)
 
 
 # ---- the port's own rules, against the reference's where it has them ---------------

@@ -31,4 +31,8 @@ def compile_cache(tmp_path_factory):
         path.mkdir(exist_ok=True)
         jax.config.update("jax_compilation_cache_dir", str(path))
         jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+        # The reference's subprocesses (``torch_mesh_ref.py``) read the same
+        # cache through the environment they inherit.
+        os.environ["JAX_COMPILATION_CACHE_DIR"] = str(path)
+        os.environ["JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS"] = "0"
     yield

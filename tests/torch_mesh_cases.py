@@ -28,7 +28,21 @@ entry points it drives:
     (``moe._moe_spmd``) at ``MOE_TOKENS``' sizes, above ``_SMALL_T`` and
     at it, with each data shard's routing, and the placements the MoE
     block's and serve layer's constraints give.  Its in-process run is the
-    port with no mesh (the SPMD path's own baseline), not a ``MeshShape``.
+    port with no mesh (the SPMD path's own baseline), not a ``MeshShape``;
+  * ``train``: the dense transformer's training on a (pod, data, model)
+    mesh, its state placed as the reference's dry run places it
+    (``make_train_fns``' init under the mesh): a ``local_step``, a
+    ``sync_step`` and one ``SyncEngine.merge`` with pod 1 down, each
+    step's loss and grad norm, the parameters, moments, compression state
+    and bookkeeping after the sync step and after the masked merge; on a
+    mesh with a model axis, also the int8 and top-k merges of a leaf
+    sharded over 'model' (:func:`_whole_leaf_merges`).  Its in-process
+    run is the port with no mesh;
+  * ``devices``: ``run_protocol_sharded`` with ``use_devices`` on a
+    ``{"shard": n}`` mesh, one shard per rank: the result dict, the
+    stacked carries and the rounds each rank replayed.  Its in-process
+    run is the one-process replay (``use_devices=False``); the reference
+    has no side of it.
 """
 
 from __future__ import annotations
@@ -97,6 +111,17 @@ FAMILY_SPMD_CFGS = {"olmoe": {}, "llama4": {}, "internvl2": dict(s=24, prompt=16
 # routes its own block) and T = 2048 (the whole batch as one block).
 MOE_TOKENS = ((16, 256), (8, 256))
 SPMD_MESHES = {"tp_d1m2": M12, "fsdp_d2m1": M21, "d2m2": M22}
+P2D1M2 = {"pod": 2, "data": 1, "model": 2}
+P2D2M1 = {"pod": 2, "data": 2, "model": 1}
+SHARD2 = {"shard": 2}
+# Training on DTensors: 2 pods, a local step then a sync step (Δ = 1),
+# each on its own (P, B/P, S) batch; AdamW past warmup by the sync step.
+TRAIN = dict(kind="train", b=4, s=16, steps=2, delta=1)
+TRAIN_PODS = 2
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=8)
+DEVICES = dict(kind="devices", level="TCC", n_ops=400, n_shards=2)
+# Kinds whose in-process run is the port with no mesh.
+NO_MESH = ("spmd", "train", "devices")
 
 CASES = {
     "attention": [
@@ -121,6 +146,15 @@ CASES = {
         dict(SPMD, id="spmd_tp_d1m2", cfg="qwen_spmd", mesh=M12),
         dict(SPMD, id="spmd_fsdp_d2m1", cfg="qwen_spmd", mesh=M21),
         dict(SPMD, id="spmd_dp_d2m2", cfg="gemma_spmd", mesh=M22),
+        # Training on DTensor leaves: pods split over 'pod', each pod TP
+        # over 'model' (int8 and top-k compression) or FSDP over 'data'.
+        dict(TRAIN, id="train_p2d1m2", cfg="qwen_spmd", mesh=P2D1M2, level="X_STCC",
+             compress="int8"),
+        dict(TRAIN, id="train_p2d2m1", cfg="qwen_spmd", mesh=P2D2M1, level="ALL",
+             compress="none"),
+        dict(TRAIN, id="train_topk_p2d1m2", cfg="qwen_spmd", mesh=P2D1M2, level="X_STCC",
+             compress="topk"),
+        dict(DEVICES, id="devices_shard2", mesh=SHARD2),
     ],
     "moe": [
         dict(MOE, id="olmoe_d2m2", cfg="olmoe", mesh=M22, grad=True),
@@ -188,7 +222,7 @@ def write_params(part: str, path) -> dict:
 
     rng = np.random.default_rng(SEED)
     arrays = {}
-    for name in sorted({params_name(c["cfg"]) for c in CASES[part]}):
+    for name in sorted({params_name(c["cfg"]) for c in CASES[part] if "cfg" in c}):
         tree = build_model(port_config(name)).init(SEED, device="cpu")
         for key, leaf in items(tree):
             a = leaf.numpy()
@@ -417,13 +451,16 @@ def _spmd(case, cfg, params) -> dict:
 
 def _spmd_dense(cfg, placed, toks) -> dict:
     """B.8's wrapper and the plain attention on the first layer's DTensor
-    q/k/v; how many of the training entry points refuse the DTensor
-    parameters (``train_refused``: make_train_fns' init, its local step,
-    ``adamw.apply`` and ``SyncEngine.merge``)."""
+    q/k/v; the training entry points on the DTensor parameters
+    (``train_ran``: make_train_fns' init from them, a local step,
+    ``adamw.apply`` and ``SyncEngine.merge``, each run to its end with
+    DTensor leaves out; ``train_ring``: the ring regions of the local
+    step, which the case's region counts include)."""
     from repro_torch.core.consistency import ConsistencyLevel, ConsistencyPolicy
     from repro_torch.models import attention, build_model, common, sharding, transformer
     from repro_torch.optim import adamw
-    from repro_torch.train.train_step import TrainState, make_train_fns
+    from repro_torch.train.train_step import make_train_fns
+    from repro_torch.tree import leaves, tree_map
 
     out = {}
     blk = common.layer(placed["dense_blocks"], 0, 0)
@@ -436,18 +473,22 @@ def _spmd_dense(cfg, placed, toks) -> dict:
         out["b8_plain"] = _whole(attention._attend_block(q, kk, v, cfg, pos, pos, True))
     fns = make_train_fns(build_model(cfg), adamw.AdamWConfig(),
                          ConsistencyPolicy(ConsistencyLevel.X_STCC), 2, device="cpu")
-    state = TrainState(params=placed, opt=None, sync=None, step=0)
-    calls = (lambda: fns.init(params=placed), lambda: fns.local_step(state, {}),
-             lambda: adamw.apply(placed, placed, adamw.AdamWState(placed, placed, 0),
-                                 adamw.AdamWConfig()),
-             lambda: fns.engine.merge(placed, None))
-    refused = 0
-    for call in calls:
-        try:
-            call()
-        except NotImplementedError:
-            refused += 1
-    out["train_refused"] = torch.tensor(refused)
+    placed_leaves = lambda t: all(map(sharding.is_dtensor, leaves(t)))
+    ran = []
+    state = fns.init(params=placed)
+    ran.append(placed_leaves(state.params))
+    pods = {"tokens": toks.reshape(2, toks.shape[0] // 2, -1)}
+    pods["labels"] = pods["tokens"]
+    with count_regions() as calls:
+        state, metrics = fns.local_step(state, pods)
+    out["train_ring"] = torch.tensor(calls["ring"])
+    ran.append(placed_leaves(state.params) and bool(torch.isfinite(metrics["loss"])))
+    own = tree_map(lambda x: sharding.map_local(torch.clone, x), placed)
+    own, _, _ = adamw.apply(own, own, adamw.init(own, adamw.AdamWConfig()), adamw.AdamWConfig())
+    ran.append(placed_leaves(own))
+    params, _ = fns.engine.merge(state.params, state.sync)
+    ran.append(placed_leaves(params))
+    out["train_ran"] = torch.tensor(sum(ran))
     return out
 
 
@@ -505,6 +546,169 @@ def _spmd_moe(cfg, placed, mesh) -> dict:
     return out
 
 
+def train_batches(cfg, case) -> list[dict]:
+    """A ``train`` case's batches, one per step, as numpy: tokens and labels
+    split over the pods, ``(TRAIN_PODS, b / TRAIN_PODS, s)`` int32."""
+    rng = np.random.default_rng(SEED + 5)
+    shape = (TRAIN_PODS, case["b"] // TRAIN_PODS, case["s"])
+    out = []
+    for _ in range(case["steps"]):
+        toks = rng.integers(0, cfg.vocab_size, shape).astype(np.int32)
+        out.append({"tokens": toks, "labels": toks.copy()})
+    return out
+
+
+MASKED_UP = (True, False)
+
+
+def _train(case, cfg, params) -> dict:
+    """The ``train`` case on the active mesh (``None``: the port's plain
+    path): ``make_train_fns``' init from the one-pod ``params``, a local
+    step, a sync step, then one merge with ``MASKED_UP``."""
+    from repro_torch.core import policy_for
+    from repro_torch.models import build_model, sharding
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import make_train_fns
+
+    policy = policy_for(case["level"], delta_steps=case["delta"],
+                        compress_inter_pod=case["compress"])
+    fns = make_train_fns(build_model(cfg), adamw.AdamWConfig(**TRAIN_OPT), policy, TRAIN_PODS,
+                         device="cpu")
+    state = fns.init(params=params)
+    metrics = []
+    for step, batch in zip((fns.local_step, fns.sync_step), train_batches(cfg, case)):
+        state, m = step(state, _batch(batch))
+        metrics.append(m)
+    out = {"loss": torch.stack([m["loss"] for m in metrics]),
+           "grad_norm": torch.stack([m["grad_norm"] for m in metrics]),
+           **_train_record("sync", state)}
+    merged, sync = fns.engine.merge(state.params, state.sync, up=np.array(MASKED_UP))
+    out.update(_train_record("masked", state._replace(params=merged, sync=sync)))
+    for name, tree in (("mu", state.opt.mu), ("nu", state.opt.nu)):
+        out.update({f"{name}/{k}": _whole(v) for k, v in items(tree)})
+    mesh = sharding.get_mesh()
+    if mesh is not None:
+        out["placed"] = torch.tensor(all(sharding.is_dtensor(v) for _, v in items(state.params)))
+        # The global norm of pod 0's DTensor parameters beside the norm of
+        # the same parameters made whole.
+        first = {k: sharding.pod_row(v, 0) for k, v in items(state.params)}
+        whole = {k: _whole(v) for k, v in first.items()}
+        out["norms"] = torch.stack([adamw.global_norm(first), adamw.global_norm(whole)])
+        if sharding.mesh_shape(mesh).get("model", 1) > 1:
+            out.update(_whole_leaf_merges(mesh))
+    return out
+
+
+def _train_record(tag: str, state) -> dict:
+    """A training state's parameters, compression anchor and residual
+    (made whole) and its sync bookkeeping, under ``tag/``: copies, which
+    the next merge does not write."""
+    out = {}
+    for name in ("params", "anchor", "residual"):
+        tree = state.params if name == "params" else getattr(state.sync, name)
+        if tree is not None:
+            out.update({f"{name}/{k}": v for k, v in items(tree)})
+    sync = state.sync
+    for k in ("merges", "violations", "severity", "inter_pod_gb"):
+        out[k] = getattr(sync, k)
+    for part in ("cluster", "duot"):
+        rec = getattr(sync, part)
+        out.update({f"{part}/{f}": getattr(rec, f) for f in rec._fields})
+    return {f"{tag}/{k}": _whole(v).clone() for k, v in out.items()}
+
+
+def _whole_leaf_merges(mesh) -> dict:
+    """The int8 and top-k merges of one pod-stacked (2, 4, 8) leaf placed
+    ``("pod", None, "model")`` whose two 'model' halves drift 100 times
+    apart: on the mesh (``<method>/mesh``), on the whole leaf in this
+    process (``<method>/plain``) and on each half alone
+    (``<method>/halves``, what a scale or a selection from one rank's
+    shard would give): the merged parameters and anchor, whole."""
+    from repro_torch.core import policy_for
+    from repro_torch.models import sharding
+    from repro_torch.sync.engine import SyncEngine
+
+    rng = np.random.default_rng(SEED + 6)
+    base = torch.from_numpy(rng.standard_normal((4, 8)).astype(np.float32))
+    drift = torch.from_numpy(0.01 * rng.standard_normal((TRAIN_PODS, 4, 8)).astype(np.float32))
+    drift[..., 4:] *= 100.0
+    place = sharding.dtensor_placements(mesh, ("pod", None, "model"))
+
+    def merged(method, start, moved, on_mesh):
+        eng = SyncEngine(policy_for("X_STCC", delta_steps=1, compress_inter_pod=method),
+                         TRAIN_PODS, device="cpu")
+        stacked = start[None].repeat(TRAIN_PODS, 1, 1)
+        if on_mesh:
+            stacked = sharding._from_whole(stacked, mesh, place)
+        sync = eng.init_state({"w": stacked})
+        x = sharding._from_whole(moved, mesh, place) if on_mesh else moved.clone()
+        params, sync = eng.merge({"w": x}, sync)
+        return torch.cat([_whole(params["w"]).flatten(), _whole(sync.anchor["w"]).flatten()])
+
+    out = {}
+    for method in ("int8", "topk"):
+        moved = base + drift
+        out[f"whole_leaf/{method}/mesh"] = merged(method, base, moved, True)
+        out[f"whole_leaf/{method}/plain"] = merged(method, base, moved, False)
+        halves = [merged(method, base[:, h], moved[..., h].contiguous(), False)
+                  for h in (slice(0, 4), slice(4, 8))]
+        out[f"whole_leaf/{method}/halves"] = torch.cat(halves)
+    return out
+
+
+def _devices(case) -> dict:
+    """``run_protocol_sharded`` of the ``devices`` case with ``use_devices``
+    on the active mesh (with no mesh: ``use_devices=False``): its result
+    dict (``result/...``), the stacked carries (``carry/...``), the rounds
+    this process replayed and whether the shards were spread over ranks."""
+    from repro_torch.core.consistency import ConsistencyLevel
+    from repro_torch.engine import EpochEngine, replay
+    from repro_torch.models import sharding
+    from repro_torch.storage import simulator
+    from repro_torch.storage.ycsb import WORKLOAD_A
+
+    seen = {"rounds": 0}
+    step, execute = EpochEngine.round_step, EpochEngine.execute
+
+    def counted(self, *a, **kw):
+        seen["rounds"] += 1
+        return step(self, *a, **kw)
+
+    def kept(self, prep):
+        seen["spread"] = replay.shard_group(self.config) is not None
+        prep = execute(self, prep)
+        seen["carry"] = prep["out"]
+        return prep
+
+    EpochEngine.round_step, EpochEngine.execute = counted, kept
+    try:
+        res = simulator.run_protocol_sharded(
+            ConsistencyLevel[case["level"]], WORKLOAD_A, n_shards=case["n_shards"],
+            n_ops=case["n_ops"], audit=True, use_devices=sharding.get_mesh() is not None,
+            device="cpu")
+    finally:
+        EpochEngine.round_step, EpochEngine.execute = step, execute
+    out = {"rounds": seen["rounds"], "spread": seen["spread"]}
+    flatten("result", res, out)
+    flatten("carry", seen["carry"], out)
+    return out
+
+
+def flatten(prefix: str, x, out: dict) -> None:
+    """Every tensor and host value in ``x`` (dicts, lists, tuples and
+    NamedTuples of them) into ``out`` under ``prefix/<key or index>``
+    (``None`` left out)."""
+    if isinstance(x, dict):
+        for k in sorted(x):
+            flatten(f"{prefix}/{k}", x[k], out)
+    elif isinstance(x, (list, tuple)):
+        keys = x._fields if hasattr(x, "_fields") else range(len(x))
+        for k, v in zip(keys, x):
+            flatten(f"{prefix}/{k}", v, out)
+    elif x is not None:
+        out[prefix] = x
+
+
 @contextlib.contextmanager
 def record_flash():
     """Record the q shape every call of ``kernels.ops.flash_attention``
@@ -526,7 +730,7 @@ def record_flash():
         ops.flash_attention = flash
 
 
-RUN = {"ring": _ring, "decode": _decode, "moe": _moe, "spmd": _spmd}
+RUN = {"ring": _ring, "decode": _decode, "moe": _moe, "spmd": _spmd, "train": _train}
 
 
 @contextlib.contextmanager
@@ -580,14 +784,22 @@ def port_outputs(case: dict, arrays: dict, mesh) -> dict:
     from repro_torch.convert import params_from_numpy
     from repro_torch.models import sharding
 
+    if case["kind"] == "devices":
+        with sharding.use_mesh(mesh):
+            out = _devices(case)
+        return {k: _numpy(v) for k, v in out.items()}
     cfg = port_config(case["cfg"])
     params = params_from_numpy(nested(arrays, f"params/{params_name(case['cfg'])}"),
                                device="cpu")
     with count_regions() as calls, sharding.use_mesh(mesh):
         out = RUN[case["kind"]](case, cfg, params)
-    out = {k: v.detach().numpy() for k, v in out.items()}
+    out = {k: _numpy(v) for k, v in out.items()}
     out.update({f"calls/{k}": np.asarray(v) for k, v in calls.items()})
     return out
+
+
+def _numpy(v) -> np.ndarray:
+    return v.detach().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
 
 
 # ---- the gloo group ----------------------------------------------------------------
@@ -657,7 +869,11 @@ def run_all(part: str, tmp_dir, worlds: list) -> tuple[dict, dict, dict]:
     a reference subprocess of its own for the same cases, while the port
     runs every case in this process (each under its ``MeshShape``; an
     ``spmd`` case with no mesh, once for the cases that differ only in
-    their mesh)."""
+    their mesh; a ``train`` or ``devices`` case likewise).  The
+    reference's ``train`` cases, its slowest (jitted training steps), are
+    dealt over the subprocesses from the last world's on, whatever world
+    their gloo side runs in: the subprocesses' forced host devices serve
+    any mesh of up to four."""
     from repro_torch.models.sharding import MeshShape
 
     tmp_dir = pathlib.Path(tmp_dir)
@@ -667,14 +883,19 @@ def run_all(part: str, tmp_dir, worlds: list) -> tuple[dict, dict, dict]:
     for i, (world, meshes) in enumerate(worlds):
         ids = [c["id"] for c in CASES[part] if c["mesh"] in meshes]
         groups.append((world, ids, tmp_dir / f"gloo{i}", tmp_dir / f"ref{i}.npz"))
+    ref_ids = [[cid for cid in ids if case_by_id(part, cid)["kind"] != "train"]
+               for _, ids, _, _ in groups]
+    trains = [c["id"] for c in CASES[part] if c["kind"] == "train"]
+    for i, cid in enumerate(trains):
+        ref_ids[len(groups) - 1 - i % len(groups)].append(cid)
     refs, started = [], []
     try:
-        for world, ids, where, ref_path in groups:
-            refs.append(start_reference(part, params_path, ref_path, ids))
+        for (world, ids, where, ref_path), rids in zip(groups, ref_ids):
+            refs.append(start_reference(part, params_path, ref_path, rids))
             started.append(start_gloo(part, world, ids, params_path, where))
         stacked, plain = {}, {}
         for c in CASES[part]:
-            if c["kind"] != "spmd":
+            if c["kind"] not in NO_MESH:
                 stacked[c["id"]] = port_outputs(c, params, MeshShape(c["mesh"]))
                 continue
             key = _plain_key(c)

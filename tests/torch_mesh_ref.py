@@ -167,7 +167,67 @@ def _spmd(case, cfg, params, out):
     out["decode"] = np.stack(steps)
 
 
-RUN = {"ring": _ring, "decode": _decode, "moe": _moe, "spmd": _spmd}
+def _train(case, cfg, params, out):
+    """The ``train`` case under its mesh: the state from the one-pod
+    parameters (``stack_for_pods``, ``adamw.init``, ``engine.init_state``)
+    placed as the dry run places it (``dryrun.py:84-117``: parameters and
+    moments ``P("pod", *params_shardings)``, the rest replicated), then a
+    jitted ``local_step``, ``sync_step`` and ``engine.merge`` with
+    ``MASKED_UP``."""
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from repro.core import policy_for
+    from repro.optim import adamw
+    from repro.train.train_step import TrainState, make_train_fns, stack_for_pods
+
+    model = build_model(cfg)
+    policy = policy_for(case["level"], delta_steps=case["delta"],
+                        compress_inter_pod=case["compress"])
+    opt_cfg = adamw.AdamWConfig(**mc.TRAIN_OPT)
+    fns = make_train_fns(model, opt_cfg, policy, mc.TRAIN_PODS)
+    mesh = _mesh(case["mesh"])
+    batches = [{k: jnp.asarray(v) for k, v in b.items()} for b in mc.train_batches(cfg, case)]
+    with sharding.use_mesh(mesh):
+        specs = sharding.params_shardings(params, cfg)
+        pod = lambda tree: jax.tree.map(
+            lambda x, s: jax.device_put(x, NamedSharding(mesh, P("pod", *s.spec))), tree, specs)
+        repl = lambda tree: jax.tree.map(
+            lambda x: jax.device_put(x, NamedSharding(mesh, P())), tree)
+        stacked = stack_for_pods(params, mc.TRAIN_PODS)
+        opt = adamw.init(stacked, opt_cfg)
+        state = TrainState(params=pod(stacked), opt=opt._replace(
+            mu=pod(opt.mu), nu=pod(opt.nu), count=repl(opt.count)),
+            sync=repl(fns.engine.init_state(stacked)), step=repl(jnp.zeros((), jnp.int32)))
+        losses, norms = [], []
+        for step, batch in zip((fns.local_step, fns.sync_step), batches):
+            state, m = jax.jit(lambda s, b, f=step: f(s, b))(state, batch)
+            losses.append(np.asarray(m["loss"]))
+            norms.append(np.asarray(m["grad_norm"]))
+        _train_record("sync", state.params, state.sync, out)
+        up = jnp.asarray(mc.MASKED_UP)
+        params2, sync2 = jax.jit(lambda p, s: fns.engine.merge(p, s, up=up))(
+            state.params, state.sync)
+        _train_record("masked", params2, sync2, out)
+    out["loss"], out["grad_norm"] = np.stack(losses), np.stack(norms)
+    _flat("mu", jax.tree.map(np.asarray, state.opt.mu), out)
+    _flat("nu", jax.tree.map(np.asarray, state.opt.nu), out)
+
+
+def _train_record(tag, params, sync, out):
+    _flat(f"{tag}/params", jax.tree.map(np.asarray, params), out)
+    for name in ("anchor", "residual"):
+        tree = getattr(sync, name)
+        if tree is not None:
+            _flat(f"{tag}/{name}", jax.tree.map(np.asarray, tree), out)
+    for k in ("merges", "violations", "severity", "inter_pod_gb"):
+        out[f"{tag}/{k}"] = np.asarray(getattr(sync, k))
+    for part in ("cluster", "duot"):
+        rec = getattr(sync, part)
+        for f in rec._fields:
+            out[f"{tag}/{part}/{f}"] = np.asarray(getattr(rec, f))
+
+
+RUN = {"ring": _ring, "decode": _decode, "moe": _moe, "spmd": _spmd, "train": _train}
 
 
 def main(part: str, params_path: str, path: str, ids: str = "") -> None:
@@ -178,7 +238,7 @@ def main(part: str, params_path: str, path: str, ids: str = "") -> None:
         arrays = {k: z[k] for k in z.files}
     out_arrays: dict = {}
     for case in mc.CASES[part]:
-        if ids and case["id"] not in ids.split(","):
+        if (ids and case["id"] not in ids.split(",")) or case["kind"] not in RUN:
             continue
         params = jax.tree.map(jnp.asarray,
                               mc.nested(arrays, f"params/{mc.params_name(case['cfg'])}"))

@@ -744,17 +744,20 @@ def family_trainer(arch: str, device, **over):
 MESH_STEP_CASE = ("X_STCC", 2, 4, {})
 
 
-def mesh_sync_steps(device, params, mesh=None) -> tuple[list[dict], object]:
+def mesh_sync_steps(device, params, mesh=None, placed: bool = False
+                    ) -> tuple[list[dict], object]:
     """``MESH_STEP_CASE``'s trainer started from ``params`` (one pod's
     tree) taking ``sync_step`` at every step, under ``use_mesh(mesh)``
-    when ``mesh`` is given: each step's metrics (tensors as numpy) and
-    the final state."""
+    when ``mesh`` is given (with ``placed``, on the state ``init_state``
+    places on it: DTensor leaves): each step's metrics (tensors as numpy)
+    and the final state."""
     import contextlib
 
     from repro_torch.models import sharding
 
     trainer = port_trainer(MESH_STEP_CASE, device)
-    state = trainer.init_state(params)
+    with sharding.use_mesh(mesh if placed else None):
+        state = trainer.init_state(params)
     steps = []
     with sharding.use_mesh(mesh) if mesh is not None else contextlib.nullcontext():
         for step in range(MESH_STEP_CASE[2]):
@@ -770,14 +773,32 @@ def mesh_step_launches() -> dict:
     return {"op_ingest": 2 * n, "vclock_chain": 2 * n, "vclock_audit": n}
 
 
+def state_trees(state) -> dict:
+    """A training state's tensor trees by name: the parameters, AdamW's
+    moments, the compression anchor and residual (those it has)."""
+    trees = {"params": state.params, "mu": state.opt.mu, "nu": state.opt.nu,
+             "anchor": state.sync.anchor, "residual": state.sync.residual}
+    return {k: v for k, v in trees.items() if v is not None}
+
+
+def whole_cpu(x) -> torch.Tensor:
+    """A tensor, or a DTensor made whole, on the host."""
+    return (x.full_tensor() if hasattr(x, "full_tensor") else x).cpu()
+
+
 def mesh_step_mismatches(want, got) -> list[str]:
     """Where two ``mesh_sync_steps`` runs differ, bit for bit: every
-    metric of every step, the parameters and the sync bookkeeping."""
+    metric of every step, the parameters, moments, compression state
+    (DTensors made whole) and the sync bookkeeping."""
     from repro_torch.tree import items
 
     (m_want, s_want), (m_got, s_got) = want, got
     out = [f"step {i} {k}" for i, (a, b) in enumerate(zip(m_want, m_got)) for k in a
            if not np.array_equal(a[k], b[k])]
-    out += [f"params/{p}" for (p, a), (_, b) in zip(items(s_want.params), items(s_got.params))
-            if not torch.equal(a.cpu(), b.cpu())]
+    trees_want, trees_got = state_trees(s_want), state_trees(s_got)
+    if sorted(trees_want) != sorted(trees_got):
+        return out + ["state trees"]
+    for name, tree in trees_want.items():
+        out += [f"{name}/{p}" for (p, a), (_, b) in zip(items(tree), items(trees_got[name]))
+                if not torch.equal(whole_cpu(a), whole_cpu(b))]
     return out + record_mismatches(sync_record(s_want.sync), sync_record(s_got.sync))
