@@ -3321,7 +3321,10 @@ MESH_CUTS = ("cuts of scale: none in width (gemma-2b's 18 layers at d_model 2048
              "with depth); llama4-maverick (128 experts of 5120 x 8192, more than one "
              "H100 holds) served as SPMD only reduced, on the CPU; (a'') gemma-2b's training on "
              "DTensors at full width, depth cut to 2 of 18 layers (every layer has the same "
-             "shapes and placements), one local and one sync step, 4 x 512 tokens; training "
+             "shapes and placements), one local and one sync step, 4 x 512 tokens; (a‴) the "
+             "five families' training on DTensors at full width, depth cut as (e)'s, one local "
+             "and one sync step, 4 x 512 tokens (whisper 2 x 448); llama4-maverick trains on "
+             "DTensors only reduced, on the CPU (its experts exceed one H100); training "
              "over 2 or more ranks (TP / FSDP shards, pods split over 'pod') is held only on "
              "the CPU (gloo); (g) use_devices on the one rank takes the sequential branch: "
              "one shard per rank needs 2 or more ranks")
@@ -3708,26 +3711,104 @@ def _mesh_families(mesh, dev: dict) -> int:
     return total
 
 
+def _train_steps_on(trainer, params, mesh) -> tuple[dict, dict]:
+    """``trainer``'s local step then its sync step from ``params`` (one
+    pod's tree) on the state ``init_state`` places under ``use_mesh(mesh)``
+    (``None``: plain tensors), each step timed between synchronizations:
+    (the run's record: metrics as numpy, step walls, peak bytes, launches,
+    whether the parameters are DTensors, the sync bookkeeping; the state's
+    tensors by name, on the card)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import sharding
+    from repro_torch.tree import items
+    from torch_port_helpers import as_np, state_trees, sync_record
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    with sharding.use_mesh(mesh):
+        state = trainer.init_state(params)
+        walls, metrics = [], []
+        for step, fn in enumerate((trainer.fns.local_step, trainer.fns.sync_step)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, mt = fn(state, trainer.batch_for(step))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            metrics.append({k: as_np(v) for k, v in mt.items()})
+    run = dict(metrics=metrics, walls=walls, peak=torch.cuda.max_memory_allocated(),
+               counts=ops.launch_counts(), sync=sync_record(state.sync),
+               placed=all(sharding.is_dtensor(v) for _, v in items(state.params)))
+    tensors = {f"{t}/{k}": v for t, tree in state_trees(state).items() for k, v in items(tree)}
+    return run, tensors
+
+
+def _state_differ(tensors: dict, record: dict) -> list[str]:
+    """The names whose tensor (on the card; a DTensor made whole) is not
+    the one in ``record`` (on the host) bit for bit, compared on the card
+    one tensor at a time; a name missing from either side too."""
+    import torch
+
+    from repro_torch.models import sharding
+
+    out = sorted(set(tensors) ^ set(record))
+    for k, v in tensors.items():
+        w = sharding.local(sharding.replicate(v)) if sharding.is_dtensor(v) else v
+        if k in record and not torch.equal(w, record[k].to(w.device)):
+            out.append(k)
+    return out
+
+
+def _mesh_train_pair(mesh, trainer, params, label: str) -> dict:
+    """``trainer``'s local and sync step from ``params`` on plain tensors,
+    then on the state placed on the (1, 1) ``mesh`` (DTensors), each run's
+    state freed before the next (the plain run's tensors wait on the
+    host).  On one rank every placement is replicated, so the runs must be
+    equal bit for bit: metrics, parameters, moments, anchor and
+    bookkeeping; B.1, the chain and B.2 launched as one merge predicts in
+    each.  Returns both runs' records and the count of tensors compared."""
+    import numpy as np
+    import torch
+
+    from torch_port_helpers import expected_train_launches, record_mismatches
+
+    want = expected_train_launches(("X_STCC", MESH_TRAIN["pods"], 1, {}), delta=1)
+    runs = {}
+    for name, m in (("plain", None), ("mesh", mesh)):
+        run, tensors = _train_steps_on(trainer, params, m)
+        if run["placed"] != (m is not None):
+            fail(f"mesh: {label} {name}: DTensor parameters {run['placed']}")
+        if any(run["counts"][k] != n for k, n in want.items()):
+            fail(f"mesh: {label} {name}: launches {run['counts']}, predicted {want}")
+        if m is None:
+            record = {k: v.cpu() for k, v in tensors.items()}
+        else:
+            differ = _state_differ(tensors, record)
+        runs[name] = run
+        del tensors
+        torch.cuda.empty_cache()
+    plain, meshed = runs["plain"], runs["mesh"]
+    bad = [f"step {i} {k}" for i, (a, b) in enumerate(zip(plain["metrics"], meshed["metrics"]))
+           for k in a if not np.array_equal(a[k], b[k])]
+    bad += differ + record_mismatches(plain["sync"], meshed["sync"])
+    if bad:
+        fail(f"mesh: {label} on DTensors != plain: {bad[:8]}")
+    return dict(plain=plain, mesh=meshed, tensors=len(record), launches=want)
+
+
 def _mesh_train_full(mesh, dev: dict) -> None:
     """(a'') ``MESH_TRAIN``: gemma-2b at full width in f32, depth cut, a
     local and a sync step on the state placed on the (1, 1) NCCL ``mesh``
     (DTensors) against the same steps on plain tensors, bit for bit
-    (metrics, parameters, moments, anchor, bookkeeping), B.1, the chain
-    and B.2 launched as one merge predicts in each; each run's state is
-    freed before the next."""
-    import numpy as np
-    import torch
-
+    (:func:`_mesh_train_pair`)."""
     from repro_torch.configs import get_config
     from repro_torch.core import policy_for
     from repro_torch.data import DataConfig
-    from repro_torch.kernels import ops
-    from repro_torch.models import sharding
     from repro_torch.optim import AdamWConfig
     from repro_torch.train import Trainer, TrainerConfig
-    from repro_torch.tree import items
-    from torch_port_helpers import (as_np, expected_train_launches, record_mismatches,
-                                    state_trees, sync_record)
 
     t_all = time.perf_counter()
     f = MESH_TRAIN
@@ -3739,61 +3820,77 @@ def _mesh_train_full(mesh, dev: dict) -> None:
         policy_for("X_STCC", delta_steps=f["delta"], compress_inter_pod=f["compress"]),
         TrainerConfig(n_steps=2, n_pods=f["pods"]), device="cuda")
     params = trainer.model.init(0, device="cuda")
-    want = expected_train_launches(("X_STCC", f["pods"], 1, {}), delta=1)
-    runs = {}
-    for name, m in (("plain", None), ("mesh", mesh)):
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        ops.reset_launch_counts()
-        with sharding.use_mesh(m):
-            state = trainer.init_state(params)
-            walls, metrics = [], []
-            for step, fn in enumerate((trainer.fns.local_step, trainer.fns.sync_step)):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                state, mt = fn(state, trainer.batch_for(step))
-                torch.cuda.synchronize()
-                walls.append(time.perf_counter() - t0)
-                metrics.append({k: as_np(v) for k, v in mt.items()})
-        placed = all(map(sharding.is_dtensor, (v for _, v in items(state.params))))
-        if placed != (m is not None):
-            fail(f"mesh: (a'') {name}: DTensor parameters {placed}")
-        counts = ops.launch_counts()
-        if any(counts[k] != n for k, n in want.items()):
-            fail(f"mesh: (a'') {name}: launches {counts}, predicted {want}")
-        peak = torch.cuda.max_memory_allocated()
-        tensors = {f"{t}/{k}": v for t, tree in state_trees(state).items()
-                   for k, v in items(tree)}
-        if m is None:
-            # The plain run's tensors wait on the host; the meshed run's are
-            # compared with them on the card, one at a time.
-            record = {k: v.cpu() for k, v in tensors.items()}
-            differ = []
-        else:
-            differ = [k for k, v in tensors.items()
-                      if k not in record or not torch.equal(sharding.local(
-                          sharding.replicate(v)), record[k].to(v.device))]
-        runs[name] = (metrics, sorted(tensors), differ, sync_record(state.sync), walls, peak)
-        del state, tensors
-    (m0, k0, _, s0, w0, p0), (m1, k1, differ, s1, w1, p1) = runs["plain"], runs["mesh"]
-    bad = [f"step {i} {k}" for i, (a, b) in enumerate(zip(m0, m1)) for k in a
-           if not np.array_equal(a[k], b[k])]
-    bad += differ + record_mismatches(s0, s1)
-    if bad or k0 != k1:
-        fail(f"mesh: (a'') {cfg.name} on DTensors != plain: {bad[:8]}")
-    del params, runs, record
-    torch.cuda.empty_cache()
+    r = _mesh_train_pair(mesh, trainer, params, "(a'')")
+    del params
+    p0, p1 = r["plain"], r["mesh"]
     log(f"[mesh] (a'') {cfg.name} f32 at full width, {f['layers']} of "
         f"{get_config(f['arch']).n_layers} layers "
         f"({cfg.param_count()} parameters per pod), {f['pods']} pods, X_STCC Δ = {f['delta']} "
-        f"{f['compress']}, batch {f['global_batch']} x {f['seq']}: local step {w1[0]:.6f} s "
-        f"meshed against {w0[0]:.6f} s plain, sync step {w1[1]:.6f} s against {w0[1]:.6f} s; "
-        f"peak {p1} B meshed ({p1 / 2**30:.2f} GiB), {p0} B plain ({p0 / 2**30:.2f} GiB); "
-        f"losses {[float(x['loss']) for x in m1]}, grad norms "
-        f"{[float(x['grad_norm']) for x in m1]}: equal bit for bit (metrics, {len(k0)} "
-        f"tensors of parameters, moments and anchor, clocks, DUOT, counters); launches per "
-        f"run {want}; {time.perf_counter() - t_all:.1f} s; {dev['smi']}")
+        f"{f['compress']}, batch {f['global_batch']} x {f['seq']}: local step "
+        f"{p1['walls'][0]:.6f} s meshed against {p0['walls'][0]:.6f} s plain, sync step "
+        f"{p1['walls'][1]:.6f} s against {p0['walls'][1]:.6f} s; peak {p1['peak']} B meshed "
+        f"({p1['peak'] / 2**30:.2f} GiB), {p0['peak']} B plain ({p0['peak'] / 2**30:.2f} "
+        f"GiB); losses {[float(x['loss']) for x in p1['metrics']]}, grad norms "
+        f"{[float(x['grad_norm']) for x in p1['metrics']]}: equal bit for bit (metrics, "
+        f"{r['tensors']} tensors of parameters, moments and anchor, clocks, DUOT, counters); "
+        f"launches per run {r['launches']}; {time.perf_counter() - t_all:.1f} s; {dev['smi']}")
+
+
+def _mesh_train_families(mesh, dev: dict) -> None:
+    """(a‴) the train phase's five families (``FAMILY_TRAIN_FULL``: bf16,
+    remat as there, 4 x 512 tokens, whisper 2 x 448 over its 1500 frames)
+    at (e)'s depth (``MESH_FAMILY_LAYERS``), ``MESH_TRAIN``'s 2 pods and
+    X_STCC with Δ = 1 and int8, through ``Trainer`` (its batches' image
+    prefix and frames): a local and a sync step on the state placed on the
+    (1, 1) NCCL ``mesh`` against the same steps on plain tensors
+    (:func:`_mesh_train_pair`, bit for bit).  Logs each family's meshed
+    and plain step walls and peaks."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import policy_for
+    from repro_torch.data import DataConfig
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import Trainer, TrainerConfig
+
+    f, m = FAMILY_TRAIN_FULL, MESH_TRAIN
+    t_all = time.perf_counter()
+    for arch in f["archs"]:
+        t_arch = time.perf_counter()
+        base = get_config(arch)
+        n_layers = MESH_FAMILY_LAYERS[arch]
+        over = dict(n_layers=n_layers)
+        if base.is_encdec:
+            over["n_encoder_layers"] = n_layers
+        cfg = dataclasses.replace(base, **over)
+        seq = f["whisper_seq"] if cfg.is_encdec else f["seq"]
+        gb = f["whisper_batch"] if cfg.is_encdec else f["global_batch"]
+        trainer = Trainer(
+            cfg, DataConfig(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=gb),
+            AdamWConfig(lr=1e-4, warmup_steps=1, total_steps=4),
+            policy_for("X_STCC", delta_steps=m["delta"], compress_inter_pod=m["compress"]),
+            TrainerConfig(n_steps=2, n_pods=m["pods"]), device="cuda")
+        params = trainer.model.init(0, device="cuda")
+        r = _mesh_train_pair(mesh, trainer, params, f"(a‴) {arch}")
+        del params, trainer
+        torch.cuda.empty_cache()
+        p0, p1 = r["plain"], r["mesh"]
+        if not all(math.isfinite(float(x[k])) for x in p1["metrics"]
+                   for k in ("loss", "grad_norm")):
+            fail(f"mesh: (a‴) {arch}: metrics {p1['metrics']}")
+        remat = cfg.remat if cfg.family in ("dense", "moe", "vlm") else "none, as the reference"
+        log(f"[mesh] (a‴) {arch} {cfg.dtype} at full width, {n_layers} of {base.n_layers} layers "
+            f"({cfg.param_count()} parameters per pod), remat {remat}, {m['pods']} pods, "
+            f"X_STCC Δ = {m['delta']} {m['compress']}, batch {gb} x {seq}: local step "
+            f"{p1['walls'][0]:.6f} s meshed against {p0['walls'][0]:.6f} s plain, sync step "
+            f"{p1['walls'][1]:.6f} s against {p0['walls'][1]:.6f} s; peak {p1['peak']} B "
+            f"meshed ({p1['peak'] / 2**30:.2f} GiB), {p0['peak']} B plain "
+            f"({p0['peak'] / 2**30:.2f} GiB); losses {[float(x['loss']) for x in p1['metrics']]}"
+            f", grad norms {[float(x['grad_norm']) for x in p1['metrics']]}: equal bit for bit "
+            f"(metrics, {r['tensors']} tensors of parameters, moments and anchor, clocks, "
+            f"DUOT, counters); launches per run {r['launches']}; "
+            f"{time.perf_counter() - t_arch:.1f} s; {dev['smi']}")
+    log(f"[time] mesh (a‴) the five families' training: {time.perf_counter() - t_all:.1f} s")
 
 
 def _mesh_use_devices(dev: dict) -> None:
@@ -3847,7 +3944,9 @@ def phase_mesh(dev: dict) -> dict:
     for bit, its kernels launched as predicted, then (a') on the state
     placed on the mesh (DTensors), bit for bit, (a'') gemma-2b's training
     at full width on DTensors against plain tensors
-    (:func:`_mesh_train_full`) and (g) ``use_devices`` on one rank
+    (:func:`_mesh_train_full`), (a‴) the other five families' training
+    likewise (:func:`_mesh_train_families`) and (g) ``use_devices`` on one
+    rank
     (:func:`_mesh_use_devices`); (b) the dry run of the
     train phase's gemma-2b setting on that mesh against the train phase's
     measured peak (``TRAIN_MEASURED``): predicted state <= measured peak;
@@ -3925,6 +4024,7 @@ def phase_mesh(dev: dict) -> dict:
             f"{ {k: counts_p[k] for k in want} } (predicted {want})")
         del on_dtensors
         _mesh_train_full(mesh, dev)
+        _mesh_train_families(mesh, dev)
         _mesh_use_devices(dev)
         steps, state = on_mesh
         log(f"[mesh] {mesh}: {len(list(items(placed)))} leaves of {cfg.name} all replicated; "

@@ -210,14 +210,18 @@ def _moe_spmd(x: Tensor, p: dict, cfg) -> tuple[Tensor, Tensor]:
     each rank runs its experts only, their d_in gathered over 'data'
     (FSDP), and the output buffer is gathered over 'model' before the
     combine (the reference's MoE all-to-all).  The aux loss is computed
-    whole on every rank from the gathered probabilities."""
+    whole on every rank from the probabilities replicated over the mesh,
+    a DTensor: made whole with ``full_tensor`` it would be a plain
+    tensor, which the DTensor loss adds as a replicated value, so its
+    gradient would come back a DTensor, which ``full_tensor``'s backward
+    refuses (ROADMAP C)."""
     b, sl, d = x.shape
     e = cfg.n_experts
     t = b * sl
     xt = sharding.shard(x.reshape(t, d), "batch", None)
     logits = sharding.shard(xt @ p["router"], "batch", None).to(torch.float32)
     probs = torch.softmax(logits, dim=-1)
-    aux = _aux_loss(probs.full_tensor(), e)
+    aux = _aux_loss(sharding.replicate(probs), e)
 
     shards = _n_data_shards(t) if t > _SMALL_T else 1
     t_loc = t // shards

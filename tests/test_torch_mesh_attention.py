@@ -25,7 +25,7 @@ in other orders than the plain attention, as they do in the reference);
 one step's gradients rtol 1e-4, atol 1e-6, the families' rule.  Every
 rank of a gloo group must hold the same global outputs, bit for bit.
 Training: losses and grad norms rtol 1e-5; the sync bookkeeping exact;
-parameters, anchor and residual by ``_assert_train_state_close``.
+parameters, anchor and residual by ``mc.assert_train_state_close``.
 """
 
 import dataclasses
@@ -192,38 +192,6 @@ def test_training_entry_points_take_dtensor_leaves(runs):
 
 # ---- training on DTensor leaves ------------------------------------------------------
 
-# Parameters, compression anchor and residual after the steps.  The tight
-# tier is tests/test_torch_train.py's AdamW bound (rtol 1e-6, atol 1e-7)
-# widened ten times for the TP / FSDP partial sums, which add in another
-# order than one device (and than XLA).  AdamW divides each gradient entry
-# by its own magnitude, so where a gradient is rounding noise (the key
-# bias's is zero: one shift of every key leaves each softmax unchanged)
-# two correct runs step in unrelated directions, each step at most ``lr``
-# long; an int8 code at a rounding boundary moves by one quantum (far
-# below ``lr``) and a top-k selection at its k-th magnitude swaps an entry
-# whose delta is at most the steps' length.  So at most ``FLIP_SHARE`` of
-# the entries may leave the tight tier, and none by more than 2 ``lr`` per
-# step taken.
-STATE_TOL = dict(atol=1e-6, rtol=1e-5)
-FLIP_SHARE = 1e-3
-FLIP_ATOL = 2 * mc.TRAIN_OPT["lr"] * mc.TRAIN["steps"]
-STATE_TREES = ("params", "anchor", "residual")
-
-
-def _assert_train_state_close(got: dict, want: dict, tag: str) -> None:
-    keys = sorted(k for k in want if k.startswith(tag + "/") and k.split("/")[1] in STATE_TREES)
-    assert keys and keys == sorted(k for k in got if k.startswith(tag + "/")
-                                   and k.split("/")[1] in STATE_TREES)
-    loose = total = 0
-    for k in keys:
-        g, w = got[k], want[k]
-        assert g.shape == w.shape and np.isfinite(g).all(), k
-        err = np.abs(g.astype(np.float64) - w)
-        assert err.max() <= FLIP_ATOL, (k, err.max())
-        loose += int((err > STATE_TOL["atol"] + STATE_TOL["rtol"] * np.abs(w)).sum())
-        total += g.size
-    assert loose <= FLIP_SHARE * total, (tag, loose, total)
-
 
 @pytest.mark.parametrize("case", TRAIN, ids=mc.case_ids(TRAIN))
 def test_train_steps_match_reference(runs, case):
@@ -231,7 +199,7 @@ def test_train_steps_match_reference(runs, case):
     DTensor state placed as the dry run places it, against the reference's
     jitted steps under the same mesh: losses and grad norms within rtol
     1e-5, the bookkeeping (merges, violations, severity, the bill, the
-    clocks, the DUOT) exact, the state by ``_assert_train_state_close``."""
+    clocks, the DUOT) exact, the state by ``mc.assert_train_state_close``."""
     got, want, _ = _spmd_runs(runs, case)
     assert bool(got["placed"])
     for key in ("loss", "grad_norm"):
@@ -239,11 +207,11 @@ def test_train_steps_match_reference(runs, case):
         np.testing.assert_allclose(got[key], want[key], rtol=1e-5, err_msg=key)
     for tag in ("sync", "masked"):
         book = sorted(k for k in want if k.startswith(tag + "/")
-                      and k.split("/")[1] not in STATE_TREES)
+                      and k.split("/")[1] not in mc.STATE_TREES)
         assert book and int(want[f"{tag}/merges"]) == (1 if tag == "sync" else 2)
         for k in book:
             np.testing.assert_array_equal(got[k], want[k], err_msg=k)
-        _assert_train_state_close(got, want, tag)
+        mc.assert_train_state_close(got, want, tag)
     for k in (k for k in want if k.startswith(("mu/", "nu/"))):
         np.testing.assert_allclose(got[k], want[k], atol=1e-6, rtol=1e-4, err_msg=k)
 
@@ -267,9 +235,9 @@ def test_train_steps_match_plain_port(runs, case):
     np.testing.assert_allclose(got["grad_norm"], plain["grad_norm"], rtol=1e-5)
     for tag in ("sync", "masked"):
         for k in (k for k in plain if k.startswith(tag + "/")
-                  and k.split("/")[1] not in STATE_TREES):
+                  and k.split("/")[1] not in mc.STATE_TREES):
             np.testing.assert_array_equal(got[k], plain[k], err_msg=k)
-        _assert_train_state_close(got, plain, tag)
+        mc.assert_train_state_close(got, plain, tag)
 
 
 @pytest.mark.parametrize("case", [c for c in TRAIN if c["mesh"]["model"] > 1],

@@ -7,12 +7,25 @@ groups, held against the reference under the same mesh of forced host
 devices (``tests/torch_mesh_ref.py``, one subprocess per gloo group) and
 against the port with no mesh.
 
+The same families trained on DTensor leaves (the ``train`` cases, in the
+world of 4): the state placed as the reference's dry run places it on a
+(pod 2, data 1, model 2) mesh (olmoe, internvl2, zamba2 at 2-token SSD
+chunks and whisper, X_STCC with int8) and a (pod 2, data 2, model 1)
+mesh (llama4 under ALL, rwkv6 under X_STCC with top-k, and olmoe at
+2 x 1040 tokens per pod, whose data blocks route on their own), a local
+step then a sync step, against the reference's jitted steps under the
+same mesh and against the port with no mesh.
+
 Tolerances: logits atol = rtol = 1e-5 (f32; the TP products add partial
 sums in other orders); the MoE layer's routing, drops, dispatch buffer,
 shard count and capacity exact, its router probabilities, gates and aux
 loss within 1e-6, its output within atol = rtol = 1e-5; greedy tokens
-exact.  Every rank of a gloo group must hold the same global outputs, bit
-for bit.
+exact.  Training: losses and grad norms rtol 1e-5, the sync bookkeeping
+exact, parameters and anchor by ``mc.assert_train_state_close`` (the
+dense cases' tiers; zamba2 and olmoe's long case may leave a larger share
+of entries outside the tight one, ``mc.FLIP_SHARES``), AdamW's moments
+atol 1e-6, rtol 1e-4 (the dense cases' bounds).  Every rank of a
+gloo group must hold the same global outputs, bit for bit.
 """
 
 import numpy as np
@@ -27,9 +40,12 @@ from repro_torch.models import attention, common, moe, sharding, transformer
 PART = "families"
 TOL = dict(atol=1e-5, rtol=1e-5)
 CASES = mc.CASES[PART]
-MOE = [c for c in CASES if mc.port_config(c["cfg"]).n_experts]
-# One gloo group per mesh, all spawned at once.
-WORLDS = [(2, (mc.M12,)), (2, (mc.M21,)), (4, (mc.M22,))]
+SPMD = [c for c in CASES if c["kind"] == "spmd"]
+TRAIN = [c for c in CASES if c["kind"] == "train"]
+MOE = [c for c in SPMD if mc.port_config(c["cfg"]).n_experts]
+# One gloo group per world, all spawned at once; the training meshes join
+# the world of 4.
+WORLDS = [(2, (mc.M12,)), (2, (mc.M21,)), (4, (mc.M22, mc.P2D1M2, mc.P2D2M1))]
 
 torch.set_num_threads(1)
 
@@ -48,7 +64,7 @@ def _runs(runs, case):
     return got, want, plain
 
 
-@pytest.mark.parametrize("case", CASES, ids=mc.case_ids(CASES))
+@pytest.mark.parametrize("case", SPMD, ids=mc.case_ids(SPMD))
 def test_logits_match_reference_and_plain_port(runs, case):
     """forward, the prompt's prefill and every decode step's logits (the
     steps of the greedy ``generate``), with DTensor parameters, against
@@ -61,7 +77,7 @@ def test_logits_match_reference_and_plain_port(runs, case):
         np.testing.assert_allclose(got[key], plain[key], err_msg=key, **TOL)
 
 
-@pytest.mark.parametrize("case", CASES, ids=mc.case_ids(CASES))
+@pytest.mark.parametrize("case", SPMD, ids=mc.case_ids(SPMD))
 def test_generate_tokens_equal_plain(runs, case):
     """Greedy ``generate`` through ``ServingEngine`` gives the port's
     no-mesh tokens and the reference's exactly, with one gather of the
@@ -74,7 +90,7 @@ def test_generate_tokens_equal_plain(runs, case):
     assert int(plain["logit_gathers"]) == 0
 
 
-@pytest.mark.parametrize("case", CASES, ids=mc.case_ids(CASES))
+@pytest.mark.parametrize("case", SPMD, ids=mc.case_ids(SPMD))
 def test_rank_holds_only_its_shards(runs, case):
     """Each rank's parameter bytes are the sum of its leaves' shard shapes
     (``sharding.shard_shape`` of ``pspec_for_param``), less than the whole
@@ -84,7 +100,7 @@ def test_rank_holds_only_its_shards(runs, case):
     assert local == shards < whole
 
 
-@pytest.mark.parametrize("case", CASES, ids=mc.case_ids(CASES))
+@pytest.mark.parametrize("case", SPMD, ids=mc.case_ids(SPMD))
 def test_flash_wrapper_on_local_shards(runs, case):
     """B.8's wrapper (its plain version on the CPU) runs as often per
     meshed forward as per plain forward, one call per causal
@@ -188,3 +204,64 @@ def test_moe_constraints_are_the_identity_off_a_mesh(arch):
     assert block_calls[-1] == (("batch", "residual", None), True)
     assert serve_calls[-1] == (("batch", None, None), True)
     assert all(same for _, same in serve_calls)
+
+
+# ---- training on DTensor leaves ------------------------------------------------------
+
+
+@pytest.mark.parametrize("case", TRAIN, ids=mc.case_ids(TRAIN))
+def test_family_train_steps_match_reference(runs, case):
+    """A local step then a sync step on the DTensor state placed as the dry
+    run places it (with the batch's frames or image prefix split over the
+    pods), against the reference's jitted steps under the same mesh: losses
+    and grad norms within rtol 1e-5, the bookkeeping (merges, violations,
+    severity, the bill, the clocks, the DUOT) exact, the parameters and
+    anchor by ``mc.assert_train_state_close``, the moments within atol
+    1e-6, rtol 1e-4."""
+    got, want, _ = _runs(runs, case)
+    assert bool(got["placed"])
+    for key in ("loss", "grad_norm"):
+        assert got[key].shape == want[key].shape == (case["steps"],)
+        assert np.isfinite(got[key]).all(), key
+        np.testing.assert_allclose(got[key], want[key], rtol=1e-5, err_msg=key)
+    book = sorted(k for k in want if k.startswith("sync/")
+                  and k.split("/")[1] not in mc.STATE_TREES)
+    assert book and int(want["sync/merges"]) == 1
+    assert not any(k.startswith("masked/") for k in got)
+    for k in book:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    mc.assert_train_state_close(got, want, "sync", case.get("flip_share"))
+    moments = [k for k in want if k.startswith(("mu/", "nu/"))]
+    assert moments and sorted(moments) == sorted(k for k in got if k.startswith(("mu/", "nu/")))
+    for k in moments:
+        np.testing.assert_allclose(got[k], want[k], atol=1e-6, rtol=1e-4, err_msg=k)
+
+
+@pytest.mark.parametrize("case", TRAIN, ids=mc.case_ids(TRAIN))
+def test_family_train_steps_match_plain_port(runs, case):
+    """The same steps on the port's plain tensors with no mesh: the same
+    bounds and every bookkeeping value exact, up to ``_SMALL_T`` tokens per
+    pod.  Above it the plain port routes each pod's tokens as one block
+    while the mesh's data blocks route on their own, each under its own
+    capacity, as the reference's do: the losses differ."""
+    got, _, plain = _runs(runs, case)
+    if case["b"] // mc.TRAIN_PODS * case["s"] > moe._SMALL_T:
+        assert case["mesh"]["data"] > 1
+        assert not np.allclose(got["loss"], plain["loss"], rtol=1e-5, atol=0)
+        return
+    np.testing.assert_allclose(got["loss"], plain["loss"], rtol=1e-5)
+    np.testing.assert_allclose(got["grad_norm"], plain["grad_norm"], rtol=1e-5)
+    for k in (k for k in plain if k.startswith("sync/")
+              and k.split("/")[1] not in mc.STATE_TREES):
+        np.testing.assert_array_equal(got[k], plain[k], err_msg=k)
+    mc.assert_train_state_close(got, plain, "sync", case.get("flip_share"))
+
+
+@pytest.mark.parametrize("case", TRAIN, ids=mc.case_ids(TRAIN))
+def test_family_global_norm_over_dtensor_leaves(runs, case):
+    """``adamw.global_norm`` of a pod's DTensor parameters, sharded over
+    'model' or 'data' (the experts' 3-D leaves, the hybrid's shared block,
+    rwkv6's mixes and LoRA, whisper's encoder), is the whole tree's norm on
+    every rank (rtol 1e-6)."""
+    got, _, _ = _runs(runs, case)
+    np.testing.assert_allclose(got["norms"][0], got["norms"][1], rtol=1e-6)

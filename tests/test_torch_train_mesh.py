@@ -2,22 +2,25 @@
 gloo group of one rank (a (1, 1) mesh, where every placement is whole and
 the meshed path must equal the plain one bit for bit) and a fake process
 group of eight ranks (a (pod 2, data 2, model 2) mesh: placements and
-per-rank bytes only, its collectives do not run).  The steps over several
-ranks are held against the reference in
-``tests/test_torch_mesh_attention.py``'s gloo worlds."""
+per-rank bytes only, its collectives do not run), for the dense
+transformer and every other family.  The steps over several ranks are
+held against the reference in the gloo worlds of
+``tests/test_torch_mesh_attention.py`` (the dense transformer) and
+``tests/test_torch_mesh_families.py`` (the other families)."""
 
 import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
 
-from torch_port_helpers import MESH_STEP_CASE, mesh_step_mismatches, port_trainer
+from torch_port_helpers import (FAMILY_ARCHS, MESH_STEP_CASE, family_trainer,
+                                mesh_local_sync, mesh_step_mismatches, port_trainer)
 from repro_torch import configs as tc
 from repro_torch.checkpoint import CheckpointStore, SessionToken
 from repro_torch.core import policy_for
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import make_mesh
-from repro_torch.models import build_model, sharding
+from repro_torch.models import build_model, common, moe, sharding
 from repro_torch.models.sharding import MeshShape
 from repro_torch.optim import adamw
 from repro_torch.train.train_step import make_train_fns
@@ -84,19 +87,26 @@ def test_adamw_on_dtensor_leaves_equals_plain(one_rank):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("compress", ["int8", "topk"])
-def test_distribute_state_follows_the_dry_run(fake_p222, compress):
+# The dense transformer's cases keep their ids; every other family joins.
+DISTRIBUTE_CASES = [pytest.param("qwen2-7b", c, id=c) for c in ("int8", "topk")] + [
+    pytest.param(arch, c, id=f"{arch}-{c}") for arch in FAMILY_ARCHS for c in ("int8", "topk")]
+
+
+@pytest.mark.parametrize("arch,compress", DISTRIBUTE_CASES)
+def test_distribute_state_follows_the_dry_run(fake_p222, arch, compress):
     """``make_train_fns``' init under a (pod 2, data 2, model 2) mesh places
     every leaf as the dry run's specs say (``P("pod", *pspec_for_param)``
     for the parameters and both moments, the anchor as one pod's
-    parameters, the residual as the parameters), and rank 0 holds exactly
-    the bytes the dry run counts for it."""
+    parameters, the residual as the parameters: the experts' 3-D leaves,
+    the hybrid's shared block, rwkv6's mixes and LoRA, whisper's encoder
+    alike), and rank 0 holds exactly the bytes the dry run counts for it."""
+    cfg = tc.reduced(tc.get_config(arch))
     policy = policy_for("X_STCC", delta_steps=1, compress_inter_pod=compress)
-    fns = make_train_fns(build_model(CFG), adamw.AdamWConfig(), policy, 2, device="cpu")
-    params = build_model(CFG).init(0, device="cpu")
+    fns = make_train_fns(build_model(cfg), adamw.AdamWConfig(), policy, 2, device="cpu")
+    params = build_model(cfg).init(0, device="cpu")
     with sharding.use_mesh(fake_p222):
         state = fns.init(params=params)
-    specs = dryrun._leaf_specs(fns.init(params=params).params, CFG, MeshShape(P222),
+    specs = dryrun._leaf_specs(fns.init(params=params).params, cfg, MeshShape(P222),
                                pod_dim=True)
     pod = sharding.dtensor_placements
     for path, _, _, spec in specs:
@@ -167,3 +177,98 @@ def test_active_mesh_is_the_processs():
         t.start()
         t.join()
     assert seen == [P222] and sharding.get_mesh() is None
+
+
+# Every family's local then sync step (``family_trainer``: reduced, 2 pods,
+# X_STCC with int8, the batches' frames or image prefix from
+# ``Trainer.batch_for``), and llama4 with every group of its interleaved
+# layers rematerialized (the recompute routes its tokens again).
+FAMILY_STEP_CASES = [pytest.param(arch, {}, id=arch) for arch in FAMILY_ARCHS] + [
+    pytest.param("llama4-maverick-400b-a17b", {"remat": "full"}, id="llama4-remat_full")]
+
+
+@pytest.mark.parametrize("arch,over", FAMILY_STEP_CASES)
+def test_family_steps_on_dtensors_equal_plain(one_rank, arch, over):
+    """A family's local step then sync step on the state placed on the
+    (1, 1) mesh (DTensor leaves) equal the same steps on plain tensors bit
+    for bit: every metric, the parameters, moments, anchor and the sync
+    bookkeeping."""
+    params = build_model(tc.reduced(tc.get_config(arch), **over)).init(0, device="cpu")
+    plain = mesh_local_sync(family_trainer(arch, "cpu", **over), params)
+    placed = mesh_local_sync(family_trainer(arch, "cpu", **over), params, one_rank)
+    assert all(map(sharding.is_dtensor, leaves(placed[1].params)))
+    assert all(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]) for m in plain[0])
+    assert int(placed[1].sync.merges) == 1
+    assert mesh_step_mismatches(plain, placed) == []
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "whisper-large-v3"])
+def test_family_checkpoint_on_a_mesh(one_rank, tmp_path, arch):
+    """``Trainer`` of a family on the (1, 1) mesh: after a sync step
+    ``save_checkpoint`` writes pod 0's parameters whole (the experts' 3-D
+    leaves, the encoder), equal to the plain run's pod 0 bit for bit, and
+    ``restore_checkpoint`` places them again as DTensors on every pod."""
+    params = build_model(tc.reduced(tc.get_config(arch))).init(0, device="cpu")
+    pods = []
+    for mesh in (None, one_rank):
+        trainer = family_trainer(arch, "cpu")
+        trainer.ckpt_store = CheckpointStore(str(tmp_path / str(mesh is None)), n_replicas=2,
+                                             device="cpu")
+        trainer.ckpt_session = SessionToken(client_id=0)
+        with sharding.use_mesh(mesh):
+            state = trainer.init_state(params)
+            state, _ = trainer.fns.sync_step(state, trainer.batch_for(0))
+            trainer.save_checkpoint(state, 1)
+            restored, at = trainer.restore_checkpoint()
+        assert at == 1
+        assert all(map(sharding.is_dtensor, leaves(restored.params))) == (mesh is not None)
+        saved, _, _ = trainer.ckpt_store.restore(
+            tree_map(lambda x: torch.empty(x.shape[1:], dtype=x.dtype), params),
+            trainer.ckpt_session)
+        first = _whole(tree_map(lambda x: sharding.pod_row(x, 0), state.params))
+        again = _whole(tree_map(lambda x: sharding.pod_row(x, 1), restored.params))
+        for a, b, c in zip(leaves(saved), leaves(first), leaves(again)):
+            assert torch.equal(a, b) and torch.equal(a, c)
+        pods.append(saved)
+    assert all(torch.equal(a, b) for a, b in zip(leaves(pods[0]), leaves(pods[1])))
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "llama4-maverick-400b-a17b"])
+def test_moe_spmd_backward_on_dtensors(one_rank, arch):
+    """``moe._moe_spmd``'s backward on DTensor activations and parameters:
+    its aux loss stays a DTensor (made whole with ``full_tensor`` it was a
+    plain tensor, which the DTensor loss took as a replicated value, so its
+    gradient came back a DTensor that ``full_tensor``'s backward refuses);
+    the output and the aux loss equal the plain layer's, and so do the
+    gradients of the input and of every parameter, bit for bit."""
+    from torch.distributed.tensor import distribute_tensor
+
+    cfg = tc.reduced(tc.get_config(arch))
+    params = build_model(cfg).init(0, device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn((2, 8, cfg.d_model), generator=gen)
+    w = torch.randn((2, 8, cfg.d_model), generator=gen)
+
+    def run(layer, xin):
+        layer = tree_map(lambda t: t.detach().requires_grad_(), layer)
+        xin = xin.detach().requires_grad_()
+        with sharding.spmd(layer):
+            y, aux = moe.moe(xin, layer, cfg)
+            loss = (y * w).sum() + 0.01 * aux
+            if sharding.is_dtensor(loss):
+                loss = sharding.replicate(loss)
+            grads = torch.autograd.grad(loss, [xin] + leaves(layer))
+        return y, aux, grads
+
+    y0, aux0, g0 = run(common.layer(params["moe_blocks"]["moe"], 0), x)
+    with sharding.use_mesh(one_rank):
+        placed = sharding.distribute_params(tree_map(torch.clone, params), cfg)
+        xd = distribute_tensor(x, one_rank, sharding.dtensor_placements(
+            one_rank, sharding.resolve(x.shape, ("batch", None, None))))
+        y1, aux1, g1 = run(common.layer(placed["moe_blocks"]["moe"], 0), xd)
+        assert sharding.is_dtensor(aux1)
+        whole = [t.full_tensor() for t in (y1, aux1, *g1)]
+    assert torch.equal(whole[0], y0) and torch.equal(whole[1], aux0)
+    assert len(g0) == len(whole) - 2
+    for a, b in zip(g0, whole[2:]):
+        assert torch.equal(a, b)

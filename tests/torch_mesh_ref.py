@@ -172,8 +172,9 @@ def _train(case, cfg, params, out):
     parameters (``stack_for_pods``, ``adamw.init``, ``engine.init_state``)
     placed as the dry run places it (``dryrun.py:84-117``: parameters and
     moments ``P("pod", *params_shardings)``, the rest replicated), then a
-    jitted ``local_step``, ``sync_step`` and ``engine.merge`` with
-    ``MASKED_UP``."""
+    ``local_step`` and a ``sync_step`` on the case's two batches (with
+    their frames or image prefix) and, unless the case drops
+    ``merge_checks``, ``engine.merge`` with ``MASKED_UP``."""
     from jax.sharding import NamedSharding, PartitionSpec as P
 
     from repro.core import policy_for
@@ -198,16 +199,29 @@ def _train(case, cfg, params, out):
         state = TrainState(params=pod(stacked), opt=opt._replace(
             mu=pod(opt.mu), nu=pod(opt.nu), count=repl(opt.count)),
             sync=repl(fns.engine.init_state(stacked)), step=repl(jnp.zeros((), jnp.int32)))
+        # The sync step is the local step then the merge, as ``sync_step``
+        # composes them, jitted as two programs so that the local step
+        # compiles once for both steps (the outputs equal one jitted
+        # ``sync_step``'s bit for bit on the family cases).
+        local = jax.jit(lambda s, b: fns.local_step(s, b))
+        merge = jax.jit(lambda p, s: fns.engine.merge(p, s))
+        placed = jax.tree.map(lambda x: x.sharding, state)
         losses, norms = [], []
-        for step, batch in zip((fns.local_step, fns.sync_step), batches):
-            state, m = jax.jit(lambda s, b, f=step: f(s, b))(state, batch)
+        for i, batch in enumerate(batches):
+            # Each step starts from the dry run's placement (XLA may hand a
+            # leaf back placed otherwise, which would compile the step again).
+            state, m = local(jax.device_put(state, placed), batch)
+            if i:
+                params2, sync2 = merge(state.params, state.sync)
+                state = state._replace(params=params2, sync=sync2)
             losses.append(np.asarray(m["loss"]))
             norms.append(np.asarray(m["grad_norm"]))
         _train_record("sync", state.params, state.sync, out)
-        up = jnp.asarray(mc.MASKED_UP)
-        params2, sync2 = jax.jit(lambda p, s: fns.engine.merge(p, s, up=up))(
-            state.params, state.sync)
-        _train_record("masked", params2, sync2, out)
+        if case.get("merge_checks", True):
+            up = jnp.asarray(mc.MASKED_UP)
+            params2, sync2 = jax.jit(lambda p, s: fns.engine.merge(p, s, up=up))(
+                state.params, state.sync)
+            _train_record("masked", params2, sync2, out)
     out["loss"], out["grad_norm"] = np.stack(losses), np.stack(norms)
     _flat("mu", jax.tree.map(np.asarray, state.opt.mu), out)
     _flat("nu", jax.tree.map(np.asarray, state.opt.nu), out)

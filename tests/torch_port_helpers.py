@@ -773,6 +773,23 @@ def mesh_step_launches() -> dict:
     return {"op_ingest": 2 * n, "vclock_chain": 2 * n, "vclock_audit": n}
 
 
+def mesh_local_sync(trainer, params, mesh=None) -> tuple[list[dict], object]:
+    """``trainer``'s local step then its sync step from ``params`` (one
+    pod's tree) on the batches ``batch_for`` gives (with their frames or
+    image prefix), on the state ``init_state`` places on ``mesh`` (DTensor
+    leaves) when it is given: each step's metrics (tensors as numpy) and
+    the final state."""
+    from repro_torch.models import sharding
+
+    steps = []
+    with sharding.use_mesh(mesh):
+        state = trainer.init_state(params)
+        for step, fn in enumerate((trainer.fns.local_step, trainer.fns.sync_step)):
+            state, metrics = fn(state, trainer.batch_for(step))
+            steps.append({k: as_np(v) for k, v in metrics.items()})
+    return steps, state
+
+
 def state_trees(state) -> dict:
     """A training state's tensor trees by name: the parameters, AdamW's
     moments, the compression anchor and residual (those it has)."""
